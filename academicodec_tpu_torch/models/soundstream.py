@@ -1,0 +1,111 @@
+"""SoundStream / Encodec generator: SEANet encoder -> RVQ -> SEANet decoder.
+
+Public layouts match the JAX package: wav ``[B, T]``, codes
+``[n_q, B, frames]``. The model lives on one explicit device, ``cuda``
+unless the caller asks for ``cpu``; ``encode``/``decode`` move their input
+there. On the card every kernel of the path runs: the fused RVQ search in
+``encode`` (for any ``st``) and the fused LSTM in both towers.
+
+Behavioral parity target: academicodec_tpu/models/soundstream.py:26-131
+(reference models/encodec/net3.py:12-61).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
+from academicodec_tpu_torch.nn.lstm import LSTMParams
+from academicodec_tpu_torch.nn.seanet import SEANetDecoder, SEANetEncoder
+from academicodec_tpu_torch.quant.core_vq import ResidualVQ
+from academicodec_tpu_torch.quant.vq import ResidualVectorQuantizer
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The requested device; a CUDA request without a card raises instead of
+    running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return device
+
+
+class SoundStream(nn.Module):
+    def __init__(
+        self,
+        n_filters: int = 32,
+        dimension: int = 512,
+        ratios: Tuple[int, ...] = (8, 5, 4, 2),
+        sample_rate: int = 24000,
+        target_bandwidths: Sequence[float] = (7.5, 15.0),
+        bins: int = 1024,
+        causal: bool = False,
+        pad_mode: str = "reflect",
+        norm: str = "weight_norm",
+        *,
+        device: Union[str, torch.device] = "cuda",
+        dtype: torch.dtype = torch.float32,
+        seed: int = 0,
+    ):
+        """Builds the model with random weights drawn from ``seed`` on the CPU
+        (identical on every device), then moves it to ``device`` and ``dtype``."""
+        super().__init__()
+        device = resolve_device(device)
+        self.ratios = tuple(ratios)
+        self.sample_rate = sample_rate
+        self.target_bandwidths = tuple(target_bandwidths)
+        self.bins = bins
+        common = dict(
+            n_filters=n_filters, dimension=dimension, ratios=self.ratios,
+            causal=causal, pad_mode=pad_mode, norm=norm,
+        )
+        self.encoder = SEANetEncoder(**common)
+        self.decoder = SEANetDecoder(**common)
+        self.quantizer = ResidualVectorQuantizer(dimension=dimension, n_q=self.n_q, bins=bins)
+        generator = torch.Generator().manual_seed(seed)
+        for m in self.modules():
+            if isinstance(m, (Conv1d, ConvTranspose1d, LSTMParams, ResidualVQ)):
+                m.reset_parameters(generator)
+        self.to(device=device, dtype=dtype)
+        self.eval()
+
+    @property
+    def device(self) -> torch.device:
+        return self.quantizer.vq.embed.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.quantizer.vq.embed.dtype
+
+    @property
+    def hop_length(self) -> int:
+        return int(np.prod(self.ratios))
+
+    @property
+    def frame_rate(self) -> int:
+        return math.ceil(self.sample_rate / self.hop_length)
+
+    @property
+    def n_q(self) -> int:
+        # reference net3.py:25-26
+        return int(1000 * self.target_bandwidths[-1] // (self.frame_rate * 10))
+
+    @torch.no_grad()
+    def encode(self, x, target_bw: Optional[float] = None, st: int = 0) -> torch.Tensor:
+        """wav ``[B, T]`` -> codes ``[n_q - st, B, frames]`` int32 (reference net3.py:47-56)."""
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        e = self.encoder(x[:, None, :])
+        bw = target_bw if target_bw is not None else self.target_bandwidths[-1]
+        return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st)
+
+    @torch.no_grad()
+    def decode(self, codes) -> torch.Tensor:
+        """codes ``[n, B, frames]`` -> wav ``[B, T]`` (reference net3.py:58-61)."""
+        codes = torch.as_tensor(codes).to(device=self.device)
+        quantized = self.quantizer.decode(codes)
+        return self.decoder(quantized.transpose(1, 2))[:, 0, :]

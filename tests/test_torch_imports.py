@@ -1,0 +1,29 @@
+"""Import hygiene: the port and chip_smoke.py load no JAX and nothing of the JAX package."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+before = set(sys.modules)
+import academicodec_tpu_torch as port
+names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+banned = ("jax", "jaxlib", "flax", "academicodec_tpu")
+loaded = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in banned)
+print(len(names), loaded)
+sys.exit(1 if loaded or len(names) < 12 else 0)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    """``academicodec_tpu_torch`` shares a prefix with ``academicodec_tpu``:
+    the check compares whole top-level names, so only the latter trips it."""
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, (r.stdout, r.stderr[-2000:])
