@@ -7,6 +7,7 @@ from typing import Optional, Union
 import torch
 
 from academicodec_tpu_torch.models import presets
+from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
 
 
@@ -26,15 +27,19 @@ def load_codec(
     *,
     seed: int = 0,
     **overrides,
-) -> SoundStream:
-    """Build a SoundStream preset on ``device`` and load its weights.
+) -> Union[SoundStream, VQVAE]:
+    """Build a preset on ``device`` and load its weights.
 
-    ``checkpoint`` is a reference PyTorch ``.pth`` file, or None for random
-    weights drawn from ``seed``. The default device is the card; without one
-    this raises rather than running on the CPU.
+    ``checkpoint`` is a reference PyTorch file (a SoundStream ``.pth``, or a
+    HiFi-Codec ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``), or
+    None for random weights drawn from ``seed``. The default device is the
+    card; without one this raises rather than running on the CPU.
     """
     model = presets.build(preset, device=device, dtype=dtype, seed=seed, **overrides)
     if checkpoint is not None:
         ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
-        model.load_state_dict(reference_state_dict(ckpt))
+        if isinstance(model, VQVAE):
+            model.load_reference(ckpt)
+        else:
+            model.load_state_dict(reference_state_dict(ckpt))
     return model

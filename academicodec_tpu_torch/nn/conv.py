@@ -41,11 +41,14 @@ class _NormedWeight(nn.Module):
         else:
             self.weight = nn.Parameter(torch.empty(shape))
 
-    def _init_weight(self, generator: torch.Generator, fan_in: int) -> None:
+    def _init_weight(self, generator: torch.Generator, fan_in: int, normal_std=None) -> None:
         bound = 1.0 / math.sqrt(fan_in)
         with torch.no_grad():
             w = self.weight_v if self.norm == "weight_norm" else self.weight
-            w.copy_(torch.empty(w.shape).uniform_(-bound, bound, generator=generator))
+            if normal_std is None:
+                w.copy_(torch.empty(w.shape).uniform_(-bound, bound, generator=generator))
+            else:
+                w.copy_(torch.empty(w.shape).normal_(0.0, normal_std, generator=generator))
             if self.norm == "weight_norm":  # g <- ||v||: the initial weight equals v
                 self.weight_g.copy_(_channel_norm(w))
             if self.bias is not None:
@@ -64,7 +67,9 @@ def _channel_norm(v: torch.Tensor) -> torch.Tensor:
 
 
 class Conv1d(_NormedWeight):
-    """Cross-correlation over ``[B, C, T]`` with a ``[O, I/groups, K]`` kernel."""
+    """Cross-correlation over ``[B, C, T]`` with a ``[O, I/groups, K]`` kernel
+    and ``padding`` zeros on each side (the HiFi-Codec convs' fixed "same"
+    padding; academicodec_tpu/nn/conv.py:128-229)."""
 
     def __init__(
         self,
@@ -76,25 +81,29 @@ class Conv1d(_NormedWeight):
         groups: int = 1,
         bias: bool = True,
         norm: str = "none",
+        padding: int = 0,
     ):
         super().__init__()
-        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.stride, self.dilation, self.groups, self.padding = stride, dilation, groups, padding
         self.fan_in = (in_channels // groups) * kernel_size
         self._make_weight((out_channels, in_channels // groups, kernel_size), norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self._init_weight(generator, self.fan_in)
+    def reset_parameters(self, generator: torch.Generator, normal_std=None) -> None:
+        """Torch's default uniform init, or N(0, normal_std^2) weights."""
+        self._init_weight(generator, self.fan_in, normal_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv1d(
-            x, self.resolved_weight(), self.bias,
-            stride=self.stride, dilation=self.dilation, groups=self.groups,
+            x, self.resolved_weight(), self.bias, stride=self.stride,
+            padding=self.padding, dilation=self.dilation, groups=self.groups,
         )
 
 
 class ConvTranspose1d(_NormedWeight):
-    """Transposed conv over ``[B, C, T]`` with an ``[I, O, K]`` kernel and no cropping."""
+    """Transposed conv over ``[B, C, T]`` with an ``[I, O, K]`` kernel; ``padding``
+    has torch's meaning, that much output cut from each side
+    (academicodec_tpu/nn/conv.py:231-321)."""
 
     def __init__(
         self,
@@ -104,18 +113,22 @@ class ConvTranspose1d(_NormedWeight):
         stride: int = 1,
         bias: bool = True,
         norm: str = "none",
+        padding: int = 0,
     ):
         super().__init__()
-        self.stride = stride
+        self.stride, self.padding = stride, padding
         self.fan_in = out_channels * kernel_size  # torch convT fan_in = out * k
         self._make_weight((in_channels, out_channels, kernel_size), norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self._init_weight(generator, self.fan_in)
+    def reset_parameters(self, generator: torch.Generator, normal_std=None) -> None:
+        """Torch's default uniform init, or N(0, normal_std^2) weights."""
+        self._init_weight(generator, self.fan_in, normal_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose1d(x, self.resolved_weight(), self.bias, stride=self.stride)
+        return F.conv_transpose1d(
+            x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding
+        )
 
 
 class NormConv1d(nn.Module):

@@ -1,10 +1,12 @@
 """Carry weights across from the JAX package.
 
-The port's own copy of the mapping in
-``academicodec_tpu/utils/torch_export.py:export_soundstream``: it takes the
+The port's own copies of the mappings in
+``academicodec_tpu/utils/torch_export.py``: ``export_soundstream`` takes the
 JAX ``{'params', 'codebook'}`` tree (any arrays numpy can read) and returns
 the reference-layout ``state_dict`` that the port's ``SoundStream`` loads,
-whose ``ResidualVQ`` folds the per-layer codebooks into its stacked buffer.
+whose ``ResidualVQ`` folds the per-layer codebooks into its stacked buffer;
+``export_hificodec`` turns a JAX ``VQVAE`` tree into the reference ``g_*``
+dict that ``VQVAE.load_reference`` takes.
 
 Layouts (JAX -> torch): conv ``[K, I, O]`` -> ``[O, I, K]``, conv-transpose
 ``[K, I, O]`` -> ``[I, O, K]``; LSTM weights are already torch-layout.
@@ -108,3 +110,48 @@ def soundstream_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
         tower_sd = seanet_state_from_jax(variables["params"][tower])
         sd.update({f"{tower}.{k}": v for k, v in tower_sd.items()})
     return sd
+
+
+def hifigan_state_from_jax(params: Mapping[str, Any], transposed_ups: bool) -> Dict[str, torch.Tensor]:
+    """A JAX ``HiFiGANEncoder``/``HiFiGANGenerator`` param tree -> the
+    reference tower's ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(prefix, d):
+        sd.update({f"{prefix}.{k}": v for k, v in d.items()})
+
+    for name, node in params.items():
+        if name in ("conv_pre", "conv_post"):
+            put(name, conv_state_from_jax(node, False))
+        elif name.startswith("ups_"):
+            put(f"ups.{name[len('ups_'):]}", conv_state_from_jax(node, transposed_ups))
+        elif name.startswith("resblocks_"):
+            i = name[len("resblocks_"):]
+            for conv_name, conv in node.items():
+                # convs1_2 -> convs1.2 (ResBlock1), convs_0 -> convs.0 (ResBlock2)
+                stem, j = conv_name.rsplit("_", 1)
+                put(f"resblocks.{i}.{stem}.{j}", conv_state_from_jax(conv, False))
+        elif name.startswith("normalize_"):
+            i = name[len("normalize_"):]
+            sd[f"normalize.{i}.weight"] = _t(_np32(node["scale"]))
+            sd[f"normalize.{i}.bias"] = _t(_np32(node["bias"]))
+        else:
+            raise KeyError(f"unconvertible module {name!r}")
+    return sd
+
+
+def hificodec_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """JAX VQVAE ``{'params': ...}`` -> the reference ``g_*`` dict
+    ``{'generator', 'encoder', 'quantizer'}`` (the same keys and values as
+    ``export_hificodec``)."""
+    p = variables["params"]
+    codebooks = _np32(p["quantizer"]["codebooks"])  # [2, G, n_codes, D / G]
+    q: Dict[str, torch.Tensor] = {}
+    for g in range(codebooks.shape[1]):
+        q[f"quantizer_modules.{g}.embedding.weight"] = _t(codebooks[0, g])
+        q[f"quantizer_modules2.{g}.embedding.weight"] = _t(codebooks[1, g])
+    return {
+        "generator": hifigan_state_from_jax(p["generator"], transposed_ups=True),
+        "encoder": hifigan_state_from_jax(p["encoder"], transposed_ups=False),
+        "quantizer": q,
+    }

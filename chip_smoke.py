@@ -2,11 +2,15 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
 Builds the hand-written kernels from ``academicodec_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, then drives the port's
-main path: the flagship Encodec_24k_240d roundtrip (wav -> SEANet encoder
--> RVQ encode -> RVQ decode -> SEANet decoder -> wav) in bf16 at batch
-8 x 10 s, with seeded random weights and N(0, 1) codebooks. Any failed
-phase exits non-zero; without a CUDA device it exits 1 at once.
+each against its plain PyTorch version on the card (K1 RVQ search, K2 LSTM,
+K3 resblock tower, K4 GroupNorm resblock bundle), then drives the port's two
+paths through the public entry points, each at batch 8 x 10 s in bf16 with
+seeded random weights: the flagship Encodec_24k_240d roundtrip (wav ->
+SEANet encoder -> RVQ -> SEANet decoder -> wav, N(0, 1) codebooks) and the
+HiFi-Codec hificodec_24k_320d roundtrip (wav -> HiFi-GAN encoder -> GRVQ
+tokens -> HiFi-GAN generator -> wav). Each path is followed by an f32
+check of the card against the CPU. Any failed phase exits non-zero; without
+a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -29,9 +33,11 @@ import sys
 import torch
 
 from academicodec_tpu_torch.api import load_codec
+from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.ops.cuda import build as kernel_build
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
+from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
 
 # NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
@@ -40,6 +46,22 @@ PEAK_BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = "encodec_24k_240d"
+HIFI = "hificodec_24k_320d"
+
+
+def reset_launches() -> None:
+    rvq_ops.LAUNCHES = 0
+    lstm_ops.LAUNCHES = 0
+    resblock_ops.TOWER_LAUNCHES = 0
+    resblock_ops.GN_TOWER_LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    return {
+        "rvq_encode": rvq_ops.LAUNCHES, "lstm2": lstm_ops.LAUNCHES,
+        "resblock_tower": resblock_ops.TOWER_LAUNCHES,
+        "resblock_tower_gn": resblock_ops.GN_TOWER_LAUNCHES,
+    }
 
 
 def nvidia_smi() -> str:
@@ -162,65 +184,265 @@ def phase_lstm(device, B=8, T=1000, H=512, ragged_t=70, iters=5) -> dict:
     )
 
 
-def phase_main_path(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=5,
-                    preset=FLAGSHIP, **overrides) -> dict:
-    """One roundtrip through the public entry points, with the launch counts
-    read around it; then ``iters`` timed roundtrips (on the card only)."""
-    device = torch.device(device)
-    model = load_codec(preset, device=device, dtype=dtype, **overrides)
-    length = int(round(seconds * model.sample_rate))
-    wav = torch.randn((batch, length), generator=torch.Generator().manual_seed(0)) * 0.1
-    wav = wav.to(device)
+def seeded_wav(batch: int, length: int, device, seed: int = 0) -> torch.Tensor:
+    """Noise x0.1 from a CPU generator, the same on every device."""
+    return (torch.randn((batch, length), generator=torch.Generator().manual_seed(seed)) * 0.1).to(device)
 
-    rvq_ops.LAUNCHES = 0
-    lstm_ops.LAUNCHES = 0
+
+def checked_roundtrip(tag, model, wav, expected_launches, codes_shape):
+    """One encode + decode through the public entry points with every launch
+    count set to 0 just before and read just after; fails unless the counts,
+    the shapes and the output's finiteness are as expected. On the CPU every
+    expected count is 0 (the plain versions run)."""
+    on_card = wav.device.type == "cuda"
+    reset_launches()
     codes = model.encode(wav)
     out = model.decode(codes)
-    if device.type == "cuda":
+    if on_card:
         torch.cuda.synchronize()
-    launches = {"rvq_encode": rvq_ops.LAUNCHES, "lstm2": lstm_ops.LAUNCHES}
-
-    on_card = device.type == "cuda"
-    expected = {"rvq_encode": 1 if on_card else 0, "lstm2": 2 if on_card else 0}
-    frames = math.ceil(length / model.hop_length)
+    launches = read_launches()
+    expected = {k: (n if on_card else 0) for k, n in expected_launches.items()}
     finite = bool(torch.isfinite(out.float()).all())
-    print(f"[main] {preset} {dtype} on {device}: codes {tuple(codes.shape)}, wav {tuple(out.shape)}, "
-          f"finite {finite}, launches {launches}")
+    print(f"[{tag}] {tuple(codes.shape)} codes, wav {tuple(out.shape)}, finite {finite}, launches {launches}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches}, expected {expected}")
-    if tuple(codes.shape) != (model.n_q, batch, frames) or tuple(out.shape) != (batch, length):
+    if tuple(codes.shape) != codes_shape or out.shape != wav.shape:
         raise AssertionError(f"shapes: codes {tuple(codes.shape)}, wav {tuple(out.shape)}")
     if not finite:
         raise AssertionError("the decoded wav is not finite")
-    result = {"launches": launches, "codes": codes, "wav": out, "model": model, "input": wav}
-    if on_card and iters:
-        torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(lambda: model.decode(model.encode(wav)), iters)
-        result.update(
-            roundtrip_ms=ms,
-            realtime_factor=batch * seconds / (ms / 1e3),
-            peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        )
-        print(f"[main] roundtrip {ms:.3f} ms for {batch} x {seconds} s: "
-              f"{result['realtime_factor']:.1f}x realtime, peak memory "
-              f"{result['peak_mem_gib']:.3f} GiB ({nvidia_smi()})")
+    return {"launches": launches, "codes": codes, "wav": out, "model": model, "input": wav}
+
+
+def timed_roundtrips(tag, model, wav, seconds, iters) -> dict:
+    """Mean time of ``iters`` roundtrips by CUDA events, and their peak memory."""
+    batch = wav.shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: model.decode(model.encode(wav)), iters)
+    result = dict(roundtrip_ms=ms, realtime_factor=batch * seconds / (ms / 1e3),
+                  peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{tag}] roundtrip {ms:.3f} ms for {batch} x {seconds} s: "
+          f"{result['realtime_factor']:.1f}x realtime, peak memory "
+          f"{result['peak_mem_gib']:.3f} GiB ({nvidia_smi()})")
     return result
 
 
-def phase_cross_check(device, seconds=0.3, batch=2) -> None:
-    """The flagship-width f32 model on the card against the same seeded model
-    on the CPU (plain versions) on a small input: tokens, and the wav decoded
-    from the same tokens."""
-    wav = torch.randn((batch, int(seconds * 24000)), generator=torch.Generator().manual_seed(2)) * 0.1
-    gpu = load_codec(FLAGSHIP, device=device)
-    cpu = load_codec(FLAGSHIP, device="cpu")
+def phase_main_path(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=5,
+                    preset=FLAGSHIP, **overrides) -> dict:
+    """One Encodec/SoundStream roundtrip through the public entry points,
+    with the launch counts read around it; then ``iters`` timed roundtrips
+    (on the card only)."""
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    length = int(round(seconds * model.sample_rate))
+    wav = seeded_wav(batch, length, device)
+    print(f"[main] {preset} {dtype} on {wav.device}")
+    frames = math.ceil(length / model.hop_length)
+    expected = {"rvq_encode": 1, "lstm2": 2, "resblock_tower": 0, "resblock_tower_gn": 0}
+    result = checked_roundtrip("main", model, wav, expected, (model.n_q, batch, frames))
+    if wav.device.type == "cuda" and iters:
+        result.update(timed_roundtrips("main", model, wav, seconds, iters))
+    return result
+
+
+def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2) -> None:
+    """A full-width f32 model on the card against the same seeded model on
+    the CPU (plain versions) on a small input: tokens, and the wav decoded
+    from the same tokens. HiFi-Codec codebooks are first spread over the CPU
+    model's latent frames, identically on both."""
+    wav = seeded_wav(batch, int(seconds * 24000), "cpu", seed=2)
+    gpu = load_codec(preset, device=device)
+    cpu = load_codec(preset, device="cpu")
+    if preset == HIFI:
+        frames = latent_frames(cpu, wav)
+        spread_codebooks(gpu, frames)
+        spread_codebooks(cpu, frames)
     codes_cpu = cpu.encode(wav)
     mismatch = (gpu.encode(wav).cpu() != codes_cpu).double().mean().item()
     err = (gpu.decode(codes_cpu).cpu() - cpu.decode(codes_cpu)).abs().max().item()
-    print(f"[cross] f32 {FLAGSHIP} card vs CPU, {batch} x {seconds} s: token mismatch "
+    print(f"[cross] f32 {preset} card vs CPU, {batch} x {seconds} s: token mismatch "
           f"{mismatch:.3g} (limit 1e-2), wav max abs diff {err:.3g} (atol 2e-4)")
     if not (mismatch <= 1e-2 and err <= 2e-4):
-        raise AssertionError("the card's roundtrip disagrees with the CPU's")
+        raise AssertionError(f"the card's {preset} roundtrip disagrees with the CPU's")
+
+
+RB1_KS, RB1_DS = (3, 7, 11), ((1, 3, 5),) * 3  # hificodec_24k_320d's ResBlock1 chains
+
+
+def _tower_weights(C, ks, dss, device, dtype, seed, resblock="1"):
+    """Seeded weights N(0, (0.5 / sqrt(C k))^2), so activations stay O(1)
+    through the chains, and biases N(0, 0.1^2), as the wrappers take them."""
+    g = torch.Generator().manual_seed(seed)
+    weights, biases = [], []
+    for k, ds in zip(ks, dss):
+        n = len(resblock_ops.chain_conv_dilations(ds, resblock))
+        weights.append([(torch.randn((C, C, k), generator=g) * (0.5 / math.sqrt(C * k))).to(device, dtype)
+                        for _ in range(n)])
+        biases.append([(torch.randn(C, generator=g) * 0.1).to(device, dtype) for _ in range(n)])
+    return weights, biases
+
+
+def _randn(shape, device, dtype, seed, scale=0.5):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+
+
+def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0):
+    """Bound of one tower call: its convs' operations at the bf16 peak, or
+    the input, the output and the weights moved once."""
+    taps = sum(k * len(resblock_ops.chain_conv_dilations(ds, "1")) for k, ds in zip(ks, dss))
+    flops = 2.0 * B * T * C * C * taps + 2.0 * B * T * C * c_post * kp
+    nbytes = itemsize * (B * C * T + B * (c_post or C) * T + C * C * taps + c_post * C * kp)
+    return bound(flops, nbytes, PEAK_BF16_FLOPS)
+
+
+def phase_resblock(device, iters=3) -> dict:
+    """K3 against its plain version: bf16 at the generator's stage 2 (no post)
+    and stage 3 (post + tanh) shapes, f32 at a ragged T below 2x the halo."""
+    cases = []
+    for tag, dtype, B, C, T, post in (
+        ("s2", torch.bfloat16, 8, 64, 120000, False),
+        ("s3", torch.bfloat16, 8, 32, 240000, True),
+        ("f32 ragged", torch.float32, 3, 64, 101, True),
+    ):
+        weights, biases = _tower_weights(C, RB1_KS, RB1_DS, device, dtype, seed=C)
+        kw = dict(kernel_sizes=RB1_KS, dilation_sizes=RB1_DS, resblock="1")
+        if post:
+            g = torch.Generator().manual_seed(7)
+            kw.update(post_weight=(torch.randn((1, C, 7), generator=g) * (0.5 / math.sqrt(C * 7))).to(device, dtype),
+                      post_bias=torch.zeros(1, device=device, dtype=dtype), post_tanh=True)
+        x = _randn((B, C, T), device, dtype, seed=T)
+        with torch.no_grad():
+            y = resblock_ops.resblock_tower(x, weights, biases, **kw).float()
+            ref = resblock_ops.resblock_tower_plain(x, weights, biases, **kw).float()
+        err = (y - ref).abs().max().item()
+        # bf16: kernel and plain round at the same points; f32 summation order
+        # can flip one bf16 rounding inside a chain, so the bound scales with |ref|
+        tol = 2e-2 * ref.abs().max().item() if dtype == torch.bfloat16 else 1e-4
+        print(f"[resblock] {tag} {dtype} [{B},{C},{T}] post={post}: max abs diff {err:.3g} (tol {tol:.3g})")
+        if not (y.shape == ref.shape and err <= tol):
+            raise AssertionError(f"resblock_tower disagrees with resblock_tower_plain ({tag})")
+        case = dict(case=tag, shape=[B, C, T], post=post, max_abs_err=err, tolerance=tol)
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower(x, weights, biases, **kw), iters)
+                case["plain_ms"] = time_ms(lambda: resblock_ops.resblock_tower_plain(x, weights, biases, **kw), 2)
+            case["bound_ms"], case["bound_by"] = _tower_bound(B, C, T, RB1_KS, RB1_DS, 2, *((1, 7) if post else (0, 0)))
+            print(f"[resblock] {tag} kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+        cases.append(case)
+        del x, y, ref
+    timed = [c for c in cases if "ms" in c]
+    return dict(
+        name="resblock_tower", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
+        replaces="academicodec_tpu/ops/pallas/resblock.py:96",
+        max_abs_err=max(c["max_abs_err"] for c in timed),
+        tolerance="2e-2 x max|plain| in bf16, atol 1e-4 in f32",
+        ms=sum(c["ms"] for c in timed), plain_ms=sum(c["plain_ms"] for c in timed),
+        bound_ms=sum(c["bound_ms"] for c in timed), bound_by="operations", library_ms=None,
+        note="ms, plain_ms and bound_ms sum the two launches of one decode (s2 + s3)", cases=cases,
+    )
+
+
+def phase_resblock_gn(device, iters=3) -> dict:
+    """K4 (pass 1 kernel + pass 2) against its plain version: bf16 at the
+    encoder's stage 0 shape with 3 chains, f32 at a ragged T."""
+    ks, dss = tuple(reversed(RB1_KS)), RB1_DS
+    cases, timed = [], None
+    for tag, dtype, B, C, T in (
+        ("s0", torch.bfloat16, 8, 64, 120000),
+        ("f32 ragged", torch.float32, 2, 32, 97),
+    ):
+        weights, biases = _tower_weights(C, ks, dss, device, dtype, seed=C + 1)
+        g = torch.Generator().manual_seed(8)
+        scs = (torch.randn((3, C), generator=g) * 0.3 + 1.0).to(device, dtype)
+        gbs = (torch.randn((3, C), generator=g) * 0.1).to(device, dtype)
+        kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
+        x = _randn((B, C, T), device, dtype, seed=T + 1)
+        with torch.no_grad():
+            y = resblock_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw).float()
+            ref = resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw).float()
+        err = (y - ref).abs().max().item()
+        # the JAX package's bf16 tolerance for this bundle; f32: summation order only
+        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        print(f"[resblock_gn] {tag} {dtype} [{B},{C},{T}]: max abs diff {err:.3g} (atol {tol})")
+        if not (y.shape == ref.shape and err <= tol):
+            raise AssertionError(f"resblock_tower_gn disagrees with resblock_tower_gn_plain ({tag})")
+        case = dict(case=tag, shape=[B, C, T], max_abs_err=err, tolerance=tol)
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw), iters)
+                case["plain_ms"] = time_ms(
+                    lambda: resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw), 2)
+            case["bound_ms"], case["bound_by"] = _tower_bound(B, C, T, ks, dss, 2)
+            print(f"[resblock_gn] {tag} kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+            timed = case
+        cases.append(case)
+        del x, y, ref
+    return dict(
+        name="resblock_tower_gn", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
+        replaces="academicodec_tpu/ops/pallas/resblock.py:230", max_abs_err=timed["max_abs_err"],
+        tolerance="atol 5e-2 in bf16, 1e-4 in f32", ms=timed["ms"], plain_ms=timed["plain_ms"],
+        bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=None,
+        note="ms times the whole wrapper: the pass-1 kernel, the moments reduction and pass 2", cases=cases,
+    )
+
+
+def fused_stage_counts(config) -> dict:
+    """K3/K4 launches one roundtrip makes on the card: one per generator stage
+    and one per encoder stage no wider than FUSED_MAX_CHANNELS."""
+    n = len(config.upsample_rates)
+    gen = sum(config.upsample_initial_channel // 2 ** (i + 1) <= FUSED_MAX_CHANNELS for i in range(n))
+    enc = sum(config.encoder_base_channels * 2 ** (i + 1) <= FUSED_MAX_CHANNELS for i in range(n))
+    return {"resblock_tower": gen, "resblock_tower_gn": enc}
+
+
+def latent_frames(model, wav) -> torch.Tensor:
+    """The encoder's output frames for ``wav [B, T]`` as ``[B * frames, D]`` f32 on the CPU."""
+    with torch.no_grad():
+        c = model.encoder(wav[:, None, :].to(model.device, model.dtype))
+    return c.transpose(1, 2).reshape(-1, c.shape[1]).float().cpu()
+
+
+def spread_codebooks(model, frames: torch.Tensor, seed: int = 0) -> None:
+    """Redraw the GRVQ codebooks from a CPU generator so that tokens spread
+    over them (the reference init, uniform +-1/1024, is far smaller than the
+    latents): layer 0 entries are latent frames picked at random plus
+    N(0, (0.1 s)^2) noise, layer 1 entries a quarter of the difference of two
+    random frames; s is the frames' std. The same on every device."""
+    q = model.quantizer
+    g = torch.Generator().manual_seed(seed)
+    n_res, G, K, gdim = q.codebooks.shape
+    s = frames.std().item()
+
+    def pick():
+        return frames[torch.randint(frames.shape[0], (K,), generator=g)].reshape(K, G, gdim).transpose(0, 1)
+
+    layers = [pick() + torch.randn((G, K, gdim), generator=g) * (0.1 * s)]
+    layers += [(pick() - pick()) * 0.25 for _ in range(n_res - 1)]
+    with torch.no_grad():
+        q.codebooks.copy_(torch.stack(layers).to(q.codebooks))
+
+
+def phase_hificodec(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=3,
+                    preset=HIFI, **overrides) -> dict:
+    """One HiFi-Codec roundtrip through the public entry points, with the
+    launch counts read around it; then ``iters`` timed roundtrips (card only).
+    The codebooks are first spread over the latent frames of two of the
+    input rows (:func:`spread_codebooks`)."""
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    length = int(round(seconds * model.config.sampling_rate))
+    wav = seeded_wav(batch, length, device)
+    spread_codebooks(model, latent_frames(model, wav[:2]))
+    print(f"[hifi] {preset} {dtype} on {wav.device}, codebooks from latent frames")
+    frames = -(-length // model.hop_length)
+    n_tok = model.quantizer.n_residual * model.quantizer.n_groups
+    expected = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(model.config)}
+    result = checked_roundtrip("hifi", model, wav, expected, (batch, frames, n_tok))
+    result["distinct_tokens"] = int(torch.unique(result["codes"]).numel())
+    print(f"[hifi] {result['distinct_tokens']} distinct tokens")
+    if wav.device.type == "cuda" and iters:
+        result.update(timed_roundtrips("hifi", model, wav, seconds, iters))
+    return result
 
 
 def main() -> int:
@@ -232,13 +454,20 @@ def main() -> int:
     phase_build()
     k1 = phase_rvq(device)
     k2 = phase_lstm(device)
+    k3 = phase_resblock(device)
+    k4 = phase_resblock_gn(device)
     main_path = phase_main_path(device)
     phase_cross_check(device)
+    hifi = phase_hificodec(device)
+    phase_cross_check(device, HIFI)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
-    summary = {k: main_path[k] for k in ("roundtrip_ms", "realtime_factor", "peak_mem_gib")}
-    print(f"[main] {json.dumps(summary)}")
-    print(json.dumps({"kernels": [k1, k2]}))
+    k3["launches"] = hifi["launches"]["resblock_tower"]
+    k4["launches"] = hifi["launches"]["resblock_tower_gn"]
+    keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
+    print(f"[main] {json.dumps({k: main_path[k] for k in keys})}")
+    print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

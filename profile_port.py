@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Where the flagship roundtrip's time goes on the card.
+"""Where a roundtrip's time goes on the card.
 
-Profiles one bf16 Encodec_24k_240d roundtrip (batch 8 x 10 s, the main path
-of ``chip_smoke.py``) with ``torch.profiler`` and prints the device time of
-each kernel name, the sums for the port's kernels (K1 ``rvq_encode``, K2
-``lstm2``) and for everything else, and the device's busy and idle shares
-of the profiled window. Needs one CUDA device.
+Profiles one bf16 roundtrip at batch 8 x 10 s, the paths of ``chip_smoke.py``:
+the flagship Encodec_24k_240d (default) or HiFi-Codec hificodec_24k_320d
+(``--preset``). Prints, from ``torch.profiler``, the device time of each
+kernel name, the sums for the port's kernels (K1 ``rvq_encode``, K2
+``lstm2``, K3 ``resblock_tower``, K4 ``resblock_tower_gn``) and for
+everything else, and the device's busy and idle shares of the profiled
+window. Needs one CUDA device.
 
-    python3 profile_port.py [--top 20]
+    python3 profile_port.py [--preset hificodec_24k_320d] [--top 20]
 """
 
 from __future__ import annotations
@@ -23,9 +25,11 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 
-GROUPS = (  # (group, substrings of the kernel name)
+GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K1 rvq_encode", ("rvq_encode_kernel", "embed_sqnorm_kernel")),
     ("K2 lstm2", ("lstm2_step_kernel",)),
+    ("K4 resblock_tower_gn", ("gn_tower_kernel", "moments_reduce_kernel")),
+    ("K3 resblock_tower", ("tower_kernel",)),
     ("conv (cuDNN)", ("fprop", "dgrad", "conv", "Conv", "winograd", "fft", "implicit")),
     ("gemm (cuBLAS)", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -40,6 +44,8 @@ def group_of(name: str) -> str:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--preset", default=chip_smoke.FLAGSHIP,
+                        choices=(chip_smoke.FLAGSHIP, chip_smoke.HIFI))
     parser.add_argument("--top", type=int, default=20)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -47,7 +53,10 @@ def main(argv=None) -> int:
         return 1
     smi = chip_smoke.phase_device()
     chip_smoke.phase_build()
-    run = chip_smoke.phase_main_path("cuda", iters=3)
+    if args.preset == chip_smoke.HIFI:
+        run = chip_smoke.phase_hificodec("cuda", iters=3)
+    else:
+        run = chip_smoke.phase_main_path("cuda", iters=3)
     model, wav = run["model"], run["input"]
 
     torch.cuda.synchronize()
@@ -69,14 +78,14 @@ def main(argv=None) -> int:
     per_group = defaultdict(float)
     for name, (t, _) in per_name.items():
         per_group[group_of(name)] += t
-    print(f"[profile] one roundtrip: wall {wall_ms:.3f} ms (host clock, profiler on), "
+    print(f"[profile] {args.preset} one roundtrip: wall {wall_ms:.3f} ms (host clock, profiler on), "
           f"device busy {busy_ms:.3f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} ({smi})")
     for group, t in sorted(per_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {group:40s} {t:9.3f} ms  {t / busy_ms:6.1%}")
     for name, (t, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"[profile]   {t:9.3f} ms  x{n:<5d} {name[:110]}")
     print(json.dumps({
-        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "preset": args.preset, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "groups_ms": dict(per_group), "card": smi,
     }))
     return 0

@@ -13,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
+from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
+from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
 
 pytestmark = pytest.mark.cuda
@@ -89,6 +92,107 @@ def test_soundstream_cuda_matches_cpu(cuda):
     out = on_gpu.decode(codes)
     torch.cuda.synchronize()
     assert (rvq_ops.LAUNCHES - k1, lstm_ops.LAUNCHES - k2) == (1, 2)
+    codes_cpu = on_cpu.encode(wav)
+    torch.testing.assert_close(codes.cpu(), codes_cpu, rtol=0, atol=0)
+    torch.testing.assert_close(out.cpu(), on_cpu.decode(codes_cpu), atol=1e-4, rtol=1e-3)
+
+
+RB1 = ("1", (3, 7, 11), ((1, 3, 5),) * 3)
+RB2 = ("2", (3, 7), ((1, 3), (1, 3)))
+
+
+def _tower(rng, C, ks, dss, resblock, device, dtype):
+    weights, biases = [], []
+    for k, ds in zip(ks, dss):
+        n = len(rb_ops.chain_conv_dilations(ds, resblock))
+        weights.append([_randn(rng, (C, C, k), device, 0.5 / np.sqrt(C * k)).to(dtype) for _ in range(n)])
+        biases.append([_randn(rng, (C,), device, 0.1).to(dtype) for _ in range(n)])
+    return weights, biases
+
+
+def _tol(dtype, ref, f32_atol):
+    # bf16: the same rounding points; f32 summation order can flip a bf16
+    # rounding inside a chain, so the bound scales with |ref|
+    return 2e-2 * ref.abs().max().item() if dtype == torch.bfloat16 else f32_atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rbk", [RB1, RB2], ids=["resblock1", "resblock2"])
+@pytest.mark.parametrize(
+    "B,C,T,post",
+    [
+        (2, 64, 1000, False),  # several tiles, T not a multiple of the tile
+        (1, 32, 777, True),    # two-strip tiles, conv_post + tanh
+        (3, 16, 45, True),     # T below the halo: every output sees both edges
+        (2, 64, 130, False),   # exactly one tile
+        (2, 24, 300, False),   # C % 16 != 0: bf16 takes the FMA path
+        (2, 48, 300, False),   # bf16: C not fixed at compile time, one m-tile a warp
+        (1, 96, 500, True),    # bf16: C not fixed at compile time, two m-tiles a warp
+    ],
+)
+def test_resblock_tower_kernel_matches_plain(cuda, dtype, rbk, B, C, T, post):
+    resblock, ks, dss = rbk
+    rng = np.random.default_rng(C + T)
+    weights, biases = _tower(rng, C, ks, dss, resblock, cuda, dtype)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock)
+    if post:
+        kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
+                  post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=True)
+    x = _randn(rng, (B, C, T), cuda, 0.5).to(dtype)
+    before = rb_ops.TOWER_LAUNCHES
+    y = rb_ops.resblock_tower(x, weights, biases, **kw)
+    torch.cuda.synchronize()
+    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == (B, 1 if post else C, T)
+    ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
+    torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "ks,dss,C,T",
+    [
+        ((3, 7), ((1, 3), (1, 3)), 32, 575),
+        ((11, 7, 3), ((1, 3, 5),) * 3, 64, 1100),
+        ((11, 7, 3), ((1, 3, 5),) * 3, 32, 50),
+        ((11, 7, 3), ((1, 3, 5),) * 3, 128, 333),  # bf16: four m-tiles a warp; f32: a 16-column tile
+    ],
+)
+def test_resblock_tower_gn_kernel_matches_plain(cuda, dtype, ks, dss, C, T):
+    rng = np.random.default_rng(T)
+    G = len(ks)
+    weights, biases = _tower(rng, C, ks, dss, "1", cuda, dtype)
+    scs = (_randn(rng, (G, C), cuda, 0.3) + 1.0).to(dtype)
+    gbs = _randn(rng, (G, C), cuda, 0.1).to(dtype)
+    x = _randn(rng, (2, C, T), cuda, 0.5).to(dtype)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
+    before = rb_ops.GN_TOWER_LAUNCHES
+    y = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw)
+    torch.cuda.synchronize()
+    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw).float()
+    # bf16: the JAX package's tolerance for this bundle
+    torch.testing.assert_close(y.float(), ref, atol=5e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
+
+
+def test_vqvae_cuda_matches_cpu(cuda):
+    """A tiny f32 HiFi-Codec on the card (K3 twice, K4 twice) against the same
+    model on the CPU (plain versions): identical tokens, the same wav from them."""
+    cfg = HiFiCodecConfig(upsample_rates=(4, 4, 2), upsample_kernel_sizes=(8, 8, 4),
+                          upsample_initial_channel=256, encoder_base_channels=16)
+    on_gpu, on_cpu = VQVAE(cfg, device=cuda), VQVAE(cfg, device="cpu")
+    wav = torch.from_numpy((np.random.default_rng(5).standard_normal((2, 3200)) * 0.1).astype(np.float32))
+    with torch.no_grad():
+        s = on_cpu.encoder(wav[:, None, :]).std().item()
+    cb = torch.from_numpy(np.random.default_rng(6).standard_normal(tuple(on_cpu.quantizer.codebooks.shape)) * s)
+    for m in (on_gpu, on_cpu):
+        m.quantizer.codebooks.copy_(cb.float())
+    k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+    codes = on_gpu.encode(wav)
+    out = on_gpu.decode(codes)
+    torch.cuda.synchronize()
+    assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
     codes_cpu = on_cpu.encode(wav)
     torch.testing.assert_close(codes.cpu(), codes_cpu, rtol=0, atol=0)
     torch.testing.assert_close(out.cpu(), on_cpu.decode(codes_cpu), atol=1e-4, rtol=1e-3)

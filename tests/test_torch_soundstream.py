@@ -127,10 +127,11 @@ def test_load_codec_reads_a_reference_checkpoint(tmp_path):
 
 
 def test_presets_match_jax():
-    for name, kw in presets.SOUNDSTREAM_PRESETS.items():
-        assert kw == jpresets.SOUNDSTREAM_PRESETS[name], name
+    assert presets.SOUNDSTREAM_PRESETS == jpresets.SOUNDSTREAM_PRESETS
+    assert presets.HIFICODEC_PRESETS == jpresets.HIFICODEC_PRESETS
+    assert presets.names() == jpresets.names()
     with pytest.raises(KeyError):
-        presets.build("hificodec_24k_320d", device="cpu")
+        presets.build("no_such_preset", device="cpu")
 
 
 def test_chip_smoke_main_path_rehearsal():
@@ -139,6 +140,6 @@ def test_chip_smoke_main_path_rehearsal():
     result = chip_smoke.phase_main_path(
         device="cpu", dtype=torch.float32, batch=2, seconds=0.2, iters=0, n_filters=4, dimension=32
     )
-    assert result["launches"] == {"rvq_encode": 0, "lstm2": 0}
+    assert result["launches"] == {"rvq_encode": 0, "lstm2": 0, "resblock_tower": 0, "resblock_tower_gn": 0}
     assert tuple(result["codes"].shape) == (12, 2, 20)
     assert tuple(result["wav"].shape) == (2, 4800)
