@@ -35,10 +35,13 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
 # name -> (restype, argtypes) of every C entry point in csrc/
 _ENTRIES = {
-    # x, embed, enorm scratch, codes, n, d, n_q, k, stream
-    "acad_rvq_encode": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
-    # x_proj, w_hh1, w_ih2, w_hh2, b2, scratch, y, T, B, H, w_bf16, y_bf16, stream
-    "acad_lstm2": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x, embed, tiles scratch, enorm scratch, codes, n, d, n_q, k, stream
+    "acad_rvq_encode": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    # x_proj, w_hh1, w_ih2, w_hh2, b2, hbuf, barrier, y, T, B, H, jb, blocks, smem,
+    # w_bf16, y_bf16, stream
+    "acad_lstm2": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+    # barrier, iters, blocks, smem, stream
+    "acad_grid_barrier": (_I, [_P, _I, _I, _I, _P]),
     # x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, C_post, kp, post_tanh, bf16, stream
     "acad_resblock_tower": (_I, [_P] * 6 + [_IP] + [_I] * 10 + [_P]),
     # x, w, bias, outs, part, mom, spec, B, C, T, TT, H, bf16, stream

@@ -13,12 +13,13 @@ f32 accumulation), f32 weights the f32 scan path of
 
 On the H100 the recurrent products are 50.3 GFLOP per flagship call
 (T 1000, B 8, H 512), 0.051 ms at the bf16 tensor-core peak, but the real
-limit is the chain of T dependent steps. The kernel runs one launch per
-step, layer 2 one step behind layer 1, so each launch reads only hidden
-states finished by the previous one; each block owns a slice of hidden
-units with all four of their gate rows, so the cell update stays in the
-block. h and c live in global memory (ping-ponged), and the ``T + 1``
-launches are enqueued by a host loop inside the library, in one call.
+limit is the chain of T dependent steps, each ending in an exchange of h
+between the SMs. The kernel is one cooperative, persistent launch per call:
+each block keeps its units' rows of the three weight matrices in shared
+memory for the whole sequence (bf16 products on the tensor cores), layer 2
+runs one step behind layer 1, and the blocks meet at one grid barrier per
+step. :func:`lstm2_geometry` picks how many units a block owns so that all
+blocks are resident at once, one per SM; a shape that does not fit raises.
 
 ``lstm2`` runs the kernel for CUDA tensors and the plain version only for
 CPU tensors. ``LAUNCHES`` counts wrapper calls that launched the kernel.
@@ -32,11 +33,40 @@ from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES, check, load_li
 
 LAUNCHES = 0
 
+WARPS = 12  # warps per block of csrc/lstm2.cu
+
 _KERNEL_TYPES = {  # (weight dtype, output dtype) instantiated in csrc/lstm2.cu
     (torch.float32, torch.float32),
     (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32),
 }
+
+
+def lstm2_smem_bytes(jb: int, B: int, H: int, w_itemsize: int) -> int:
+    """Shared memory of one block owning ``jb`` units (csrc/lstm2.cu ``Layout``):
+    its weight rows (bf16 in fragment order, or f32 rows padded by 4), the
+    warps' partial products, the prefetched ``x_proj`` slice, c1, c2 and b2."""
+    rows, hp, bp = 4 * jb, -(-H // 16) * 16, -(-B // 8) * 8
+    weights = 3 * rows * hp * 2 if w_itemsize == 2 else 3 * rows * (hp + 4) * 4
+    return weights + 4 * (bp * (WARPS * rows + rows + 2 * jb) + rows)
+
+
+def lstm2_geometry(B: int, H: int, w_itemsize: int, num_sms: int):
+    """``(units per block, blocks, shared-memory bytes)`` of the persistent
+    launch: the fewest units per block (a multiple of 4, so that a block's
+    gate rows fill whole 16-row tiles) with at most one block per SM. Raises
+    ``RuntimeError`` when no such block fits in shared memory."""
+    for jb in range(4, -(-H // 4) * 4 + 1, 4):
+        smem = lstm2_smem_bytes(jb, B, H, w_itemsize)
+        if smem > MAX_SMEM_BYTES:
+            break
+        blocks = -(-H // jb)
+        if blocks <= num_sms:
+            return jb, blocks, smem
+    raise RuntimeError(
+        f"lstm2: B={B}, H={H}: the weight rows of {H} units do not fit in the shared memory "
+        f"of {num_sms} blocks ({MAX_SMEM_BYTES} bytes each), so the recurrence cannot stay resident"
+    )
 
 
 def _lstm_cell(gates: torch.Tensor, c: torch.Tensor):
@@ -101,18 +131,41 @@ def lstm2(
     wdt = w_hh1.dtype
     if w_ih2.dtype != wdt or w_hh2.dtype != wdt or (wdt, out_dtype) not in _KERNEL_TYPES:
         raise ValueError(f"lstm2: no kernel for weights {wdt} and output {out_dtype}")
-    if (2 * B * H + 3 * 4 * 4 * B) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"lstm2: B={B}, H={H} exceed the kernel's shared memory")
-    x_proj, w_hh1, w_ih2, w_hh2, b2 = (t.contiguous() for t in tensors)
     y = torch.empty((T, B, H), dtype=out_dtype, device=dev)
-    scratch = torch.empty((6, B, H), dtype=torch.float32, device=dev)  # h1 x2, h2 x2, c1, c2
+    if T == 0 or B == 0:
+        return y
+    jb, blocks, smem = lstm2_geometry(B, H, w_hh1.element_size(), _num_sms(dev))
+    if T * blocks >= 2**32:
+        raise ValueError(f"lstm2: T={T} overflows the 32-bit barrier counter of {blocks} blocks")
+    x_proj, w_hh1, w_ih2, w_hh2, b2 = (t.contiguous() for t in tensors)
+    # one zeroed allocation: the h1 and h2 ping-pong buffers [4, B, H] in the
+    # weights' dtype, padded to [4, 8k, 16k], then the barrier counter
+    hbytes = 4 * (-(-B // 8) * 8) * (-(-H // 16) * 16) * w_hh1.element_size()
+    scratch = torch.zeros((hbytes + 16,), dtype=torch.uint8, device=dev)
     rc = load_library().acad_lstm2(
         x_proj.data_ptr(), w_hh1.data_ptr(), w_ih2.data_ptr(), w_hh2.data_ptr(),
-        b2.data_ptr(), scratch.data_ptr(), y.data_ptr(), T, B, H,
-        int(wdt == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        b2.data_ptr(), scratch.data_ptr(), scratch.data_ptr() + hbytes, y.data_ptr(), T, B, H,
+        jb, blocks, smem, int(wdt == torch.bfloat16), int(out_dtype == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(rc, "lstm2")
     global LAUNCHES
     LAUNCHES += 1
     return y
+
+
+def _num_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def grid_barriers(iters: int, B: int, H: int, w_dtype: torch.dtype, device) -> None:
+    """Enqueue ``iters`` bare grid barriers on the grid ``lstm2`` would launch
+    for this shape (same blocks, threads and shared memory) and nothing else:
+    the floor of one recurrence step. For timing only; not counted in
+    ``LAUNCHES``."""
+    dev = torch.device(device)
+    _, blocks, smem = lstm2_geometry(B, H, w_dtype.itemsize, _num_sms(dev))
+    barrier = torch.zeros((1,), dtype=torch.int32, device=dev)
+    rc = load_library().acad_grid_barrier(
+        barrier.data_ptr(), iters, blocks, smem, torch.cuda.current_stream(dev).cuda_stream)
+    check(rc, "grid_barriers")

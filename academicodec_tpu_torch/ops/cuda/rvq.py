@@ -8,11 +8,18 @@ subtracted from the residual.
 
 On the H100 this is bound by operations: ``2 N K D n_q`` f32 FMAs (100.7
 GFLOP at the flagship shape, 1.5 ms at the 67 TFLOP/s f32 peak) against
-about 42 MB of traffic. The kernel keeps each block's residual tile in
-shared memory across all layers, streams each codebook through shared
-memory in chunks with a running ``(min, index)`` per row, and subtracts the
-chosen row by a gather. Distances are exact f32 FMA (no TF32), so tokens
-match the plain version up to near-ties in summation order.
+about 42 MB of traffic, so the kernel is built to keep the FMA pipes fed.
+A pre-pass copies the codebooks into tile order (each [16 dims x 256
+codes] tile one contiguous 16 KB block). Each block keeps a 64-row residual
+tile in shared memory across all layers; the tiles stream through a
+four-stage ring, one TMA bulk copy per tile issued two tiles ahead, so the
+SM spends no instructions on the copy and the warps release stages on
+mbarriers instead of meeting at a block barrier after every tile; each
+thread holds an 8-row x 8-code tile of dot products in registers (64 FMAs
+per 4 single-wavefront shared loads, double-buffered in registers) and a
+running ``(min, index)`` per row; the chosen row is subtracted by a gather.
+Distances are exact f32 FMA (no TF32), so tokens match the plain version up
+to near-ties in summation order.
 
 ``rvq_encode`` runs the kernel for CUDA tensors and the plain version only
 for CPU tensors. ``LAUNCHES`` counts kernel launches.
@@ -26,9 +33,18 @@ from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES, check, load_li
 
 LAUNCHES = 0
 
-# rows per block and padded-dim chunk of csrc/rvq.cu; the residual tile
-# [TILE_ROWS, ceil(D / D_CHUNK) * D_CHUNK] f32 lives in shared memory
-TILE_ROWS, D_CHUNK = 32, 32
+# rows per block, dims and codes per codebook tile, and ring stages of
+# csrc/rvq.cu
+TILE_ROWS, D_CHUNK, CODE_CHUNK, STAGES = 64, 16, 256, 4
+
+
+def rvq_smem_bytes(d: int) -> int:
+    """Shared memory of one block of csrc/rvq.cu at dimension ``d``: two
+    mbarriers per ring stage, the dims-major residual tile [ceil(D / D_CHUNK)
+    * D_CHUNK, TILE_ROWS + 4] f32, the ring [STAGES, D_CHUNK, CODE_CHUNK]
+    f32, and per row 4 candidate (min, index) pairs and |r|^2."""
+    dp = -(-d // D_CHUNK) * D_CHUNK
+    return 16 * STAGES + 4 * (dp * (TILE_ROWS + 4) + STAGES * D_CHUNK * CODE_CHUNK + 9 * TILE_ROWS)
 
 
 def l2_distance_argmin(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -67,8 +83,7 @@ def rvq_encode(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"rvq_encode: shapes {tuple(x.shape)} and {tuple(embed.shape)}")
     n, d = x.shape
     n_q, k, _ = embed.shape
-    d_pad = -(-d // D_CHUNK) * D_CHUNK
-    if TILE_ROWS * d_pad * 4 + 20 * 1024 > MAX_SMEM_BYTES:
+    if rvq_smem_bytes(d) > MAX_SMEM_BYTES:
         raise ValueError(f"rvq_encode: D={d} does not fit the shared-memory residual tile")
     x = x.float().contiguous()
     embed = embed.float().contiguous()
@@ -76,8 +91,11 @@ def rvq_encode(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     if n == 0 or n_q == 0:
         return codes
     enorm = torch.empty((n_q, k), dtype=torch.float32, device=x.device)
+    # the codebooks in tile order [n_q, K / CODE_CHUNK, D / D_CHUNK, D_CHUNK, CODE_CHUNK]
+    tiles = torch.empty((n_q, -(-k // CODE_CHUNK) * CODE_CHUNK * -(-d // D_CHUNK) * D_CHUNK),
+                        dtype=torch.float32, device=x.device)
     rc = load_library().acad_rvq_encode(
-        x.data_ptr(), embed.data_ptr(), enorm.data_ptr(), codes.data_ptr(),
+        x.data_ptr(), embed.data_ptr(), tiles.data_ptr(), enorm.data_ptr(), codes.data_ptr(),
         n, d, n_q, k, torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "rvq_encode")

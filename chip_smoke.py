@@ -29,6 +29,7 @@ import json
 import math
 import subprocess
 import sys
+import warnings
 
 import torch
 
@@ -163,6 +164,11 @@ def phase_lstm(device, B=8, T=1000, H=512, ragged_t=70, iters=5) -> dict:
     mod, x, args = bf16_case
     with torch.no_grad():
         ms = time_ms(lambda: lstm_ops.lstm2(*args, out_dtype=torch.bfloat16), iters)
+        # the per-step floor: bare grid barriers on the same grid, no work
+        barrier_us = time_ms(lambda: lstm_ops.grid_barriers(T, B, H, torch.bfloat16, device), iters) / T * 1e3
+        # like with like for the cuDNN yardstick: the layer-1 input projection included
+        ms_with_projection = time_ms(
+            lambda: lstm_ops.lstm2(*mod.recurrence_inputs(x), out_dtype=torch.bfloat16), iters)
         plain_ms = time_ms(lambda: lstm_ops.lstm2_plain(*args, out_dtype=torch.bfloat16), 2)
         # yardstick only: cuDNN's 2-layer LSTM on the same weights and input
         # (it also computes the layer-1 input projection); the port never calls it
@@ -170,17 +176,28 @@ def phase_lstm(device, B=8, T=1000, H=512, ragged_t=70, iters=5) -> dict:
         ref_lstm.load_state_dict({k[len("lstm."):]: v for k, v in mod.state_dict().items()})
         ref_lstm.flatten_parameters()
         xt = x.permute(2, 0, 1).contiguous()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ref_lstm(xt)
+            torch.cuda.synchronize()
+        compacts = any("compacted" in str(w.message) or "contiguous chunk" in str(w.message) for w in caught)
         library_ms = time_ms(lambda: ref_lstm(xt), iters)
     nbytes = T * B * 4 * H * 4 + 3 * 4 * H * H * 2 + 4 * H * 4 + T * B * H * 2
     bound_ms, bound_by = bound(2.0 * 3 * 4 * H * H * B * T, nbytes, PEAK_BF16_FLOPS)
-    print(f"[lstm2] kernel {ms:.4f} ms ({ms / (T + 1) * 1e3:.2f} us per step), plain {plain_ms:.4f} ms, "
-          f"cuDNN LSTM {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    jb, blocks, smem = lstm_ops.lstm2_geometry(B, H, 2, torch.cuda.get_device_properties(device).multi_processor_count)
+    print(f"[lstm2] one launch of {blocks} blocks x {jb} units, {smem} B shared memory each")
+    print(f"[lstm2] kernel {ms:.4f} ms ({ms / (T + 1) * 1e3:.2f} us per step; a bare grid barrier "
+          f"{barrier_us:.2f} us), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    print(f"[lstm2] with the input projection {ms_with_projection:.4f} ms vs cuDNN LSTM {library_ms:.4f} ms "
+          f"(cuDNN compacts its bf16 weights on every call: {'yes' if compacts else 'no'})")
     return dict(
         name="lstm2", route="cuda", source="academicodec_tpu_torch/csrc/lstm2.cu",
         replaces="academicodec_tpu/ops/pallas/lstm.py:36", max_abs_err=errs[torch.bfloat16],
         max_abs_err_f32_ragged=errs[torch.float32],
         tolerance="atol/rtol 1e-2 in bf16, atol 1e-4 in f32",
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+        us_per_step=ms / (T + 1) * 1e3, barrier_us=barrier_us, ms_with_projection=ms_with_projection,
+        cudnn_compacts_weights=compacts, blocks=blocks, units_per_block=jb,
     )
 
 

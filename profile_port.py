@@ -26,8 +26,8 @@ from torch.profiler import ProfilerActivity, profile
 import chip_smoke
 
 GROUPS = (  # (group, substrings of the kernel name), first match wins
-    ("K1 rvq_encode", ("rvq_encode_kernel", "embed_sqnorm_kernel")),
-    ("K2 lstm2", ("lstm2_step_kernel",)),
+    ("K1 rvq_encode", ("rvq_encode_kernel", "embed_sqnorm_kernel", "embed_tiles_kernel")),
+    ("K2 lstm2", ("lstm2_kernel",)),
     ("K4 resblock_tower_gn", ("gn_tower_kernel", "moments_reduce_kernel")),
     ("K3 resblock_tower", ("tower_kernel",)),
     ("conv (cuDNN)", ("fprop", "dgrad", "conv", "Conv", "winograd", "fft", "implicit")),

@@ -16,6 +16,7 @@ import torch
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
+from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
@@ -38,7 +39,14 @@ def _randn(rng, shape, device, scale=1.0):
 
 @pytest.mark.parametrize(
     "n,d,k,n_q",
-    [(75, 32, 64, 2), (300, 100, 200, 4), (257, 512, 1024, 3)],
+    [
+        (75, 32, 64, 2),
+        (300, 100, 200, 4),
+        (257, 512, 1024, 3),
+        (10, 512, 1024, 3),  # N smaller than one 64-row block tile
+        (100, 64, 300, 1),   # n_q 1
+        (90, 30, 100, 2),    # D % 4 != 0: 4-byte copies into the ring
+    ],
 )
 def test_rvq_kernel_matches_plain(cuda, n, d, k, n_q):
     """Ragged N, D not a multiple of the tile, K not a multiple of the chunk:
@@ -53,6 +61,16 @@ def test_rvq_kernel_matches_plain(cuda, n, d, k, n_q):
     torch.testing.assert_close(codes, rvq_ops.rvq_encode_plain(x, embed), rtol=0, atol=0)
 
 
+def test_rvq_kernel_flagship_shape(cuda):
+    """[8000, 512] x [12, 1024, 512]: f32 near-ties in summation order are the
+    only allowed cause of a token mismatch, held to 1e-4."""
+    rng = np.random.default_rng(8000)
+    x, embed = _randn(rng, (8000, 512), cuda), _randn(rng, (12, 1024, 512), cuda)
+    codes = rvq_ops.rvq_encode(x, embed)
+    mismatch = (codes != rvq_ops.rvq_encode_plain(x, embed)).double().mean().item()
+    assert mismatch <= 1e-4
+
+
 @pytest.mark.parametrize(
     "wdt,odt,B,T,H,atol",
     [
@@ -63,6 +81,11 @@ def test_rvq_kernel_matches_plain(cuda, n, d, k, n_q):
         # difference can flip one rounding and carry a bf16 ulp forward
         (torch.bfloat16, torch.bfloat16, 8, 50, 512, 1e-2),
         (torch.bfloat16, torch.float32, 3, 33, 96, 1e-2),
+        (torch.bfloat16, torch.bfloat16, 8, 1000, 512, 1e-2),  # the flagship call
+        (torch.bfloat16, torch.bfloat16, 4, 1, 512, 1e-2),     # T 1: one step of each layer
+        (torch.float32, torch.float32, 5, 1, 64, 1e-4),
+        (torch.bfloat16, torch.bfloat16, 8, 30, 600, 1e-2),    # 150 units of 4 > 132 SMs: 8 a block
+        (torch.float32, torch.float32, 3, 12, 536, 1e-4),      # f32: 134 blocks of 4 > 132 SMs
     ],
 )
 def test_lstm2_kernel_matches_plain(cuda, wdt, odt, B, T, H, atol):
@@ -77,6 +100,45 @@ def test_lstm2_kernel_matches_plain(cuda, wdt, odt, B, T, H, atol):
     assert y.dtype == odt and y.shape == (T, B, H)
     ref = lstm_ops.lstm2_plain(x_proj, *ws, b2, out_dtype=odt)
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+def test_lstm2_widest_batch(cuda, wdt):
+    """The widest B whose block fits in shared memory at H 512 runs and agrees;
+    one more raises instead of falling back."""
+    H, T = 512, 9
+    itemsize = torch.empty((), dtype=wdt).element_size()
+    B = max(b for b in range(1, 512) if lstm_ops.lstm2_smem_bytes(4, b, H, itemsize) <= MAX_SMEM_BYTES)
+    rng = np.random.default_rng(B)
+    x_proj = _randn(rng, (T, B, 4 * H), cuda, 0.5)
+    ws = [_randn(rng, (4 * H, H), cuda, H ** -0.5).to(wdt) for _ in range(3)]
+    b2 = _randn(rng, (4 * H,), cuda, 0.1)
+    y = lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt)
+    ref = lstm_ops.lstm2_plain(x_proj, *ws, b2, out_dtype=wdt)
+    tol = 1e-2 if wdt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), ref.float(), atol=tol, rtol=tol)
+    wider = _randn(rng, (T, B + 8, 4 * H), cuda, 0.5)
+    with pytest.raises(RuntimeError, match="shared memory"):
+        lstm_ops.lstm2(wider, *ws, b2, out_dtype=wdt)
+
+
+def test_lstm2_geometry_on_this_card(cuda):
+    """At H 600 the 150 blocks of 4 units would outnumber the SMs, so a block
+    owns more units; the flagship H 512 keeps 4 units a block on an H100."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    jb, blocks, _ = lstm_ops.lstm2_geometry(8, 600, 2, sms)
+    assert jb > 4 and blocks < 150 and blocks <= sms
+    if sms >= 128:
+        assert lstm_ops.lstm2_geometry(8, 512, 2, sms)[:2] == (4, 128)
+
+
+def test_lstm2_empty_sequence_launches_nothing(cuda):
+    H = 64
+    ws = [torch.zeros((4 * H, H), device=cuda) for _ in range(3)]
+    before = lstm_ops.LAUNCHES
+    y = lstm_ops.lstm2(torch.zeros((0, 2, 4 * H), device=cuda), *ws, torch.zeros(4 * H, device=cuda),
+                       out_dtype=torch.float32)
+    assert y.shape == (0, 2, H) and lstm_ops.LAUNCHES == before
 
 
 def test_soundstream_cuda_matches_cpu(cuda):

@@ -11,7 +11,8 @@ from academicodec_tpu.nn.lstm import SLSTM as JSLSTM
 from academicodec_tpu.ops.pallas.lstm import lstm2_fused
 
 from academicodec_tpu_torch.nn.lstm import SLSTM
-from academicodec_tpu_torch.ops.cuda.lstm import lstm2, lstm2_plain
+from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES
+from academicodec_tpu_torch.ops.cuda.lstm import lstm2, lstm2_geometry, lstm2_plain, lstm2_smem_bytes
 from academicodec_tpu_torch.utils.convert import slstm_state_from_jax
 
 
@@ -70,3 +71,28 @@ def test_lstm2_wrapper_takes_plain_version_on_cpu_and_checks_devices():
 def test_slstm_is_two_layers_only():
     with pytest.raises(ValueError):
         SLSTM(8, num_layers=3)
+
+
+@pytest.mark.parametrize(
+    "B,H,itemsize,sms,expected",
+    [
+        # the flagship call on an H100: 4 units a block, 128 blocks, 48 KB of bf16 weights
+        (8, 512, 2, 132, (4, 128, 3 * 16 * 512 * 2 + 4 * 8 * (12 * 16 + 16 + 8) + 4 * 16)),
+        (8, 512, 4, 132, (4, 128, 3 * 16 * 516 * 4 + 4 * 8 * (12 * 16 + 16 + 8) + 4 * 16)),
+        (8, 512, 2, 114, (8, 64, 3 * 32 * 512 * 2 + 4 * 8 * (12 * 32 + 32 + 16) + 4 * 32)),  # fewer SMs
+        (8, 600, 2, 132, (8, 75, 3 * 32 * 608 * 2 + 4 * 8 * (12 * 32 + 32 + 16) + 4 * 32)),  # 150 blocks of 4 > 132
+        (3, 98, 4, 132, (4, 25, 3 * 16 * 116 * 4 + 4 * 8 * (12 * 16 + 16 + 8) + 4 * 16)),    # ragged H and B
+        (208, 512, 2, 132, (4, 128, 3 * 16 * 512 * 2 + 4 * 208 * (12 * 16 + 16 + 8) + 4 * 16)),  # widest bf16 B
+    ],
+)
+def test_lstm2_geometry_picks_fewest_units_with_one_block_per_sm(B, H, itemsize, sms, expected):
+    assert lstm2_geometry(B, H, itemsize, sms) == expected
+    jb, blocks, smem = expected
+    assert smem == lstm2_smem_bytes(jb, B, H, itemsize) <= MAX_SMEM_BYTES
+    assert jb % 4 == 0 and blocks * jb >= H and blocks <= sms
+
+
+@pytest.mark.parametrize("B,H,itemsize", [(216, 512, 2), (160, 512, 4), (8, 1536, 2)])
+def test_lstm2_geometry_raises_when_the_weights_cannot_stay_resident(B, H, itemsize):
+    with pytest.raises(RuntimeError, match="shared memory"):
+        lstm2_geometry(B, H, itemsize, 132)

@@ -15,7 +15,8 @@ from academicodec_tpu.ops.pallas.rvq import rvq_encode_fused
 from academicodec_tpu.quant.core_vq import ResidualVQ as JResidualVQ
 from academicodec_tpu.quant.core_vq import l2_distance_argmin as j_l2_distance_argmin
 
-from academicodec_tpu_torch.ops.cuda.rvq import rvq_encode, rvq_encode_plain
+from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES
+from academicodec_tpu_torch.ops.cuda.rvq import rvq_encode, rvq_encode_plain, rvq_smem_bytes
 from academicodec_tpu_torch.quant.core_vq import ResidualVQ, l2_distance_argmin
 from academicodec_tpu_torch.quant.vq import ResidualVectorQuantizer
 
@@ -93,3 +94,12 @@ def test_state_dict_uses_reference_keys_and_folds_layers():
         mod.load_state_dict({**sd, "layers.3._codebook.embed": embed[0]})
     with pytest.raises(RuntimeError, match="Missing"):
         mod.load_state_dict({k: v for k, v in sd.items() if not k.startswith("layers.1.")})
+
+
+@pytest.mark.parametrize("d,dp", [(512, 512), (100, 112), (30, 32)])
+def test_rvq_block_shared_memory(d, dp):
+    """Two mbarriers per stage, the dims-major residual tile [D padded to 16,
+    64 + 4], the four-stage ring of [16 dims x 256 codes] tiles and 9 words
+    per row; the widest D that fits is 592."""
+    assert rvq_smem_bytes(d) == 64 + 4 * (dp * 68 + 4 * 16 * 256 + 9 * 64) <= MAX_SMEM_BYTES
+    assert rvq_smem_bytes(592) <= MAX_SMEM_BYTES < rvq_smem_bytes(593)
