@@ -7,7 +7,8 @@
 // encoder stage from the same input, each chain's output written, plus
 // per-tile partial moments sum_t r_g and sum_t r_g r_h; moments_reduce_kernel
 // sums the tiles in a fixed order (no atomics, so tokens do not vary from run
-// to run). Pass 2, the GroupNorm algebra on [B, C] scalars, stays in PyTorch.
+// to run). Pass 2 is gn_affine_kernel (the chained GroupNorm affines A_g, K on
+// [B, C] scalars) and gn_apply_kernel (out = (K + sum_g A_g r_g) / G, one pass).
 //
 // A ResBlock1 chain is pairs (lrelu -> dilated conv -> lrelu -> unit conv) with
 // a residual add per pair; a ResBlock2 chain is lrelu -> conv + residual. Conv
@@ -18,28 +19,57 @@
 // storage type S; the first conv of a pair rounded to S; the residual add in
 // f32 rounded to S; the chain sum and mean in f32; the post conv reads
 // lrelu(mean) rounded to S. Products accumulate in f32: on the bf16 tensor
-// cores (mma.sync m16n8k16) for bf16 storage with C % 16 == 0, in f32 FMAs
-// otherwise (no TF32, so the f32 variant matches the CPU's plain version).
+// cores for bf16 storage with C in {16, 32, 64}, in f32 FMAs otherwise (no
+// TF32, so the f32 variant matches the CPU's plain version).
 //
 // Bound on the H100: at the flagship generator stage 2 ([8, 64, 120000], 3
 // chains of 6 convs, sum of taps 126) the convs are 0.99 TFLOP, 1.0 ms at the
 // bf16 tensor-core peak, against 0.25 GB moved: bound by operations. K4 at
 // the encoder's stage 0 (the same shape and taps) is 0.99 TFLOP against
 // 0.49 GB (its three chain outputs are written): bound by operations too.
+// So the product loop must hold little but tensor-core instructions and
+// the 16-byte shared loads that feed them.
 //
-// Design (simple and right first): one block per (time tile, batch row). The
-// block holds a window of TT + 2H columns of all C channels in shared memory
-// (H = the deepest chain's receptive halo, plus the post conv's), runs each
-// chain through three [C, ld] buffers (the chain's running value, the lrelu'd
-// conv input, the first conv's lrelu'd output) and only computes the columns
-// that are still valid after each conv: the valid region shrinks by
-// (k-1)/2 * d per side per conv. Each conv is k shifted [C x C] x [C x cols]
-// products. On the tensor cores a warp owns up to 64 output channels x 32-128
-// columns; its A fragments (weights, packed in fragment order by the
-// wrapper) are 16-byte loads from global memory, L1/L2 resident (one bf16
-// stage is ~1 MB), its B fragments 16-bit shared loads. The FMA path gives
-// each lane 8 channels x 8 columns. K3 keeps an f32 accumulator of the chain
-// sum over the centre. wgmma/TMA pipelining is later work.
+// Design of the tensor-core path (tower_kernel, gn_tower_kernel): one block of
+// 8 warps per (time tile, batch row), one resident block per SM at C 64 and two
+// below, holds a window of TT + 2H time steps (H = the deepest chain's
+// receptive halo, plus the post conv's) in three TIME-MAJOR buffers [row = time
+// step][C] bf16: the chain's running value, its lrelu, and the first conv's
+// lrelu'd output. A row is 2C bytes and its 16-byte chunks are XOR-swizzled
+// with the 128-byte line index (the 128/64/32 byte swizzle patterns of wgmma
+// and TMA for C 64/32/16), so 8 consecutive rows fall in distinct banks. A
+// dilated tap is then a whole-row offset, always 16-byte aligned: every operand
+// fragment is one ldmatrix. Each conv is k accumulating products out[t][co] +=
+// in[t + shift_j][ci] W_j[co][ci] with M = time (a warp owns 16 MT consecutive
+// rows, MT <= 4), N = all C output channels (mma.sync m16n8k16, f32
+// accumulate), so the accumulators hold adjacent output channels and the
+// epilogue writes 4-byte pairs into a row. A tap's A fragments are loaded
+// before its weights are waited for, the next k-tile's B fragments during this
+// one's products. The wrapper packs each tap as one contiguous, pre-swizzled
+// [C_out][C_in] tile; one thread streams the taps of the whole tower, in order,
+// into a 4-stage ring with one bulk copy (cp.async.bulk) per tap and full/empty
+// mbarriers, two taps ahead, so the next conv's first taps land while this
+// conv's last products run. The lrelu of a residual sum is written by the
+// epilogue that produces the sum (no separate pass), the last conv of a chain
+// adds into K3's f32 chain sum or copies into K4's per-chain centre tiles, and
+// each chain starts at its own halo (a k 3 chain recomputes 12 halo rows a
+// side, not 60). K4 takes its moments from the centre tiles it still holds.
+//
+// Why mma.sync and not wgmma: with M = time and N = C <= 64 a warpgroup
+// product reads 2 KB of each operand per 32 tensor-core clocks, the whole
+// shared-memory rate, and measured slower at every shape (A from registers
+// and A by descriptor; a shifted-row descriptor needs base offset 0, the
+// swizzle acts on absolute address bits). M = output channels with N = time
+// up to 176 runs the product loop 12% faster at C 64 only, for a second code
+// path with a transposing epilogue (times in PERF.md).
+//
+// Built with -DTOWER_PROFILE, two blocks of tower_kernel print the clock64
+// counts of their phases (profile_port.py --tower-clocks).
+//
+// The FMA path (tower_fma_kernel, gn_tower_fma_kernel; f32, or channel counts
+// the tensor-core path does not take) keeps a channel-major window [C][ld]
+// and gives each lane 8 channels x 8 columns. It is the exactness reference
+// on the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,6 +77,9 @@
 #include <stdint.h>
 
 #include <type_traits>
+#ifdef TOWER_PROFILE
+#include <stdio.h>
+#endif
 
 namespace {
 
@@ -60,7 +93,7 @@ constexpr int MAX_CONVS = 8;
 constexpr float SLOPE = 0.1f;
 
 struct Tower {
-  int mma;       // bf16 tensor-core convs, fragment-order weights
+  int tc;        // the tensor-core path (bf16, C in {16, 32, 64}, pre-swizzled tap tiles)
   int G;         // chains
   int resblock;  // 1: pairs with a residual add per pair; 2: one conv per add
   int k[MAX_CHAINS];
@@ -84,7 +117,8 @@ template <typename S> __device__ __forceinline__ float round_to(float v) {
   return to_f<S>(from_f<S>(v));
 }
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : SLOPE * v; }
+// max(v, 0.1 v): the same value as v >= 0 ? v : 0.1 v for every finite v
+__device__ __forceinline__ float lrelu(float v) { return fmaxf(v, SLOPE * v); }
 
 __device__ __forceinline__ void load_w8(const float* p, float w[CO_T]) {
   const float4 a = __ldg(reinterpret_cast<const float4*>(p));
@@ -105,6 +139,8 @@ __device__ __forceinline__ void load_w8(const __nv_bfloat16* p, float w[CO_T]) {
 }
 
 enum { OUT_LRELU = 0, OUT_RESIDUAL = 1 };
+
+// ------------------------------------------------------------ FMA path
 
 // Epilogue of one conv output (channel co, window column t, f32 sum acc):
 // y = acc + bias, 0 where the global position t0 + t is outside [0, T).
@@ -166,108 +202,6 @@ __device__ void conv_pass(const S* __restrict__ in, S* __restrict__ out,
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint4& a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-// conv(in) at window columns [olo, ohi) on the bf16 tensor cores
-// (mma.sync m16n8k16, f32 accumulate): per tap j, out[co, t] +=
-// W_j[co, ci] in[ci, t + (j - half) d]. Weights come packed in A-fragment
-// order [k][C/16][C/16][lane][8] (one 16-byte load per thread per
-// fragment). A warp unit is MT m-tiles (16 channels) x NT n-tiles (8 columns)
-// with MT * NT = 16. B fragments pair rows ci, ci + 1 of one column from
-// two 16-bit shared loads; the row stride ld = 8 (mod 64) keeps them
-// conflict-free. Columns past ohi are computed from clamped reads and
-// never stored. KT > 0 fixes C = 16 KT at compile time, so that the k-tile
-// loop unrolls and the next tile's loads overlap this tile's products.
-template <int MODE, int MT, int KT>
-__device__ void conv_pass_mma(const __nv_bfloat16* __restrict__ in, __nv_bfloat16* __restrict__ out,
-                              const __nv_bfloat16* __restrict__ w, const float* __restrict__ bias,
-                              int C, int ld, int W, int k, int d, int olo, int ohi, int t0,
-                              int T) {
-  constexpr int NT = 16 / MT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int m_tiles = KT > 0 ? KT : C / 16, groups = m_tiles / MT;
-  const int cols = ohi > olo ? (ohi - olo + NT * 8 - 1) / (NT * 8) : 0;
-  const int half = (k - 1) / 2;
-  const unsigned short* in16 = reinterpret_cast<const unsigned short*>(in);
-  const uint4* wf = reinterpret_cast<const uint4*>(w);
-  for (int u = warp; u < groups * cols; u += WARPS) {
-    const int mt0 = (u % groups) * MT;
-    const int n0 = olo + (u / groups) * (NT * 8);
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][n][r] = 0.f;
-    for (int j = 0; j < k; ++j) {
-      int col[NT];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) col[n] = min(n0 + n * 8 + gid + (j - half) * d, W - 1);
-#pragma unroll
-      for (int kt = 0; kt < m_tiles; ++kt) {
-        const unsigned short* r0 = in16 + (kt * 16 + tig * 2) * ld;
-        uint32_t b[NT][2];
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const unsigned short* p = r0 + col[n];
-          b[n][0] = (uint32_t)p[0] | ((uint32_t)p[ld] << 16);
-          b[n][1] = (uint32_t)p[8 * ld] | ((uint32_t)p[9 * ld] << 16);
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          const uint4 a = __ldg(wf + ((size_t)(j * m_tiles + mt0 + i) * m_tiles + kt) * 32 + lane);
-#pragma unroll
-          for (int n = 0; n < NT; ++n) mma_bf16(acc[i][n], a, b[n][0], b[n][1]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int t = n0 + n * 8 + tig * 2 + (r & 1);
-          if (t < ohi)
-            store_out<__nv_bfloat16, MODE>(out, ld, (mt0 + i) * 16 + gid + (r >> 1) * 8, t,
-                                           acc[i][n][r], bias, t0, T);
-        }
-  }
-}
-
-// One conv of a chain: the tensor-core path for bf16 with C % 16 == 0 (the
-// wrapper then packs fragment-order weights), f32 FMAs otherwise.
-template <typename S, int MODE>
-__device__ void conv(const S* in, S* out, const S* w, const float* bias, bool mma, int C, int ld,
-                     int W, int k, int d, int olo, int ohi, int t0, int T) {
-  if constexpr (std::is_same<S, __nv_bfloat16>::value) {
-    if (mma) {
-      if (C == 64)
-        conv_pass_mma<MODE, 4, 4>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      else if (C == 32)
-        conv_pass_mma<MODE, 2, 2>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      else if (C == 16)
-        conv_pass_mma<MODE, 1, 1>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      else if (C % 64 == 0)
-        conv_pass_mma<MODE, 4, 0>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      else if (C % 32 == 0)
-        conv_pass_mma<MODE, 2, 0>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      else
-        conv_pass_mma<MODE, 1, 0>(in, out, w, bias, C, ld, W, k, d, olo, ohi, t0, T);
-      return;
-    }
-  }
-  conv_pass<S, MODE>(in, out, w, bias, C, ld, k, d, olo, ohi, t0, T);
-}
-
 template <typename S>
 __device__ void lrelu_pass(const S* src, S* dst, int C, int ld, int lo, int hi) {
   const int n = hi - lo;
@@ -302,15 +236,15 @@ __device__ void run_chain(const Tower& tw, int g, const S* w, const float* bias,
   if (tw.resblock == 1) {
     for (int p = 0; p < n; p += 2) {
       int d = tw.dil[g][p], r = half * d;
-      conv<S, OUT_LRELU>(a, y1, w + p * wstride, bias + p * C, tw.mma, C, ld, W, k, d,
-                         lo + r, hi - r, t0, T);
+      conv_pass<S, OUT_LRELU>(a, y1, w + p * wstride, bias + p * C, C, ld, k, d, lo + r, hi - r,
+                              t0, T);
       lo += r;
       hi -= r;
       __syncthreads();
       d = tw.dil[g][p + 1];
       r = half * d;
-      conv<S, OUT_RESIDUAL>(y1, cur, w + (p + 1) * wstride, bias + (p + 1) * C, tw.mma, C, ld,
-                            W, k, d, lo + r, hi - r, t0, T);
+      conv_pass<S, OUT_RESIDUAL>(y1, cur, w + (p + 1) * wstride, bias + (p + 1) * C, C, ld, k, d,
+                                 lo + r, hi - r, t0, T);
       lo += r;
       hi -= r;
       __syncthreads();
@@ -322,8 +256,8 @@ __device__ void run_chain(const Tower& tw, int g, const S* w, const float* bias,
   } else {
     for (int p = 0; p < n; ++p) {
       const int d = tw.dil[g][p], r = half * d;
-      conv<S, OUT_RESIDUAL>(a, cur, w + p * wstride, bias + p * C, tw.mma, C, ld, W, k, d,
-                            lo + r, hi - r, t0, T);
+      conv_pass<S, OUT_RESIDUAL>(a, cur, w + p * wstride, bias + p * C, C, ld, k, d, lo + r,
+                                 hi - r, t0, T);
       lo += r;
       hi -= r;
       __syncthreads();
@@ -335,21 +269,18 @@ __device__ void run_chain(const Tower& tw, int g, const S* w, const float* bias,
   }
 }
 
-// shared row stride of a window of W columns: 8 (mod 64) elements for the
-// tensor-core path's conflict-free 16-bit B-fragment loads
-__host__ __device__ __forceinline__ int row_stride(int W, int mma) {
-  return mma ? (W + 63) / 64 * 64 + 8 : (W + 7) / 8 * 8;
-}
+// shared row stride of the FMA path's window of W columns
+__host__ __device__ __forceinline__ int row_stride(int W) { return (W + 7) / 8 * 8; }
 
-// K3. x, y: [B, C, T] (y: [B, C_post, T] with a post conv). H = Hc + (kp-1)/2,
+// K3, FMA path. x, y: [B, C, T] (y: [B, C_post, T] with a post conv). H = Hc + (kp-1)/2,
 // Hc the deepest chain's halo. Grid (ceil(T / TT), B).
 template <typename S>
 __global__ void __launch_bounds__(THREADS)
-tower_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
+tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
              const S* __restrict__ wpost, const float* __restrict__ bpost, S* __restrict__ y,
              Tower tw, int C, int T, int TT, int H, int Hc, int C_post, int kp, int post_tanh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W = TT + 2 * H, ld = row_stride(W, tw.mma);
+  const int W = TT + 2 * H, ld = row_stride(W);
   S* cur = reinterpret_cast<S*>(smem_raw);
   S* a = cur + C * ld;
   S* y1 = a + C * ld;
@@ -400,14 +331,14 @@ tower_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __re
   }
 }
 
-// K4 pass 1. outs: [G, B, C, T]; part: [B, nT, C, n_mom] with the moments of
+// K4 pass 1, FMA path. outs: [G, B, C, T]; part: [B, nT, C, n_mom] with the moments of
 // the stored (rounded) values in the order m_0..m_{G-1}, q_00, q_01, ..., q_11, ...
 template <typename S>
 __global__ void __launch_bounds__(THREADS)
-gn_tower_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
+gn_tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
                 S* outs, float* __restrict__ part, Tower tw, int B, int C, int T, int TT, int H) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int W = TT + 2 * H, ld = row_stride(W, tw.mma);
+  const int W = TT + 2 * H, ld = row_stride(W);
   S* cur = reinterpret_cast<S*>(smem_raw);
   S* a = cur + C * ld;
   S* y1 = a + C * ld;
@@ -459,6 +390,707 @@ gn_tower_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* _
   }
 }
 
+// ------------------------------------------------------------ tensor-core path
+
+constexpr int STAGES = 4;     // ring stages, one tap tile each
+constexpr int AHEAD = 2;      // taps in flight ahead of the one being multiplied
+constexpr int MT_MAX = 4;     // 16-row m-tiles a warp owns at most (3 from C 32 up, see conv_rows)
+// the thread that streams the taps: the first lane of the last warp, which
+// never has more rows than another warp, so its waits for a free stage fall
+// into its slack
+constexpr int PRODUCER = THREADS - 32;
+static_assert(AHEAD <= STAGES - 1, "a stage is refilled only after its last tap was released");
+
+template <int C>
+struct Tc {
+  static constexpr int RB = 2 * C;         // bytes of one row (one time step, or one C_out of a tap)
+  static constexpr int KT = C / 16;        // k-tiles (16 input channels)
+  static constexpr int NT = C / 8;         // n-tiles (8 output channels) = 16-byte chunks of a row
+  static constexpr int MASK = RB / 16 - 1; // swizzle: chunk index ^= 128-byte line index & MASK
+  static constexpr int TILE = C * RB;      // bytes of one tap tile [C_out][C_in]
+};
+
+// byte offset of a row-major [rows][RB] element after the XOR swizzle
+__device__ __forceinline__ uint32_t swz(uint32_t byte, uint32_t mask) {
+  return byte ^ (((byte >> 7) & mask) << 4);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Wait for the phase of the given parity to complete. A wait of more than
+// 2^28 polls traps, so that a fault turns into a launch error, not a hang.
+__device__ __forceinline__ void wait_phase(uint32_t mbar, unsigned parity) {
+  unsigned done = 0, polls = 0;
+  while (true) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(mbar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (++polls == (1u << 28)) __trap();
+  }
+}
+
+__device__ __forceinline__ void arrive(uint32_t mbar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(mbar) : "memory");
+}
+
+// The stream of tap tiles: tap t of the tower (chains, convs and taps in call
+// order) goes to stage t % STAGES. All fields are shared-memory addresses.
+struct Pipe {
+  uint32_t ring, full, empty;  // [STAGES] tiles, "tile landed", "tile consumed by all warps"
+  const unsigned char* w;      // packed tap tiles in global memory
+  int total;                   // taps of the whole tower
+  int tap;                     // the next tap this thread multiplies
+#ifdef TOWER_PROFILE
+  long long wait_clk, epi_clk;
+#endif
+};
+
+// One bulk copy of tap t into its stage, once every warp has released the
+// tap that was there before.
+template <int C>
+__device__ __forceinline__ void produce(const Pipe& p, int t) {
+  if (t >= p.total) return;
+  const int st = t % STAGES;
+  if (t >= STAGES) wait_phase(p.empty + 8 * st, (t / STAGES - 1) & 1);
+  const uint32_t full = p.full + 8 * st;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(full),
+               "r"((uint32_t)Tc<C>::TILE)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          p.ring + st * Tc<C>::TILE),
+      "l"(p.w + (size_t)t * Tc<C>::TILE), "r"((uint32_t)Tc<C>::TILE), "r"(full)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// what the epilogue of a conv does with y = acc + bias (0 outside [0, T))
+enum {
+  M_FIRST,    // out = S(lrelu(S(y)))
+  M_RES,      // out = S(out + y); lr = S(lrelu(out))
+  M_SUM_SET,  // v = S(out + y); sum = v        (last conv of K3's first chain)
+  M_SUM_ADD,  // v = S(out + y); sum += v       (last conv of K3's other chains)
+  M_KEEP,     // v = S(out + y); keep = v       (last conv of a K4 chain)
+};
+
+struct ConvArgs {
+  uint32_t in;          // shared address of the input window
+  unsigned char* out;   // M_FIRST: the output window; else the running value, read and written
+  unsigned char* lr;    // M_RES: the window that takes lrelu of the new running value
+  float* sum;           // M_SUM_*: f32 chain sum, row stride C + 1
+  unsigned char* keep;  // M_KEEP: centre tiles of every chain, swizzled rows
+  const float* bias;
+  int mode, k, d;
+  int olo, ohi;         // output rows [olo, ohi) of the window
+  int row_off;          // sum row = row - row_off; keep row = row - row_off
+  int t0, T;            // row r is global position t0 + r; outputs outside [0, T) are 0
+};
+
+__device__ __forceinline__ __nv_bfloat162 lrelu2(__nv_bfloat162 v) {
+  const float2 f = __bfloat1622float2(v);
+  return __floats2bfloat162_rn(lrelu(f.x), lrelu(f.y));
+}
+
+// The epilogue of a conv for the rows a thread holds: rows gid, gid + 8 of
+// each of its m-tiles, channels 8 n + 2 tig (+1). All reads of a row come
+// before its writes, so that they are in flight together.
+template <int C, int MT, int MODE>
+__device__ __forceinline__ void epilogue(const float (&acc)[MT][C / 8][4], const ConvArgs& a, int cnt,
+                                         int row0) {
+  constexpr int RB = Tc<C>::RB, NT = Tc<C>::NT, MASK = Tc<C>::MASK;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  float2 bv[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) bv[n] = __ldg(reinterpret_cast<const float2*>(a.bias + 8 * n + 2 * tig));
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i >= cnt) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 16 * i + gid + 8 * h;
+      if (row >= a.ohi) continue;
+      const int gt = a.t0 + row;
+      const bool inside = gt >= 0 && gt < a.T;
+      const uint32_t rb = (uint32_t)row * RB + tig * 4;
+      const uint32_t rx = (rb >> 7) & MASK;
+      __nv_bfloat162 v[NT];
+      if (MODE != M_FIRST) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          v[n] = *reinterpret_cast<const __nv_bfloat162*>(a.out + rb + ((n ^ rx) << 4));
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float y0 = inside ? acc[i][n][2 * h] + bv[n].x : 0.f;
+        const float y1 = inside ? acc[i][n][2 * h + 1] + bv[n].y : 0.f;
+        if (MODE == M_FIRST) {
+          v[n] = lrelu2(__floats2bfloat162_rn(y0, y1));
+        } else {
+          const float2 c = __bfloat1622float2(v[n]);
+          v[n] = __floats2bfloat162_rn(c.x + y0, c.y + y1);
+        }
+      }
+      if (MODE == M_FIRST || MODE == M_RES) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(a.out + rb + ((n ^ rx) << 4)) = v[n];
+      }
+      if (MODE == M_RES) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(a.lr + rb + ((n ^ rx) << 4)) = lrelu2(v[n]);
+      } else if (MODE == M_KEEP) {
+        const uint32_t kb = (uint32_t)(row - a.row_off) * RB + tig * 4;
+        const uint32_t kx = (kb >> 7) & MASK;
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(a.keep + kb + ((n ^ kx) << 4)) = v[n];
+      } else if (MODE == M_SUM_SET || MODE == M_SUM_ADD) {
+        float* ps = a.sum + (row - a.row_off) * (C + 1) + 2 * tig;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float2 f = __bfloat1622float2(v[n]);
+          if (MODE == M_SUM_SET) {
+            ps[8 * n] = f.x;
+            ps[8 * n + 1] = f.y;
+          } else {
+            ps[8 * n] += f.x;
+            ps[8 * n + 1] += f.y;
+          }
+        }
+      }
+    }
+  }
+}
+
+// A window buffer holds 16 rows past the window: a ragged last m-tile reads
+// them (whatever they hold) for rows it never stores.
+//
+// One conv on the tensor cores: out[t][co] = sum_j sum_ci in[t + (j - half) d][ci] W_j[co][ci].
+// The m-tiles of the rows [olo, ohi) are split evenly over the 8 warps, at most
+// MT each (the caller picks MT). Every warp walks all k taps of the
+// ring, with or without rows of its own. A fragments (16 rows x 16 input
+// channels of the shifted window) and B fragments (16 output x 16 input
+// channels of the tap tile) are one ldmatrix.x4 each.
+template <int C, int MT>
+__device__ __forceinline__ void conv_tc(Pipe& pipe, const ConvArgs& a) {
+  using G = Tc<C>;
+  constexpr int RB = G::RB, KT = G::KT, NT = G::NT, MASK = G::MASK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // m-tiles split evenly: the first nmt % 8 warps take one more
+  const int nmt = (a.ohi - a.olo + 15) >> 4, per = nmt / WARPS, rem = nmt % WARPS;
+  const int cnt = per + (warp < rem);
+  const int row0 = a.olo + (warp * per + min(warp, rem)) * 16;
+  const int half = (a.k - 1) / 2;
+
+  // this lane's row of each B ldmatrix: output channel np 16 + 8 (lane / 16) + lane % 8,
+  // input-channel chunk 2 kt + (lane / 8) % 2
+  uint32_t brow[NT / 2], bxor[NT / 2];
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np) {
+    const uint32_t rb = (np * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * RB;
+    brow[np] = rb;
+    bxor[np] = ((rb >> 7) & MASK) ^ ((lane >> 3) & 1);
+  }
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][n][r] = 0.f;
+
+  for (int j = 0; j < a.k; ++j) {
+    const int t = pipe.tap;
+    if (threadIdx.x == PRODUCER) produce<C>(pipe, t + AHEAD);
+#ifdef TOWER_PROFILE
+    long long q1 = clock64();
+#endif
+    // every A fragment of the tap first: they depend on the window alone, so
+    // they are in flight while the tap's weights are waited for. This lane's
+    // row of each A ldmatrix: window row + lane % 16, chunk 2 kt + lane / 16
+    uint32_t af[MT][KT][4];
+    if (cnt > 0) {
+      const uint32_t arow = (uint32_t)(row0 + (j - half) * a.d + (lane & 15)) * RB;
+      const uint32_t axor = ((arow >> 7) & MASK) ^ (lane >> 4);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (i < cnt) {
+#pragma unroll
+          for (int kt = 0; kt < KT; ++kt)
+            ldsm4(af[i][kt], a.in + arow + i * 16 * RB + (((2 * kt) ^ axor) << 4));
+        }
+      }
+    }
+    wait_phase(pipe.full + 8 * (t % STAGES), (t / STAGES) & 1);
+#ifdef TOWER_PROFILE
+    pipe.wait_clk += clock64() - q1;
+#endif
+    if (cnt > 0) {
+      const uint32_t wt = pipe.ring + (t % STAGES) * G::TILE;
+      uint32_t b[2][NT / 2][4];  // the next k-tile's B fragments load during this one's products
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) ldsm4(b[0][np], wt + brow[np] + (bxor[np] << 4));
+#pragma unroll
+      for (int kt = 0; kt < KT; ++kt) {
+        if (kt + 1 < KT) {
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np)
+            ldsm4(b[(kt + 1) & 1][np], wt + brow[np] + (((2 * kt + 2) ^ bxor[np]) << 4));
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          if (i < cnt) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n)
+              mma_bf16(acc[i][n], af[i][kt], b[kt & 1][n >> 1][(n & 1) * 2],
+                       b[kt & 1][n >> 1][(n & 1) * 2 + 1]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) arrive(pipe.empty + 8 * (t % STAGES));  // this warp is done with the stage
+    pipe.tap = t + 1;
+  }
+
+  if (cnt == 0) return;
+#ifdef TOWER_PROFILE
+  long long e0 = clock64();
+#endif
+  switch (a.mode) {
+    case M_FIRST: epilogue<C, MT, M_FIRST>(acc, a, cnt, row0); break;
+    case M_RES: epilogue<C, MT, M_RES>(acc, a, cnt, row0); break;
+    case M_SUM_SET: epilogue<C, MT, M_SUM_SET>(acc, a, cnt, row0); break;
+    case M_SUM_ADD: epilogue<C, MT, M_SUM_ADD>(acc, a, cnt, row0); break;
+    default: epilogue<C, MT, M_KEEP>(acc, a, cnt, row0); break;
+  }
+#ifdef TOWER_PROFILE
+  pipe.epi_clk += clock64() - e0;
+#endif
+}
+
+// MT = the fewest m-tiles a warp so that 8 warps cover the conv's rows. From C 32
+// up a fourth m-tile would push a tap's fragments out of the registers (255 a
+// thread at C 64; 128 at C 32, where two blocks share an SM), so the wrapper
+// keeps those windows at 384 rows or fewer (512 at C 16).
+template <int C>
+__device__ __forceinline__ void conv_rows(Pipe& pipe, const ConvArgs& a) {
+  constexpr int MT_TOP = C >= 32 ? 3 : MT_MAX;
+  const int mt = (a.ohi - a.olo + 16 * WARPS - 1) / (16 * WARPS);
+  if (mt > MT_TOP) __trap();
+  if (mt <= 1) {
+    conv_tc<C, 1>(pipe, a);
+  } else if (mt == 2) {
+    conv_tc<C, 2>(pipe, a);
+  } else if (mt == 3) {
+    conv_tc<C, 3>(pipe, a);
+  } else {
+    if constexpr (MT_TOP == MT_MAX) conv_tc<C, MT_MAX>(pipe, a);
+  }
+}
+
+// The shared memory of a tensor-core block, from a 1024-byte aligned base:
+// the ring, three windows of buf bytes each (a, cur, y1), then the kernel's own
+// area (K3: the f32 chain sum; K4: the centre tiles of all chains but the
+// last), then the mbarriers.
+struct Smem {
+  unsigned char *ring, *cur, *a, *y1, *extra;
+  uint64_t* bars;
+};
+
+template <int C>
+__device__ __forceinline__ Smem carve(unsigned char* raw, int buf, int extra_bytes) {
+  Smem s;
+  s.ring = raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+  s.a = s.ring + STAGES * Tc<C>::TILE;
+  s.cur = s.a + buf;
+  s.y1 = s.cur + buf;
+  s.extra = s.y1 + buf;
+  s.bars = reinterpret_cast<uint64_t*>(s.extra + (extra_bytes + 15) / 16 * 16);
+  return s;
+}
+
+template <int C>
+__device__ __forceinline__ Pipe start_pipe(const Smem& s, const Tower& tw, const void* w) {
+  Pipe p;
+  p.ring = smem_addr(s.ring);
+  p.full = smem_addr(s.bars);
+  p.empty = p.full + 8 * STAGES;
+  p.w = static_cast<const unsigned char*>(w);
+  p.total = 0;
+  for (int g = 0; g < tw.G; ++g) p.total += tw.k[g] * tw.n_convs[g];
+  p.tap = 0;
+#ifdef TOWER_PROFILE
+  p.wait_clk = p.epi_clk = 0;
+#endif
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(p.full + 8 * st) : "memory");
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(p.empty + 8 * st), "r"(WARPS)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == PRODUCER)
+    for (int t = 0; t < AHEAD; ++t) produce<C>(p, t);
+  return p;
+}
+
+__device__ __forceinline__ int chain_halo(const Tower& tw, int g) {
+  int h = 0;
+  for (int i = 0; i < tw.n_convs[g]; ++i) h += (tw.k[g] - 1) / 2 * tw.dil[g][i];
+  return h;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// cur = x at window rows [lo, hi) (0 outside [0, T)), a = lrelu(cur). With T a
+// multiple of 8, a thread takes one channel pair and 16 time steps aligned in
+// global time: four 16-byte loads (two full sectors), then 16 4-byte stores,
+// a warp's lanes side by side in one row. Rows up to 15 outside [lo, hi) are
+// written too (inside the padded buffer; nothing reads them). Otherwise lanes
+// run along time with 2-byte loads.
+template <int C>
+__device__ void load_window_tc(const __nv_bfloat16* __restrict__ x, unsigned char* cur,
+                               unsigned char* a, int lo, int hi, int t0, int T) {
+  constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK, NP = C / 2;
+  if ((T & 7) == 0 && aligned16(x)) {
+    const int g0 = (t0 + lo) & ~15, ng = (t0 + hi - g0 + 15) >> 4;
+    for (int i = threadIdx.x; i < NP * ng; i += THREADS) {
+      const int grp = i / NP, cp = i - grp * NP, gs = g0 + 16 * grp;
+      alignas(16) __nv_bfloat16 v[2][16];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int gt = gs + 8 * hh;
+        uint4 u0 = make_uint4(0, 0, 0, 0), u1 = u0;
+        if (gt >= 0 && gt < T) {
+          u0 = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(2 * cp) * T + gt));
+          u1 = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(2 * cp + 1) * T + gt));
+        }
+        *reinterpret_cast<uint4*>(&v[0][8 * hh]) = u0;
+        *reinterpret_cast<uint4*>(&v[1][8 * hh]) = u1;
+      }
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int row = gs - t0 + e;
+        if (row < 0) continue;
+        __nv_bfloat162 p;
+        p.x = v[0][e];
+        p.y = v[1][e];
+        const uint32_t off = swz((uint32_t)row * RB + cp * 4, MASK);
+        *reinterpret_cast<__nv_bfloat162*>(cur + off) = p;
+        *reinterpret_cast<__nv_bfloat162*>(a + off) = lrelu2(p);
+      }
+    }
+    return;
+  }
+  const int n = hi - lo;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < NP * n; i += THREADS) {
+    const int cp = i / n, row = lo + i - cp * n, gt = t0 + row;
+    __nv_bfloat162 v;
+    v.x = v.y = zero;
+    if (gt >= 0 && gt < T) {
+      v.x = x[(size_t)(2 * cp) * T + gt];
+      v.y = x[(size_t)(2 * cp + 1) * T + gt];
+    }
+    const uint32_t off = swz((uint32_t)row * RB + cp * 4, MASK);
+    *reinterpret_cast<__nv_bfloat162*>(cur + off) = v;
+    *reinterpret_cast<__nv_bfloat162*>(a + off) = lrelu2(v);
+  }
+}
+
+// Runs chain g from window rows [lo, W - lo) already loaded into cur/a. The
+// last conv leaves the chain's output rows [lo + halo, W - lo - halo) in the
+// f32 sum (final_mode M_SUM_*) or, with M_KEEP, in keep, or where keep is null in
+// the window its last conv does not read (returned). Ends on a block barrier.
+template <int C>
+__device__ unsigned char* run_chain_tc(Pipe& pipe, const Tower& tw, int g, const float* bias, const Smem& s,
+                             int lo, int W, int t0, int T, int final_mode, int row_off,
+                             unsigned char* keep) {
+  const int k = tw.k[g], half = (k - 1) / 2, n = tw.n_convs[g];
+  int hi = W - lo;
+  ConvArgs a;
+  a.sum = reinterpret_cast<float*>(s.extra);
+  a.keep = keep;
+  a.k = k;
+  a.t0 = t0;
+  a.T = T;
+  a.row_off = row_off;
+  const int step = tw.resblock == 1 ? 2 : 1;
+  unsigned char *in = s.a, *other = s.y1;
+  for (int p = 0; p < n; p += step) {
+    if (tw.resblock == 1) {
+      a.d = tw.dil[g][p];
+      lo += half * a.d;
+      hi -= half * a.d;
+      a.in = smem_addr(s.a);
+      a.out = s.y1;
+      a.bias = bias + p * C;
+      a.mode = M_FIRST;
+      a.olo = lo;
+      a.ohi = hi;
+      conv_rows<C>(pipe, a);
+      __syncthreads();
+      in = s.y1;
+      other = s.a;
+    }
+    const int q = p + step - 1;
+    a.d = tw.dil[g][q];
+    lo += half * a.d;
+    hi -= half * a.d;
+    a.in = smem_addr(in);
+    a.out = s.cur;
+    a.lr = other;
+    a.bias = bias + q * C;
+    a.mode = q + 1 < n ? M_RES : final_mode;
+    if (keep == nullptr) a.keep = other;
+    a.olo = lo;
+    a.ohi = hi;
+    conv_rows<C>(pipe, a);
+    __syncthreads();
+    if (q + 1 < n && tw.resblock != 1) {  // the next conv reads the lrelu this one wrote
+      unsigned char* t = in;
+      in = other;
+      other = t;
+    }
+  }
+  return other;
+}
+
+// K3 on the tensor cores. x, y: [B, C, T] bf16 (y: [B, C_post, T] with a post
+// conv). H = Hc + (kp-1)/2, Hc the deepest chain's halo. w: every tap of the
+// tower as a pre-swizzled [C_out][C_in] tile, in call order. Grid (ceil(T / TT), B).
+template <int C>
+__global__ void __launch_bounds__(THREADS, C == 64 ? 1 : 2)
+tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
+             const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wpost,
+             const float* __restrict__ bpost, __nv_bfloat16* __restrict__ y, Tower tw, int T, int TT,
+             int H, int Hc, int buf, int C_post, int kp, int post_tanh) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK, LDS = C + 1;
+  const int W = TT + 2 * H, P = H - Hc, aw = TT + 2 * P;  // the sum covers window rows [Hc, Hc + aw)
+  const Smem s = carve<C>(smem_raw, buf, aw * LDS * 4);
+  Pipe pipe = start_pipe<C>(s, tw, w);
+  float* sum = reinterpret_cast<float*>(s.extra);
+  const int b = blockIdx.y, tile = blockIdx.x;
+  const int t0 = tile * TT - H;
+  const __nv_bfloat16* xb = x + (size_t)b * C * T;
+  const float* bg = bias;
+#ifdef TOWER_PROFILE
+  long long tl = 0, tc = 0, c0 = clock64(), cs = c0;
+#endif
+  for (int g = 0; g < tw.G; ++g) {
+    const int lo = Hc - chain_halo(tw, g);
+    load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T);
+    __syncthreads();
+#ifdef TOWER_PROFILE
+    long long c1 = clock64();
+    tl += c1 - c0;
+#endif
+    run_chain_tc<C>(pipe, tw, g, bg, s, lo, W, t0, T, g == 0 ? M_SUM_SET : M_SUM_ADD, Hc, nullptr);
+#ifdef TOWER_PROFILE
+    c0 = clock64();
+    tc += c0 - c1;
+#endif
+    bg += tw.n_convs[g] * C;
+  }
+#ifdef TOWER_PROFILE
+  if ((threadIdx.x == 0 || threadIdx.x == 224) && blockIdx.y == 0 && (blockIdx.x == 3 || blockIdx.x == 200))
+    printf("PROFILE C%d tile %d thr %d: load %lld chains %lld total %lld | full-wait %lld epilogue %lld taps %d\n",
+           C, blockIdx.x, threadIdx.x, tl, tc, clock64() - cs, pipe.wait_clk, pipe.epi_clk, pipe.tap);
+#endif
+  const float n_chains = (float)tw.G;
+  if (wpost == nullptr) {
+    __nv_bfloat16* yb = y + (size_t)b * C * T + (size_t)tile * TT;
+    if ((T & 7) == 0 && aligned16(y)) {  // a thread: one channel, 8 time steps, one 16-byte store
+      for (int i = threadIdx.x; i < C * (TT / 8); i += THREADS) {
+        const int grp = i / C, c = i - grp * C, j = 8 * grp;
+        if (tile * TT + j >= T) break;
+        alignas(16) __nv_bfloat16 o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o[e] = __float2bfloat16(sum[(P + j + e) * LDS + c] / n_chains);
+        *reinterpret_cast<uint4*>(yb + (size_t)c * T + j) = *reinterpret_cast<const uint4*>(o);
+      }
+      return;
+    }
+    for (int i = threadIdx.x; i < C * TT; i += THREADS) {
+      const int c = i / TT, j = i - c * TT;
+      if (tile * TT + j < T) yb[(size_t)c * T + j] = __float2bfloat16(sum[(P + j) * LDS + c] / n_chains);
+    }
+    return;
+  }
+  // a = S(lrelu(mean)) over rows [Hc, Hc + aw), then the post conv in f32 FMAs
+  for (int i = threadIdx.x; i < (C / 2) * aw; i += THREADS) {
+    const int r = i / (C / 2), cp = i - r * (C / 2);
+    const float* ps = sum + r * LDS + 2 * cp;
+    *reinterpret_cast<__nv_bfloat162*>(s.a + swz((uint32_t)(Hc + r) * RB + cp * 4, MASK)) =
+        __floats2bfloat162_rn(lrelu(ps[0] / n_chains), lrelu(ps[1] / n_chains));
+  }
+  __syncthreads();
+  const int hp = (kp - 1) / 2;
+  for (int i = threadIdx.x; i < C_post * TT; i += THREADS) {
+    const int o = i / TT, j = i - o * TT, gt = tile * TT + j;
+    if (gt >= T) continue;
+    float acc = 0.f;
+    for (int jj = 0; jj < kp; ++jj) {
+      const uint32_t rb = (uint32_t)(H + j - hp + jj) * RB;
+      const __nv_bfloat16* wr = wpost + (size_t)o * C * kp + jj;
+      for (int cp = 0; cp < C / 2; ++cp) {
+        const float2 v = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(s.a + swz(rb + cp * 4, MASK)));
+        acc = fmaf(__bfloat162float(__ldg(wr + (2 * cp) * kp)), v.x, acc);
+        acc = fmaf(__bfloat162float(__ldg(wr + (2 * cp + 1) * kp)), v.y, acc);
+      }
+    }
+    acc += bpost[o];
+    if (post_tanh) acc = tanhf(acc);
+    y[((size_t)b * C_post + o) * T + gt] = __float2bfloat16(acc);
+  }
+}
+
+// K4 pass 1 on the tensor cores. outs: [G, B, C, T]; part: [B, nT, C, n_mom],
+// the moments of the stored (rounded) values of this tile in the order
+// m_0..m_{G-1}, q_00, q_01, ..., q_11, ...; every chain's centre tile stays in
+// shared memory until the moments are taken. scratch (over the first two
+// windows) holds the per-slice partial moments: 2 buf >= 2048 n_mom bytes.
+template <int C>
+__global__ void __launch_bounds__(THREADS, C == 64 ? 1 : 2)
+gn_tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
+                const float* __restrict__ bias, __nv_bfloat16* __restrict__ outs,
+                float* __restrict__ part, Tower tw, int B, int T, int TT, int H, int buf) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK;
+  const int W = TT + 2 * H, G = tw.G;
+  const Smem s = carve<C>(smem_raw, buf, (G - 1) * TT * RB);
+  Pipe pipe = start_pipe<C>(s, tw, w);
+  const int b = blockIdx.y, tile = blockIdx.x, nT = gridDim.x;
+  const int t0 = tile * TT - H;
+  const int width = min(TT, T - tile * TT);  // centre rows inside [0, T)
+  const __nv_bfloat16* xb = x + (size_t)b * C * T;
+  const float* bg = bias;
+  // chain g's centre tile: rows g TT + j of the extra area; the last chain's
+  // stays where its last conv can put it, rows H + j of a window free by then
+  const unsigned char* last = nullptr;
+  for (int g = 0; g < G; ++g) {
+    const int lo = H - chain_halo(tw, g);
+    load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T);
+    __syncthreads();
+    last = run_chain_tc<C>(pipe, tw, g, bg, s, lo, W, t0, T, M_KEEP, g + 1 < G ? H - g * TT : 0,
+                           g + 1 < G ? s.extra : nullptr);
+    bg += tw.n_convs[g] * C;
+  }
+  for (int g = 0; g < G; ++g) {
+    __nv_bfloat16* og = outs + ((size_t)g * B + b) * C * T + (size_t)tile * TT;
+    const uint32_t base = g + 1 < G ? (uint32_t)(g * TT) * RB : (uint32_t)H * RB;
+    const unsigned char* kp = g + 1 < G ? s.extra : last;
+    if ((T & 7) == 0 && aligned16(outs)) {  // a thread: one channel, 8 time steps, one 16-byte store
+      for (int i = threadIdx.x; i < C * (width / 8); i += THREADS) {
+        const int grp = i / C, c = i - grp * C, j = 8 * grp;
+        alignas(16) __nv_bfloat16 o[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          o[e] = *reinterpret_cast<const __nv_bfloat16*>(kp + swz(base + (j + e) * RB + c * 2, MASK));
+        *reinterpret_cast<uint4*>(og + (size_t)c * T + j) = *reinterpret_cast<const uint4*>(o);
+      }
+      continue;
+    }
+    for (int i = threadIdx.x; i < C * width; i += THREADS) {
+      const int c = i / width, j = i - c * width;
+      og[(size_t)c * T + j] =
+          *reinterpret_cast<const __nv_bfloat16*>(kp + swz(base + j * RB + c * 2, MASK));
+    }
+  }
+  // partial moments: thread (channel pair, time slice) sums its rows in order,
+  // then the slices are summed in order
+  constexpr int NP = C / 2, SLICES = THREADS / NP;
+  const int n_mom = G + G * (G + 1) / 2;
+  const int cp = threadIdx.x % NP, sl = threadIdx.x / NP;
+  float2 m[MAX_CHAINS], q[MAX_CHAINS * (MAX_CHAINS + 1) / 2];
+#pragma unroll
+  for (int g = 0; g < MAX_CHAINS; ++g) m[g] = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int e = 0; e < MAX_CHAINS * (MAX_CHAINS + 1) / 2; ++e) q[e] = make_float2(0.f, 0.f);
+  for (int j = sl; j < width; j += SLICES) {
+    float2 v[MAX_CHAINS];
+#pragma unroll
+    for (int g = 0; g < MAX_CHAINS; ++g)
+      v[g] = g < G ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                         g + 1 < G ? s.extra + swz((uint32_t)(g * TT + j) * RB + cp * 4, MASK)
+                                   : last + swz((uint32_t)(H + j) * RB + cp * 4, MASK)))
+                   : make_float2(0.f, 0.f);
+    int e = 0;
+#pragma unroll
+    for (int g = 0; g < MAX_CHAINS; ++g) {
+      m[g].x += v[g].x;
+      m[g].y += v[g].y;
+#pragma unroll
+      for (int h = g; h < MAX_CHAINS; ++h, ++e) {
+        q[e].x += v[g].x * v[h].x;
+        q[e].y += v[g].y * v[h].y;
+      }
+    }
+  }
+  __syncthreads();  // every read of the centre tiles is done: the scratch may lie over them
+  float* scratch = reinterpret_cast<float*>(s.a);  // [SLICES][C][n_mom], over the first two windows
+  {
+    float* dst = scratch + ((size_t)sl * C + 2 * cp) * n_mom;
+    int e = 0, col = G;
+#pragma unroll
+    for (int g = 0; g < MAX_CHAINS; ++g) {
+      if (g < G) {
+        dst[g] = m[g].x;
+        dst[n_mom + g] = m[g].y;
+      }
+#pragma unroll
+      for (int h = g; h < MAX_CHAINS; ++h, ++e) {
+        if (g < G && h < G) {
+          dst[col] = q[e].x;
+          dst[n_mom + col] = q[e].y;
+          ++col;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int item = threadIdx.x; item < C * n_mom; item += THREADS) {
+    float t = 0.f;
+    for (int i = 0; i < SLICES; ++i) t += scratch[(size_t)i * C * n_mom + item];
+    part[((size_t)b * nT + tile) * C * n_mom + item] = t;
+  }
+}
+
+// ------------------------------------------------------------ K4 passes after the towers
+
 // mom[b, r] = sum over tiles, in tile order, of part[b, tile, r]; r < C * n_mom
 __global__ void moments_reduce_kernel(const float* __restrict__ part, float* __restrict__ mom,
                                       int B, int nT, int CM) {
@@ -470,10 +1102,129 @@ __global__ void moments_reduce_kernel(const float* __restrict__ part, float* __r
   mom[i] = s;
 }
 
-// spec: mma, G, resblock, k[MAX_CHAINS], n_convs[MAX_CHAINS], dil[MAX_CHAINS][MAX_CONVS]
+// K4 pass 2a: the chained GroupNorm affines from the moments. With xs_g =
+// GN_g(xs_{g-1} + r_g) and xs_g = K + sum_h A_h r_h, per batch row and
+// channel: mean and variance of xs_{g-1} + r_g over a group follow from
+// m_h = sum_t r_h and q_hl = sum_t r_h r_l. One block per batch row, one
+// thread per channel, every operation a separately rounded f32 operation in
+// the order of the plain version (gn_affines). mom: [B, C, n_mom]; scales,
+// biases: [G, C] f32; A: [G, B, C]; K: [B, C]. Shared memory: 2 C floats.
+__global__ void gn_affine_kernel(const float* __restrict__ mom, const float* __restrict__ scales,
+                                 const float* __restrict__ biases, float* __restrict__ A_out,
+                                 float* __restrict__ K_out, int B, int C, int G, int gsize,
+                                 float Tf, float N, float eps) {
+  extern __shared__ float sh[];
+  float *sS = sh, *sQ = sh + C;
+  const int b = blockIdx.x, c = threadIdx.x;
+  const bool live = c < C;
+  const int n_mom = G + G * (G + 1) / 2;
+  float m[MAX_CHAINS], q[MAX_CHAINS][MAX_CHAINS], A[MAX_CHAINS], K = 0.f;
+#pragma unroll
+  for (int g = 0; g < MAX_CHAINS; ++g) {
+    A[g] = 0.f;
+    m[g] = 0.f;
+#pragma unroll
+    for (int h = 0; h < MAX_CHAINS; ++h) q[g][h] = 0.f;
+  }
+  if (live) {
+    const float* mp = mom + ((size_t)b * C + c) * n_mom;
+    int col = G;
+#pragma unroll
+    for (int g = 0; g < MAX_CHAINS; ++g) {
+      if (g < G) m[g] = mp[g];
+#pragma unroll
+      for (int h = g; h < MAX_CHAINS; ++h)
+        if (g < G && h < G) q[g][h] = q[h][g] = mp[col++];
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < MAX_CHAINS; ++g) {
+    if (g >= G) break;
+    A[g] = __fadd_rn(A[g], 1.f);
+    float S = __fmul_rn(K, Tf);
+    float Q = __fmul_rn(__fmul_rn(K, K), Tf);
+#pragma unroll
+    for (int h = 0; h < MAX_CHAINS; ++h)
+      if (h < G) S = __fadd_rn(S, __fmul_rn(A[h], m[h]));
+#pragma unroll
+    for (int h = 0; h < MAX_CHAINS; ++h) {
+      if (h >= G) break;
+      Q = __fadd_rn(Q, __fmul_rn(__fmul_rn(__fmul_rn(2.f, K), A[h]), m[h]));
+#pragma unroll
+      for (int l = 0; l < MAX_CHAINS; ++l)
+        if (l < G) Q = __fadd_rn(Q, __fmul_rn(__fmul_rn(A[h], A[l]), q[h][l]));
+    }
+    __syncthreads();
+    if (live) {
+      sS[c] = S;
+      sQ[c] = Q;
+    }
+    __syncthreads();
+    if (live) {
+      const int c0 = c / gsize * gsize;
+      float gs = 0.f, gq = 0.f;
+      for (int i = 0; i < gsize; ++i) {
+        gs = __fadd_rn(gs, sS[c0 + i]);
+        gq = __fadd_rn(gq, sQ[c0 + i]);
+      }
+      const float mu = __fdiv_rn(gs, N);
+      const float var = __fadd_rn(__fdiv_rn(gq, N), -__fmul_rn(mu, mu));
+      const float a = __fmul_rn(scales[g * C + c], __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(var, eps))));
+      const float bb = __fadd_rn(biases[g * C + c], -__fmul_rn(mu, a));
+#pragma unroll
+      for (int h = 0; h < MAX_CHAINS; ++h) A[h] = __fmul_rn(a, A[h]);
+      K = __fadd_rn(__fmul_rn(a, K), bb);
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int g = 0; g < MAX_CHAINS; ++g)
+      if (g < G) A_out[((size_t)g * B + b) * C + c] = A[g];
+    K_out[(size_t)b * C + c] = K;
+  }
+}
+
+// K4 pass 2b: y[b, c, t] = K / G + sum_g (A_g / G) r_g[b, c, t] in f32, rounded
+// once to S. rs: [G, B, C, T]. Grid (B C, ceil(T / (256 V))), V = 16 / sizeof(S)
+// elements per 16-byte load when T % V == 0, else one.
+template <typename S, int V>
+__global__ void gn_apply_kernel(const S* __restrict__ rs, const float* __restrict__ A,
+                                const float* __restrict__ K, S* __restrict__ y, int BC, int T, int G) {
+  const int bc = blockIdx.x;
+  const size_t t = ((size_t)blockIdx.y * blockDim.x + threadIdx.x) * V;
+  if (t >= (size_t)T) return;
+  const float inv = 1.f / (float)G;
+  float out[V];
+  const float k = __fmul_rn(K[bc], inv);
+#pragma unroll
+  for (int e = 0; e < V; ++e) out[e] = k;
+  for (int g = 0; g < G; ++g) {
+    const float ag = __fmul_rn(A[(size_t)g * BC + bc], inv);
+    const S* src = rs + ((size_t)g * BC + bc) * T + t;
+    alignas(16) S v[V];
+    if constexpr (V == 1)
+      v[0] = src[0];
+    else
+      *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(src);
+#pragma unroll
+    for (int e = 0; e < V; ++e) out[e] = __fadd_rn(out[e], __fmul_rn(ag, to_f<S>(v[e])));
+  }
+  alignas(16) S o[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) o[e] = from_f<S>(out[e]);
+  S* dst = y + (size_t)bc * T + t;
+  if constexpr (V == 1)
+    dst[0] = o[0];
+  else
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
+}
+
+// ------------------------------------------------------------ host side
+
+// spec: tc, G, resblock, k[MAX_CHAINS], n_convs[MAX_CHAINS], dil[MAX_CHAINS][MAX_CONVS]
 Tower make_tower(const int* spec) {
   Tower tw;
-  tw.mma = spec[0];
+  tw.tc = spec[0];
   tw.G = spec[1];
   tw.resblock = spec[2];
   for (int g = 0; g < MAX_CHAINS; ++g) {
@@ -485,61 +1236,151 @@ Tower make_tower(const int* spec) {
 }
 
 template <typename S>
-int run_tower(const void* x, const void* w, const float* bias, const void* wpost,
-              const float* bpost, void* y, const int* spec, int B, int C, int T, int TT, int H,
-              int Hc, int C_post, int kp, int post_tanh, cudaStream_t stream) {
-  const int ld = row_stride(TT + 2 * H, spec[0]), aw = TT + 2 * (H - Hc);
+int run_tower_fma(const void* x, const void* w, const float* bias, const void* wpost,
+                  const float* bpost, void* y, const int* spec, int B, int C, int T, int TT, int H,
+                  int Hc, int C_post, int kp, int post_tanh, cudaStream_t stream) {
+  const int ld = row_stride(TT + 2 * H), aw = TT + 2 * (H - Hc);
   const size_t smem = 3 * (size_t)C * ld * sizeof(S) + (size_t)C * aw * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tower_kernel<S>,
+  cudaError_t err = cudaFuncSetAttribute(tower_fma_kernel<S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T + TT - 1) / TT, B);
-  tower_kernel<S><<<grid, THREADS, smem, stream>>>(
+  tower_fma_kernel<S><<<grid, THREADS, smem, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(w), bias, static_cast<const S*>(wpost),
       bpost, static_cast<S*>(y), make_tower(spec), C, T, TT, H, Hc, C_post, kp, post_tanh);
   return (int)cudaGetLastError();
 }
 
+template <int C>
+int run_tower_tc(const void* x, const void* w, const float* bias, const void* wpost,
+                 const float* bpost, void* y, const int* spec, int B, int T, int TT, int H, int Hc,
+                 int buf, int smem, int C_post, int kp, int post_tanh, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tower_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + TT - 1) / TT, B);
+  tower_kernel<C><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<const __nv_bfloat16*>(wpost),
+      bpost, static_cast<__nv_bfloat16*>(y), make_tower(spec), T, TT, H, Hc, buf, C_post, kp,
+      post_tanh);
+  return (int)cudaGetLastError();
+}
+
 template <typename S>
-int run_gn_tower(const void* x, const void* w, const float* bias, void* outs, float* part,
-                 float* mom, const int* spec, int B, int C, int T, int TT, int H,
-                 cudaStream_t stream) {
-  const int ld = row_stride(TT + 2 * H, spec[0]);
+int run_gn_tower_fma(const void* x, const void* w, const float* bias, void* outs, float* part,
+                     const int* spec, int B, int C, int T, int TT, int H, cudaStream_t stream) {
+  const int ld = row_stride(TT + 2 * H);
   const size_t smem = 3 * (size_t)C * ld * sizeof(S);
-  cudaError_t err = cudaFuncSetAttribute(gn_tower_kernel<S>,
+  cudaError_t err = cudaFuncSetAttribute(gn_tower_fma_kernel<S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int nT = (T + TT - 1) / TT;
-  const Tower tw = make_tower(spec);
-  gn_tower_kernel<S><<<dim3(nT, B), THREADS, smem, stream>>>(
-      static_cast<const S*>(x), static_cast<const S*>(w), bias, static_cast<S*>(outs), part, tw,
-      B, C, T, TT, H);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const int CM = C * (tw.G + tw.G * (tw.G + 1) / 2);
-  moments_reduce_kernel<<<(B * CM + 255) / 256, 256, 0, stream>>>(part, mom, B, nT, CM);
+  gn_tower_fma_kernel<S><<<dim3((T + TT - 1) / TT, B), THREADS, smem, stream>>>(
+      static_cast<const S*>(x), static_cast<const S*>(w), bias, static_cast<S*>(outs), part,
+      make_tower(spec), B, C, T, TT, H);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
+int run_gn_tower_tc(const void* x, const void* w, const float* bias, void* outs, float* part,
+                    const int* spec, int B, int T, int TT, int H, int buf, int smem,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(gn_tower_kernel<C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  gn_tower_kernel<C><<<dim3((T + TT - 1) / TT, B), THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<__nv_bfloat16*>(outs), part,
+      make_tower(spec), B, T, TT, H, buf);
+  return (int)cudaGetLastError();
+}
+
+template <typename S>
+int run_gn_apply(const void* rs, const float* A, const float* K, void* y, int BC, int T, int G,
+                 cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(S);
+  if (T % V == 0)
+    gn_apply_kernel<S, V><<<dim3(BC, (T / V + 255) / 256), 256, 0, stream>>>(
+        static_cast<const S*>(rs), A, K, static_cast<S*>(y), BC, T, G);
+  else
+    gn_apply_kernel<S, 1><<<dim3(BC, (T + 255) / 256), 256, 0, stream>>>(
+        static_cast<const S*>(rs), A, K, static_cast<S*>(y), BC, T, G);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// buf and smem (bytes of one window and of the block's dynamic shared memory)
+// are read by the tensor-core path only (spec[0] = 1), which takes bf16 and C
+// in {16, 32, 64}; the FMA path sizes its own shared memory.
 extern "C" int acad_resblock_tower(const void* x, const void* w, const float* bias,
                                    const void* wpost, const float* bpost, void* y,
                                    const int* spec, int B, int C, int T, int TT, int H, int Hc,
-                                   int C_post, int kp, int post_tanh, int bf16, void* stream) {
+                                   int buf, int smem, int C_post, int kp, int post_tanh, int bf16,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (spec[0]) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      return run_tower_tc<64>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
+                              kp, post_tanh, s);
+    if (C == 32)
+      return run_tower_tc<32>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
+                              kp, post_tanh, s);
+    if (C == 16)
+      return run_tower_tc<16>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
+                              kp, post_tanh, s);
+    return (int)cudaErrorInvalidValue;
+  }
   if (bf16)
-    return run_tower<__nv_bfloat16>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc,
-                                    C_post, kp, post_tanh, s);
-  return run_tower<float>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, C_post, kp,
-                          post_tanh, s);
+    return run_tower_fma<__nv_bfloat16>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc,
+                                        C_post, kp, post_tanh, s);
+  return run_tower_fma<float>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, C_post, kp,
+                              post_tanh, s);
 }
 
+// K4 pass 1 and the reduction of its per-tile moments over the tiles
 extern "C" int acad_resblock_tower_gn(const void* x, const void* w, const float* bias,
                                       void* outs, float* part, float* mom, const int* spec,
-                                      int B, int C, int T, int TT, int H, int bf16,
-                                      void* stream) {
+                                      int B, int C, int T, int TT, int H, int buf, int smem,
+                                      int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return run_gn_tower<__nv_bfloat16>(x, w, bias, outs, part, mom, spec, B, C, T, TT, H, s);
-  return run_gn_tower<float>(x, w, bias, outs, part, mom, spec, B, C, T, TT, H, s);
+  int rc;
+  if (spec[0]) {
+    if (!bf16) return (int)cudaErrorInvalidValue;
+    if (C == 64)
+      rc = run_gn_tower_tc<64>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+    else if (C == 32)
+      rc = run_gn_tower_tc<32>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+    else if (C == 16)
+      rc = run_gn_tower_tc<16>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+    else
+      return (int)cudaErrorInvalidValue;
+  } else if (bf16) {
+    rc = run_gn_tower_fma<__nv_bfloat16>(x, w, bias, outs, part, spec, B, C, T, TT, H, s);
+  } else {
+    rc = run_gn_tower_fma<float>(x, w, bias, outs, part, spec, B, C, T, TT, H, s);
+  }
+  if (rc != 0) return rc;
+  const int G = spec[1], CM = C * (G + G * (G + 1) / 2), nT = (T + TT - 1) / TT;
+  moments_reduce_kernel<<<(B * CM + 255) / 256, 256, 0, s>>>(part, mom, B, nT, CM);
+  return (int)cudaGetLastError();
+}
+
+// K4 pass 2a: mom [B, C, n_mom], scales/biases [G, C] f32 -> A [G, B, C], K [B, C]
+extern "C" int acad_gn_affine(const float* mom, const float* scales, const float* biases, float* A,
+                              float* K, int B, int C, int G, int num_groups, int T, float eps,
+                              void* stream) {
+  if (G < 1 || G > MAX_CHAINS || C < 1 || C > 1024 || num_groups < 1 || C % num_groups)
+    return (int)cudaErrorInvalidValue;
+  const int gsize = C / num_groups, threads = (C + 31) / 32 * 32;
+  gn_affine_kernel<<<B, threads, 2 * C * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
+      mom, scales, biases, A, K, B, C, G, gsize, (float)T, (float)gsize * (float)T, eps);
+  return (int)cudaGetLastError();
+}
+
+// K4 pass 2b: rs [G, B, C, T], A [G, B, C], K [B, C] -> y [B, C, T]
+extern "C" int acad_gn_apply(const void* rs, const float* A, const float* K, void* y, int B, int C,
+                             int T, int G, int bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) return run_gn_apply<__nv_bfloat16>(rs, A, K, y, B * C, T, G, s);
+  return run_gn_apply<float>(rs, A, K, y, B * C, T, G, s);
 }

@@ -9,7 +9,9 @@ through ``ops/cuda/resblock``: the encoder's bundle through K4
 (``resblock_tower_gn``), the generator's through K3 (``resblock_tower``,
 with conv_post and tanh fused into the last stage). The wrappers launch the
 kernels for CUDA tensors and run their plain versions for CPU tensors.
-Wider stages run the plain chain of convs.
+Wider stages run the plain chain of convs. Each fused stage keeps its packed
+operands (:class:`PackedStage`) and rebuilds them, weight norm included,
+only when a parameter changed.
 
 Behavioral parity target: academicodec_tpu/nn/hifigan.py:40-722, non-causal,
 without the length-masked encode (reference models/hificodec/models.py:
@@ -27,7 +29,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
-from academicodec_tpu_torch.ops.cuda.resblock import resblock_tower, resblock_tower_gn
+from academicodec_tpu_torch.ops.cuda.resblock import (
+    PackedTower,
+    pack_tower,
+    resblock_tower,
+    resblock_tower_gn,
+)
 
 LRELU_SLOPE = 0.1
 # stages this narrow take the fused towers: the JAX package's default
@@ -148,6 +155,33 @@ class GroupNormTorch(nn.Module):
         return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
 
 
+class PackedStage:
+    """The packed operands of one fused stage (:func:`pack_tower`), rebuilt
+    when a parameter of its convs was updated in place, replaced, cast or
+    moved. With gradients enabled nothing is kept: every call packs the
+    current weights, so the plain versions stay differentiable."""
+
+    def __init__(self):
+        self.key, self.packed = None, None
+
+    def get(self, blocks, kernel_sizes, dilation_sizes, resblock: str, post=None) -> PackedTower:
+        def build():
+            ws, bs = zip(*(rb.weights_and_biases() for rb in blocks))
+            kw = {} if post is None else dict(post_weight=post.resolved_weight(), post_bias=post.bias)
+            return pack_tower(ws, bs, kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes,
+                              resblock=resblock, **kw)
+
+        if torch.is_grad_enabled():
+            return build()
+        params = [p for rb in blocks for p in rb.parameters()]
+        if post is not None:
+            params += list(post.parameters())
+        key = tuple((p._version, p.dtype, p.device, p.data_ptr()) for p in params)
+        if key != self.key:
+            self.key, self.packed = key, build()
+        return self.packed
+
+
 def _resblock_cls(h: HiFiCodecConfig):
     return ResBlock1 if h.resblock == "1" else ResBlock2
 
@@ -181,6 +215,7 @@ class HiFiGANEncoder(nn.Module):
         self.resblocks = nn.ModuleList(resblocks)
         self.normalize = nn.ModuleList(norms)
         self.conv_post = Conv1d(h.latent_dim, h.latent_dim, 3, padding=1, norm="none")
+        self._packed = [PackedStage() for _ in self.ups_cfg]
 
     def normal_init_convs(self):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
@@ -195,11 +230,10 @@ class HiFiGANEncoder(nn.Module):
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             norms = self.normalize[i * nk:(i + 1) * nk]
             if ch <= FUSED_MAX_CHANNELS:
-                ws, bs = zip(*(rb.weights_and_biases() for rb in blocks))
+                packed = self._packed[i].get(blocks, self.rks, self.rds, self.config.resblock)
                 x = resblock_tower_gn(
-                    x, ws, bs,
+                    x, packed, None,
                     torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
-                    kernel_sizes=self.rks, dilation_sizes=self.rds, resblock=self.config.resblock,
                     num_groups=ch // 16, epsilon=1e-6,
                 )
                 continue
@@ -231,6 +265,7 @@ class HiFiGANGenerator(nn.Module):
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(resblocks)
         self.conv_post = Conv1d(h.upsample_initial_channel // 2 ** len(ups), 1, 7, padding=3, norm=norm)
+        self._packed = [PackedStage() for _ in ups]
 
     def normal_init_convs(self):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
@@ -239,9 +274,8 @@ class HiFiGANGenerator(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.config
         nk = len(h.resblock_kernel_sizes)
-        kw = dict(kernel_sizes=tuple(h.resblock_kernel_sizes),
-                  dilation_sizes=tuple(tuple(d) for d in h.resblock_dilation_sizes),
-                  resblock=h.resblock)
+        ks = tuple(h.resblock_kernel_sizes)
+        dss = tuple(tuple(d) for d in h.resblock_dilation_sizes)
         x = self.conv_pre(x)
         n_up = len(self.ups)
         for i, ups in enumerate(self.ups):
@@ -250,13 +284,12 @@ class HiFiGANGenerator(nn.Module):
             x = ups(_lrelu(x))
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             if x.shape[1] <= FUSED_MAX_CHANNELS:
-                ws, bs = zip(*(rb.weights_and_biases() for rb in blocks))
-                if i == n_up - 1:  # conv_post and tanh run inside the last tower
-                    return resblock_tower(
-                        x, ws, bs, post_weight=self.conv_post.resolved_weight(),
-                        post_bias=self.conv_post.bias, post_tanh=True, **kw,
-                    )
-                x = resblock_tower(x, ws, bs, **kw)
+                # conv_post and tanh run inside the last tower
+                post = self.conv_post if i == n_up - 1 else None
+                packed = self._packed[i].get(blocks, ks, dss, h.resblock, post)
+                x = resblock_tower(x, packed, post_tanh=post is not None)
+                if post is not None:
+                    return x
                 continue
             xs = None
             for rb in blocks:

@@ -7,9 +7,8 @@ the mean of G residual chains over one generator stage ``x [B, C, T]``, with
 an optional lrelu -> conv_post -> tanh epilogue. K4 ``resblock_tower_gn``
 replaces ``_gn_tower_kernel`` (``resblock_tower_gn``): every chain of an
 encoder stage from the same input plus the per-channel moments, then pass 2
-(plain PyTorch on ``[B, C]`` scalars, as in the JAX package) derives the
-chained GroupNorm affines ``xs_g = GN_g(xs_{g-1} + r_g)`` and applies one
-elementwise recombination.
+derives the chained GroupNorm affines ``xs_g = GN_g(xs_{g-1} + r_g)`` on
+``[B, C]`` scalars and applies one elementwise recombination.
 
 Chains follow the JAX call order: ResBlock1 convs ``(k, d0), (k, 1), (k, d1),
 (k, 1), ...`` in pairs with a residual add per pair, ResBlock2 one conv per
@@ -20,19 +19,27 @@ then rounded, chain sums and means in f32.
 On the H100 both are bound by operations: 0.99 TFLOP for a flagship
 ``[8, 64, 120000]`` stage (1.0 ms at the bf16 tensor-core peak) against
 0.25-0.5 GB of traffic. The kernels keep a halo'd time window of all
-channels in shared memory for the whole tower and compute only the columns
-still valid after each conv: on the bf16 tensor cores (mma.sync) for bf16
-with C % 16 == 0, in f32 FMAs otherwise (see the source for the design).
+channels in shared memory for the whole tower and compute only the rows
+still valid after each conv. bf16 with C in {16, 32, 64} takes the
+tensor-core path: a time-major swizzled window read by ``ldmatrix``, each
+conv's taps streamed into shared memory by bulk copies as pre-swizzled
+``[C_out][C_in]`` tiles (:func:`pack_taps`), every chain started at its own
+halo (:func:`pick_tile_tc`). Everything else takes the f32 FMA path (see the
+source for both designs). K4's pass 2 is two more kernels,
+``gn_affine_kernel`` and ``gn_apply_kernel``.
 
-Wrappers take ``[B, C, T]`` activations and torch ``[O, I, K]`` weights. CPU
-tensors run the plain version; CUDA tensors always launch the kernel or
-raise. ``TOWER_LAUNCHES`` and ``GN_TOWER_LAUNCHES`` count kernel launches.
+Wrappers take ``[B, C, T]`` activations and torch ``[O, I, K]`` weights, or
+the operands packed once by :func:`pack_tower`. CPU tensors run the plain
+version; CUDA tensors always launch the kernel or raise. ``TOWER_LAUNCHES``
+and ``GN_TOWER_LAUNCHES`` count kernel launches, one per call of a wrapper.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -140,19 +147,22 @@ def moments(rs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.stack(cols, dim=2)
 
 
-def gn_recombine(
-    rs: Sequence[torch.Tensor],
+def gn_affines(
     mom: torch.Tensor,
     gn_scales: torch.Tensor,
     gn_biases: torch.Tensor,
     num_groups: int,
     epsilon: float,
-) -> torch.Tensor:
-    """Pass 2 of K4: the chained GroupNorm affines from the moments, then
-    ``out = sum_g A_g r_g / G + K / G`` (academicodec_tpu/ops/pallas/
-    resblock.py:585-631, operation for operation)."""
-    G = len(rs)
-    B, C, T = rs[0].shape
+    T: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 2a of K4: the chained GroupNorm affines from the moments
+    ``[B, C, n_mom]`` of chain outputs of length ``T``. With ``xs_g =
+    GN_g(xs_{g-1} + r_g)`` returns ``A [G, B, C]`` and ``K [B, C]`` (f32) such
+    that ``xs_last = K + sum_g A_g r_g`` (academicodec_tpu/ops/pallas/
+    resblock.py:585-631, operation for operation). Plain version of
+    ``gn_affine_kernel``."""
+    B, C, n_mom = mom.shape
+    G = gn_scales.shape[0]
     m = [mom[:, :, g] for g in range(G)]
     q = {}
     col = G
@@ -188,11 +198,31 @@ def gn_recombine(
         b = bn[g] - mu * a
         A = [a * Ah for Ah in A]
         K = a * K + b
+    return torch.stack(A), K
+
+
+def gn_apply(rs: Sequence[torch.Tensor], A: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pass 2b of K4: ``out = K / G + sum_g (A_g / G) r_g`` in f32, rounded once
+    to the storage dtype. Plain version of ``gn_apply_kernel``."""
+    G = len(rs)
     inv = 1.0 / float(G)
     out = K[:, :, None] * inv
     for g in range(G):
         out = out + (A[g] * inv)[:, :, None] * rs[g].float()
     return out.to(rs[0].dtype)
+
+
+def gn_recombine(
+    rs: Sequence[torch.Tensor],
+    mom: torch.Tensor,
+    gn_scales: torch.Tensor,
+    gn_biases: torch.Tensor,
+    num_groups: int,
+    epsilon: float,
+) -> torch.Tensor:
+    """Pass 2 of K4: :func:`gn_affines` then :func:`gn_apply`."""
+    A, K = gn_affines(mom, gn_scales, gn_biases, num_groups, epsilon, rs[0].shape[2])
+    return gn_apply(rs, A, K)
 
 
 def resblock_tower_gn_plain(
@@ -216,20 +246,29 @@ def resblock_tower_gn_plain(
 
 # ---------------------------------------------------------------- kernel wrappers
 
+# the tensor-core path of csrc/resblock.cu: channel counts it takes, ring
+# stages, rows a window buffer holds past the window, consumer warps, and the
+# most window rows by C: 8 warps x 16-row m-tiles x 4 a warp, 3 at C 64, where
+# a fourth would push a tap's fragments out of the registers
+TC_CHANNELS, TC_STAGES, TC_PAD_ROWS, TC_WARPS = (16, 32, 64), 4, 16, 8
+TC_MAX_ROWS = {16: 512, 32: 384, 64: 384}
+# shared memory a block may take: all of an SM's at C 64, half of it (two
+# resident blocks, 1 KB each reserved by the system) below
+TC_SMEM_BUDGET = {16: 113 * 1024, 32: 113 * 1024, 64: MAX_SMEM_BYTES}
 
-def uses_mma(dtype: torch.dtype, C: int) -> bool:
+
+def uses_tc(dtype: torch.dtype, C: int) -> bool:
     """Whether the kernel's convs run on the bf16 tensor cores (else f32 FMAs)."""
-    return dtype == torch.bfloat16 and C % 16 == 0
+    return dtype == torch.bfloat16 and C in TC_CHANNELS
 
 
-def row_stride(width: int, mma: bool) -> int:
-    """Shared-memory row stride of a window (``row_stride`` in csrc/resblock.cu)."""
-    return -(-width // 64) * 64 + 8 if mma else -(-width // 8) * 8
+def row_stride(width: int) -> int:
+    """Shared-memory row stride of the FMA path's window (``row_stride`` in csrc/resblock.cu)."""
+    return -(-width // 8) * 8
 
 
-def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool,
-              mma: bool = False) -> Tuple[int, int]:
-    """``(TT, shared bytes)``: output columns per block. The window
+def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool) -> Tuple[int, int]:
+    """FMA path: ``(TT, shared bytes)``, output columns per block. The window
     ``TT + 2H`` is ``64 // C`` 256-column strips where they fit (8 warps x 8
     channels busy), else the widest multiple of 8 columns that fits shared
     memory (at least 16 output columns)."""
@@ -237,7 +276,7 @@ def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool,
     top = max(-(-least // STRIP), 64 // C) * STRIP
     for width in range(top, least - 1, -8):
         tt = width - 2 * H
-        smem = 3 * C * row_stride(width, mma) * itemsize
+        smem = 3 * C * row_stride(width) * itemsize
         if with_acc:
             smem += C * (tt + 2 * post_halo) * 4
         if smem <= MAX_SMEM_BYTES:
@@ -245,57 +284,124 @@ def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool,
     raise ValueError(f"resblock tower: C={C} with halo {H} does not fit in shared memory")
 
 
-def _fragment_order(w: torch.Tensor) -> torch.Tensor:
-    """``[O, I, K]`` -> mma.sync m16n8k16 A fragments ``[K][O/16][I/16][lane][8]``:
-    lane = 4 gid + tig holds rows (gid, gid + 8) x columns (2 tig, 2 tig + 1,
-    2 tig + 8, 2 tig + 9) of each 16 x 16 tile, in register order."""
+@dataclass(frozen=True)
+class TileGeometry:
+    """One block of the tensor-core path: ``TT`` output columns from a window
+    of ``W = TT + 2H`` rows, chain ``g`` starting at window row ``starts[g]``;
+    ``buf`` bytes per window buffer, ``smem`` bytes of dynamic shared memory,
+    ``cost`` rows multiplied per useful row (tap-weighted, in whole m-tile
+    rounds of 8 warps)."""
+
+    TT: int
+    W: int
+    H: int
+    starts: Tuple[int, ...]
+    buf: int
+    smem: int
+    blocks_per_sm: int
+    cost: float
+
+
+def chain_halos(kernel_sizes, dilation_sizes, resblock: str) -> Tuple[int, ...]:
+    return tuple(
+        sum((k - 1) // 2 * d for d in chain_conv_dilations(ds, resblock))
+        for k, ds in zip(kernel_sizes, dilation_sizes)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile_tc(C: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tuple[int, ...], ...],
+                 resblock: str, post_halo: int, gn: bool) -> TileGeometry:
+    """Tensor-core path: the ``TT`` (a multiple of 8, at least 16) whose window
+    fits its shared-memory budget and row cap and costs the fewest multiplied
+    rows per output column. A conv over ``R`` rows costs ``k * ceil(ceil(R / 16) / 8)``
+    rounds of 8 warps x 16 rows; chain ``g`` starts at its own halo, ``Hc -
+    Hc_g`` rows into the window. Shared memory: 1024 bytes of alignment slack,
+    the ring, three ``(W + 16)``-row windows, K3's f32 chain sum (row stride
+    ``C + 1``) or K4's ``G - 1`` centre tiles, the mbarriers."""
+    rb = 2 * C
+    halos = chain_halos(kernel_sizes, dilation_sizes, resblock)
+    Hc, G = max(halos), len(kernel_sizes)
+    H = Hc + post_halo
+    n_mom = G + G * (G + 1) // 2
+    best = None
+    for tt in range(16, TC_MAX_ROWS[C] - 2 * H + 1, 8):
+        W = tt + 2 * H
+        buf = -(-(W + TC_PAD_ROWS) * rb // 1024) * 1024
+        if gn:
+            buf = max(buf, 1024 * n_mom)  # 2 buf >= the moments' scratch, 2048 n_mom bytes
+            extra = (G - 1) * tt * rb  # the last chain's centre tile stays in a free window
+        else:
+            extra = (tt + 2 * post_halo) * (C + 1) * 4
+        smem = 1024 + TC_STAGES * C * rb + 3 * buf + -(-extra // 16) * 16 + 16 * TC_STAGES
+        if smem > TC_SMEM_BUDGET[C]:
+            continue
+        rounds = 0
+        for k, ds, h in zip(kernel_sizes, dilation_sizes, halos):
+            lo = Hc - h
+            hi = W - lo
+            for d in chain_conv_dilations(ds, resblock):
+                lo += (k - 1) // 2 * d
+                hi -= (k - 1) // 2 * d
+                m_tiles = -(-(hi - lo) // 16)
+                rounds += k * -(-m_tiles // TC_WARPS)
+        taps = sum(k * len(chain_conv_dilations(ds, resblock)) for k, ds in zip(kernel_sizes, dilation_sizes))
+        cost = rounds * 16 * TC_WARPS / (tt * taps)
+        if best is None or cost <= best.cost:
+            best = TileGeometry(tt, W, H, tuple(Hc - h for h in halos), buf, smem,
+                                1 if C == 64 else 2, cost)
+    if best is None:
+        raise ValueError(f"resblock tower: C={C} with halo {H} does not fit {TC_MAX_ROWS[C]} rows of shared memory")
+    return best
+
+
+def swizzle_perm(C: int) -> torch.Tensor:
+    """Element permutation of a row-major ``[C][C]`` bf16 tile under the
+    kernel's swizzle: 16-byte chunks (8 elements) XORed with the 128-byte line
+    index. An involution: ``tile.flatten()[perm]`` swizzles and unswizzles."""
+    e = torch.arange(C * C)
+    return e ^ (((e >> 6) & (C // 8 - 1)) << 3)
+
+
+def pack_taps(w: torch.Tensor) -> torch.Tensor:
+    """``[O, I, K]`` -> ``K`` swizzled ``[O][I]`` tap tiles, flat, tap after tap."""
     O, I, K = w.shape
-    v = w.permute(2, 0, 1).reshape(K, O // 16, 2, 8, I // 16, 2, 4, 2)  # j mt rh gid kt ch tig p
-    return v.permute(0, 1, 4, 3, 6, 5, 2, 7).reshape(-1)  # j mt kt gid tig ch rh p
+    return w.permute(2, 0, 1).reshape(K, O * I)[:, swizzle_perm(O).to(w.device)].reshape(-1)
 
 
-def _check_and_pack(x, weights, biases, kernel_sizes, dilation_sizes, resblock, name):
-    """Validate a CUDA call and pack the weights in ``x.dtype`` (fragment
-    order for the tensor-core path, ``[C_in][k][C_out]`` for the FMA path)
-    and the biases f32, chain after chain in call order; returns them with
-    the C ``spec`` array."""
-    dev = x.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: x on {dev}; the kernel takes CUDA tensors")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"{name}: no kernel for {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{name}: x must be a contiguous [B, C, T] tensor")
-    B, C, T = x.shape
-    if C % CO_TILE or C == 0:
-        raise ValueError(f"{name}: C={C} must be a positive multiple of {CO_TILE}")
-    G = len(kernel_sizes)
-    if not (1 <= G <= MAX_CHAINS) or len(dilation_sizes) != G or len(weights) != G or len(biases) != G:
-        raise ValueError(f"{name}: {G} chains (the kernel takes 1..{MAX_CHAINS})")
-    if resblock not in ("1", "2"):
-        raise ValueError(f"{name}: resblock {resblock!r}")
-    mma = uses_mma(x.dtype, C)
-    spec = [0] * (3 + 2 * MAX_CHAINS + MAX_CHAINS * MAX_CONVS)
-    spec[0], spec[1], spec[2] = int(mma), G, int(resblock)
-    ws, bs = [], []
-    for g, (k, ds) in enumerate(zip(kernel_sizes, dilation_sizes)):
-        dils = chain_conv_dilations(ds, resblock)
-        if k % 2 == 0 or len(dils) > MAX_CONVS or len(weights[g]) != len(dils) or len(biases[g]) != len(dils):
-            raise ValueError(f"{name}: chain {g}: k={k}, {len(dils)} convs, {len(weights[g])} weights")
-        spec[3 + g], spec[3 + MAX_CHAINS + g] = k, len(dils)
-        for i, d in enumerate(dils):
-            spec[3 + 2 * MAX_CHAINS + g * MAX_CONVS + i] = d
-            w, b = weights[g][i], biases[g][i]
-            if tuple(w.shape) != (C, C, k) or tuple(b.shape) != (C,) or w.device != dev or b.device != dev:
-                raise ValueError(f"{name}: chain {g} conv {i}: weight {tuple(w.shape)} on {w.device}")
-            w = w.to(x.dtype)
-            ws.append(_fragment_order(w) if mma else w.permute(1, 2, 0).reshape(-1))
-            bs.append(b.float().reshape(-1))
-    return torch.cat(ws).contiguous(), torch.cat(bs).contiguous(), (ctypes.c_int * len(spec))(*spec)
+def unpack_taps(flat: torch.Tensor, C: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_taps`: ``[C, C, k]``."""
+    return flat.reshape(k, C * C)[:, swizzle_perm(C).to(flat.device)].reshape(k, C, C).permute(1, 2, 0)
 
 
-def resblock_tower(
-    x: torch.Tensor,
+@dataclass
+class PackedTower:
+    """A tower's operands as the wrappers take them: the weights ``[O, I, K]``
+    and biases as given (what the plain versions read) and, for CUDA tensors,
+    the kernel's operands: every conv's weights in ``dtype`` (tap tiles for the
+    tensor-core path, ``[C_in][k][C_out]`` for the FMA path), chain after chain
+    in call order, the biases f32, the C ``spec`` array, the post conv's
+    operands. Build with :func:`pack_tower`."""
+
+    weights: Weights
+    biases: Weights
+    kernel_sizes: Tuple[int, ...]
+    dilation_sizes: Tuple[Tuple[int, ...], ...]
+    resblock: str
+    post_weight: Optional[torch.Tensor]
+    post_bias: Optional[torch.Tensor]
+    dtype: torch.dtype
+    device: torch.device
+    C: int
+    tc: bool = False
+    w_all: Optional[torch.Tensor] = None
+    b_all: Optional[torch.Tensor] = None
+    spec: Any = None
+    wp: Optional[torch.Tensor] = None
+    bp: Optional[torch.Tensor] = None
+
+
+def pack_tower(
     weights: Weights,
     biases: Weights,
     *,
@@ -304,42 +410,135 @@ def resblock_tower(
     resblock: str = "1",
     post_weight: Optional[torch.Tensor] = None,
     post_bias: Optional[torch.Tensor] = None,
+    dtype: Optional[torch.dtype] = None,
+) -> PackedTower:
+    """Validate a tower's operands and, when they lie on a card, pack them
+    for the kernels in ``dtype`` (default: the weights' own). The result can
+    be passed to :func:`resblock_tower` / :func:`resblock_tower_gn` in place of
+    the raw weights any number of times."""
+    kernel_sizes = tuple(kernel_sizes)
+    dilation_sizes = tuple(tuple(ds) for ds in dilation_sizes)
+    G = len(kernel_sizes)
+    if not (1 <= G <= MAX_CHAINS) or len(dilation_sizes) != G or len(weights) != G or len(biases) != G:
+        raise ValueError(f"resblock tower: {G} chains (the kernel takes 1..{MAX_CHAINS})")
+    if resblock not in ("1", "2"):
+        raise ValueError(f"resblock tower: resblock {resblock!r}")
+    first = weights[0][0]
+    C, dev = first.shape[0], first.device
+    dtype = dtype or first.dtype
+    packed = PackedTower(weights, biases, kernel_sizes, dilation_sizes, resblock, post_weight, post_bias,
+                         dtype, dev, C)
+    tensors = [*(t for ch in weights for t in ch), *(t for ch in biases for t in ch)]
+    tensors += [t for t in (post_weight, post_bias) if t is not None]
+    if any(t.device != dev for t in tensors):
+        raise ValueError("resblock tower: weights and biases on different devices")
+    if dev.type == "cpu":
+        return packed
+    if dev.type != "cuda":
+        raise ValueError(f"resblock tower: weights on {dev}; the kernel takes CUDA tensors")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"resblock tower: no kernel for {dtype}")
+    if C % CO_TILE or C == 0:
+        raise ValueError(f"resblock tower: C={C} must be a positive multiple of {CO_TILE}")
+    packed.tc = uses_tc(dtype, C)
+    spec = [0] * (3 + 2 * MAX_CHAINS + MAX_CHAINS * MAX_CONVS)
+    spec[0], spec[1], spec[2] = int(packed.tc), G, int(resblock)
+    ws, bs = [], []
+    for g, (k, ds) in enumerate(zip(kernel_sizes, dilation_sizes)):
+        dils = chain_conv_dilations(ds, resblock)
+        if k % 2 == 0 or len(dils) > MAX_CONVS or len(weights[g]) != len(dils) or len(biases[g]) != len(dils):
+            raise ValueError(f"resblock tower: chain {g}: k={k}, {len(dils)} convs, {len(weights[g])} weights")
+        spec[3 + g], spec[3 + MAX_CHAINS + g] = k, len(dils)
+        for i, d in enumerate(dils):
+            spec[3 + 2 * MAX_CHAINS + g * MAX_CONVS + i] = d
+            w, b = weights[g][i], biases[g][i]
+            if tuple(w.shape) != (C, C, k) or tuple(b.shape) != (C,):
+                raise ValueError(f"resblock tower: chain {g} conv {i}: weight {tuple(w.shape)}")
+            w = w.detach().to(dtype)
+            ws.append(pack_taps(w) if packed.tc else w.permute(1, 2, 0).reshape(-1))
+            bs.append(b.detach().float().reshape(-1))
+    packed.w_all, packed.b_all = torch.cat(ws).contiguous(), torch.cat(bs).contiguous()
+    packed.spec = (ctypes.c_int * len(spec))(*spec)
+    if post_weight is not None:
+        c_out, c_in, kp = post_weight.shape
+        if c_in != C or kp % 2 == 0:
+            raise ValueError(f"resblock_tower: post weight {tuple(post_weight.shape)} for C={C}")
+        packed.wp = post_weight.detach().to(dtype).contiguous()
+        bp = post_bias if post_bias is not None else torch.zeros(c_out, device=dev)
+        if tuple(bp.shape) != (c_out,):
+            raise ValueError(f"resblock_tower: post bias {tuple(bp.shape)}")
+        packed.bp = bp.detach().float().contiguous()
+    return packed
+
+
+def _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock, **post) -> PackedTower:
+    if isinstance(weights, PackedTower):
+        return weights
+    return pack_tower(weights, biases, kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes,
+                      resblock=resblock, dtype=x.dtype, **post)
+
+
+def _check_call(x: torch.Tensor, packed: PackedTower, name: str) -> None:
+    """A CUDA call launches or raises: ``x`` must be a contiguous ``[B, C, T]``
+    tensor on the card and in the dtype the operands were packed for."""
+    if x.device.type != "cuda" or packed.device != x.device:
+        raise ValueError(f"{name}: x on {x.device}, weights on {packed.device}; the kernel takes CUDA tensors")
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{name}: x must be a contiguous [B, C, T] tensor")
+    if x.dtype != packed.dtype or x.shape[1] != packed.C:
+        raise ValueError(f"{name}: x {x.dtype} [., {x.shape[1]}, .] for operands packed as "
+                         f"{packed.dtype} with C={packed.C}")
+
+
+def tower_geometry(packed: PackedTower, gn: bool):
+    """``(TT, H, Hc, buf, smem)`` of a launch; ``buf`` and ``smem`` are 0 on the
+    FMA path, which sizes its own shared memory."""
+    Hc = tower_halo(packed.kernel_sizes, packed.dilation_sizes, packed.resblock)
+    P = 0 if packed.wp is None else (packed.wp.shape[2] - 1) // 2
+    if packed.tc:
+        geo = pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes, packed.resblock, P, gn)
+        return geo.TT, Hc + P, Hc, geo.buf, geo.smem
+    itemsize = 2 if packed.dtype == torch.bfloat16 else 4
+    TT, _ = pick_tile(packed.C, Hc + P, P, itemsize, with_acc=not gn)
+    return TT, Hc + P, Hc, 0, 0
+
+
+def resblock_tower(
+    x: torch.Tensor,
+    weights: Union[Weights, PackedTower],
+    biases: Optional[Weights] = None,
+    *,
+    kernel_sizes: Optional[Sequence[int]] = None,
+    dilation_sizes: Optional[Sequence[Sequence[int]]] = None,
+    resblock: str = "1",
+    post_weight: Optional[torch.Tensor] = None,
+    post_bias: Optional[torch.Tensor] = None,
     post_tanh: bool = False,
 ) -> torch.Tensor:
     """Mean of the resblock chains over ``x [B, C, T]`` -> ``[B, C, T]``, or
     with ``post_weight [C_post, C, kp]``: ``(tanh)(conv(lrelu(mean)))`` ->
     ``[B, C_post, T]``. ``weights[g][i]`` is conv ``i`` of chain ``g``,
-    ``[C, C, k]``; ``biases[g][i]`` is ``[C]``."""
-    kw = dict(kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes, resblock=resblock)
-    tensors = [x, *(t for ch in weights for t in ch), *(t for ch in biases for t in ch)]
-    tensors += [t for t in (post_weight, post_bias) if t is not None]
-    if all(t.device.type == "cpu" for t in tensors):
+    ``[C, C, k]``; ``biases[g][i]`` is ``[C]``. ``weights`` may instead be a
+    :class:`PackedTower` (then it carries the biases, the chain structure and
+    the post conv)."""
+    p = _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock,
+                   post_weight=post_weight, post_bias=post_bias)
+    if x.device.type == "cpu" and p.device.type == "cpu":
         return resblock_tower_plain(
-            x, weights, biases, post_weight=post_weight, post_bias=post_bias, post_tanh=post_tanh, **kw
+            x, p.weights, p.biases, kernel_sizes=p.kernel_sizes, dilation_sizes=p.dilation_sizes,
+            resblock=p.resblock, post_weight=p.post_weight, post_bias=p.post_bias, post_tanh=post_tanh,
         )
-    w_all, b_all, spec = _check_and_pack(x, weights, biases, kernel_sizes, dilation_sizes, resblock,
-                                         "resblock_tower")
+    _check_call(x, p, "resblock_tower")
     B, C, T = x.shape
-    Hc = tower_halo(kernel_sizes, dilation_sizes, resblock)
-    c_out, kp, wp, bp = C, 1, None, None
-    if post_weight is not None:
-        c_out, c_in, kp = post_weight.shape
-        if c_in != C or kp % 2 == 0 or post_weight.device != x.device:
-            raise ValueError(f"resblock_tower: post weight {tuple(post_weight.shape)} for C={C}")
-        wp = post_weight.to(x.dtype).contiguous()
-        bp = (post_bias if post_bias is not None else torch.zeros(c_out, device=x.device)).float().contiguous()
-        if tuple(bp.shape) != (c_out,) or bp.device != x.device:
-            raise ValueError(f"resblock_tower: post bias {tuple(bp.shape)}")
-    P = (kp - 1) // 2
-    H = Hc + P
-    TT, _ = pick_tile(C, H, P, x.element_size(), with_acc=True, mma=uses_mma(x.dtype, C))
+    c_out, kp = (C, 1) if p.wp is None else (p.wp.shape[0], p.wp.shape[2])
+    TT, H, Hc, buf, smem = tower_geometry(p, gn=False)
     y = torch.empty((B, c_out, T), dtype=x.dtype, device=x.device)
     if B == 0 or T == 0:
         return y
     rc = load_library().acad_resblock_tower(
-        x.data_ptr(), w_all.data_ptr(), b_all.data_ptr(),
-        None if wp is None else wp.data_ptr(), None if bp is None else bp.data_ptr(),
-        y.data_ptr(), spec, B, C, T, TT, H, Hc, c_out, kp, int(post_tanh),
+        x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(),
+        None if p.wp is None else p.wp.data_ptr(), None if p.bp is None else p.bp.data_ptr(),
+        y.data_ptr(), p.spec, B, C, T, TT, H, Hc, buf, smem, c_out, kp, int(post_tanh),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower")
@@ -348,15 +547,69 @@ def resblock_tower(
     return y
 
 
+def gn_tower_chains(x: torch.Tensor, p: PackedTower) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of K4 on the card: the chain outputs ``[G, B, C, T]`` and their
+    moments ``[B, C, n_mom]`` (per-tile partials summed in tile order)."""
+    _check_call(x, p, "resblock_tower_gn")
+    B, C, T = x.shape
+    G = len(p.kernel_sizes)
+    TT, H, _, buf, smem = tower_geometry(p, gn=True)
+    n_mom = G + G * (G + 1) // 2
+    nT = -(-T // TT)
+    outs = torch.empty((G, B, C, T), dtype=x.dtype, device=x.device)
+    part = torch.empty((B, nT, C, n_mom), dtype=torch.float32, device=x.device)
+    mom = torch.empty((B, C, n_mom), dtype=torch.float32, device=x.device)
+    rc = load_library().acad_resblock_tower_gn(
+        x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(), outs.data_ptr(), part.data_ptr(),
+        mom.data_ptr(), p.spec, B, C, T, TT, H, buf, smem, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    check(rc, "resblock_tower_gn")
+    return outs, mom
+
+
+def gn_affines_cuda(mom, gn_scales, gn_biases, num_groups: int, epsilon: float, T: int):
+    """``gn_affine_kernel``: :func:`gn_affines` on the card, one block per batch row."""
+    B, C, _ = mom.shape
+    G = gn_scales.shape[0]
+    if mom.device.type != "cuda" or mom.dtype != torch.float32 or not mom.is_contiguous():
+        raise ValueError("gn_affines_cuda: mom must be a contiguous f32 CUDA tensor")
+    scales, bn = gn_scales.float().contiguous(), gn_biases.float().contiguous()
+    A = torch.empty((G, B, C), dtype=torch.float32, device=mom.device)
+    K = torch.empty((B, C), dtype=torch.float32, device=mom.device)
+    rc = load_library().acad_gn_affine(
+        mom.data_ptr(), scales.data_ptr(), bn.data_ptr(), A.data_ptr(), K.data_ptr(), B, C, G,
+        num_groups, T, float(epsilon), torch.cuda.current_stream(mom.device).cuda_stream,
+    )
+    check(rc, "gn_affine")
+    return A, K
+
+
+def gn_apply_cuda(rs: torch.Tensor, A: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """``gn_apply_kernel``: :func:`gn_apply` on the card, ``rs [G, B, C, T]`` in one pass."""
+    G, B, C, T = rs.shape
+    if rs.device.type != "cuda" or not rs.is_contiguous() or rs.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("gn_apply_cuda: rs must be a contiguous f32 or bf16 CUDA tensor")
+    if tuple(A.shape) != (G, B, C) or tuple(K.shape) != (B, C) or A.dtype != torch.float32 or K.dtype != torch.float32:
+        raise ValueError(f"gn_apply_cuda: A {tuple(A.shape)}, K {tuple(K.shape)} for rs {tuple(rs.shape)}")
+    y = torch.empty((B, C, T), dtype=rs.dtype, device=rs.device)
+    rc = load_library().acad_gn_apply(
+        rs.data_ptr(), A.contiguous().data_ptr(), K.contiguous().data_ptr(), y.data_ptr(), B, C, T, G,
+        int(rs.dtype == torch.bfloat16), torch.cuda.current_stream(rs.device).cuda_stream,
+    )
+    check(rc, "gn_apply")
+    return y
+
+
 def resblock_tower_gn(
     x: torch.Tensor,
-    weights: Weights,
-    biases: Weights,
+    weights: Union[Weights, PackedTower],
+    biases: Optional[Weights],
     gn_scales: torch.Tensor,
     gn_biases: torch.Tensor,
     *,
-    kernel_sizes: Sequence[int],
-    dilation_sizes: Sequence[Sequence[int]],
+    kernel_sizes: Optional[Sequence[int]] = None,
+    dilation_sizes: Optional[Sequence[Sequence[int]]] = None,
     resblock: str = "1",
     num_groups: int,
     epsilon: float = 1e-6,
@@ -364,36 +617,25 @@ def resblock_tower_gn(
     """Encoder resblock bundle over ``x [B, C, T]`` (reference
     models.py:405-416): ``xs_0 = GN_0(r_0)``, ``xs_g = GN_g(xs_{g-1} + r_g)``,
     ``out = xs_last / G``, every chain ``r_g`` reading ``x``.
-    ``gn_scales``/``gn_biases`` are ``[G, C]``."""
-    kw = dict(kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes, resblock=resblock)
-    tensors = [x, gn_scales, gn_biases, *(t for ch in weights for t in ch), *(t for ch in biases for t in ch)]
-    if all(t.device.type == "cpu" for t in tensors):
+    ``gn_scales``/``gn_biases`` are ``[G, C]``. ``weights`` may be a
+    :class:`PackedTower` (``biases`` is then not read)."""
+    p = _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock)
+    if all(t.device.type == "cpu" for t in (x, gn_scales, gn_biases)) and p.device.type == "cpu":
         return resblock_tower_gn_plain(
-            x, weights, biases, gn_scales, gn_biases, num_groups=num_groups, epsilon=epsilon, **kw
+            x, p.weights, p.biases, gn_scales, gn_biases, kernel_sizes=p.kernel_sizes,
+            dilation_sizes=p.dilation_sizes, resblock=p.resblock, num_groups=num_groups, epsilon=epsilon,
         )
-    w_all, b_all, spec = _check_and_pack(x, weights, biases, kernel_sizes, dilation_sizes, resblock,
-                                         "resblock_tower_gn")
+    _check_call(x, p, "resblock_tower_gn")
     B, C, T = x.shape
-    G = len(kernel_sizes)
+    G = len(p.kernel_sizes)
     if tuple(gn_scales.shape) != (G, C) or tuple(gn_biases.shape) != (G, C) or C % num_groups:
         raise ValueError(f"resblock_tower_gn: GroupNorm params {tuple(gn_scales.shape)}, {num_groups} groups")
     if gn_scales.device != x.device or gn_biases.device != x.device:
         raise ValueError("resblock_tower_gn: GroupNorm params on another device")
-    H = tower_halo(kernel_sizes, dilation_sizes, resblock)
-    TT, _ = pick_tile(C, H, 0, x.element_size(), with_acc=False, mma=uses_mma(x.dtype, C))
     if B == 0 or T == 0:
         return torch.empty_like(x)
-    n_mom = G + G * (G + 1) // 2
-    nT = -(-T // TT)
-    outs = torch.empty((G, B, C, T), dtype=x.dtype, device=x.device)
-    part = torch.empty((B, nT, C, n_mom), dtype=torch.float32, device=x.device)
-    mom = torch.empty((B, C, n_mom), dtype=torch.float32, device=x.device)
-    rc = load_library().acad_resblock_tower_gn(
-        x.data_ptr(), w_all.data_ptr(), b_all.data_ptr(), outs.data_ptr(), part.data_ptr(),
-        mom.data_ptr(), spec, B, C, T, TT, H, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    check(rc, "resblock_tower_gn")
+    outs, mom = gn_tower_chains(x, p)
     global GN_TOWER_LAUNCHES
     GN_TOWER_LAUNCHES += 1
-    return gn_recombine(list(outs), mom, gn_scales, gn_biases, num_groups, epsilon)
+    A, K = gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T)
+    return gn_apply_cuda(outs, A, K)

@@ -3,7 +3,8 @@
 
 Builds the hand-written kernels from ``academicodec_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card (K1 RVQ search, K2 LSTM,
-K3 resblock tower, K4 GroupNorm resblock bundle), then drives the port's two
+K3 resblock tower, K4 GroupNorm resblock bundle and its two pass-2 kernels),
+then drives the port's two
 paths through the public entry points, each at batch 8 x 10 s in bf16 with
 seeded random weights: the flagship Encodec_24k_240d roundtrip (wav ->
 SEANet encoder -> RVQ -> SEANet decoder -> wav, N(0, 1) codebooks) and the
@@ -311,9 +312,23 @@ def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0):
     return bound(flops, nbytes, PEAK_BF16_FLOPS)
 
 
-def phase_resblock(device, iters=3) -> dict:
+def _geometry(packed, gn: bool) -> dict:
+    """The tile geometry of a tower launch, as the wrapper picks it."""
+    TT, H, _, buf, smem = resblock_ops.tower_geometry(packed, gn)
+    geo = dict(TT=TT, W=TT + 2 * H, tensor_cores=packed.tc)
+    if packed.tc:
+        post = 0 if packed.wp is None else (packed.wp.shape[2] - 1) // 2
+        g = resblock_ops.pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes,
+                                      packed.resblock, post, gn)
+        geo.update(smem_bytes=smem, blocks_per_sm=g.blocks_per_sm, chain_starts=list(g.starts),
+                   rows_multiplied_per_output_row=g.cost)
+    return geo
+
+
+def phase_resblock(device, iters=5) -> dict:
     """K3 against its plain version: bf16 at the generator's stage 2 (no post)
-    and stage 3 (post + tanh) shapes, f32 at a ragged T below 2x the halo."""
+    and stage 3 (post + tanh) shapes, f32 at a ragged T below 2x the halo.
+    Timed as the model calls it, with the operands packed once."""
     cases = []
     for tag, dtype, B, C, T, post in (
         ("s2", torch.bfloat16, 8, 64, 120000, False),
@@ -322,31 +337,40 @@ def phase_resblock(device, iters=3) -> dict:
     ):
         weights, biases = _tower_weights(C, RB1_KS, RB1_DS, device, dtype, seed=C)
         kw = dict(kernel_sizes=RB1_KS, dilation_sizes=RB1_DS, resblock="1")
+        pkw = {}
         if post:
             g = torch.Generator().manual_seed(7)
-            kw.update(post_weight=(torch.randn((1, C, 7), generator=g) * (0.5 / math.sqrt(C * 7))).to(device, dtype),
-                      post_bias=torch.zeros(1, device=device, dtype=dtype), post_tanh=True)
+            pkw = dict(post_weight=(torch.randn((1, C, 7), generator=g) * (0.5 / math.sqrt(C * 7))).to(device, dtype),
+                       post_bias=torch.zeros(1, device=device, dtype=dtype))
         x = _randn((B, C, T), device, dtype, seed=T)
+        packed = resblock_ops.pack_tower(weights, biases, **kw, **pkw)
         with torch.no_grad():
-            y = resblock_ops.resblock_tower(x, weights, biases, **kw).float()
-            ref = resblock_ops.resblock_tower_plain(x, weights, biases, **kw).float()
+            y = resblock_ops.resblock_tower(x, weights, biases, post_tanh=post, **kw, **pkw).float()
+            y_packed = resblock_ops.resblock_tower(x, packed, post_tanh=post).float()
+            ref = resblock_ops.resblock_tower_plain(x, weights, biases, post_tanh=post, **kw, **pkw).float()
         err = (y - ref).abs().max().item()
         # bf16: kernel and plain round at the same points; f32 summation order
         # can flip one bf16 rounding inside a chain, so the bound scales with |ref|
         tol = 2e-2 * ref.abs().max().item() if dtype == torch.bfloat16 else 1e-4
-        print(f"[resblock] {tag} {dtype} [{B},{C},{T}] post={post}: max abs diff {err:.3g} (tol {tol:.3g})")
-        if not (y.shape == ref.shape and err <= tol):
+        geo = _geometry(packed, gn=False)
+        print(f"[resblock] {tag} {dtype} [{B},{C},{T}] post={post}: max abs diff {err:.3g} (tol {tol:.3g}); {geo}")
+        if not (y.shape == ref.shape and err <= tol and torch.equal(y, y_packed)):
             raise AssertionError(f"resblock_tower disagrees with resblock_tower_plain ({tag})")
-        case = dict(case=tag, shape=[B, C, T], post=post, max_abs_err=err, tolerance=tol)
+        case = dict(case=tag, shape=[B, C, T], post=post, max_abs_err=err, tolerance=tol, geometry=geo)
         if dtype == torch.bfloat16:
             with torch.no_grad():
-                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower(x, weights, biases, **kw), iters)
-                case["plain_ms"] = time_ms(lambda: resblock_ops.resblock_tower_plain(x, weights, biases, **kw), 2)
+                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower(x, packed, post_tanh=post), iters)
+                case["ms_packing_each_call"] = time_ms(
+                    lambda: resblock_ops.resblock_tower(x, weights, biases, post_tanh=post, **kw, **pkw), iters)
+                case["plain_ms"] = time_ms(
+                    lambda: resblock_ops.resblock_tower_plain(x, weights, biases, post_tanh=post, **kw, **pkw), 2)
             case["bound_ms"], case["bound_by"] = _tower_bound(B, C, T, RB1_KS, RB1_DS, 2, *((1, 7) if post else (0, 0)))
-            print(f"[resblock] {tag} kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+            print(f"[resblock] {tag} kernel {case['ms']:.4f} ms ({case['ms_packing_each_call']:.4f} ms packing the "
+                  f"weights at every call), plain {case['plain_ms']:.4f} ms, bound {case['bound_ms']:.4f} ms "
+                  f"({case['bound_by']}): {case['share_of_bound']:.1%} of the bound rate")
         cases.append(case)
-        del x, y, ref
+        del x, y, y_packed, ref
     timed = [c for c in cases if "ms" in c]
     return dict(
         name="resblock_tower", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
@@ -359,9 +383,30 @@ def phase_resblock(device, iters=3) -> dict:
     )
 
 
-def phase_resblock_gn(device, iters=3) -> dict:
-    """K4 (pass 1 kernel + pass 2) against its plain version: bf16 at the
-    encoder's stage 0 shape with 3 chains, f32 at a ragged T."""
+def _check_gn_pass2(outs, mom, scs, gbs, num_groups, T) -> dict:
+    """``gn_affine_kernel`` and ``gn_apply_kernel`` against their plain versions
+    on the same inputs: A, K within rtol 1e-5 (f32), the output within one
+    ulp of its storage dtype."""
+    A, K = resblock_ops.gn_affines_cuda(mom, scs, gbs, num_groups, 1e-6, T)
+    A_ref, K_ref = resblock_ops.gn_affines(mom, scs, gbs, num_groups, 1e-6, T)
+    y = resblock_ops.gn_apply_cuda(outs, A_ref, K_ref).float()
+    y_ref = resblock_ops.gn_apply(list(outs), A_ref, K_ref).float()
+    ulp = 2.0 ** -7 if outs.dtype == torch.bfloat16 else 2.0 ** -23  # relative size of one ulp at most
+    errs = dict(
+        affine_A_rel=((A - A_ref).abs() / A_ref.abs().clamp_min(1e-6)).max().item(),
+        affine_K_rel=((K - K_ref).abs() / K_ref.abs().clamp_min(1e-3)).max().item(),
+        apply_ulps=((y - y_ref).abs() / (y_ref.abs().clamp_min(1e-3) * ulp)).max().item(),
+    )
+    if not (errs["affine_A_rel"] <= 1e-5 and errs["affine_K_rel"] <= 1e-5 and errs["apply_ulps"] <= 1.0):
+        raise AssertionError(f"K4 pass 2 kernels disagree with their plain versions: {errs}")
+    return errs
+
+
+def phase_resblock_gn(device, iters=5) -> dict:
+    """K4 (pass 1 kernel, affines, apply) against its plain version: bf16 at
+    the encoder's stage 0 shape with 3 chains, f32 at a ragged T; the two
+    pass-2 kernels each against their own plain version; the moments and the
+    output identical between two calls."""
     ks, dss = tuple(reversed(RB1_KS)), RB1_DS
     cases, timed = [], None
     for tag, dtype, B, C, T in (
@@ -372,35 +417,54 @@ def phase_resblock_gn(device, iters=3) -> dict:
         g = torch.Generator().manual_seed(8)
         scs = (torch.randn((3, C), generator=g) * 0.3 + 1.0).to(device, dtype)
         gbs = (torch.randn((3, C), generator=g) * 0.1).to(device, dtype)
-        kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
+        kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1")
+        gkw = dict(num_groups=C // 16)
         x = _randn((B, C, T), device, dtype, seed=T + 1)
+        packed = resblock_ops.pack_tower(weights, biases, **kw)
         with torch.no_grad():
-            y = resblock_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw).float()
-            ref = resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw).float()
-        err = (y - ref).abs().max().item()
+            y = resblock_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw, **gkw)
+            y_again = resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, **gkw)
+            ref = resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw, **gkw).float()
+            outs, mom = resblock_ops.gn_tower_chains(x, packed)
+            _, mom_again = resblock_ops.gn_tower_chains(x, packed)
+            pass2 = _check_gn_pass2(outs, mom, scs, gbs, C // 16, T)
+        err = (y.float() - ref).abs().max().item()
         # the JAX package's bf16 tolerance for this bundle; f32: summation order only
         tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
-        print(f"[resblock_gn] {tag} {dtype} [{B},{C},{T}]: max abs diff {err:.3g} (atol {tol})")
+        geo = _geometry(packed, gn=True)
+        print(f"[resblock_gn] {tag} {dtype} [{B},{C},{T}]: max abs diff {err:.3g} (atol {tol}); pass 2 {pass2}; {geo}")
         if not (y.shape == ref.shape and err <= tol):
             raise AssertionError(f"resblock_tower_gn disagrees with resblock_tower_gn_plain ({tag})")
-        case = dict(case=tag, shape=[B, C, T], max_abs_err=err, tolerance=tol)
+        if not (torch.equal(y, y_again) and torch.equal(mom, mom_again)):
+            raise AssertionError(f"resblock_tower_gn differs between two calls ({tag})")
+        case = dict(case=tag, shape=[B, C, T], max_abs_err=err, tolerance=tol, geometry=geo, **pass2)
         if dtype == torch.bfloat16:
             with torch.no_grad():
-                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw), iters)
+                A, K = resblock_ops.gn_affines_cuda(mom, scs, gbs, C // 16, 1e-6, T)
+                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, **gkw), iters)
+                case["pass1_ms"] = time_ms(lambda: resblock_ops.gn_tower_chains(x, packed), iters)
+                case["affine_ms"] = time_ms(
+                    lambda: resblock_ops.gn_affines_cuda(mom, scs, gbs, C // 16, 1e-6, T), iters)
+                case["apply_ms"] = time_ms(lambda: resblock_ops.gn_apply_cuda(outs, A, K), iters)
                 case["plain_ms"] = time_ms(
-                    lambda: resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw), 2)
+                    lambda: resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw, **gkw), 2)
             case["bound_ms"], case["bound_by"] = _tower_bound(B, C, T, ks, dss, 2)
-            print(f"[resblock_gn] {tag} kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, "
-                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+            print(f"[resblock_gn] {tag} kernel {case['ms']:.4f} ms (pass 1 {case['pass1_ms']:.4f}, affines "
+                  f"{case['affine_ms']:.4f}, apply {case['apply_ms']:.4f}), plain {case['plain_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}): {case['share_of_bound']:.1%} of the bound rate")
             timed = case
         cases.append(case)
-        del x, y, ref
+        del x, y, y_again, ref, outs
     return dict(
         name="resblock_tower_gn", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
         replaces="academicodec_tpu/ops/pallas/resblock.py:230", max_abs_err=timed["max_abs_err"],
-        tolerance="atol 5e-2 in bf16, 1e-4 in f32", ms=timed["ms"], plain_ms=timed["plain_ms"],
+        tolerance="atol 5e-2 in bf16, 1e-4 in f32; A, K rtol 1e-5; apply one ulp",
+        ms=timed["ms"], plain_ms=timed["plain_ms"],
         bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=None,
-        note="ms times the whole wrapper: the pass-1 kernel, the moments reduction and pass 2", cases=cases,
+        pass1_ms=timed["pass1_ms"], affine_ms=timed["affine_ms"], apply_ms=timed["apply_ms"],
+        note="ms times the whole wrapper: the pass-1 kernel, the moments reduction, "
+             "gn_affine_kernel and gn_apply_kernel", cases=cases,
     )
 
 

@@ -10,6 +10,13 @@ everything else, and the device's busy and idle shares of the profiled
 window. Needs one CUDA device.
 
     python3 profile_port.py [--preset hificodec_24k_320d] [--top 20]
+
+``--tower-clocks`` instead builds the kernels with ``-DTOWER_PROFILE`` and
+launches K3 once at each flagship stage shape: two blocks of the tensor-core
+kernel then print the ``clock64`` counts of their phases (window loads, the
+chains, and inside the chains the waits for tap tiles and the epilogues).
+
+    python3 profile_port.py --tower-clocks
 """
 
 from __future__ import annotations
@@ -28,8 +35,9 @@ import chip_smoke
 GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("K1 rvq_encode", ("rvq_encode_kernel", "embed_sqnorm_kernel", "embed_tiles_kernel")),
     ("K2 lstm2", ("lstm2_kernel",)),
-    ("K4 resblock_tower_gn", ("gn_tower_kernel", "moments_reduce_kernel")),
-    ("K3 resblock_tower", ("tower_kernel",)),
+    ("K4 resblock_tower_gn", ("gn_tower_kernel", "gn_tower_fma_kernel", "moments_reduce_kernel",
+                              "gn_affine_kernel", "gn_apply_kernel")),
+    ("K3 resblock_tower", ("tower_kernel", "tower_fma_kernel")),
     ("conv (cuDNN)", ("fprop", "dgrad", "conv", "Conv", "winograd", "fft", "implicit")),
     ("gemm (cuBLAS)", ("gemm", "Gemm", "nvjet", "cutlass", "xmma")),
 )
@@ -42,16 +50,37 @@ def group_of(name: str) -> str:
     return "other (elementwise, pad, reduce, copy)"
 
 
+def tower_clocks() -> None:
+    """One K3 launch at the s2 and at the s3 shape from a ``-DTOWER_PROFILE`` build."""
+    ops = chip_smoke.resblock_ops
+    for tag, C, T in (("s2", 64, 120000), ("s3", 32, 240000)):
+        weights, biases = chip_smoke._tower_weights(C, chip_smoke.RB1_KS, chip_smoke.RB1_DS, "cuda",
+                                                    torch.bfloat16, seed=C)
+        packed = ops.pack_tower(weights, biases, kernel_sizes=chip_smoke.RB1_KS,
+                                dilation_sizes=chip_smoke.RB1_DS)
+        x = chip_smoke._randn((8, C, T), "cuda", torch.bfloat16, seed=T)
+        print(f"[clocks] {tag} [8,{C},{T}] {chip_smoke._geometry(packed, gn=False)}", flush=True)
+        ops.resblock_tower(x, packed)
+        torch.cuda.synchronize()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", default=chip_smoke.FLAGSHIP,
                         choices=(chip_smoke.FLAGSHIP, chip_smoke.HIFI))
     parser.add_argument("--top", type=int, default=20)
+    parser.add_argument("--tower-clocks", action="store_true",
+                        help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device is available", file=sys.stderr)
         return 1
     smi = chip_smoke.phase_device()
+    if args.tower_clocks:
+        chip_smoke.kernel_build.NVCC_FLAGS.append("-DTOWER_PROFILE")
+        chip_smoke.phase_build()
+        tower_clocks()
+        return 0
     chip_smoke.phase_build()
     if args.preset == chip_smoke.HIFI:
         run = chip_smoke.phase_hificodec("cuda", iters=3)

@@ -188,8 +188,8 @@ def _tol(dtype, ref, f32_atol):
         (3, 16, 45, True),     # T below the halo: every output sees both edges
         (2, 64, 130, False),   # exactly one tile
         (2, 24, 300, False),   # C % 16 != 0: bf16 takes the FMA path
-        (2, 48, 300, False),   # bf16: C not fixed at compile time, one m-tile a warp
-        (1, 96, 500, True),    # bf16: C not fixed at compile time, two m-tiles a warp
+        (2, 48, 300, False),   # bf16: not a width of the tensor-core path, so the FMA path
+        (1, 96, 500, True),    # bf16: likewise, with the post conv
     ],
 )
 def test_resblock_tower_kernel_matches_plain(cuda, dtype, rbk, B, C, T, post):
@@ -217,7 +217,7 @@ def test_resblock_tower_kernel_matches_plain(cuda, dtype, rbk, B, C, T, post):
         ((3, 7), ((1, 3), (1, 3)), 32, 575),
         ((11, 7, 3), ((1, 3, 5),) * 3, 64, 1100),
         ((11, 7, 3), ((1, 3, 5),) * 3, 32, 50),
-        ((11, 7, 3), ((1, 3, 5),) * 3, 128, 333),  # bf16: four m-tiles a warp; f32: a 16-column tile
+        ((11, 7, 3), ((1, 3, 5),) * 3, 128, 333),  # bf16: the FMA path; f32: a 16-column tile
     ],
 )
 def test_resblock_tower_gn_kernel_matches_plain(cuda, dtype, ks, dss, C, T):
@@ -236,6 +236,169 @@ def test_resblock_tower_gn_kernel_matches_plain(cuda, dtype, ks, dss, C, T):
     ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw).float()
     # bf16: the JAX package's tolerance for this bundle
     torch.testing.assert_close(y.float(), ref, atol=5e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
+
+
+def _k3_case(cuda, dtype, rbk, B, C, T, post=False, post_tanh=True, seed=None):
+    """One K3 call against its plain version; returns the kernel's output."""
+    resblock, ks, dss = rbk
+    rng = np.random.default_rng(C + T if seed is None else seed)
+    weights, biases = _tower(rng, C, ks, dss, resblock, cuda, dtype)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock)
+    if post:
+        kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
+                  post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=post_tanh)
+    x = _randn(rng, (B, C, T), cuda, 0.5).to(dtype)
+    before = rb_ops.TOWER_LAUNCHES
+    y = rb_ops.resblock_tower(x, weights, biases, **kw)
+    torch.cuda.synchronize()
+    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == (B, 1 if post else C, T)
+    ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
+    torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
+    return y
+
+
+def _tc_tile(C, rbk, post, gn=False):
+    resblock, ks, dss = rbk
+    return rb_ops.pick_tile_tc(C, ks, dss, resblock, 3 if post else 0, gn).TT
+
+
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("edge", ["TT-1", "TT", "TT+1", "2TT+1"])
+def test_resblock_tower_at_tile_edges(cuda, C, edge):
+    """bf16 tensor-core path with T just below, at and just above one tile, and
+    one past two tiles: the ragged last tile and its zero edge."""
+    post = C == 32
+    tt = _tc_tile(C, RB1, post)
+    T = {"TT-1": tt - 1, "TT": tt, "TT+1": tt + 1, "2TT+1": 2 * tt + 1}[edge]
+    _k3_case(cuda, torch.bfloat16, RB1, 2, C, T, post=post)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,C,B", [(1, 16, 1), (1, 64, 1), (7, 32, 1), (59, 64, 1), (59, 16, 2)])
+def test_resblock_tower_below_one_halo(cuda, dtype, T, C, B):
+    """T of one sample and T below the 60-sample halo, batch 1 included."""
+    _k3_case(cuda, dtype, RB1, B, C, T, post=T == 7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rbk", [RB1, RB2], ids=["resblock1", "resblock2"])
+@pytest.mark.parametrize("C", [16, 32, 64])
+def test_resblock_tower_post_without_tanh(cuda, dtype, rbk, C):
+    _k3_case(cuda, dtype, rbk, 1, C, 400, post=True, post_tanh=False)
+
+
+@pytest.mark.parametrize("C", [8, 48])
+@pytest.mark.parametrize("rbk", [RB1, RB2], ids=["resblock1", "resblock2"])
+def test_resblock_tower_bf16_fma_widths(cuda, C, rbk):
+    """bf16 at widths the tensor-core path does not take runs the FMA path."""
+    assert not rb_ops.uses_tc(torch.bfloat16, C)
+    _k3_case(cuda, torch.bfloat16, rbk, 2, C, 333, post=C == 8)
+
+
+@pytest.mark.parametrize("tag,C,T,post", [("s2", 64, 120000, False), ("s3", 32, 240000, True)])
+def test_resblock_tower_flagship_shapes(cuda, tag, C, T, post):
+    """The generator stages of hificodec_24k_320d at batch 8 x 10 s, twice: the
+    same bits both times."""
+    y0 = _k3_case(cuda, torch.bfloat16, RB1, 8, C, T, post=post, seed=1)
+    y1 = _k3_case(cuda, torch.bfloat16, RB1, 8, C, T, post=post, seed=1)
+    assert torch.equal(y0, y1)
+
+
+def test_resblock_tower_packed_operands(cuda):
+    """Operands packed once give the bits of a call that packs on the spot,
+    and a packed tower refuses an input of another dtype or width."""
+    resblock, ks, dss = RB1
+    rng = np.random.default_rng(9)
+    weights, biases = _tower(rng, 64, ks, dss, resblock, cuda, torch.bfloat16)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock)
+    packed = rb_ops.pack_tower(weights, biases, **kw)
+    assert packed.tc and packed.w_all.dtype == torch.bfloat16
+    assert torch.equal(rb_ops.unpack_taps(packed.w_all[: 64 * 64 * 3], 64, 3), weights[0][0])
+    x = _randn(rng, (2, 64, 500), cuda, 0.5).to(torch.bfloat16)
+    assert torch.equal(rb_ops.resblock_tower(x, packed), rb_ops.resblock_tower(x, weights, biases, **kw))
+    with pytest.raises(ValueError, match="packed as"):
+        rb_ops.resblock_tower(x.float(), packed)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rb_ops.resblock_tower(x.cpu(), packed)
+
+
+def _k4_inputs(cuda, dtype, ks, dss, B, C, T, seed):
+    rng = np.random.default_rng(seed)
+    G = len(ks)
+    weights, biases = _tower(rng, C, ks, dss, "1", cuda, dtype)
+    scs = (_randn(rng, (G, C), cuda, 0.3) + 1.0).to(dtype)
+    gbs = _randn(rng, (G, C), cuda, 0.1).to(dtype)
+    x = _randn(rng, (B, C, T), cuda, 0.5).to(dtype)
+    return x, weights, biases, scs, gbs, dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1")
+
+
+RB1_ENC = ("1", (11, 7, 3), ((1, 3, 5),) * 3)
+
+
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("edge", ["1", "below halo", "TT-1", "TT", "TT+1", "2TT+1"])
+def test_resblock_tower_gn_at_tile_edges(cuda, C, edge):
+    """K4 in bf16 on the tensor-core path at the tile edges, T 1 and T below
+    the halo; batch 1 at C 16."""
+    tt = _tc_tile(C, RB1_ENC, False, gn=True)
+    T = {"1": 1, "below halo": 41, "TT-1": tt - 1, "TT": tt, "TT+1": tt + 1, "2TT+1": 2 * tt + 1}[edge]
+    x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, torch.bfloat16, RB1_ENC[1], RB1_ENC[2],
+                                                   1 if C == 16 else 2, C, T, seed=T)
+    y = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, num_groups=C // 16, **kw)
+    torch.cuda.synchronize()
+    ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, num_groups=C // 16, **kw).float()
+    # T 1: a group's variance over 16 values of one sample each; the plain
+    # version and the kernel differ by the rounding of single chain outputs
+    torch.testing.assert_close(y.float(), ref, atol=5e-2, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,B,C,T", [(torch.bfloat16, 8, 64, 120000), (torch.bfloat16, 2, 32, 1001),
+                                         (torch.float32, 2, 32, 575)])
+def test_resblock_tower_gn_is_reproducible(cuda, dtype, B, C, T):
+    """The encoder's stage 0 shape (and two small ones): chain outputs, moments
+    and the output are the same bits in two calls (fixed-order sums, no
+    atomics), and the whole agrees with the plain version."""
+    x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, dtype, RB1_ENC[1], RB1_ENC[2], B, C, T, seed=3)
+    packed = rb_ops.pack_tower(weights, biases, **kw)
+    outs0, mom0 = rb_ops.gn_tower_chains(x, packed)
+    outs1, mom1 = rb_ops.gn_tower_chains(x, packed)
+    assert torch.equal(outs0, outs1) and torch.equal(mom0, mom1)
+    torch.testing.assert_close(mom0, rb_ops.moments(list(outs0)), rtol=1e-4, atol=1e-2)
+    y0 = rb_ops.resblock_tower_gn(x, packed, None, scs, gbs, num_groups=C // 16)
+    y1 = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, num_groups=C // 16, **kw)
+    assert torch.equal(y0, y1)
+    ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, num_groups=C // 16, **kw).float()
+    torch.testing.assert_close(y0.float(), ref, atol=5e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("G,B,C,T,groups", [(3, 8, 64, 120000, 4), (2, 3, 32, 575, 2), (1, 1, 16, 9, 1),
+                                            (4, 2, 128, 300, 8)])
+def test_gn_affine_kernel_matches_plain(cuda, G, B, C, T, groups):
+    """``gn_affine_kernel`` against ``gn_affines`` on moments of random chain
+    outputs: f32, every operation rounded as in the plain version, group sums
+    in channel order."""
+    rng = np.random.default_rng(G + C)
+    rs = [_randn(rng, (B, C, min(T, 2000)), cuda, 0.7) for _ in range(G)]
+    mom = rb_ops.moments(rs) * (T / min(T, 2000))
+    scs, gbs = _randn(rng, (G, C), cuda, 0.3) + 1.0, _randn(rng, (G, C), cuda, 0.1)
+    A, K = rb_ops.gn_affines_cuda(mom, scs, gbs, groups, 1e-6, T)
+    A_ref, K_ref = rb_ops.gn_affines(mom, scs, gbs, groups, 1e-6, T)
+    torch.testing.assert_close(A, A_ref, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(K, K_ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,B,C,T", [(3, 2, 64, 4096), (2, 3, 16, 575), (1, 1, 8, 1), (4, 1, 32, 8)])
+def test_gn_apply_kernel_matches_plain(cuda, dtype, G, B, C, T):
+    """``gn_apply_kernel`` (16-byte loads where T allows, scalar otherwise)
+    against ``gn_apply``: the same f32 operations, so the same bits."""
+    rng = np.random.default_rng(T)
+    rs = _randn(rng, (G, B, C, T), cuda, 0.7).to(dtype)
+    A, K = _randn(rng, (G, B, C), cuda, 1.0), _randn(rng, (B, C), cuda, 0.5)
+    y = rb_ops.gn_apply_cuda(rs, A, K)
+    assert y.dtype == dtype and y.shape == (B, C, T)
+    assert torch.equal(y, rb_ops.gn_apply(list(rs), A, K))
 
 
 def test_vqvae_cuda_matches_cpu(cuda):

@@ -146,33 +146,173 @@ def test_moments_order():
 @pytest.mark.parametrize(
     "C,H,post,itemsize,acc,expected_tt",
     [
-        (64, 63, 3, 2, True, 130),   # generator s2 width, bf16: one 256-column strip
+        (64, 63, 3, 2, True, 130),   # generator s2 width, 2-byte storage: one 256-column strip
         (32, 63, 3, 2, True, 386),   # s3: two strips keep all 8 warps busy
         (64, 63, 3, 4, True, 130),   # f32 still fits the 227 KB opt-in
         (64, 60, 0, 2, False, 136),  # encoder s0 (K4)
+        (128, 60, 0, 2, False, 136), # bf16 C 128, which the tensor-core path does not take
+        (48, 60, 0, 2, False, 136),  # bf16 C 48 likewise
+        (8, 2, 0, 4, True, 1812),    # narrow and shallow: the widest window that fits, not whole strips
     ],
 )
-@pytest.mark.parametrize("mma", [False, True])
-def test_pick_tile(C, H, post, itemsize, acc, expected_tt, mma):
-    mma = mma and itemsize == 2  # the tensor-core path is bf16 only
-    tt, smem = rb.pick_tile(C, H, post, itemsize, acc, mma=mma)
-    assert tt == expected_tt and (tt + 2 * H) % rb.STRIP == 0
+def test_pick_tile(C, H, post, itemsize, acc, expected_tt):
+    """The FMA path's tile: whole 256-column strips where they fit."""
+    tt, smem = rb.pick_tile(C, H, post, itemsize, acc)
+    assert tt == expected_tt and tt >= 16
     assert smem <= 227 * 1024
-    assert rb.row_stride(tt + 2 * H, mma) % 64 == (8 if mma else 0)
+    assert rb.row_stride(tt + 2 * H) % 8 == 0
+    if C >= 32:
+        assert (tt + 2 * H) % rb.STRIP == 0
 
 
-def test_fragment_order():
-    """``_fragment_order`` lays a weight out as mma.sync m16n8k16 A fragments:
-    lane 4 gid + tig holds rows gid, gid + 8 and columns 2 tig (+1), 2 tig + 8 (+1)."""
-    O = I = 32
-    K = 2
-    w = torch.arange(O * I * K, dtype=torch.float32).reshape(O, I, K)
-    f = rb._fragment_order(w).reshape(K, O // 16, I // 16, 32, 8)
-    for j, mt, kt, lane in ((0, 0, 0, 0), (1, 1, 0, 13), (0, 1, 1, 31)):
-        gid, tig = lane >> 2, lane & 3
-        expected = [w[mt * 16 + gid + 8 * rh, kt * 16 + 2 * tig + p + 8 * ch, j].item()
-                    for ch in range(2) for rh in range(2) for p in range(2)]
-        assert f[j, mt, kt, lane].tolist() == expected
+RB1_ENC = ("1", (11, 7, 3), ((1, 3, 5),) * 3)
+
+
+@pytest.mark.parametrize(
+    "C,rbk,post,gn,expected",
+    [
+        (64, RB1, 0, False, (224, 344, 1)),      # generator s2, as chip_smoke.py prints it
+        (32, RB1, 3, False, (240, 366, 2)),      # generator s3 with conv_post
+        (64, RB1_ENC, 0, True, (224, 344, 1)),   # encoder s0 (K4)
+        (16, RB1, 3, False, None),
+        (32, RB1_ENC, 0, True, None),
+        (64, RB2, 0, False, None),
+        (16, RB2, 1, True, None),
+        (64, ("1", (3,), ((1,),)), 0, False, None),  # one shallow chain: the row cap, not memory, binds
+    ],
+)
+def test_pick_tile_tc(C, rbk, post, gn, expected):
+    """The tensor-core path's tile: fits its shared-memory budget and row cap,
+    at least 16 output columns in multiples of 8, every chain started at its
+    own halo so that all of them end on the same centre."""
+    resblock, ks, dss = rbk
+    geo = rb.pick_tile_tc(C, ks, dss, resblock, post, gn)
+    halos = rb.chain_halos(ks, dss, resblock)
+    Hc = max(halos)
+    assert geo.TT >= 16 and geo.TT % 8 == 0
+    assert geo.H == Hc + post and geo.W == geo.TT + 2 * geo.H <= rb.TC_MAX_ROWS[C]
+    assert geo.smem <= rb.TC_SMEM_BUDGET[C] <= 227 * 1024
+    assert geo.blocks_per_sm * geo.smem <= 228 * 1024 - 1024 * geo.blocks_per_sm
+    assert geo.buf % 1024 == 0 and geo.buf >= (geo.W + rb.TC_PAD_ROWS) * 2 * C
+    assert len(geo.starts) == len(ks)
+    for start, halo in zip(geo.starts, halos):
+        assert start >= 0 and start + halo == Hc  # the chain's last conv lands on [Hc, W - Hc)
+    if gn:
+        n_mom = len(ks) + len(ks) * (len(ks) + 1) // 2
+        assert 2 * geo.buf >= 2048 * n_mom  # the moments' scratch lies over two windows
+    assert 1.0 < geo.cost < 4.0
+    if expected is not None:
+        assert (geo.TT, geo.W, geo.blocks_per_sm) == expected
+
+
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_pack_taps_roundtrip(C, k):
+    """``pack_taps`` lays a weight out as k swizzled ``[C_out][C_in]`` tap tiles;
+    ``unpack_taps`` gives the ``[O, I, K]`` weight back. Element (co, ci) of a
+    tile sits in 16-byte chunk ``ci // 8 ^ (line & mask)`` of its row, with
+    ``line`` the 128-byte line of the row."""
+    w = torch.arange(C * C * k, dtype=torch.float32).reshape(C, C, k)
+    flat = rb.pack_taps(w)
+    assert flat.shape == (k * C * C,)
+    assert torch.equal(rb.unpack_taps(flat, C, k), w)
+    mask = C // 8 - 1
+    for j, co, ci in ((0, 0, 0), (k - 1, C - 1, C - 1), (k // 2, 5, 9), (1, C // 2 + 3, 8)):
+        line = co * 2 * C // 128
+        chunk = (ci // 8) ^ (line & mask)
+        assert flat[j * C * C + co * C + chunk * 8 + ci % 8].item() == w[co, ci, j].item()
+    assert sorted(rb.swizzle_perm(C).tolist()) == list(range(C * C))
+
+
+def _gn_recombine_one_function(rs, mom, gn_scales, gn_biases, num_groups, epsilon):
+    """Pass 2 as one function (the JAX algebra, academicodec_tpu/ops/pallas/
+    resblock.py:585-631), to hold ``gn_affines`` + ``gn_apply`` against."""
+    G = len(rs)
+    B, C, T = rs[0].shape
+    m = [mom[:, :, g] for g in range(G)]
+    q, col = {}, G
+    for g in range(G):
+        for h in range(g, G):
+            q[(g, h)] = q[(h, g)] = mom[:, :, col]
+            col += 1
+    gsize = C // num_groups
+    N = float(gsize * T)
+
+    def gsum(v):
+        s = v.reshape(B, num_groups, gsize).sum(dim=2, keepdim=True)
+        return s.expand(B, num_groups, gsize).reshape(B, C)
+
+    zeros = torch.zeros((B, C))
+    A, K = [zeros for _ in range(G)], zeros
+    for g in range(G):
+        A[g] = A[g] + 1.0
+        S = K * T
+        for h in range(G):
+            S = S + A[h] * m[h]
+        Q = K * K * T
+        for h in range(G):
+            Q = Q + 2.0 * K * A[h] * m[h]
+            for l in range(G):
+                Q = Q + A[h] * A[l] * q[(h, l)]
+        mu = gsum(S) / N
+        var = gsum(Q) / N - mu * mu
+        a = gn_scales[g].float() * torch.rsqrt(var + epsilon)
+        b = gn_biases[g].float() - mu * a
+        A = [a * Ah for Ah in A]
+        K = a * K + b
+    inv = 1.0 / float(G)
+    out = K[:, :, None] * inv
+    for g in range(G):
+        out = out + (A[g] * inv)[:, :, None] * rs[g].float()
+    return out.to(rs[0].dtype)
+
+
+@pytest.mark.parametrize("G,C,T,dtype", [(3, 32, 97, torch.float32), (2, 16, 40, torch.float32),
+                                         (3, 64, 50, torch.bfloat16)])
+def test_gn_affines_and_apply_compose_to_recombine(G, C, T, dtype):
+    """``gn_recombine`` = ``gn_apply(gn_affines(...))``, bit for bit the
+    one-function form; ``A`` is ``[G, B, C]`` and ``K`` ``[B, C]`` in f32."""
+    rng = np.random.default_rng(G * C)
+    rs = [torch.from_numpy(rng.standard_normal((2, C, T)).astype(np.float32)).to(dtype) for _ in range(G)]
+    scs = torch.from_numpy((rng.standard_normal((G, C)) * 0.3 + 1.0).astype(np.float32))
+    gbs = torch.from_numpy((rng.standard_normal((G, C)) * 0.1).astype(np.float32))
+    mom = rb.moments(rs)
+    A, K = rb.gn_affines(mom, scs, gbs, C // 16, 1e-6, T)
+    assert A.shape == (G, 2, C) and K.shape == (2, C) and A.dtype == K.dtype == torch.float32
+    expected = _gn_recombine_one_function(rs, mom, scs, gbs, C // 16, 1e-6)
+    assert torch.equal(rb.gn_apply(rs, A, K), expected)
+    assert torch.equal(rb.gn_recombine(rs, mom, scs, gbs, C // 16, 1e-6), expected)
+
+
+@pytest.mark.parametrize("post", [False, True])
+def test_wrappers_take_packed_operands(post):
+    """A ``PackedTower`` in place of the raw weights gives the same result
+    (on the CPU: the plain version reads the weights it holds)."""
+    rng = np.random.default_rng(5)
+    resblock, ks, dss = RB1
+    C = 16
+    weights, biases = _to_torch(*_rand_tower(rng, ks, dss, resblock, C))
+    x = torch.from_numpy((rng.standard_normal((2, C, 90)) * 0.5).astype(np.float32))
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock)
+    pkw = {}
+    if post:
+        pkw = dict(post_weight=torch.from_numpy((rng.standard_normal((1, C, 7)) * 0.1).astype(np.float32)),
+                   post_bias=torch.from_numpy(rng.standard_normal(1).astype(np.float32)))
+    packed = rb.pack_tower(weights, biases, **kw, **pkw)
+    assert packed.w_all is None and packed.C == C and not packed.tc  # nothing is packed for the CPU
+    assert torch.equal(rb.resblock_tower(x, packed, post_tanh=post),
+                       rb.resblock_tower(x, weights, biases, post_tanh=post, **kw, **pkw))
+    scs, gbs = torch.ones((3, C)), torch.zeros((3, C))
+    assert torch.equal(rb.resblock_tower_gn(x, packed, None, scs, gbs, num_groups=1),
+                       rb.resblock_tower_gn(x, weights, biases, scs, gbs, num_groups=1, **kw))
+
+
+def test_uses_tc():
+    """bf16 with 16, 32 or 64 channels takes the tensor-core path; everything
+    else the FMA path."""
+    assert all(rb.uses_tc(torch.bfloat16, C) for C in (16, 32, 64))
+    assert not any(rb.uses_tc(torch.bfloat16, C) for C in (8, 24, 48, 96, 128))
+    assert not any(rb.uses_tc(torch.float32, C) for C in (16, 32, 64))
 
 
 def test_cuda_wrapper_rejects_cpu_mixed_devices():
@@ -183,3 +323,63 @@ def test_cuda_wrapper_rejects_cpu_mixed_devices():
     b = [[torch.zeros(8)] * 2]
     with pytest.raises(ValueError, match="CUDA tensors"):
         rb.resblock_tower(x, w, b, kernel_sizes=(3,), dilation_sizes=((1,),), resblock="1")
+
+
+def _tiny_generator():
+    from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANGenerator
+
+    cfg = HiFiCodecConfig(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), upsample_initial_channel=32,
+                          encoder_base_channels=16, resblock_kernel_sizes=(3, 7),
+                          resblock_dilation_sizes=((1, 3), (1, 3)))
+    gen = HiFiGANGenerator(cfg)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.1)
+    return gen, torch.randn((1, cfg.latent_dim, 12), generator=g)
+
+
+def test_packed_stage_is_kept_between_calls():
+    """Serving packs a fused stage's operands once: the second call reuses them."""
+    gen, z = _tiny_generator()
+    with torch.no_grad():
+        y0 = gen(z)
+        kept = [st.packed for st in gen._packed]
+        y1 = gen(z)
+    assert all(p is not None for p in kept)  # both stages are narrow enough to be fused
+    assert all(st.packed is p for st, p in zip(gen._packed, kept))
+    assert torch.equal(y0, y1)
+
+
+def test_packed_stage_rebuilds_after_in_place_update():
+    """An optimizer-style in-place update of one weight is seen by the next call."""
+    gen, z = _tiny_generator()
+    with torch.no_grad():
+        y0 = gen(z)
+        kept = [st.packed for st in gen._packed]
+        gen.resblocks[0].convs1[0].weight_g.mul_(1.5)  # first stage only
+        y1 = gen(z)
+        fresh, _ = _tiny_generator()
+        fresh.resblocks[0].convs1[0].weight_g.mul_(1.5)
+        expected = fresh(z)
+    assert gen._packed[0].packed is not kept[0] and gen._packed[1].packed is kept[1]
+    assert not torch.equal(y0, y1) and torch.equal(y1, expected)
+
+
+def test_packed_stage_rebuilds_after_cast_and_with_grad():
+    """``.to(dtype)`` repacks in the new dtype; with gradients enabled nothing
+    is kept and the weights stay differentiable."""
+    gen, z = _tiny_generator()
+    with torch.no_grad():
+        gen(z)
+        kept = [st.packed for st in gen._packed]
+        gen.to(torch.bfloat16)
+        y = gen(z.to(torch.bfloat16))
+    assert y.dtype == torch.bfloat16
+    assert all(st.packed is not p and st.packed.dtype == torch.bfloat16 for st, p in zip(gen._packed, kept))
+    gen.to(torch.float32)
+    kept = [st.packed for st in gen._packed]
+    out = gen(z)  # gradients enabled
+    assert all(st.packed is p for st, p in zip(gen._packed, kept))  # untouched by the call
+    out.sum().backward()
+    assert gen.resblocks[0].convs1[0].weight_v.grad is not None
