@@ -1,0 +1,183 @@
+"""Whole-file compress/decompress on top of the ECDC container.
+
+Device-side ``encode() -> tokens`` (on the card: the SEANet towers with K2
+and the RVQ search K1), host-side bit packing into an ECDC stream, and the
+inverse. The metadata header carries what is needed to rebuild the decoder
+configuration.
+
+Format: ECDC header (JSON metadata: model family, sr, ratios, bandwidth,
+n_frames, audio_length) followed by the codebook indices packed LSB-first at
+``bits_per_codebook`` bits, layer-major (codes[k, t] iterated k, t), one
+stream per file. Blobs are byte-identical to the JAX package's on the same
+weights and wav.
+
+Not ported yet: LM entropy coding (a blob whose header sets ``lm`` raises)
+and mesh sharding of the batch or time axis.
+
+Behavioral parity target: academicodec_tpu/codec/compress.py:31-350.
+"""
+
+from __future__ import annotations
+
+import io
+import math
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from academicodec_tpu_torch.codec.binary import (
+    pack_array,
+    read_ecdc_header,
+    unpack_array,
+    write_ecdc_header,
+)
+
+
+def compress_codes(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
+    """codes ``[n_q, T]`` int -> ECDC byte stream."""
+    n_q, n_frames = codes.shape
+    fo = io.BytesIO()
+    meta = dict(metadata)
+    meta.update(n_q=int(n_q), n_frames=int(n_frames), bits=int(bits_per_codebook))
+    write_ecdc_header(fo, meta)
+    fo.write(pack_array(np.asarray(codes).reshape(-1), bits_per_codebook))
+    return fo.getvalue()
+
+
+def decompress_codes(blob: bytes) -> Tuple[np.ndarray, dict]:
+    """ECDC byte stream -> (codes ``[n_q, T]`` int32, metadata)."""
+    fo = io.BytesIO(blob)
+    meta = read_ecdc_header(fo)
+    n_q, n_frames, bits = meta["n_q"], meta["n_frames"], meta["bits"]
+    out = unpack_array(fo.read(), bits, n_q * n_frames)
+    return out.reshape(n_q, n_frames), meta
+
+
+def compress_tokens_guarded(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
+    """codes ``[n_q, T]`` -> ECDC bytes. The JAX package also tries LM entropy
+    coding here and keeps the smaller blob; without an LM (all the port has
+    yet) that is the raw-packed blob."""
+    return compress_codes(codes, bits_per_codebook=bits_per_codebook, metadata=metadata)
+
+
+def decompress_tokens(blob: bytes) -> Tuple[np.ndarray, dict]:
+    """Inverse of :func:`compress_tokens_guarded`. A blob whose header sets the
+    ``lm`` flag is LM-entropy-coded, which the port cannot decode yet."""
+    if read_ecdc_header(io.BytesIO(blob)).get("lm"):
+        raise ValueError("stream is LM-entropy-coded; LM decoding is not ported to academicodec_tpu_torch yet")
+    return decompress_codes(blob)
+
+
+class SoundStreamCompressor:
+    """File-level compression API for a SoundStream/Encodec model of the port.
+
+    Mirrors the reference compression CLI (models/encodec/test.py:102-123)
+    plus the ECDC container, batching and length bucketing.
+
+    ``bucket_seconds`` zero-pads inputs up to the next bucket multiple
+    (rounded to whole hops), so that files of many lengths share a few batch
+    shapes, and edge-replicates token streams up to whole buckets on decode;
+    outputs are trimmed back to each file's exact frame and sample counts.
+    The non-causal encoder's tail then sees zeros instead of reflect
+    padding, so the last few frames may differ from an exact-length encode.
+    """
+
+    def __init__(self, model, target_bw: Optional[float] = None, bucket_seconds: Optional[float] = None):
+        self.model = model
+        self.target_bw = target_bw if target_bw is not None else model.target_bandwidths[-1]
+        self.bucket = None
+        if bucket_seconds:
+            hop = model.hop_length
+            raw = max(1, int(round(bucket_seconds * model.sample_rate)))
+            self.bucket = math.ceil(raw / hop) * hop
+
+    def _exact_frames(self, T: int) -> int:
+        """Token frames an exact-length encode of ``T`` samples yields
+        (ceil-mode padded SEANet stack -> ceil(T / hop))."""
+        return math.ceil(T / self.model.hop_length)
+
+    def _meta(self, T: int) -> dict:
+        return dict(
+            model="soundstream",
+            sr=int(self.model.sample_rate),
+            ratios=[int(r) for r in self.model.ratios],
+            target_bw=float(self.target_bw),
+            audio_length=int(T),
+        )
+
+    def compress(self, wav: np.ndarray) -> bytes:
+        """wav ``[T]`` float32 -> ECDC bytes."""
+        return self.compress_batch([wav])[0]
+
+    def compress_batch(self, wavs: Sequence[np.ndarray], pad_to_batch: Optional[int] = None) -> List[bytes]:
+        """List of ``[T_i]`` wavs -> list of ECDC blobs through one encode.
+        Items are padded to the longest bucket in the batch; ``pad_to_batch``
+        zero-pads the batch dimension to a fixed size (pad rows are encoded
+        and dropped). Each blob equals that of a ``compress`` call of the same
+        padded length."""
+        return self.pack_submitted(self.submit_encode(wavs, pad_to_batch=pad_to_batch),
+                                   [int(w.shape[-1]) for w in wavs])
+
+    def submit_encode(self, wavs: Sequence[np.ndarray], pad_to_batch: Optional[int] = None) -> torch.Tensor:
+        """Device half of :meth:`compress_batch`: pad and stack the batch and
+        enqueue the encode; returns the codes ``[n_q, B, frames]`` on the model's
+        device without waiting for them. Pair with :meth:`pack_submitted`."""
+        Ts = [int(w.shape[-1]) for w in wavs]
+        Tmax = max(Ts)
+        if self.bucket:
+            Tpad = math.ceil(Tmax / self.bucket) * self.bucket
+        else:
+            if len(set(Ts)) > 1:
+                raise ValueError("compress_batch with mixed lengths requires bucket_seconds")
+            Tpad = Tmax
+        rows = [np.pad(np.asarray(w, np.float32), (0, Tpad - t)) for w, t in zip(wavs, Ts)]
+        if pad_to_batch and len(rows) < pad_to_batch:
+            rows += [np.zeros(Tpad, np.float32)] * (pad_to_batch - len(rows))
+        return self.model.encode(torch.from_numpy(np.stack(rows)), target_bw=self.target_bw)
+
+    def pack_submitted(self, codes_dev: torch.Tensor, lengths: Sequence[int]) -> List[bytes]:
+        """Host half of :meth:`compress_batch`: fetch the codes of
+        :meth:`submit_encode` and pack one ECDC blob per item."""
+        codes = codes_dev.cpu().numpy()
+        return [
+            compress_tokens_guarded(
+                codes[:, i, : self._exact_frames(int(T))],
+                bits_per_codebook=self.model.bits_per_codebook,
+                metadata=self._meta(int(T)),
+            )
+            for i, T in enumerate(lengths)
+        ]
+
+    def decompress(self, blob: bytes) -> Tuple[np.ndarray, int]:
+        """ECDC bytes -> (wav ``[T]`` float32, sample_rate)."""
+        return self.decompress_batch([blob])[0]
+
+    def decompress_batch(self, blobs: Sequence[bytes], pad_to_batch: Optional[int] = None) -> list:
+        """Batched inverse of :meth:`compress_batch`: list of ECDC blobs -> list
+        of ``(wav [T], sample_rate)`` through one decode. Streams are padded
+        (by repeating their last frame) to the longest whole bucket in the
+        batch and trimmed back to each item's ``audio_length``."""
+        items = [decompress_tokens(blob) for blob in blobs]
+        n_qs = {c.shape[0] for c, _ in items}
+        if len(n_qs) > 1:
+            raise ValueError(f"decompress_batch needs a uniform codebook count, got {n_qs}")
+        bf = self.bucket // self.model.hop_length if self.bucket else 1
+        nmax = max(c.shape[-1] for c, _ in items)
+        nb = math.ceil(nmax / bf) * bf
+        rows = []
+        for codes, _ in items:
+            n = codes.shape[-1]
+            if nb > n:
+                codes = np.concatenate([codes, np.repeat(codes[:, -1:], nb - n, axis=-1)], axis=-1)
+            rows.append(codes)
+        if pad_to_batch and len(rows) < pad_to_batch:
+            rows += [rows[0]] * (pad_to_batch - len(rows))
+        wavs = self.model.decode(torch.from_numpy(np.stack(rows, axis=1))).float().cpu().numpy()
+        out = []
+        for i, (_, meta) in enumerate(items):
+            wav = wavs[i]
+            if "audio_length" in meta:  # trim the ceil-mode padding back to the original length
+                wav = wav[: meta["audio_length"]]
+            out.append((wav, meta["sr"]))
+        return out

@@ -11,10 +11,21 @@
 // product (the Pallas kernel's numerics), f32 keeps it (the f32 scan path).
 // Products accumulate in f32.
 //
+// Carry: an optional initial state carry_in [4][B][H] f32 (h1, c1, h2, c2)
+// continues a stream, and an optional carry_out of the same shape receives
+// the final state. The carries stay f32 in both types (the JAX scan path
+// carries them in the model's dtype; parity with it is held in f32). A call
+// over T steps equals, bitwise, calls over pieces of T that pass the carry
+// along: the arithmetic of a step does not depend on T, and the h a step
+// multiplies is the f32 h rounded to W, which is what rounding the carried
+// f32 h on load gives.
+//
 // Bound on the H100: at T 1000, B 8, H 512 the recurrent products are 50.3
 // GFLOP (0.051 ms at the bf16 tensor-core peak) and ~80 MB move, but the
 // real limit is the chain of T dependent steps: per step, one exchange of
-// h between all blocks (a grid barrier plus an L2 round trip).
+// h between all blocks (a grid barrier plus an L2 round trip). A streaming
+// chunk (T 10, B 8) is bound by bytes, the 6 MiB of weights read once
+// (~2 us), and in practice by the launch, that load and its 11 barriers.
 //
 // Design: one cooperative launch runs all T + 1 steps. Block b owns JB hidden
 // units (JB a multiple of 4, at most one block per SM) with all four gate
@@ -39,7 +50,13 @@
 //  * c1 and c2 stay in shared memory; the next step's x_proj slice is
 //    prefetched with cp.async before the barrier;
 //  * one grid barrier per step: a monotone arrival counter in global memory,
-//    a release add on arrival, an acquire load on the spin.
+//    a release add on arrival, an acquire load on the spin;
+//  * with a carry, each block puts its own units' c into shared memory and
+//    their h, rounded to W, into the exchange slots that step 0 (layer 1)
+//    and step 1 (layer 2) read, then one extra grid barrier publishes them.
+//    Layer 1's final state is that of step T - 1, layer 2's that of step T;
+//    h is written in f32 by the cell that makes it, c from shared memory
+//    after the last step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -305,7 +322,8 @@ __device__ __forceinline__ void prefetch_x(float* xs, const float* __restrict__ 
 template <typename W, typename Y>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm2_kernel(const float* __restrict__ xproj, const W* __restrict__ whh1, const W* __restrict__ wih2,
-             const W* __restrict__ whh2, const float* __restrict__ b2, W* hbuf,
+             const W* __restrict__ whh2, const float* __restrict__ b2,
+             const float* __restrict__ carry_in, float* __restrict__ carry_out, W* hbuf,
              unsigned* barrier, Y* __restrict__ y, int T, int B, int H, int jb) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(jb, B, H, sizeof(W) == 2);
@@ -320,9 +338,24 @@ lstm2_kernel(const float* __restrict__ xproj, const W* __restrict__ whh1, const 
   const size_t hsize = (size_t)L.Bp * L.Hp;
   W* h1buf = hbuf;              // [2][Bp][Hp] h1, rounded to W
   W* h2buf = hbuf + 2 * hsize;  // [2][Bp][Hp] h2, rounded to W
+  const size_t BH = (size_t)B * H;  // one [B][H] plane of carry_in / carry_out
 
   load_weights<W>(wsm, whh1, wih2, whh2, L, j0, jb, H);
-  for (int i = tid; i < 2 * jb * L.Bp; i += THREADS) c1[i] = 0.f;  // c1 and c2 are adjacent
+  // c1 and c2 are adjacent [jb][Bp] arrays: the carry's c of this block's units, or 0
+  for (int i = tid; i < 2 * jb * L.Bp; i += THREADS) {
+    const int layer = i / (jb * L.Bp), u = (i / L.Bp) % jb, b = i % L.Bp, j = j0 + u;
+    c1[i] = carry_in && b < B && j < H ? carry_in[(2 * layer + 1) * BH + (size_t)b * H + j] : 0.f;
+  }
+  // the carry's h into slot 1 of each exchange buffer: h1[-1] is read at step
+  // 0 and h2[-1] at step 1 (the wrapper zeroed both buffers)
+  if (carry_in) {
+    for (int i = tid; i < 2 * B * jb; i += THREADS) {
+      const int layer = i / (B * jb), b = (i / jb) % B, j = j0 + i % jb;
+      if (j < H)
+        __stcg((layer == 0 ? h1buf : h2buf) + hsize + h_index<W>(b, j, L.Hp),
+               from_f<W>(carry_in[2 * layer * BH + (size_t)b * H + j]));
+    }
+  }
   for (int i = tid; i < L.R; i += THREADS) {
     const int j = j0 + i % jb;
     b2s[i] = j < H ? b2[(i / jb) * H + j] : 0.f;
@@ -337,6 +370,8 @@ lstm2_kernel(const float* __restrict__ xproj, const W* __restrict__ whh1, const 
   const int per = (nkt + nw - 1) / nw;
   const int lo = min(nkt, wi * per), hi = min(nkt, lo + per);
   const int g = lane >> 2, t = lane & 3;
+  unsigned barriers = 0;  // grid barriers passed
+  if (carry_in) grid_barrier(barrier, ++barriers * gridDim.x);  // publishes the carry's h
   __syncthreads();
 
   for (int s = 0; s <= T; ++s) {
@@ -374,7 +409,9 @@ lstm2_kernel(const float* __restrict__ xproj, const W* __restrict__ whh1, const 
           for (int w = 0; w < P1_WARPS; ++w) sum += red[((size_t)w * L.R + lr) * L.Bp + b];
           gates[gi] = xs[lr * L.Bp + b] + sum;
         }
-        __stcg(h1next + h_index<W>(b, j, L.Hp), from_f<W>(cell(gates, c1 + u * L.Bp + b)));
+        const float h = cell(gates, c1 + u * L.Bp + b);
+        __stcg(h1next + h_index<W>(b, j, L.Hp), from_f<W>(h));
+        if (carry_out && s == T - 1) carry_out[(size_t)b * H + j] = h;
       } else {
 #pragma unroll
         for (int gi = 0; gi < 4; ++gi) {
@@ -386,12 +423,20 @@ lstm2_kernel(const float* __restrict__ xproj, const W* __restrict__ whh1, const 
         const float h = cell(gates, c2 + u * L.Bp + b);
         __stcg(h2next + h_index<W>(b, j, L.Hp), from_f<W>(h));
         y[((size_t)(s - 1) * B + b) * H + j] = from_f<Y>(h);
+        if (carry_out && s == T) carry_out[2 * BH + (size_t)b * H + j] = h;
       }
     }
     if (s == T) break;
     __syncthreads();  // xs consumed before it is refilled
     if (s + 1 < T) prefetch_x(xs, xproj, s + 1, B, H, jb, j0, L.Bp);
-    grid_barrier(barrier, (unsigned)(s + 1) * gridDim.x);
+    grid_barrier(barrier, ++barriers * gridDim.x);
+  }
+  if (carry_out) {  // the final c of this block's units
+    __syncthreads();
+    for (int i = tid; i < 2 * B * jb; i += THREADS) {
+      const int layer = i / (B * jb), b = (i / jb) % B, u = i % jb, j = j0 + u;
+      if (j < H) carry_out[(2 * layer + 1) * BH + (size_t)b * H + j] = (layer == 0 ? c1 : c2)[u * L.Bp + b];
+    }
   }
 }
 
@@ -415,8 +460,8 @@ cudaError_t check_resident(const void* fn, int blocks, int smem) {
 
 template <typename W, typename Y>
 int run(const float* xproj, const void* whh1, const void* wih2, const void* whh2, const float* b2,
-        void* hbuf, unsigned* barrier, void* y, int T, int B, int H, int jb, int blocks, int smem,
-        cudaStream_t stream) {
+        const float* carry_in, float* carry_out, void* hbuf, unsigned* barrier, void* y, int T, int B,
+        int H, int jb, int blocks, int smem, cudaStream_t stream) {
   const Layout L(jb, B, H, sizeof(W) == 2);
   if (jb % 4 != 0 || (long)blocks * jb < H || L.total > (size_t)smem) return (int)cudaErrorInvalidValue;
   const void* fn = reinterpret_cast<const void*>(lstm2_kernel<W, Y>);
@@ -427,26 +472,28 @@ int run(const float* xproj, const void* whh1, const void* wih2, const void* whh2
   const W* w3 = static_cast<const W*>(whh2);
   W* hb = static_cast<W*>(hbuf);
   Y* yp = static_cast<Y*>(y);
-  void* args[] = {&xproj, &w1, &w2, &w3, &b2, &hb, &barrier, &yp, &T, &B, &H, &jb};
+  void* args[] = {&xproj, &w1, &w2, &w3, &b2, &carry_in, &carry_out, &hb, &barrier, &yp, &T, &B, &H, &jb};
   err = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(THREADS), args, (size_t)smem, stream);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace
 
+// carry_in and carry_out may each be null: a zero initial state, no final state.
 extern "C" int acad_lstm2(const float* xproj, const void* whh1, const void* wih2, const void* whh2,
-                          const float* b2, void* hbuf, unsigned* barrier, void* y, int T, int B,
-                          int H, int jb, int blocks, int smem, int w_bf16, int y_bf16, void* stream) {
+                          const float* b2, const float* carry_in, float* carry_out, void* hbuf,
+                          unsigned* barrier, void* y, int T, int B, int H, int jb, int blocks,
+                          int smem, int w_bf16, int y_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!w_bf16 && !y_bf16)
-    return run<float, float>(xproj, whh1, wih2, whh2, b2, hbuf, barrier, y, T, B, H, jb, blocks,
-                             smem, s);
+    return run<float, float>(xproj, whh1, wih2, whh2, b2, carry_in, carry_out, hbuf, barrier, y, T,
+                             B, H, jb, blocks, smem, s);
   if (w_bf16 && y_bf16)
-    return run<__nv_bfloat16, __nv_bfloat16>(xproj, whh1, wih2, whh2, b2, hbuf, barrier, y, T, B,
-                                             H, jb, blocks, smem, s);
+    return run<__nv_bfloat16, __nv_bfloat16>(xproj, whh1, wih2, whh2, b2, carry_in, carry_out,
+                                             hbuf, barrier, y, T, B, H, jb, blocks, smem, s);
   if (w_bf16)
-    return run<__nv_bfloat16, float>(xproj, whh1, wih2, whh2, b2, hbuf, barrier, y, T, B, H, jb,
-                                     blocks, smem, s);
+    return run<__nv_bfloat16, float>(xproj, whh1, wih2, whh2, b2, carry_in, carry_out, hbuf,
+                                     barrier, y, T, B, H, jb, blocks, smem, s);
   return (int)cudaErrorInvalidValue;
 }
 

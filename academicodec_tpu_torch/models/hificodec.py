@@ -4,11 +4,13 @@
 hand-off, stream order ``[l0 g0, l0 g1, l1 g0, l1 g1]``) and
 ``decode(tokens) -> wav [B, T]``. The model lives on one explicit device,
 ``cuda`` unless the caller asks for ``cpu``. On the card the encoder's
-narrow stage runs K4 and the generator's two narrow stages run K3.
+narrow stage runs K4 and, in a non-causal model, the generator's two narrow
+stages run K3. A causal config (``HiFiCodecConfig(causal=True)``) also
+decodes a stream chunk by chunk (``decode_stream``), with the state kept by
+the caller.
 
 Behavioral parity target: academicodec_tpu/models/hificodec.py:23-110
-(reference models/hificodec/vqvae.py:12-45), without ``lengths=`` and the
-causal ``decode_stream``.
+(reference models/hificodec/vqvae.py:12-45), without ``lengths=``.
 """
 
 from __future__ import annotations
@@ -47,8 +49,6 @@ class VQVAE(nn.Module):
         (identical on every device), then moves it to ``device`` and ``dtype``."""
         super().__init__()
         device = resolve_device(device)
-        if config.causal:
-            raise NotImplementedError("the causal HiFi-Codec generator is not ported yet")
         self.config = config
         self.encoder = HiFiGANEncoder(config, norm)
         self.generator = HiFiGANGenerator(config, norm)
@@ -95,3 +95,13 @@ class VQVAE(nn.Module):
         codes = torch.as_tensor(codes).to(device=self.device)
         q = self.quantizer.embed(codes)
         return self.generator(q.transpose(1, 2).contiguous())[:, 0, :]
+
+    @torch.no_grad()
+    def decode_stream(self, codes, state=None):
+        """One chunk of tokens ``[B, frames, n_res * G]`` and the generator state
+        the last chunk left (None starts a stream) -> ``(wav [B, frames * hop],
+        next state)``; causal configs only (JAX models/hificodec.py:104-110)."""
+        codes = torch.as_tensor(codes).to(device=self.device)
+        q = self.quantizer.embed(codes)
+        y, state = self.generator.stream(q.transpose(1, 2).contiguous(), state)
+        return y[:, 0, :], state

@@ -6,6 +6,11 @@ unless the caller asks for ``cpu``; ``encode``/``decode`` move their input
 there. On the card every kernel of the path runs: the fused RVQ search in
 ``encode`` (for any ``st``) and the fused LSTM in both towers.
 
+Causal models also stream (``encode_stream`` / ``decode_stream``): one
+chunk at a time, with the towers' state passed in and given back by the
+caller (``streaming.py`` keeps it per session), so that the model itself
+holds no state of a stream.
+
 Behavioral parity target: academicodec_tpu/models/soundstream.py:26-131
 (reference models/encodec/net3.py:12-61).
 """
@@ -60,6 +65,7 @@ class SoundStream(nn.Module):
         self.sample_rate = sample_rate
         self.target_bandwidths = tuple(target_bandwidths)
         self.bins = bins
+        self.causal = causal
         common = dict(
             n_filters=n_filters, dimension=dimension, ratios=self.ratios,
             causal=causal, pad_mode=pad_mode, norm=norm,
@@ -91,6 +97,10 @@ class SoundStream(nn.Module):
         return math.ceil(self.sample_rate / self.hop_length)
 
     @property
+    def bits_per_codebook(self) -> int:
+        return int(math.log2(self.bins))
+
+    @property
     def n_q(self) -> int:
         # reference net3.py:25-26
         return int(1000 * self.target_bandwidths[-1] // (self.frame_rate * 10))
@@ -109,3 +119,21 @@ class SoundStream(nn.Module):
         codes = torch.as_tensor(codes).to(device=self.device)
         quantized = self.quantizer.decode(codes)
         return self.decoder(quantized.transpose(1, 2))[:, 0, :]
+
+    @torch.no_grad()
+    def encode_stream(self, x, state=None, target_bw: Optional[float] = None, st: int = 0):
+        """One stream chunk, wav ``[B, chunk]`` (``chunk % hop_length == 0``), and the
+        encoder state the last chunk left (None starts a stream) -> ``(codes
+        [n_q - st, B, chunk / hop], next state)`` (JAX models/soundstream.py:133-142)."""
+        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        e, state = self.encoder.stream(x[:, None, :], state)
+        bw = target_bw if target_bw is not None else self.target_bandwidths[-1]
+        return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st), state
+
+    @torch.no_grad()
+    def decode_stream(self, codes, state=None):
+        """One chunk of codes ``[n, B, frames]`` and the decoder state -> ``(wav
+        [B, frames * hop], next state)`` (JAX models/soundstream.py:144-150)."""
+        codes = torch.as_tensor(codes).to(device=self.device)
+        y, state = self.decoder.stream(self.quantizer.decode(codes).transpose(1, 2), state)
+        return y[:, 0, :], state

@@ -11,6 +11,13 @@ in-channel for conv-transpose.
 module level, so state-dict keys read ``conv.conv.weight_v`` and
 ``convtr.convtr.weight_v`` as in a reference checkpoint.
 
+Streaming (causal convs only): ``SConv1d.stream`` and
+``SConvTranspose1d.stream`` take one chunk and the state the previous chunk
+left, and return the output and the next state, so that chunk after chunk
+equals one full-length call (exactly for ``pad_mode='zero'`` models). The
+state is a plain tensor that the caller keeps; ``None`` starts a stream.
+:func:`stream_layers` runs a sequence of modules this way.
+
 Behavioral parity targets: academicodec_tpu/nn/conv.py (SConv1d,
 SConvTranspose1d); reference academicodec/modules/conv.py:213-323.
 """
@@ -18,6 +25,7 @@ SConvTranspose1d); reference academicodec/modules/conv.py:213-323.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -189,6 +197,21 @@ class SConv1d(nn.Module):
             pads = (padding_total - pad_right, pad_right + extra)
         return self.conv(pad1d(x, pads, mode=self.pad_mode))
 
+    def stream(self, x: torch.Tensor, buf: Optional[torch.Tensor] = None):
+        """One chunk ``[B, C, Tc]`` (``Tc`` a multiple of the stride) -> ``(y [B, O,
+        Tc / stride], next buf)``. ``buf`` holds the last ``padding_total`` inputs,
+        zeros at the start of a stream, in the input's dtype (JAX nn/conv.py:415-438)."""
+        if not self.causal:
+            raise ValueError("streaming needs a causal conv")
+        k, s, d = self.kernel_size, self.stride, self.dilation
+        if x.shape[-1] % s:
+            raise ValueError(f"a stream chunk of {x.shape[-1]} samples is not a multiple of the stride {s}")
+        padding_total = (k - 1) * d - (s - 1)
+        if buf is None:
+            buf = x.new_zeros((x.shape[0], x.shape[1], padding_total))
+        x = torch.cat([buf, x], dim=-1)
+        return self.conv(x), x[..., x.shape[-1] - padding_total:].clone()  # not a view of the chunk
+
 
 class SConvTranspose1d(nn.Module):
     """ConvTranspose1d whose ``k - s`` surplus samples are trimmed:
@@ -222,3 +245,34 @@ class SConvTranspose1d(nn.Module):
         else:
             pad_right = padding_total // 2
         return unpad1d(self.convtr(x), (padding_total - pad_right, pad_right))
+
+    def stream(self, x: torch.Tensor, tail: Optional[torch.Tensor] = None):
+        """One chunk ``[B, C, Tc]`` -> ``(y [B, O, Tc * stride], next tail)`` by
+        overlap-add: the bias-free last ``k - s`` outputs carry into the next
+        chunk, and the bias is added once (JAX nn/conv.py:284-300, 504-512)."""
+        if not (self.causal and self.trim_right_ratio == 1.0):
+            raise ValueError("streaming needs a causal conv-transpose with trim_right_ratio 1")
+        conv = self.convtr.convtr
+        y = F.conv_transpose1d(x, conv.resolved_weight(), None, stride=self.stride)
+        emit = x.shape[-1] * self.stride
+        if tail is not None:
+            y[..., : tail.shape[-1]] += tail
+        out = y[..., :emit]
+        if conv.bias is not None:
+            out = out + conv.bias[:, None]
+        return out, y[..., emit:].clone()  # the state holds the k - s tail, not the chunk
+
+
+def stream_layers(layers, x: torch.Tensor, states: Optional[list] = None):
+    """Run ``layers`` in order on one stream chunk. A layer with a ``stream``
+    method takes its entry of ``states`` and gives back the next one; the
+    others are called plainly and keep None. Returns ``(y, next states)``."""
+    states = [None] * len(layers) if states is None else states
+    out = []
+    for layer, state in zip(layers, states):
+        if hasattr(layer, "stream"):
+            x, state = layer.stream(x, state)
+        else:
+            x = layer(x)
+        out.append(state)
+    return x, out

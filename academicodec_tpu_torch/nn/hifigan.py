@@ -13,9 +13,16 @@ Wider stages run the plain chain of convs. Each fused stage keeps its packed
 operands (:class:`PackedStage`) and rebuilds them, weight norm included,
 only when a parameter changed.
 
-Behavioral parity target: academicodec_tpu/nn/hifigan.py:40-722, non-causal,
-without the length-masked encode (reference models/hificodec/models.py:
-18-189, 364-427, including the GroupNorm of the accumulated sum at
+``HiFiCodecConfig(causal=True)`` builds the causal generator of the JAX
+package: every conv left-padded with zeros (``SConv1d``), every upsample
+conv-transpose right-trimmed (``SConvTranspose1d``), so that tokens -> wav
+streams chunk by chunk (``HiFiGANGenerator.stream``). Causal stages run the
+plain chain of convs at every width: the fused towers have no causal
+variant, as in JAX (nn/hifigan.py:536). The encoder has no causal variant.
+
+Behavioral parity target: academicodec_tpu/nn/hifigan.py:40-722, without
+the length-masked encode (reference models/hificodec/models.py: 18-189,
+364-427, including the GroupNorm of the accumulated sum at
 models.py:410-415).
 """
 
@@ -28,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
+from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, SConv1d, SConvTranspose1d
 from academicodec_tpu_torch.ops.cuda.resblock import (
     PackedTower,
     pack_tower,
@@ -74,7 +81,7 @@ class HiFiCodecConfig:
     fmin: int = 0
     fmax: int = 8000
     fmax_for_loss: Any = None
-    causal: bool = False  # the causal generator is not ported yet
+    causal: bool = False  # the causal, streamable generator (the encoder stays non-causal)
 
     @property
     def latent_dim(self) -> int:
@@ -93,24 +100,47 @@ class HiFiCodecConfig:
         return cls(**kw)
 
 
-def _res_conv(channels: int, kernel_size: int, dilation: int, norm: str) -> Conv1d:
+def _res_conv(channels: int, kernel_size: int, dilation: int, norm: str, causal: bool = False):
+    """A resblock conv: symmetric "same" zero padding, or its causal
+    counterpart, all on the left (JAX nn/hifigan.py:88-110)."""
+    if causal:
+        return SConv1d(channels, channels, kernel_size, dilation=dilation, norm=norm,
+                       causal=True, pad_mode="zero")
     return Conv1d(channels, channels, kernel_size, dilation=dilation,
                   padding=get_padding(kernel_size, dilation), norm=norm)
+
+
+def _inner_conv(m: nn.Module) -> nn.Module:
+    """The ``Conv1d``/``ConvTranspose1d`` that holds an S-conv's parameters."""
+    if isinstance(m, SConv1d):
+        return m.conv.conv
+    if isinstance(m, SConvTranspose1d):
+        return m.convtr.convtr
+    return m
 
 
 class ResBlock1(nn.Module):
     """3x [lrelu -> dilated conv -> lrelu -> unit conv] with residual adds."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: Sequence[int] = (1, 3, 5),
-                 norm: str = "weight_norm"):
+                 norm: str = "weight_norm", causal: bool = False):
         super().__init__()
-        self.convs1 = nn.ModuleList(_res_conv(channels, kernel_size, d, norm) for d in dilation)
-        self.convs2 = nn.ModuleList(_res_conv(channels, kernel_size, 1, norm) for _ in dilation)
+        self.convs1 = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
+        self.convs2 = nn.ModuleList(_res_conv(channels, kernel_size, 1, norm, causal) for _ in dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c1, c2 in zip(self.convs1, self.convs2):
             x = c2(_lrelu(c1(_lrelu(x)))) + x
         return x
+
+    def stream(self, x: torch.Tensor, state=None):
+        """One chunk of a causal block; ``state`` holds each conv's carried inputs."""
+        state = list(state) if state is not None else [None] * (2 * len(self.convs1))
+        for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
+            xt, state[2 * i] = c1.stream(_lrelu(x), state[2 * i])
+            xt, state[2 * i + 1] = c2.stream(_lrelu(xt), state[2 * i + 1])
+            x = xt + x
+        return x, state
 
     def weights_and_biases(self):
         """Resolved ``(weights, biases)`` in call order convs1.0, convs2.0,
@@ -123,14 +153,21 @@ class ResBlock2(nn.Module):
     """2x [lrelu -> dilated conv] with residual adds."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: Sequence[int] = (1, 3),
-                 norm: str = "weight_norm"):
+                 norm: str = "weight_norm", causal: bool = False):
         super().__init__()
-        self.convs = nn.ModuleList(_res_conv(channels, kernel_size, d, norm) for d in dilation)
+        self.convs = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for c in self.convs:
             x = c(_lrelu(x)) + x
         return x
+
+    def stream(self, x: torch.Tensor, state=None):
+        state = list(state) if state is not None else [None] * len(self.convs)
+        for i, c in enumerate(self.convs):
+            xt, state[i] = c.stream(_lrelu(x), state[i])
+            x = xt + x
+        return x, state
 
     def weights_and_biases(self):
         """Resolved ``(weights, biases)`` in call order convs.0, convs.1, ..."""
@@ -247,29 +284,42 @@ class HiFiGANEncoder(nn.Module):
 
 
 class HiFiGANGenerator(nn.Module):
-    """HiFi-GAN generator: ``[B, latent_dim, frames]`` -> ``[B, 1, T]``."""
+    """HiFi-GAN generator: ``[B, latent_dim, frames]`` -> ``[B, 1, T]``; causal
+    and streamable when ``config.causal`` (JAX nn/hifigan.py:528-560, 640-722)."""
 
     def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm"):
         super().__init__()
         h = self.config = config
         nk = len(h.resblock_kernel_sizes)
-        self.conv_pre = Conv1d(h.latent_dim, h.upsample_initial_channel, 7, padding=3, norm=norm)
+        causal = dict(causal=True, pad_mode="zero", norm=norm)
+        if h.causal:
+            self.conv_pre = SConv1d(h.latent_dim, h.upsample_initial_channel, 7, **causal)
+        else:
+            self.conv_pre = Conv1d(h.latent_dim, h.upsample_initial_channel, 7, padding=3, norm=norm)
         ups, resblocks = [], []
         for i, (u, k) in enumerate(zip(h.upsample_rates, h.upsample_kernel_sizes)):
             cin = h.upsample_initial_channel // 2 ** i
             cout = h.upsample_initial_channel // 2 ** (i + 1)
-            ups.append(ConvTranspose1d(cin, cout, k, stride=u, padding=(k - u) // 2, norm=norm))
+            if h.causal:
+                ups.append(SConvTranspose1d(cin, cout, k, stride=u, causal=True, trim_right_ratio=1.0,
+                                            norm=norm))
+            else:
+                ups.append(ConvTranspose1d(cin, cout, k, stride=u, padding=(k - u) // 2, norm=norm))
             for j in range(nk):
                 resblocks.append(_resblock_cls(h)(cout, h.resblock_kernel_sizes[j],
-                                                  h.resblock_dilation_sizes[j], norm=norm))
+                                                  h.resblock_dilation_sizes[j], norm=norm, causal=h.causal))
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(resblocks)
-        self.conv_post = Conv1d(h.upsample_initial_channel // 2 ** len(ups), 1, 7, padding=3, norm=norm)
+        c_post = h.upsample_initial_channel // 2 ** len(ups)
+        if h.causal:
+            self.conv_post = SConv1d(c_post, 1, 7, **causal)
+        else:
+            self.conv_post = Conv1d(c_post, 1, 7, padding=3, norm=norm)
         self._packed = [PackedStage() for _ in ups]
 
     def normal_init_convs(self):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
-        return [*self.ups, self.conv_post]
+        return [_inner_conv(m) for m in (*self.ups, self.conv_post)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self.config
@@ -283,7 +333,7 @@ class HiFiGANGenerator(nn.Module):
             # stages: the JAX default fused_pre=False (nn/hifigan.py:512-517)
             x = ups(_lrelu(x))
             blocks = self.resblocks[i * nk:(i + 1) * nk]
-            if x.shape[1] <= FUSED_MAX_CHANNELS:
+            if x.shape[1] <= FUSED_MAX_CHANNELS and not h.causal:
                 # conv_post and tanh run inside the last tower
                 post = self.conv_post if i == n_up - 1 else None
                 packed = self._packed[i].get(blocks, ks, dss, h.resblock, post)
@@ -297,3 +347,25 @@ class HiFiGANGenerator(nn.Module):
                 xs = r if xs is None else xs + r
             x = xs / nk
         return torch.tanh(self.conv_post(_lrelu(x)))
+
+    def stream(self, x: torch.Tensor, state=None):
+        """One chunk of latent frames ``[B, latent_dim, frames]`` (any count) and
+        the state the last chunk left (None starts a stream) -> ``(wav chunk
+        [B, 1, frames * hop], next state)``. Causal generators only."""
+        if not self.config.causal:
+            raise ValueError("streaming decode needs a causal config")
+        nk = len(self.config.resblock_kernel_sizes)
+        if state is None:
+            state = (None, [None] * len(self.ups), [None] * len(self.resblocks), None)
+        pre, ups_states, res_states, post = state
+        ups_states, res_states = list(ups_states), list(res_states)
+        x, pre = self.conv_pre.stream(x, pre)
+        for i, ups in enumerate(self.ups):
+            x, ups_states[i] = ups.stream(_lrelu(x), ups_states[i])
+            xs = None
+            for j in range(i * nk, (i + 1) * nk):
+                r, res_states[j] = self.resblocks[j].stream(x, res_states[j])
+                xs = r if xs is None else xs + r
+            x = xs / nk
+        y, post = self.conv_post.stream(_lrelu(x), post)
+        return torch.tanh(y), (pre, ups_states, res_states, post)

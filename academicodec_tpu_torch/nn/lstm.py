@@ -9,7 +9,12 @@ the f32 scan path's.
 
 Parameters are registered under the names of ``torch.nn.LSTM``
 (``lstm.weight_ih_l0`` ...), so reference checkpoints load as they are.
-The streaming carry path comes with the streaming port.
+
+Streaming: ``forward(x, carry=..., return_carry=True)`` continues a stream
+from ``carry = ((h1, c1), (h2, c2))`` (JAX's per-layer layout, from
+:meth:`SLSTM.init_carry`) and gives back the final state. The carry goes
+through ``lstm2`` too, so on the card it runs in the kernel. It is f32
+whatever the model's dtype (the JAX scan path carries the model's dtype).
 
 Behavioral parity target: academicodec_tpu/nn/lstm.py:116-149.
 """
@@ -17,7 +22,7 @@ Behavioral parity target: academicodec_tpu/nn/lstm.py:116-149.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -70,6 +75,21 @@ class SLSTM(nn.Module):
         x_proj = torch.matmul(x.permute(2, 0, 1), w_ih1.t()).float() + (b_ih1 + b_hh1).float()
         return x_proj, w_hh1, w_ih2, w_hh2, (b_ih2 + b_hh2).float()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = lstm2(*self.recurrence_inputs(x), out_dtype=x.dtype).permute(1, 2, 0)
-        return y + x if self.skip else y
+    def init_carry(self, batch: int):
+        """The zero state ``((h1, c1), (h2, c2))``, f32 ``[batch, H]`` on the module's device."""
+        w = self.lstm.weight_hh_l0
+        z = torch.zeros((batch, w.shape[1]), dtype=torch.float32, device=w.device)
+        return ((z, z), (z, z))
+
+    def forward(self, x: torch.Tensor, carry: Optional[tuple] = None, return_carry: bool = False):
+        """``x [B, C, T]`` -> ``y [B, C, T]``; with ``return_carry``, ``(y, final carry)``."""
+        flat = None if carry is None else (*carry[0], *carry[1])
+        out = lstm2(*self.recurrence_inputs(x), out_dtype=x.dtype, carry=flat, return_carry=return_carry)
+        y, final = out if return_carry else (out, None)
+        y = y.permute(1, 2, 0)
+        y = y + x if self.skip else y
+        return (y, (final[:2], final[2:])) if return_carry else y
+
+    def stream(self, x: torch.Tensor, carry=None):
+        """One chunk of a stream: ``(y, next carry)``; ``carry`` None starts one."""
+        return self.forward(x, carry, return_carry=True)

@@ -5,17 +5,24 @@ slot, exactly like the reference, so state-dict keys read
 ``encoder.model.N...`` with the same ``N`` as the JAX package's
 ``model_{N}`` submodules. ELU activations only; no final activation.
 
+Causal towers stream: ``stream(x, state)`` takes one chunk and the state
+the last chunk left (None starts a stream) and returns ``(y, next state)``:
+one entry per layer, the carried inputs of each conv, the overlap-add tail
+of each conv-transpose and the SLSTM's (h, c), as JAX's ``cache`` holds
+them (academicodec_tpu/nn/seanet.py:133-236, 274-319).
+
 Behavioral parity target: academicodec_tpu/nn/seanet.py:39-384.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
-from academicodec_tpu_torch.nn.conv import SConv1d, SConvTranspose1d
+from academicodec_tpu_torch.nn.conv import SConv1d, SConvTranspose1d, stream_layers
 from academicodec_tpu_torch.nn.lstm import SLSTM
 
 
@@ -54,6 +61,12 @@ class SEANetResnetBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.shortcut(x) + self.block(x)
+
+    def stream(self, x: torch.Tensor, state=None):
+        block_state, short_state = state if state is not None else (None, None)
+        y, block_state = stream_layers(self.block, x, block_state)
+        short, short_state = stream_layers([self.shortcut], x, short_state)
+        return short + y, (block_state, short_state)
 
 
 class SEANetEncoder(nn.Module):
@@ -101,9 +114,19 @@ class SEANetEncoder(nn.Module):
             layers.append(SLSTM(mult * n_filters, num_layers=lstm))
         layers += [nn.ELU(), SConv1d(mult * n_filters, dimension, last_kernel_size, **common)]
         self.model = nn.Sequential(*layers)
+        self.causal = causal
+        self.hop_length = math.prod(ratios)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.model(x)
+
+    def stream(self, x: torch.Tensor, state=None):
+        """One chunk ``[B, C, Tc]``, ``Tc`` a multiple of the hop length."""
+        if not self.causal:
+            raise ValueError("streaming encode needs a causal model")
+        if x.shape[-1] % self.hop_length:
+            raise ValueError(f"stream chunks must be a multiple of the hop length {self.hop_length}")
+        return stream_layers(self.model, x, state)
 
 
 class SEANetDecoder(nn.Module):
@@ -152,6 +175,12 @@ class SEANetDecoder(nn.Module):
             mult //= 2
         layers += [nn.ELU(), SConv1d(n_filters, channels, last_kernel_size, **common)]
         self.model = nn.Sequential(*layers)
+        self.causal = causal
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.model(z)
+
+    def stream(self, z: torch.Tensor, state=None):
+        if not self.causal:
+            raise ValueError("streaming decode needs a causal model")
+        return stream_layers(self.model, z, state)

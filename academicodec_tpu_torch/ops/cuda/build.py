@@ -37,9 +37,9 @@ _IP = ctypes.POINTER(ctypes.c_int)
 _ENTRIES = {
     # x, embed, tiles scratch, enorm scratch, codes, n, d, n_q, k, stream
     "acad_rvq_encode": (_I, [_P] * 5 + [_I] * 4 + [_P]),
-    # x_proj, w_hh1, w_ih2, w_hh2, b2, hbuf, barrier, y, T, B, H, jb, blocks, smem,
-    # w_bf16, y_bf16, stream
-    "acad_lstm2": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+    # x_proj, w_hh1, w_ih2, w_hh2, b2, carry_in, carry_out, hbuf, barrier, y, T, B, H, jb,
+    # blocks, smem, w_bf16, y_bf16, stream
+    "acad_lstm2": (_I, [_P] * 10 + [_I] * 8 + [_P]),
     # barrier, iters, blocks, smem, stream
     "acad_grid_barrier": (_I, [_P, _I, _I, _I, _P]),
     # x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, buf, smem, C_post, kp, post_tanh,

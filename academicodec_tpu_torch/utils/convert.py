@@ -114,23 +114,33 @@ def soundstream_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
 
 def hifigan_state_from_jax(params: Mapping[str, Any], transposed_ups: bool) -> Dict[str, torch.Tensor]:
     """A JAX ``HiFiGANEncoder``/``HiFiGANGenerator`` param tree -> the
-    reference tower's ``state_dict``."""
+    reference tower's ``state_dict``. The causal generator's convs carry one
+    more level, ``conv`` (``SConv1d``) or ``convtr`` (``SConvTranspose1d``),
+    which the port's S-convs hold as ``conv.conv`` / ``convtr.convtr``."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put(prefix, d):
         sd.update({f"{prefix}.{k}": v for k, v in d.items()})
 
+    def put_conv(prefix, node, transposed):
+        if "conv" in node:
+            put(f"{prefix}.conv.conv", conv_state_from_jax(node["conv"], False))
+        elif "convtr" in node:
+            put(f"{prefix}.convtr.convtr", conv_state_from_jax(node["convtr"], True))
+        else:
+            put(prefix, conv_state_from_jax(node, transposed))
+
     for name, node in params.items():
         if name in ("conv_pre", "conv_post"):
-            put(name, conv_state_from_jax(node, False))
+            put_conv(name, node, False)
         elif name.startswith("ups_"):
-            put(f"ups.{name[len('ups_'):]}", conv_state_from_jax(node, transposed_ups))
+            put_conv(f"ups.{name[len('ups_'):]}", node, transposed_ups)
         elif name.startswith("resblocks_"):
             i = name[len("resblocks_"):]
             for conv_name, conv in node.items():
                 # convs1_2 -> convs1.2 (ResBlock1), convs_0 -> convs.0 (ResBlock2)
                 stem, j = conv_name.rsplit("_", 1)
-                put(f"resblocks.{i}.{stem}.{j}", conv_state_from_jax(conv, False))
+                put_conv(f"resblocks.{i}.{stem}.{j}", conv, False)
         elif name.startswith("normalize_"):
             i = name[len("normalize_"):]
             sd[f"normalize.{i}.weight"] = _t(_np32(node["scale"]))

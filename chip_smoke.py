@@ -10,8 +10,12 @@ seeded random weights: the flagship Encodec_24k_240d roundtrip (wav ->
 SEANet encoder -> RVQ -> SEANet decoder -> wav, N(0, 1) codebooks) and the
 HiFi-Codec hificodec_24k_320d roundtrip (wav -> HiFi-GAN encoder -> GRVQ
 tokens -> HiFi-GAN generator -> wav). Each path is followed by an f32
-check of the card against the CPU. Any failed phase exits non-zero; without
-a CUDA device it exits 1 at once.
+check of the card against the CPU. Then the serving paths of the codec
+layer: K2 continuing a stream from a carry (``lstm2_carry``), streaming
+sessions of the causal Encodec_24k_240d (8 streams x 10 s in 100 ms chunks,
+wav -> tokens -> wav) and of the causal hificodec_24k_320d generator
+(``stream``), and ECDC file compression of 8 files x 10 s (``compress``).
+Any failed phase exits non-zero; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -20,7 +24,9 @@ card's name and power limit from nvidia-smi, and the result line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 The phase functions take the device and the model's overrides as
-arguments, so a CPU test can rehearse the main path at a tiny width.
+arguments, so a CPU test can rehearse the main path at a tiny width. One
+phase alone, on the card: ``python3 -c "import chip_smoke as c;
+c.phase_device(); c.phase_build(); c.phase_stream('cuda')"``.
 """
 
 from __future__ import annotations
@@ -28,19 +34,26 @@ from __future__ import annotations
 import copy
 import json
 import math
+import statistics
 import subprocess
 import sys
+import time
 import warnings
 
+import numpy as np
 import torch
 
 from academicodec_tpu_torch.api import load_codec
+from academicodec_tpu_torch.codec import binary
+from academicodec_tpu_torch.codec.compress import SoundStreamCompressor, decompress_codes
+from academicodec_tpu_torch.native.build import get_bitpack_lib
 from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.ops.cuda import build as kernel_build
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
+from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
 
 # NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
 PEAK_F32_FLOPS = 67e12
@@ -115,8 +128,9 @@ def phase_build() -> None:
     kernel_build.load_library()
 
 
-def phase_rvq(device, n=8000, d=512, k=1024, n_q=12, ragged_n=75, iters=10) -> dict:
-    """K1 against its plain version at the flagship shape and at a ragged N."""
+def phase_rvq(device, n=8000, d=512, k=1024, n_q=12, ragged_n=75, stream_n=80, iters=10) -> dict:
+    """K1 against its plain version at the flagship shape, at a ragged N and
+    at a 100 ms streaming chunk's N; its time at the first and the last."""
     g = torch.Generator(device=device).manual_seed(0)
     x = torch.randn((n, d), generator=g, device=device)
     embed = torch.randn((n_q, k, d), generator=g, device=device)
@@ -128,18 +142,28 @@ def phase_rvq(device, n=8000, d=512, k=1024, n_q=12, ragged_n=75, iters=10) -> d
     mismatch_ragged = (codes_r != rvq_ops.rvq_encode_plain(xr, embed)).double().mean().item()
     ms = time_ms(lambda: rvq_ops.rvq_encode(x, embed), iters)
     plain_ms = time_ms(lambda: rvq_ops.rvq_encode_plain(x, embed), 3)
-    nbytes = 4.0 * (n * d + n_q * k * d + n_q * n)
-    bound_ms, bound_by = bound(2.0 * n * k * d * n_q, nbytes, PEAK_F32_FLOPS)
+
+    def rvq_bound(rows):
+        return bound(2.0 * rows * k * d * n_q, 4.0 * (rows * d + n_q * k * d + n_q * rows), PEAK_F32_FLOPS)
+
+    bound_ms, bound_by = rvq_bound(n)
+    xs = x[-stream_n:].clone()
+    mismatch_stream = (rvq_ops.rvq_encode(xs, embed) != rvq_ops.rvq_encode_plain(xs, embed)).double().mean().item()
+    ms_stream = time_ms(lambda: rvq_ops.rvq_encode(xs, embed), iters)
+    bound_stream, bound_stream_by = rvq_bound(stream_n)
     print(f"[rvq] [{n},{d}] x [{n_q},{k},{d}]: token mismatch {mismatch:.3g} (limit 1e-4), "
-          f"ragged N={ragged_n}: {mismatch_ragged:.3g} (limit 0)")
-    print(f"[rvq] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
-    if not (mismatch <= 1e-4 and mismatch_ragged == 0.0):
+          f"ragged N={ragged_n}: {mismatch_ragged:.3g} (limit 0), N={stream_n}: {mismatch_stream:.3g} (limit 0)")
+    print(f"[rvq] kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"at N={stream_n} (a streaming chunk) {ms_stream:.4f} ms, bound {bound_stream:.4f} ms ({bound_stream_by})")
+    if not (mismatch <= 1e-4 and mismatch_ragged == 0.0 and mismatch_stream == 0.0):
         raise AssertionError("rvq_encode disagrees with rvq_encode_plain")
     return dict(
         name="rvq_encode", route="cuda", source="academicodec_tpu_torch/csrc/rvq.cu",
         replaces="academicodec_tpu/ops/pallas/rvq.py:34", max_abs_err=float(max_abs_err),
-        token_mismatch=mismatch, tolerance="token mismatch <= 1e-4 (0 at N=75)",
+        token_mismatch=mismatch, token_mismatch_stream_chunk=mismatch_stream,
+        tolerance=f"token mismatch <= 1e-4 (0 at N={ragged_n} and N={stream_n})",
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+        ms_stream_chunk=ms_stream, bound_ms_stream_chunk=bound_stream, stream_chunk_rows=stream_n,
     )
 
 
@@ -485,14 +509,17 @@ def latent_frames(model, wav) -> torch.Tensor:
 
 
 def spread_codebooks(model, frames: torch.Tensor, seed: int = 0) -> None:
-    """Redraw the GRVQ codebooks from a CPU generator so that tokens spread
-    over them (the reference init, uniform +-1/1024, is far smaller than the
-    latents): layer 0 entries are latent frames picked at random plus
-    N(0, (0.1 s)^2) noise, layer 1 entries a quarter of the difference of two
-    random frames; s is the frames' std. The same on every device."""
+    """Redraw the codebooks (HiFi-Codec's GRVQ, or Encodec's RVQ as one
+    group) from a CPU generator so that tokens spread over them and follow
+    the latents (the reference inits, uniform +-1/1024 and N(0, 1), are far
+    from the random encoders' latents): layer 0 entries are latent frames
+    picked at random plus N(0, (0.1 s)^2) noise, later layers' entries a
+    quarter of the difference of two random frames; s is the frames' std.
+    The same on every device."""
     q = model.quantizer
+    book = q.codebooks if hasattr(q, "codebooks") else q.vq.embed[:, None]  # [layers, groups, K, dim]
     g = torch.Generator().manual_seed(seed)
-    n_res, G, K, gdim = q.codebooks.shape
+    n_res, G, K, gdim = book.shape
     s = frames.std().item()
 
     def pick():
@@ -501,7 +528,7 @@ def spread_codebooks(model, frames: torch.Tensor, seed: int = 0) -> None:
     layers = [pick() + torch.randn((G, K, gdim), generator=g) * (0.1 * s)]
     layers += [(pick() - pick()) * 0.25 for _ in range(n_res - 1)]
     with torch.no_grad():
-        q.codebooks.copy_(torch.stack(layers).to(q.codebooks))
+        book.copy_(torch.stack(layers).to(book))
 
 
 def phase_hificodec(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=3,
@@ -526,6 +553,404 @@ def phase_hificodec(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, 
     return result
 
 
+def phase_lstm2_carry(device, B=8, T=1000, H=512, ragged_t=70, iters=20) -> dict:
+    """K2 continuing a stream. From a random carry, output and final state
+    against the plain version's (bf16 at the flagship shape, f32 at a ragged
+    T) at the lstm2 phase's tolerances; one call over T equal, bitwise, to
+    calls over pieces of T that pass the carry along (100 x 10, 7 + 3 + 990,
+    10 x 1), in bf16 and f32; the time of one call at T 10 (a streaming
+    chunk) and T 1000."""
+    slstm = SLSTM(H)
+    slstm.lstm.reset_parameters(torch.Generator().manual_seed(1))
+    g = torch.Generator(device=device).manual_seed(2)
+    splits = {"100 x 10": (10,) * 100, "7 + 3 + 990": (7, 3, 990), "10 x 1": (1,) * 10}
+    result = {}
+    for dtype, steps, tol in ((torch.bfloat16, T, 1e-2), (torch.float32, ragged_t, 1e-4)):
+        mod = copy.deepcopy(slstm).to(device=device, dtype=dtype)
+        x = (torch.randn((B, H, T), generator=g, device=device) * 0.5).to(dtype)
+        carry = tuple(torch.randn((B, H), generator=g, device=device) * 0.5 for _ in range(4))
+        rtol = tol if dtype == torch.bfloat16 else 0.0
+        with torch.no_grad():
+            xp, *ws = mod.recurrence_inputs(x)
+
+            def run(lo, hi, start):
+                return lstm_ops.lstm2(xp[lo:hi], *ws, out_dtype=dtype, carry=start, return_carry=True)
+
+            y, fin = run(0, steps, carry)
+            ref, ref_fin = lstm_ops.lstm2_plain(xp[:steps], *ws, out_dtype=dtype, carry=carry, return_carry=True)
+            pairs = [(y.float(), ref.float()), *zip(fin, ref_fin)]
+            err = max((a - b).abs().max().item() for a, b in pairs)
+            agree = all(torch.allclose(a, b, atol=tol, rtol=rtol) for a, b in pairs)
+            bitwise = {}
+            for name, split in splits.items():
+                whole, whole_fin = run(0, sum(split), carry)
+                ys, state, t = [], carry, 0
+                for n in split:
+                    piece, state = run(t, t + n, state)
+                    ys.append(piece)
+                    t += n
+                bitwise[name] = torch.equal(torch.cat(ys), whole) and all(
+                    torch.equal(a, b) for a, b in zip(state, whole_fin))
+        print(f"[lstm2_carry] {dtype} [{B},{steps},{H}] from a random carry: max abs diff {err:.3g} "
+              f"(atol {tol}, output and final state); split calls equal one call bitwise: {bitwise}")
+        if not (agree and all(bitwise.values())):
+            raise AssertionError(f"lstm2 with a carry disagrees ({dtype}): {err:.3g}, {bitwise}")
+        key = "carry_max_abs_err" + ("" if dtype == torch.bfloat16 else "_f32_ragged")
+        result[key] = err
+        result["split_bitwise_" + ("bf16" if dtype == torch.bfloat16 else "f32")] = bitwise
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                result["ms_t10_carry"] = time_ms(lambda: run(0, 10, carry), iters)
+                result["ms_t10_no_carry"] = time_ms(
+                    lambda: lstm_ops.lstm2(xp[:10], *ws, out_dtype=dtype), iters)
+                result["ms_t1000_carry"] = time_ms(lambda: run(0, T, carry), 5)
+            n = 10
+            nbytes = n * B * 4 * H * 4 + 3 * 4 * H * H * 2 + 4 * H * 4 + n * B * H * 2 + 2 * 4 * B * H * 4
+            result["bound_ms_t10"], result["bound_by_t10"] = bound(
+                2.0 * 3 * 4 * H * H * B * n, nbytes, PEAK_BF16_FLOPS)
+            print(f"[lstm2_carry] bf16 per call: T 10 {result['ms_t10_carry']:.4f} ms with a carry "
+                  f"({result['ms_t10_no_carry']:.4f} ms without; bound {result['bound_ms_t10']:.4f} ms, "
+                  f"{result['bound_by_t10']}), T {T} {result['ms_t1000_carry']:.4f} ms with a carry")
+    return result
+
+
+def _timed_call(fn, arg, events):
+    """``fn(arg)``; ``events`` (a list on the card, None on the CPU) gets the
+    pair of CUDA events recorded around the call."""
+    if events is None:
+        return fn(arg)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(arg)
+    end.record()
+    events.append((start, end))
+    return out
+
+
+def _ms_stats(events) -> dict:
+    ms = [a.elapsed_time(b) for a, b in events]
+    return {"median": statistics.median(ms), "max": max(ms)}
+
+
+def device_busy(fn):
+    """Wall ms of ``fn`` (host clock, profiler on), the device's busy ms and
+    operation count from torch.profiler (busy None when the profiler saw no
+    device time), and the profiler for the tables of ``profile_port.py``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.device_time_total for e in ops) / 1e3
+    return wall_ms, (busy_ms or None), len(ops), prof
+
+
+def _profiled_window(result: dict, fn, chunks: int) -> str:
+    """Profile ``fn`` (``chunks`` stream chunks) into ``result`` (the profiler
+    under ``"profile"``); returns the summary for the log."""
+    wall_ms, busy_ms, ops, prof = device_busy(fn)
+    result.update(profile=prof, profiled_chunks=chunks, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                  device_ops_per_chunk=ops / chunks,
+                  idle_share=None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms))
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
+    return (f"profiled {chunks} chunks: wall {wall_ms:.3f} ms, device busy {busy}, "
+            f"{ops / chunks:.0f} device operations per chunk ({nvidia_smi()})")
+
+
+# Streaming against the full causal call in the path's own dtype (bf16 on the
+# card): convs see other lengths, so cuDNN picks other algorithms, and the
+# overlap-add tails are added after rounding; a flip in an early codebook
+# cascades down the residual. Sound bf16 runs at 8 x 10 s on an H100 gave a
+# token mismatch of 0.122 and wav errors of 0.0104 (Encodec) and 0.0083
+# (HiFi-Codec); sessions that drop their state at every chunk (printed beside,
+# as a control) gave 0.982, 0.807 and 0.367.
+STREAM_TOKEN_MISMATCH_LIMIT = 0.25
+STREAM_WAV_REL_ERR_LIMIT = 0.05
+
+
+def _rel_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max |out - ref| over max |ref|."""
+    ref = ref.float()
+    return ((out.float() - ref).abs().max() / ref.abs().max()).item()
+
+
+def _check_against_full(tag, result, pairs) -> str:
+    """``pairs``: (name, streamed, stale, full, kind) with kind "tokens" or
+    "wav"; records each comparison in ``result`` and fails past the limits."""
+    parts = []
+    for name, streamed, stale, full, kind in pairs:
+        if kind == "tokens":
+            err, ctl = ((x != full).double().mean().item() for x in (streamed, stale))
+            limit, what = STREAM_TOKEN_MISMATCH_LIMIT, "token mismatch"
+        else:
+            err, ctl = _rel_err(streamed, full), _rel_err(stale, full)
+            limit, what = STREAM_WAV_REL_ERR_LIMIT, "max abs diff / max |full|"
+        result[f"{name}_vs_full"], result[f"{name}_vs_full_state_dropped"] = err, ctl
+        parts.append(f"{name} {what} {err:.3g} (limit {limit}; state dropped at every chunk: {ctl:.3g})")
+        if not err <= limit:
+            raise AssertionError(f"{tag}: streamed {name} disagrees with the full causal call: {err:.3g}")
+    return "; ".join(parts)
+
+
+def phase_stream(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, chunk_seconds=0.1,
+                 warm_chunks=3, profile_chunks=10, preset=FLAGSHIP, **overrides) -> dict:
+    """The streaming path: ``batch`` streams of ``seconds`` of a causal,
+    zero-padded Encodec fed in chunks of ``chunk_seconds`` through
+    ``StreamingEncoder`` to tokens and each chunk's tokens through
+    ``StreamingDecoder`` back to wav, with the launch counts read around the
+    whole stream; the codebooks are first spread over the latent frames of
+    two streams (:func:`spread_codebooks`), so that tokens follow the
+    latents. The streamed tokens are held against ``model.encode`` of
+    the whole wav and the streamed wav against ``model.decode`` of the
+    streamed tokens, in the same dtype (:func:`_check_against_full`). On the
+    card: each chunk's encode and decode ms by CUDA events, the realtime
+    factor (audio seconds over wall seconds), peak memory, and the device's
+    busy share of ``profile_chunks`` chunks."""
+    model = load_codec(preset, device=device, dtype=dtype, causal=True, pad_mode="zero", **overrides)
+    hop = model.hop_length
+    chunk = int(round(chunk_seconds * model.sample_rate)) // hop * hop
+    n_chunks = int(round(seconds * model.sample_rate)) // chunk
+    wav = seeded_wav(batch, n_chunks * chunk, device, seed=5)
+    spread_codebooks(model, latent_frames(model, wav[:2]))
+    chunks = wav.split(chunk, dim=-1)
+    on_card = wav.device.type == "cuda"
+    print(f"[stream] {preset} causal {dtype} on {wav.device}: {batch} streams x {n_chunks} chunks of {chunk} "
+          f"samples, codebooks from latent frames")
+    enc, dec = StreamingEncoder(model), StreamingDecoder(model)
+    for c in chunks[:warm_chunks]:  # cuDNN picks its algorithms on a session of its own
+        dec.process(enc.process(c))
+    enc, dec = StreamingEncoder(model), StreamingDecoder(model)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    codes, outs = [], []
+    enc_ev, dec_ev = ([], []) if on_card else (None, None)
+    for c in chunks:
+        codes.append(_timed_call(enc.process, c, enc_ev))
+        outs.append(_timed_call(dec.process, codes[-1], dec_ev))
+    if on_card:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    codes, out = torch.cat(codes, -1), torch.cat(outs, -1)
+    expected = {"rvq_encode": n_chunks, "lstm2": 2 * n_chunks, "resblock_tower": 0, "resblock_tower_gn": 0}
+    expected = {k: (n if on_card else 0) for k, n in expected.items()}
+    finite = bool(torch.isfinite(out.float()).all())
+    print(f"[stream] codes {tuple(codes.shape)}, wav {tuple(out.shape)}, finite {finite}, launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"launch counts {launches}, expected {expected}")
+    if tuple(codes.shape) != (model.n_q, batch, n_chunks * chunk // hop) or out.shape != wav.shape or not finite:
+        raise AssertionError(f"streaming output: codes {tuple(codes.shape)}, wav {tuple(out.shape)}, finite {finite}")
+    result = {"launches": launches, "chunks": n_chunks, "chunk_samples": chunk,
+              "launches_per_chunk": {k: v / n_chunks for k, v in launches.items()},
+              "distinct_tokens": int(torch.unique(codes).numel())}
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    stale_codes = torch.cat([StreamingEncoder(model).process(c) for c in chunks], -1)
+    stale_wav = torch.cat([StreamingDecoder(model).process(k) for k in codes.split(chunk // hop, -1)], -1)
+    agreement = _check_against_full("stream", result, (
+        ("tokens", codes, stale_codes, model.encode(wav), "tokens"),
+        ("wav", out, stale_wav, model.decode(codes), "wav")))
+    print(f"[stream] {dtype} streaming vs the full causal call ({result['distinct_tokens']} distinct tokens): "
+          f"{agreement}")
+    if not on_card:
+        return result
+    result.update(
+        encode_ms_per_chunk=_ms_stats(enc_ev), decode_ms_per_chunk=_ms_stats(dec_ev), wall_s=wall_s,
+        realtime_factor=batch * n_chunks * chunk / model.sample_rate / wall_s,
+        peak_mem_gib=peak_mem_gib,
+    )
+    enc, dec = StreamingEncoder(model), StreamingDecoder(model)
+    window = _profiled_window(result, lambda: [dec.process(enc.process(c)) for c in chunks[:profile_chunks]],
+                              profile_chunks)
+    print(f"[stream] encode ms per chunk {result['encode_ms_per_chunk']}, decode {result['decode_ms_per_chunk']}; "
+          f"{result['realtime_factor']:.1f}x realtime ({wall_s:.3f} s for {batch} x {seconds} s); "
+          f"K1 {result['launches_per_chunk']['rvq_encode']:g} and K2 {result['launches_per_chunk']['lstm2']:g} "
+          f"launches per chunk; peak memory {result['peak_mem_gib']:.3f} GiB; {window}")
+    return result
+
+
+def phase_stream_hifi(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, chunk_frames=10,
+                      warm_chunks=3, profile_chunks=10, preset=HIFI, **overrides) -> dict:
+    """The causal HiFi-Codec generator streaming ``batch`` streams of seeded
+    random tokens through ``StreamingVQVAEDecoder`` in chunks of
+    ``chunk_frames`` frames; no K3 on causal stages. The streamed wav is held
+    against ``model.decode`` of all the tokens, in the same dtype. Card
+    numbers as in :func:`phase_stream`."""
+    model = load_codec(preset, device=device, dtype=dtype, causal=True, **overrides)
+    sr, hop = model.config.sampling_rate, model.hop_length
+    n_chunks = int(round(seconds * sr)) // hop // chunk_frames
+    n_tok = model.quantizer.n_residual * model.quantizer.n_groups
+    toks = torch.from_numpy(np.random.default_rng(6).integers(
+        0, model.config.n_codes, size=(batch, n_chunks * chunk_frames, n_tok)).astype(np.int32))
+    chunks = toks.to(model.device).split(chunk_frames, dim=1)
+    on_card = model.device.type == "cuda"
+    dec = StreamingVQVAEDecoder(model)
+    for c in chunks[:warm_chunks]:
+        dec.process(c)
+    dec = StreamingVQVAEDecoder(model)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    dec_ev = [] if on_card else None
+    outs = [_timed_call(dec.process, c, dec_ev) for c in chunks]
+    if on_card:
+        torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    out = torch.cat(outs, -1)
+    finite = bool(torch.isfinite(out.float()).all())
+    print(f"[stream_hifi] {preset} causal {dtype}: {batch} x {n_chunks} chunks of {chunk_frames} frames, "
+          f"wav {tuple(out.shape)}, finite {finite}, launches {launches}")
+    if any(launches.values()) or out.shape != (batch, n_chunks * chunk_frames * hop) or not finite:
+        raise AssertionError(f"streaming HiFi-Codec decode: launches {launches}, wav {tuple(out.shape)}")
+    result = {"launches": launches, "chunks": n_chunks, "chunk_frames": chunk_frames}
+    peak_mem_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    stale = torch.cat([StreamingVQVAEDecoder(model).process(c) for c in chunks], -1)
+    agreement = _check_against_full("stream_hifi", result, (
+        ("wav", out, stale, model.decode(torch.cat(chunks, 1)), "wav"),))
+    print(f"[stream_hifi] {dtype} streaming vs the full causal decode: {agreement}")
+    if not on_card:
+        return result
+    result.update(decode_ms_per_chunk=_ms_stats(dec_ev), wall_s=wall_s,
+                  realtime_factor=batch * n_chunks * chunk_frames * hop / sr / wall_s,
+                  peak_mem_gib=peak_mem_gib)
+    dec = StreamingVQVAEDecoder(model)
+    window = _profiled_window(result, lambda: [dec.process(c) for c in chunks[:profile_chunks]], profile_chunks)
+    print(f"[stream_hifi] decode ms per chunk {result['decode_ms_per_chunk']}; {result['realtime_factor']:.1f}x "
+          f"realtime ({wall_s:.3f} s); peak memory {result['peak_mem_gib']:.3f} GiB; {window}")
+    return result
+
+
+def phase_stream_check(device, seconds=1.0, batch=2) -> dict:
+    """Streaming against the full causal call on the same card, f32 with TF32
+    off, full width: Encodec tokens with codebooks spread over the latents
+    (mismatch <= 2%, JAX's bound for
+    shape-dependent near-tie flips, tests/test_streaming.py), Encodec wav
+    decoded chunk by chunk from the full encode's tokens (atol 1e-4), and the
+    HiFi-Codec generator's streaming decode of seeded tokens (atol 1e-4)."""
+    model = load_codec(FLAGSHIP, device=device, causal=True, pad_mode="zero")
+    chunk = model.hop_length * 10
+    wav = seeded_wav(batch, int(seconds * model.sample_rate) // chunk * chunk, device, seed=3)
+    spread_codebooks(model, latent_frames(model, wav))
+    full = model.encode(wav)
+    enc, dec = StreamingEncoder(model), StreamingDecoder(model)
+    streamed = torch.cat([enc.process(c) for c in wav.split(chunk, -1)], -1)
+    mismatch = (streamed != full).double().mean().item()
+    wav_err = (torch.cat([dec.process(c) for c in full.split(10, -1)], -1) - model.decode(full)).abs().max().item()
+    hifi = load_codec(HIFI, device=device, causal=True)
+    frames = int(seconds * hifi.config.sampling_rate) // hifi.hop_length
+    toks = torch.from_numpy(np.random.default_rng(7).integers(0, hifi.config.n_codes, size=(batch, frames, 4)).astype(np.int32))
+    hdec = StreamingVQVAEDecoder(hifi)
+    hifi_err = (torch.cat([hdec.process(c) for c in toks.split(10, 1)], -1) - hifi.decode(toks)).abs().max().item()
+    distinct = int(torch.unique(full).numel())
+    print(f"[stream_check] f32, {batch} x {seconds} s: Encodec streaming vs full tokens ({distinct} distinct) mismatch {mismatch:.3g} "
+          f"(limit 0.02), wav max abs diff {wav_err:.3g} (atol 1e-4); HiFi-Codec streaming vs full decode "
+          f"{hifi_err:.3g} (atol 1e-4)")
+    if not (mismatch <= 0.02 and wav_err <= 1e-4 and hifi_err <= 1e-4):
+        raise AssertionError("streaming disagrees with the full causal call")
+    return {"token_mismatch": mismatch, "distinct_tokens": distinct, "wav_max_abs_err": wav_err,
+            "hifi_wav_max_abs_err": hifi_err}
+
+
+def phase_compress(device="cuda", dtype=torch.bfloat16, n_files=8, seconds=10.0, bucket_seconds=10.0,
+                   iters=3, preset=FLAGSHIP, **overrides) -> dict:
+    """ECDC compression of ``n_files`` files of ``seconds`` through
+    ``SoundStreamCompressor.compress_batch`` and back through
+    ``decompress_batch``, with the launch counts read around it; the
+    codebooks are first spread over two files' latent frames. Each blob
+    must unpack to exactly the tokens ``model.encode`` gives for the batch,
+    and ``decompress_batch`` must equal ``model.decode`` of those tokens,
+    trimmed, bitwise. On the card: both calls' ms by the host clock (each
+    ends in a copy to the host), beside the plain roundtrip of the same
+    batch from a device tensor."""
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    batch = seeded_wav(n_files, int(round(seconds * model.sample_rate)), "cpu", seed=4)
+    wavs = [row.numpy() for row in batch]
+    spread_codebooks(model, latent_frames(model, batch[:2]))
+    comp = SoundStreamCompressor(model, bucket_seconds=bucket_seconds)
+    on_card = model.device.type == "cuda"
+    comp.decompress_batch(comp.compress_batch(wavs))  # warm-up
+    if on_card:
+        torch.cuda.synchronize()
+    reset_launches()
+    blobs = comp.compress_batch(wavs)
+    out = comp.decompress_batch(blobs)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = read_launches()
+    expected = {"rvq_encode": 1, "lstm2": 2, "resblock_tower": 0, "resblock_tower_gn": 0}
+    expected = {k: (n if on_card else 0) for k, n in expected.items()}
+    codes = model.encode(batch)
+    ref = model.decode(codes).float().cpu().numpy()
+    codes = codes.cpu().numpy()
+    tokens_exact = all(np.array_equal(decompress_codes(b)[0], codes[:, i, : -(-len(w) // model.hop_length)])
+                       for i, (b, w) in enumerate(zip(blobs, wavs)))
+    wav_exact = all(np.array_equal(o, ref[i, : len(w)]) and sr == model.sample_rate
+                    for i, ((o, sr), w) in enumerate(zip(out, wavs)))
+    sizes = [len(b) for b in blobs]
+    distinct = len(np.unique(codes))
+    print(f"[compress] {preset} {dtype}, {n_files} files x {seconds} s, codebooks from latent frames: launches "
+          f"{launches}, blob bytes {sizes}, {distinct} distinct tokens, tokens exact {tokens_exact}, wav equal to "
+          f"model.decode bitwise {wav_exact}")
+    if launches != expected or not (tokens_exact and wav_exact):
+        raise AssertionError(f"compression path: launches {launches} (expected {expected}), tokens "
+                             f"{tokens_exact}, wav {wav_exact}")
+    result = {"launches": launches, "blob_bytes": sizes, "distinct_tokens": distinct}
+    if not on_card:
+        return result
+
+    def host_ms(fn):
+        times = []
+        for _ in range(iters):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.mean(times)
+
+    x = batch.to(device)
+    codes_dev = comp.submit_encode(wavs)
+    result.update(
+        compress_batch_ms=host_ms(lambda: comp.compress_batch(wavs)),
+        decompress_batch_ms=host_ms(lambda: comp.decompress_batch(blobs)),
+        roundtrip_ms=host_ms(lambda: model.decode(model.encode(x))),
+        # the parts: the encode from the host's wavs, the packing from device codes,
+        # and the plain encode and decode of a device tensor
+        submit_encode_ms=host_ms(lambda: comp.submit_encode(wavs)),
+        pack_ms=host_ms(lambda: comp.pack_submitted(codes_dev, [len(w) for w in wavs])),
+        encode_ms=host_ms(lambda: model.encode(x)),
+        decode_ms=host_ms(lambda: model.decode(codes_dev)),
+        native_packer=get_bitpack_lib() is not None,
+    )
+    # the host bit packers on the 8 files' tokens: native (when it builds) and numpy
+    files = [np.ascontiguousarray(codes[:, i]) for i in range(n_files)]
+    bits = model.bits_per_codebook
+    for name, pack, unpack in (("native", binary.pack_array, binary.unpack_array),
+                               ("numpy", binary.pack_array_numpy, binary.unpack_array_numpy)):
+        if name == "native" and not result["native_packer"]:
+            continue
+        packed = [pack(f, bits) for f in files]
+        result[f"pack_{name}_ms"] = host_ms(lambda: [pack(f, bits) for f in files])
+        result[f"unpack_{name}_ms"] = host_ms(lambda: [unpack(b, bits, f.size) for b, f in zip(packed, files)])
+    print(f"[compress] compress_batch {result['compress_batch_ms']:.3f} ms (submit_encode "
+          f"{result['submit_encode_ms']:.3f}, pack_submitted {result['pack_ms']:.3f}, native packer "
+          f"{result['native_packer']}; packing {n_files} files' tokens: native {result.get('pack_native_ms')} ms, "
+          f"numpy {result['pack_numpy_ms']:.3f} ms; unpacking: native {result.get('unpack_native_ms')} ms, "
+          f"numpy {result['unpack_numpy_ms']:.3f} ms), decompress_batch {result['decompress_batch_ms']:.3f} ms; plain "
+          f"roundtrip {result['roundtrip_ms']:.3f} ms (encode {result['encode_ms']:.3f}, decode "
+          f"{result['decode_ms']:.3f}) (host clock, mean of {iters}; {nvidia_smi()})")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -535,19 +960,32 @@ def main() -> int:
     phase_build()
     k1 = phase_rvq(device)
     k2 = phase_lstm(device)
+    k2.update(phase_lstm2_carry(device))
     k3 = phase_resblock(device)
     k4 = phase_resblock_gn(device)
     main_path = phase_main_path(device)
     phase_cross_check(device)
     hifi = phase_hificodec(device)
     phase_cross_check(device, HIFI)
+    stream = phase_stream(device)
+    stream_hifi = phase_stream_hifi(device)
+    stream_check = phase_stream_check(device)
+    compress = phase_compress(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
+    for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
+        k["launches_per_stream_chunk"] = stream["launches_per_chunk"][name]
+        k["launches_compress_roundtrip"] = compress["launches"][name]
     k3["launches"] = hifi["launches"]["resblock_tower"]
     k4["launches"] = hifi["launches"]["resblock_tower_gn"]
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
     print(f"[main] {json.dumps({k: main_path[k] for k in keys})}")
     print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
+    skip = ("launches", "profile")
+    print(f"[stream] {json.dumps({k: v for k, v in stream.items() if k not in skip})}")
+    print(f"[stream_hifi] {json.dumps({k: v for k, v in stream_hifi.items() if k not in skip})}")
+    print(f"[stream_check] {json.dumps(stream_check)}")
+    print(f"[compress] {json.dumps(compress)}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

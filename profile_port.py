@@ -11,6 +11,15 @@ window. Needs one CUDA device.
 
     python3 profile_port.py [--preset hificodec_24k_320d] [--top 20]
 
+``--stream`` runs ``chip_smoke.phase_stream`` (or ``phase_stream_hifi``)
+instead (causal models, 8 streams, bf16: 100 ms wav chunks through the
+Encodec encoder and decoder sessions, or 10-frame token chunks through the
+causal HiFi-Codec generator) and tabulates the ``--chunks`` chunks that the
+phase profiles. It adds the device operations per chunk and the host's
+busiest operators by self CPU time.
+
+    python3 profile_port.py --stream [--preset hificodec_24k_320d]
+
 ``--tower-clocks`` instead builds the kernels with ``-DTOWER_PROFILE`` and
 launches K3 once at each flagship stage shape: two blocks of the tensor-core
 kernel then print the ``clock64`` counts of their phases (window loads, the
@@ -24,11 +33,9 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-import time
 from collections import defaultdict
 
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke
 
@@ -69,6 +76,8 @@ def main(argv=None) -> int:
     parser.add_argument("--preset", default=chip_smoke.FLAGSHIP,
                         choices=(chip_smoke.FLAGSHIP, chip_smoke.HIFI))
     parser.add_argument("--top", type=int, default=20)
+    parser.add_argument("--stream", action="store_true", help="profile streaming chunks instead")
+    parser.add_argument("--chunks", type=int, default=10, help="chunks in the --stream window")
     parser.add_argument("--tower-clocks", action="store_true",
                         help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
     args = parser.parse_args(argv)
@@ -82,18 +91,20 @@ def main(argv=None) -> int:
         tower_clocks()
         return 0
     chip_smoke.phase_build()
-    if args.preset == chip_smoke.HIFI:
-        run = chip_smoke.phase_hificodec("cuda", iters=3)
+    if args.stream:
+        # the window of chip_smoke's streaming phase, profiled there
+        phase = chip_smoke.phase_stream_hifi if args.preset == chip_smoke.HIFI else chip_smoke.phase_stream
+        run = phase("cuda", profile_chunks=args.chunks)
+        prof, wall_ms = run["profile"], run["profiled_wall_ms"]
+        window = f"{args.chunks} stream chunks"
     else:
-        run = chip_smoke.phase_main_path("cuda", iters=3)
-    model, wav = run["model"], run["input"]
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.decode(model.encode(wav))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        if args.preset == chip_smoke.HIFI:
+            run = chip_smoke.phase_hificodec("cuda", iters=3)
+        else:
+            run = chip_smoke.phase_main_path("cuda", iters=3)
+        model, wav = run["model"], run["input"]
+        wall_ms, _, _, prof = chip_smoke.device_busy(lambda: model.decode(model.encode(wav)))
+        window = "one roundtrip"
 
     per_name = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
@@ -107,12 +118,17 @@ def main(argv=None) -> int:
     per_group = defaultdict(float)
     for name, (t, _) in per_name.items():
         per_group[group_of(name)] += t
-    print(f"[profile] {args.preset} one roundtrip: wall {wall_ms:.3f} ms (host clock, profiler on), "
+    print(f"[profile] {args.preset} {window}: wall {wall_ms:.3f} ms (host clock, profiler on), "
           f"device busy {busy_ms:.3f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f} ({smi})")
     for group, t in sorted(per_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {group:40s} {t:9.3f} ms  {t / busy_ms:6.1%}")
     for name, (t, n) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[: args.top]:
         print(f"[profile]   {t:9.3f} ms  x{n:<5d} {name[:110]}")
+    if args.stream:
+        print("[profile] host operators by self CPU time:")
+        host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[: args.top]
+        for e in host:
+            print(f"[profile]   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count / args.chunks:<7.1f}/chunk {e.key[:90]}")
     print(json.dumps({
         "preset": args.preset, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "groups_ms": dict(per_group), "card": smi,

@@ -132,6 +132,73 @@ def test_lstm2_geometry_on_this_card(cuda):
         assert lstm_ops.lstm2_geometry(8, 512, 2, sms)[:2] == (4, 128)
 
 
+def _lstm2_case(rng, wdt, B, T, H, device):
+    x_proj = _randn(rng, (T, B, 4 * H), device, 0.5)
+    ws = [_randn(rng, (4 * H, H), device, H ** -0.5).to(wdt) for _ in range(3)]
+    return x_proj, ws, _randn(rng, (4 * H,), device, 0.1)
+
+
+@pytest.mark.parametrize(
+    "wdt,B,T,H,atol",
+    [
+        (torch.bfloat16, 8, 10, 512, 1e-2),   # a streaming chunk of the flagship
+        (torch.bfloat16, 3, 33, 96, 1e-2),
+        (torch.float32, 2, 70, 64, 1e-4),
+        (torch.float32, 3, 12, 536, 1e-4),    # 134 blocks of 4 > 132 SMs
+        (torch.bfloat16, 8, 30, 600, 1e-2),   # 8 units a block
+    ],
+)
+def test_lstm2_kernel_carry_matches_plain(cuda, wdt, B, T, H, atol):
+    """With a random initial carry, the output and the final (h1, c1, h2, c2)
+    agree with the plain version's; one launch per call."""
+    rng = np.random.default_rng(T + H)
+    x_proj, ws, b2 = _lstm2_case(rng, wdt, B, T, H, cuda)
+    carry = tuple(_randn(rng, (B, H), cuda, 0.5) for _ in range(4))
+    before = lstm_ops.LAUNCHES
+    y, final = lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
+    torch.cuda.synchronize()
+    assert lstm_ops.LAUNCHES == before + 1
+    ref, ref_final = lstm_ops.lstm2_plain(x_proj, *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
+    torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=atol)
+    for a, b in zip(final, ref_final):
+        assert a.dtype == torch.float32 and a.shape == (B, H)
+        torch.testing.assert_close(a, b, atol=atol, rtol=atol)
+
+
+@pytest.mark.parametrize("wdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,H,split",
+    [
+        (8, 512, (10,) * 100),  # the flagship's T 1000 as 100 streaming chunks
+        (8, 512, (7, 3)),       # ragged
+        (8, 512, (1,)),         # T 1
+        (3, 96, (1, 1, 5, 2)),
+        (3, 536, (4, 6)),       # 134 blocks of 4 > 132 SMs: 8 units a block
+    ],
+)
+def test_lstm2_kernel_split_calls_equal_one_call(cuda, wdt, B, H, split):
+    """One call over T equals, bitwise, calls over pieces of T that pass the
+    carry along: a step's arithmetic does not depend on T, and the carried
+    f32 h rounds on load to the value the exchange buffer would hold."""
+    T = sum(split)
+    rng = np.random.default_rng(T)
+    x_proj, ws, b2 = _lstm2_case(rng, wdt, B, T, H, cuda)
+    carry0 = tuple(_randn(rng, (B, H), cuda, 0.5) for _ in range(4))
+    for start in (None, carry0):
+        y, final = lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=start, return_carry=True)
+        ys, carry, t = [], start, 0
+        for n in split:
+            piece, carry = lstm_ops.lstm2(x_proj[t:t + n], *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
+            ys.append(piece)
+            t += n
+        assert torch.equal(torch.cat(ys), y)
+        assert all(torch.equal(a, b) for a, b in zip(carry, final))
+    # the old call without a carry equals the zero carry
+    zeros = tuple(torch.zeros((B, H), device=cuda) for _ in range(4))
+    assert torch.equal(lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt),
+                       lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=zeros))
+
+
 def test_lstm2_empty_sequence_launches_nothing(cuda):
     H = 64
     ws = [torch.zeros((4 * H, H), device=cuda) for _ in range(3)]
@@ -421,3 +488,44 @@ def test_vqvae_cuda_matches_cpu(cuda):
     codes_cpu = on_cpu.encode(wav)
     torch.testing.assert_close(codes.cpu(), codes_cpu, rtol=0, atol=0)
     torch.testing.assert_close(out.cpu(), on_cpu.decode(codes_cpu), atol=1e-4, rtol=1e-3)
+
+
+def test_streaming_sessions_cuda_match_cpu(cuda):
+    """A tiny causal f32 Encodec streamed on the card (K1 once and K2 once per
+    encoder chunk, K2 once per decoder chunk) against the same sessions on the
+    CPU (plain versions): identical tokens, the same wav."""
+    from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder
+
+    kw = dict(n_filters=4, dimension=32, ratios=(6, 5, 4, 2), target_bandwidths=(1, 2, 4, 8, 12),
+              causal=True, pad_mode="zero")
+    on_gpu, on_cpu = SoundStream(device=cuda, **kw), SoundStream(device="cpu", **kw)
+    wav = torch.from_numpy((np.random.default_rng(7).standard_normal((2, 4800)) * 0.1).astype(np.float32))
+    chunks = wav.split(960, dim=-1)
+    k1, k2 = rvq_ops.LAUNCHES, lstm_ops.LAUNCHES
+    enc, dec = StreamingEncoder(on_gpu), StreamingDecoder(on_gpu)
+    codes = [enc.process(c) for c in chunks]
+    out = torch.cat([dec.process(c) for c in codes], -1)
+    torch.cuda.synchronize()
+    assert (rvq_ops.LAUNCHES - k1, lstm_ops.LAUNCHES - k2) == (len(chunks), 2 * len(chunks))
+    enc_cpu, dec_cpu = StreamingEncoder(on_cpu), StreamingDecoder(on_cpu)
+    codes_cpu = [enc_cpu.process(c) for c in chunks]
+    torch.testing.assert_close(torch.cat(codes, -1).cpu(), torch.cat(codes_cpu, -1), rtol=0, atol=0)
+    out_cpu = torch.cat([dec_cpu.process(c) for c in codes_cpu], -1)
+    torch.testing.assert_close(out.cpu(), out_cpu, atol=1e-4, rtol=1e-3)
+
+
+def test_causal_vqvae_streaming_cuda_matches_cpu(cuda):
+    """A tiny causal HiFi-Codec generator streamed on the card against the CPU;
+    causal stages take no fused tower (K3 is not launched)."""
+    from academicodec_tpu_torch.streaming import StreamingVQVAEDecoder
+
+    cfg = HiFiCodecConfig(upsample_rates=(4, 4, 2), upsample_kernel_sizes=(8, 8, 4),
+                          upsample_initial_channel=256, encoder_base_channels=16, causal=True)
+    on_gpu, on_cpu = VQVAE(cfg, device=cuda), VQVAE(cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(8).integers(0, 1024, size=(2, 25, 4)).astype(np.int32))
+    k3 = rb_ops.TOWER_LAUNCHES
+    dec = StreamingVQVAEDecoder(on_gpu)
+    out = torch.cat([dec.process(c) for c in toks.split(10, dim=1)], -1)
+    torch.cuda.synchronize()
+    assert rb_ops.TOWER_LAUNCHES == k3
+    torch.testing.assert_close(out.cpu(), on_cpu.decode(toks), atol=1e-4, rtol=1e-3)

@@ -96,3 +96,51 @@ def test_lstm2_geometry_picks_fewest_units_with_one_block_per_sm(B, H, itemsize,
 def test_lstm2_geometry_raises_when_the_weights_cannot_stay_resident(B, H, itemsize):
     with pytest.raises(RuntimeError, match="shared memory"):
         lstm2_geometry(B, H, itemsize, 132)
+
+
+def test_slstm_carry_matches_jax_carry_scan_at_flagship_width():
+    """The carry path at the flagship width (H 512, B 2, T 5 + 5) in f32: the
+    port's plain K2 continues a stream as the JAX ``LSTMLayer`` scan does,
+    outputs and final (h, c) within atol 1e-5."""
+    dim, B, T = 512, 2, 10
+    mod, variables, x = _jax_slstm(dim, B, T, skip=True, seed=5)
+    apply = jax.jit(lambda v, xs, c: mod.apply(v, xs, carry=c, return_carry=True))
+    carry = mod.apply(variables, B, method=JSLSTM.init_carry)
+    port = SLSTM(dim)
+    port.load_state_dict(slstm_state_from_jax(variables["params"]))
+    ours = port.init_carry(B)
+    for lo, hi in ((0, 5), (5, 10)):
+        ref, carry = apply(variables, jnp.asarray(x[:, lo:hi]), carry)
+        with torch.no_grad():
+            y, ours = port(torch.from_numpy(x[:, lo:hi].transpose(0, 2, 1).copy()), carry=ours, return_carry=True)
+        np.testing.assert_allclose(y.numpy().transpose(0, 2, 1), np.asarray(ref), atol=1e-5, rtol=0)
+        for (h, c), (jh, jc) in zip(ours, carry):
+            assert h.dtype == c.dtype == torch.float32
+            np.testing.assert_allclose(h.numpy(), np.asarray(jh), atol=1e-5, rtol=0)
+            np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("wdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("split", [(5, 5), (7, 3), (1, 1, 1), (4, 0, 2)])
+def test_lstm2_plain_split_calls_equal_one_call(wdt, split):
+    """Calls over pieces of T that pass the carry along equal one call over T
+    bitwise (an empty piece passes the carry through)."""
+    g = torch.Generator().manual_seed(sum(split))
+    H, B, T = 16, 3, sum(split)
+    x_proj = torch.randn(T, B, 4 * H, generator=g)
+    ws = [(torch.randn(4 * H, H, generator=g) * H ** -0.5).to(wdt) for _ in range(3)]
+    b2 = torch.randn(4 * H, generator=g) * 0.1
+    carry0 = tuple(torch.randn(B, H, generator=g) * 0.5 for _ in range(4))
+    y, final = lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=carry0, return_carry=True)
+    ys, carry, t = [], carry0, 0
+    for n in split:
+        piece, carry = lstm2(x_proj[t:t + n], *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
+        ys.append(piece)
+        t += n
+    torch.testing.assert_close(torch.cat(ys), y, rtol=0, atol=0)
+    for a, b in zip(carry, final):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    # no carry is the zero carry
+    zeros = tuple(torch.zeros(B, H) for _ in range(4))
+    torch.testing.assert_close(lstm2(x_proj, *ws, b2, out_dtype=wdt),
+                               lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=zeros), rtol=0, atol=0)
