@@ -63,6 +63,27 @@
 // up to 176 runs the product loop 12% faster at C 64 only, for a second code
 // path with a transposing epilogue (times in PERF.md).
 //
+// K3's prologue (the `pre` branch of _tower_kernel, resblock.py:114-131,
+// 165-187): the tower's input is x0 = convT(lrelu(x)) of the stage's input x
+// [B, C_in, T_in], stride u, computed phase-major so that x0 never goes to
+// device memory: x0[u q + r] = sum over phase r's taps (m, j) of z[q - m]
+// K_j. TT and the halo are multiples of u, so a window starts on a phase
+// boundary. Shared memory at C 64 holds no fourth window, so each chain
+// recomputes x0 before its first conv: its input window [W/u + span][C_in]
+// lies in the y1 buffer (free until then) as C_in / C swizzled [rows][C]
+// slices, and each phase is a product with M = W/u rows, N = C and K = taps x
+// C_in, its (tap, slice) [C][C] tiles streamed through the ring ahead of the
+// chain's own taps by the same tap loop (tap_mma), which keeps the register
+// budget of the chain convs. The FMA path computes x0 per element from x in
+// device memory (pre_window).
+//
+// K4 with lengths [B] (the JAX package's length-masked encode, which it runs
+// unfused): row b's valid limit is lengths[b] instead of T, so its frames
+// past it are loaded as 0, every conv output there is 0 and the chains write
+// exact zeros; the moments add those zeros in the fixed tile order, so they
+// equal the moments of the row at its exact length bit for bit; the affines
+// count lengths[b] frames and gn_apply writes 0 past them.
+//
 // Built with -DTOWER_PROFILE, two blocks of tower_kernel print the clock64
 // counts of their phases (profile_port.py --tower-clocks).
 //
@@ -90,6 +111,8 @@ constexpr int T_T = 8;             // columns per thread, 32 apart
 constexpr int STRIP = 32 * T_T;    // columns per warp unit
 constexpr int MAX_CHAINS = 4;
 constexpr int MAX_CONVS = 8;
+constexpr int MAX_U = 8;         // stride of K3's convT prologue
+constexpr int MAX_PRE_TAPS = 8;  // taps of one phase of the prologue
 constexpr float SLOPE = 0.1f;
 
 struct Tower {
@@ -99,6 +122,13 @@ struct Tower {
   int k[MAX_CHAINS];
   int n_convs[MAX_CHAINS];
   int dil[MAX_CHAINS][MAX_CONVS];  // per conv, in call order
+  // K3's prologue x0 = convT(lrelu(x)) with stride pre_u (0: none), phase-major:
+  // x0[u q + r] = sum_i z[q - pre_m[r][i]] K[pre_j[r][i]] + b over the pre_n[r]
+  // taps of phase r; m_hi = max m. pre_cin input channels.
+  int pre_u, pre_cin, pre_mhi, pre_span;
+  int pre_n[MAX_U];
+  int pre_m[MAX_U][MAX_PRE_TAPS];
+  int pre_j[MAX_U][MAX_PRE_TAPS];
 };
 
 template <typename S> __device__ __forceinline__ float to_f(S v);
@@ -212,13 +242,43 @@ __device__ void lrelu_pass(const S* src, S* dst, int C, int ld, int lo, int hi) 
   }
 }
 
-// cur = x at global columns t0 .. t0 + W (0 outside [0, T)), a = S(lrelu(cur))
+// cur = x at global columns t0 .. t0 + W (0 outside [0, Tv)), a = S(lrelu(cur));
+// x rows are T long, Tv <= T of them valid
 template <typename S>
 __device__ void load_window(const S* __restrict__ x, S* cur, S* a, int C, int ld, int W,
-                            int t0, int T) {
+                            int t0, int T, int Tv) {
   for (int i = threadIdx.x; i < C * W; i += THREADS) {
     const int c = i / W, col = i % W, gt = t0 + col;
-    const S v = (gt >= 0 && gt < T) ? x[(size_t)c * T + gt] : from_f<S>(0.f);
+    const S v = (gt >= 0 && gt < Tv) ? x[(size_t)c * T + gt] : from_f<S>(0.f);
+    cur[c * ld + col] = v;
+    a[c * ld + col] = from_f<S>(lrelu(to_f<S>(v)));
+  }
+}
+
+// K3's prologue on the FMA path: cur = S(convT(S(lrelu(x))) + b) at global
+// columns t0 .. t0 + W (0 outside [0, T)), a = S(lrelu(cur)). x: [C_in, T_in];
+// wpre: [k][C][C_in]. t0 is a multiple of u, so column col is phase col % u.
+template <typename S>
+__device__ void pre_window(const S* __restrict__ x, const S* __restrict__ wpre,
+                           const float* __restrict__ bpre, const Tower& tw, S* cur, S* a, int C,
+                           int ld, int W, int t0, int T, int T_in) {
+  const int u = tw.pre_u, cin = tw.pre_cin;
+  for (int i = threadIdx.x; i < C * W; i += THREADS) {
+    const int c = i / W, col = i % W, gt = t0 + col;
+    float y = 0.f;
+    if (gt >= 0 && gt < T) {
+      const int q = gt / u, r = gt - q * u;
+      float acc = 0.f;
+      for (int e = 0; e < tw.pre_n[r]; ++e) {
+        const int s = q - tw.pre_m[r][e];
+        if (s < 0 || s >= T_in) continue;
+        const S* wr = wpre + ((size_t)tw.pre_j[r][e] * C + c) * cin;
+        for (int ci = 0; ci < cin; ++ci)
+          acc = fmaf(to_f<S>(wr[ci]), round_to<S>(lrelu(to_f<S>(x[(size_t)ci * T_in + s]))), acc);
+      }
+      y = acc + __ldg(bpre + c);
+    }
+    const S v = from_f<S>(y);
     cur[c * ld + col] = v;
     a[c * ld + col] = from_f<S>(lrelu(to_f<S>(v)));
   }
@@ -272,13 +332,16 @@ __device__ void run_chain(const Tower& tw, int g, const S* w, const float* bias,
 // shared row stride of the FMA path's window of W columns
 __host__ __device__ __forceinline__ int row_stride(int W) { return (W + 7) / 8 * 8; }
 
-// K3, FMA path. x, y: [B, C, T] (y: [B, C_post, T] with a post conv). H = Hc + (kp-1)/2,
-// Hc the deepest chain's halo. Grid (ceil(T / TT), B).
+// K3, FMA path. x, y: [B, C, T] (y: [B, C_post, T] with a post conv). H >= Hc + (kp-1)/2,
+// Hc the deepest chain's halo. With the prologue x is [B, C_in, T_in], T = u T_in, and
+// TT and H are multiples of u. Grid (ceil(T / TT), B).
 template <typename S>
 __global__ void __launch_bounds__(THREADS)
 tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
-             const S* __restrict__ wpost, const float* __restrict__ bpost, S* __restrict__ y,
-             Tower tw, int C, int T, int TT, int H, int Hc, int C_post, int kp, int post_tanh) {
+             const S* __restrict__ wpost, const float* __restrict__ bpost,
+             const S* __restrict__ wpre, const float* __restrict__ bpre, S* __restrict__ y,
+             Tower tw, int C, int T, int T_in, int TT, int H, int Hc, int C_post, int kp,
+             int post_tanh) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = TT + 2 * H, ld = row_stride(W);
   S* cur = reinterpret_cast<S*>(smem_raw);
@@ -288,11 +351,14 @@ tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* 
   float* acc = reinterpret_cast<float*>(y1 + C * ld);
   const int b = blockIdx.y, tile = blockIdx.x;
   const int t0 = tile * TT - H;
-  const S* xb = x + (size_t)b * C * T;
+  const S* xb = x + (size_t)b * (tw.pre_u ? (size_t)tw.pre_cin * T_in : (size_t)C * T);
   const S* wg = w;
   const float* bg = bias;
   for (int g = 0; g < tw.G; ++g) {
-    load_window(xb, cur, a, C, ld, W, t0, T);
+    if (tw.pre_u)
+      pre_window(xb, wpre, bpre, tw, cur, a, C, ld, W, t0, T, T_in);
+    else
+      load_window(xb, cur, a, C, ld, W, t0, T, T);
     __syncthreads();
     int lo, hi;
     run_chain(tw, g, wg, bg, cur, a, y1, C, ld, W, t0, T, lo, hi);
@@ -331,12 +397,20 @@ tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* 
   }
 }
 
+// The valid length of batch row b: lengths[b] clamped to [0, T], or T without lengths.
+__device__ __forceinline__ int valid_length(const int* lengths, int b, int T) {
+  return lengths == nullptr ? T : min(max(__ldg(lengths + b), 0), T);
+}
+
 // K4 pass 1, FMA path. outs: [G, B, C, T]; part: [B, nT, C, n_mom] with the moments of
 // the stored (rounded) values in the order m_0..m_{G-1}, q_00, q_01, ..., q_11, ...
+// With lengths [B], row b is computed as if it were lengths[b] long: its frames past
+// that are read as 0 and written as 0, and add exact zeros to the moments.
 template <typename S>
 __global__ void __launch_bounds__(THREADS)
 gn_tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
-                S* outs, float* __restrict__ part, Tower tw, int B, int C, int T, int TT, int H) {
+                S* outs, float* __restrict__ part, const int* __restrict__ lengths, Tower tw, int B,
+                int C, int T, int TT, int H) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int W = TT + 2 * H, ld = row_stride(W);
   S* cur = reinterpret_cast<S*>(smem_raw);
@@ -345,14 +419,15 @@ gn_tower_fma_kernel(const S* __restrict__ x, const S* __restrict__ w, const floa
   const int b = blockIdx.y, tile = blockIdx.x, nT = gridDim.x;
   const int t0 = tile * TT - H;
   const int width = min(TT, T - tile * TT);  // centre columns inside [0, T)
+  const int Tv = valid_length(lengths, b, T);
   const S* xb = x + (size_t)b * C * T;
   const S* wg = w;
   const float* bg = bias;
   for (int g = 0; g < tw.G; ++g) {
-    load_window(xb, cur, a, C, ld, W, t0, T);
+    load_window(xb, cur, a, C, ld, W, t0, T, Tv);
     __syncthreads();
     int lo, hi;
-    run_chain(tw, g, wg, bg, cur, a, y1, C, ld, W, t0, T, lo, hi);
+    run_chain(tw, g, wg, bg, cur, a, y1, C, ld, W, t0, Tv, lo, hi);
     S* og = outs + ((size_t)g * B + b) * C * T + (size_t)tile * TT;
     for (int i = threadIdx.x; i < C * TT; i += THREADS) {
       const int c = i / TT, j = i % TT;
@@ -590,94 +665,117 @@ __device__ __forceinline__ void epilogue(const float (&acc)[MT][C / 8][4], const
 // A window buffer holds 16 rows past the window: a ragged last m-tile reads
 // them (whatever they hold) for rows it never stores.
 //
-// One conv on the tensor cores: out[t][co] = sum_j sum_ci in[t + (j - half) d][ci] W_j[co][ci].
-// The m-tiles of the rows [olo, ohi) are split evenly over the 8 warps, at most
-// MT each (the caller picks MT). Every warp walks all k taps of the
-// ring, with or without rows of its own. A fragments (16 rows x 16 input
-// channels of the shifted window) and B fragments (16 output x 16 input
-// channels of the tap tile) are one ldmatrix.x4 each.
-template <int C, int MT>
-__device__ __forceinline__ void conv_tc(Pipe& pipe, const ConvArgs& a) {
-  using G = Tc<C>;
-  constexpr int RB = G::RB, KT = G::KT, NT = G::NT, MASK = G::MASK;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // m-tiles split evenly: the first nmt % 8 warps take one more
-  const int nmt = (a.ohi - a.olo + 15) >> 4, per = nmt / WARPS, rem = nmt % WARPS;
-  const int cnt = per + (warp < rem);
-  const int row0 = a.olo + (warp * per + min(warp, rem)) * 16;
-  const int half = (a.k - 1) / 2;
+// The m-tiles of the rows [olo, ohi) of a product are split evenly over the 8
+// warps, at most MT each (the caller picks MT): the first nmt % 8 warps take
+// one more. Sets this warp's m-tile count and first row.
+__device__ __forceinline__ void split_rows(int olo, int ohi, int& cnt, int& row0) {
+  const int warp = threadIdx.x >> 5;
+  const int nmt = (ohi - olo + 15) >> 4, per = nmt / WARPS, rem = nmt % WARPS;
+  cnt = per + (warp < rem);
+  row0 = olo + (warp * per + min(warp, rem)) * 16;
+}
 
-  // this lane's row of each B ldmatrix: output channel np 16 + 8 (lane / 16) + lane % 8,
-  // input-channel chunk 2 kt + (lane / 8) % 2
-  uint32_t brow[NT / 2], bxor[NT / 2];
+// This lane's row of each B ldmatrix of a tap tile: output channel np 16 + 8
+// (lane / 16) + lane % 8, input-channel chunk 2 kt + (lane / 8) % 2.
+template <int C>
+__device__ __forceinline__ void b_rows(uint32_t (&brow)[C / 16], uint32_t (&bxor)[C / 16]) {
+  constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK;
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int np = 0; np < NT / 2; ++np) {
+  for (int np = 0; np < C / 16; ++np) {
     const uint32_t rb = (np * 16 + ((lane >> 4) & 1) * 8 + (lane & 7)) * RB;
     brow[np] = rb;
     bxor[np] = ((rb >> 7) & MASK) ^ ((lane >> 3) & 1);
   }
+}
 
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][n][r] = 0.f;
-
-  for (int j = 0; j < a.k; ++j) {
-    const int t = pipe.tap;
-    if (threadIdx.x == PRODUCER) produce<C>(pipe, t + AHEAD);
+// One tap of a product on the tensor cores: acc[i] += in[arow0 + 16 i + ..][ci]
+// W[co][ci] for the tap tile of pipe.tap, then the tap is released. A
+// fragments (16 rows x 16 input channels of the window at shared address in)
+// and B fragments (16 output x 16 input channels of the tile) are one
+// ldmatrix.x4 each. Every warp walks every tap, with or without rows of its own.
+template <int C, int MT>
+__device__ __forceinline__ void tap_mma(Pipe& pipe, uint32_t in, int arow0, int cnt,
+                                        const uint32_t (&brow)[C / 16], const uint32_t (&bxor)[C / 16],
+                                        float (&acc)[MT][C / 8][4]) {
+  using G = Tc<C>;
+  constexpr int RB = G::RB, KT = G::KT, NT = G::NT, MASK = G::MASK;
+  const int lane = threadIdx.x & 31;
+  const int t = pipe.tap;
+  if (threadIdx.x == PRODUCER) produce<C>(pipe, t + AHEAD);
 #ifdef TOWER_PROFILE
-    long long q1 = clock64();
+  long long q1 = clock64();
 #endif
-    // every A fragment of the tap first: they depend on the window alone, so
-    // they are in flight while the tap's weights are waited for. This lane's
-    // row of each A ldmatrix: window row + lane % 16, chunk 2 kt + lane / 16
-    uint32_t af[MT][KT][4];
-    if (cnt > 0) {
-      const uint32_t arow = (uint32_t)(row0 + (j - half) * a.d + (lane & 15)) * RB;
-      const uint32_t axor = ((arow >> 7) & MASK) ^ (lane >> 4);
+  // every A fragment of the tap first: they depend on the window alone, so
+  // they are in flight while the tap's weights are waited for. This lane's
+  // row of each A ldmatrix: window row + lane % 16, chunk 2 kt + lane / 16
+  uint32_t af[MT][KT][4];
+  if (cnt > 0) {
+    const uint32_t arow = (uint32_t)(arow0 + (lane & 15)) * RB;
+    const uint32_t axor = ((arow >> 7) & MASK) ^ (lane >> 4);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      if (i < cnt) {
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+          ldsm4(af[i][kt], in + arow + i * 16 * RB + (((2 * kt) ^ axor) << 4));
+      }
+    }
+  }
+  wait_phase(pipe.full + 8 * (t % STAGES), (t / STAGES) & 1);
+#ifdef TOWER_PROFILE
+  pipe.wait_clk += clock64() - q1;
+#endif
+  if (cnt > 0) {
+    const uint32_t wt = pipe.ring + (t % STAGES) * G::TILE;
+    uint32_t b[2][NT / 2][4];  // the next k-tile's B fragments load during this one's products
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) ldsm4(b[0][np], wt + brow[np] + (bxor[np] << 4));
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      if (kt + 1 < KT) {
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np)
+          ldsm4(b[(kt + 1) & 1][np], wt + brow[np] + (((2 * kt + 2) ^ bxor[np]) << 4));
+      }
 #pragma unroll
       for (int i = 0; i < MT; ++i) {
         if (i < cnt) {
 #pragma unroll
-          for (int kt = 0; kt < KT; ++kt)
-            ldsm4(af[i][kt], a.in + arow + i * 16 * RB + (((2 * kt) ^ axor) << 4));
+          for (int n = 0; n < NT; ++n)
+            mma_bf16(acc[i][n], af[i][kt], b[kt & 1][n >> 1][(n & 1) * 2],
+                     b[kt & 1][n >> 1][(n & 1) * 2 + 1]);
         }
       }
     }
-    wait_phase(pipe.full + 8 * (t % STAGES), (t / STAGES) & 1);
-#ifdef TOWER_PROFILE
-    pipe.wait_clk += clock64() - q1;
-#endif
-    if (cnt > 0) {
-      const uint32_t wt = pipe.ring + (t % STAGES) * G::TILE;
-      uint32_t b[2][NT / 2][4];  // the next k-tile's B fragments load during this one's products
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) ldsm4(b[0][np], wt + brow[np] + (bxor[np] << 4));
-#pragma unroll
-      for (int kt = 0; kt < KT; ++kt) {
-        if (kt + 1 < KT) {
-#pragma unroll
-          for (int np = 0; np < NT / 2; ++np)
-            ldsm4(b[(kt + 1) & 1][np], wt + brow[np] + (((2 * kt + 2) ^ bxor[np]) << 4));
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          if (i < cnt) {
-#pragma unroll
-            for (int n = 0; n < NT; ++n)
-              mma_bf16(acc[i][n], af[i][kt], b[kt & 1][n >> 1][(n & 1) * 2],
-                       b[kt & 1][n >> 1][(n & 1) * 2 + 1]);
-          }
-        }
-      }
-    }
-    __syncwarp();
-    if (lane == 0) arrive(pipe.empty + 8 * (t % STAGES));  // this warp is done with the stage
-    pipe.tap = t + 1;
   }
+  __syncwarp();
+  if (lane == 0) arrive(pipe.empty + 8 * (t % STAGES));  // this warp is done with the stage
+  pipe.tap = t + 1;
+}
+
+template <int C, int MT>
+__device__ __forceinline__ void zero_acc(float (&acc)[MT][C / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int n = 0; n < C / 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][n][r] = 0.f;
+}
+
+// One conv on the tensor cores: out[t][co] = sum_j sum_ci in[t + (j - half) d][ci] W_j[co][ci]
+// over the rows [olo, ohi), then its epilogue.
+template <int C, int MT>
+__device__ __forceinline__ void conv_tc(Pipe& pipe, const ConvArgs& a) {
+  int cnt, row0;
+  split_rows(a.olo, a.ohi, cnt, row0);
+  const int half = (a.k - 1) / 2;
+  uint32_t brow[C / 16], bxor[C / 16];
+  b_rows<C>(brow, bxor);
+  float acc[MT][C / 8][4];
+  zero_acc<C, MT>(acc);
+  for (int j = 0; j < a.k; ++j) tap_mma<C, MT>(pipe, a.in, row0 + (j - half) * a.d, cnt, brow, bxor, acc);
 
   if (cnt == 0) return;
 #ifdef TOWER_PROFILE
@@ -693,6 +791,56 @@ __device__ __forceinline__ void conv_tc(Pipe& pipe, const ConvArgs& a) {
 #ifdef TOWER_PROFILE
   pipe.epi_clk += clock64() - e0;
 #endif
+}
+
+// K3's prologue on the tensor cores, one phase r: x0[u q + r][co] = sum over the
+// phase's taps (m, j) and input-channel slices h of z_h[q + m_hi - m][ci]
+// K_j[h C + ci][co] + b, for the window's nq = W / u rows q. The input window
+// z = S(lrelu(x)) lies in n_half = C_in / C slices of [rows][C] bf16, each a
+// swizzled time-major buffer of zh bytes at zin + h zh, its row 0 at input
+// position q0 - m_hi; each (tap, slice) is one [C][C] tile of the ring. The
+// epilogue writes cur = S(y) (0 outside [0, T)) and a = S(lrelu(cur)).
+template <int C, int MT>
+__device__ __forceinline__ void pre_phase_tc(Pipe& pipe, const Tower& tw, int r, uint32_t zin, int zh,
+                                             const float* __restrict__ bpre, unsigned char* cur,
+                                             unsigned char* lr, int nq, int t0, int T) {
+  constexpr int RB = Tc<C>::RB, NT = Tc<C>::NT, MASK = Tc<C>::MASK;
+  int cnt, row0;
+  split_rows(0, nq, cnt, row0);
+  uint32_t brow[C / 16], bxor[C / 16];
+  b_rows<C>(brow, bxor);
+  float acc[MT][C / 8][4];
+  zero_acc<C, MT>(acc);
+  const int n_half = tw.pre_cin / C;
+  for (int e = 0; e < tw.pre_n[r]; ++e)
+    for (int h = 0; h < n_half; ++h)
+      tap_mma<C, MT>(pipe, zin + h * zh, row0 + tw.pre_mhi - tw.pre_m[r][e], cnt, brow, bxor, acc);
+  if (cnt == 0) return;
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3, u = tw.pre_u;
+  float2 bv[NT];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) bv[n] = __ldg(reinterpret_cast<const float2*>(bpre + 8 * n + 2 * tig));
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    if (i >= cnt) break;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int q = row0 + 16 * i + gid + 8 * hh;
+      if (q >= nq) continue;
+      const int row = u * q + r, gt = t0 + row;
+      const bool inside = gt >= 0 && gt < T;
+      const uint32_t rb = (uint32_t)row * RB + tig * 4;
+      const uint32_t rx = (rb >> 7) & MASK;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const float y0 = inside ? acc[i][n][2 * hh] + bv[n].x : 0.f;
+        const float y1 = inside ? acc[i][n][2 * hh + 1] + bv[n].y : 0.f;
+        const __nv_bfloat162 v = __floats2bfloat162_rn(y0, y1);
+        *reinterpret_cast<__nv_bfloat162*>(cur + rb + ((n ^ rx) << 4)) = v;
+        *reinterpret_cast<__nv_bfloat162*>(lr + rb + ((n ^ rx) << 4)) = lrelu2(v);
+      }
+    }
+  }
 }
 
 // MT = the fewest m-tiles a warp so that 8 warps cover the conv's rows. From C 32
@@ -713,6 +861,20 @@ __device__ __forceinline__ void conv_rows(Pipe& pipe, const ConvArgs& a) {
   } else {
     if constexpr (MT_TOP == MT_MAX) conv_tc<C, MT_MAX>(pipe, a);
   }
+}
+
+// The prologue's phase products have W / u <= 256 rows (the wrapper's tile
+// geometry), so MT <= 2.
+template <int C>
+__device__ __forceinline__ void pre_rows(Pipe& pipe, const Tower& tw, int r, uint32_t zin, int zh,
+                                         const float* __restrict__ bpre, unsigned char* cur,
+                                         unsigned char* lr, int nq, int t0, int T) {
+  const int mt = (nq + 16 * WARPS - 1) / (16 * WARPS);
+  if (mt > 2) __trap();
+  if (mt <= 1)
+    pre_phase_tc<C, 1>(pipe, tw, r, zin, zh, bpre, cur, lr, nq, t0, T);
+  else
+    pre_phase_tc<C, 2>(pipe, tw, r, zin, zh, bpre, cur, lr, nq, t0, T);
 }
 
 // The shared memory of a tensor-core block, from a 1024-byte aligned base:
@@ -743,8 +905,12 @@ __device__ __forceinline__ Pipe start_pipe(const Smem& s, const Tower& tw, const
   p.full = smem_addr(s.bars);
   p.empty = p.full + 8 * STAGES;
   p.w = static_cast<const unsigned char*>(w);
+  // the tap tiles of the whole tower in call order: per chain the prologue's
+  // (phase, tap, input slice) tiles, then every conv's taps
+  int pre_tiles = 0;
+  for (int r = 0; r < tw.pre_u; ++r) pre_tiles += tw.pre_n[r] * (tw.pre_cin / C);
   p.total = 0;
-  for (int g = 0; g < tw.G; ++g) p.total += tw.k[g] * tw.n_convs[g];
+  for (int g = 0; g < tw.G; ++g) p.total += pre_tiles + tw.k[g] * tw.n_convs[g];
   p.tap = 0;
 #ifdef TOWER_PROFILE
   p.wait_clk = p.epi_clk = 0;
@@ -773,15 +939,15 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// cur = x at window rows [lo, hi) (0 outside [0, T)), a = lrelu(cur). With T a
-// multiple of 8, a thread takes one channel pair and 16 time steps aligned in
-// global time: four 16-byte loads (two full sectors), then 16 4-byte stores,
-// a warp's lanes side by side in one row. Rows up to 15 outside [lo, hi) are
-// written too (inside the padded buffer; nothing reads them). Otherwise lanes
-// run along time with 2-byte loads.
+// cur = x at window rows [lo, hi) (0 outside [0, Tv)), a = lrelu(cur); x rows
+// are T long, Tv <= T of them valid. With T a multiple of 8, a thread takes one
+// channel pair and 16 time steps aligned in global time: four 16-byte loads
+// (two full sectors), then 16 4-byte stores, a warp's lanes side by side in one
+// row. Rows up to 15 outside [lo, hi) are written too (inside the padded
+// buffer; nothing reads them). Otherwise lanes run along time with 2-byte loads.
 template <int C>
 __device__ void load_window_tc(const __nv_bfloat16* __restrict__ x, unsigned char* cur,
-                               unsigned char* a, int lo, int hi, int t0, int T) {
+                               unsigned char* a, int lo, int hi, int t0, int T, int Tv) {
   constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK, NP = C / 2;
   if ((T & 7) == 0 && aligned16(x)) {
     const int g0 = (t0 + lo) & ~15, ng = (t0 + hi - g0 + 15) >> 4;
@@ -806,6 +972,7 @@ __device__ void load_window_tc(const __nv_bfloat16* __restrict__ x, unsigned cha
         __nv_bfloat162 p;
         p.x = v[0][e];
         p.y = v[1][e];
+        if (gs + e >= Tv) p.x = p.y = __float2bfloat16(0.f);
         const uint32_t off = swz((uint32_t)row * RB + cp * 4, MASK);
         *reinterpret_cast<__nv_bfloat162*>(cur + off) = p;
         *reinterpret_cast<__nv_bfloat162*>(a + off) = lrelu2(p);
@@ -819,13 +986,66 @@ __device__ void load_window_tc(const __nv_bfloat16* __restrict__ x, unsigned cha
     const int cp = i / n, row = lo + i - cp * n, gt = t0 + row;
     __nv_bfloat162 v;
     v.x = v.y = zero;
-    if (gt >= 0 && gt < T) {
+    if (gt >= 0 && gt < Tv) {
       v.x = x[(size_t)(2 * cp) * T + gt];
       v.y = x[(size_t)(2 * cp + 1) * T + gt];
     }
     const uint32_t off = swz((uint32_t)row * RB + cp * 4, MASK);
     *reinterpret_cast<__nv_bfloat162*>(cur + off) = v;
     *reinterpret_cast<__nv_bfloat162*>(a + off) = lrelu2(v);
+  }
+}
+
+// K3's prologue input: z = S(lrelu(x)) at input positions s0 .. s0 + rows (0
+// outside [0, T_in)) into C_in / C slices of [rows][C] (swizzled, zh bytes
+// apart) from zin. x: [C_in, T_in]. With T_in a multiple of 8, a thread takes
+// one channel pair and 16 input positions aligned in global time, as
+// load_window_tc does; otherwise lanes run along time with 2-byte loads.
+template <int C>
+__device__ void load_pre_window_tc(const __nv_bfloat16* __restrict__ x, unsigned char* zin, int zh,
+                                   int rows, int s0, int T_in, int cin) {
+  constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK;
+  if ((T_in & 7) == 0 && aligned16(x)) {
+    const int NP = cin / 2, g0 = s0 & ~15, ng = (s0 + rows - g0 + 15) >> 4;
+    for (int i = threadIdx.x; i < NP * ng; i += THREADS) {
+      const int grp = i / NP, cp = i - grp * NP, gs = g0 + 16 * grp;
+      alignas(16) __nv_bfloat16 v[2][16];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int gt = gs + 8 * hh;
+        uint4 u0 = make_uint4(0, 0, 0, 0), u1 = u0;
+        if (gt >= 0 && gt < T_in) {
+          u0 = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(2 * cp) * T_in + gt));
+          u1 = __ldg(reinterpret_cast<const uint4*>(x + (size_t)(2 * cp + 1) * T_in + gt));
+        }
+        *reinterpret_cast<uint4*>(&v[0][8 * hh]) = u0;
+        *reinterpret_cast<uint4*>(&v[1][8 * hh]) = u1;
+      }
+      const int h = 2 * cp / C, c = 2 * cp - h * C;
+      unsigned char* slice = zin + h * zh;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int row = gs - s0 + e;
+        if (row < 0 || row >= rows) continue;
+        __nv_bfloat162 p;
+        p.x = v[0][e];
+        p.y = v[1][e];
+        *reinterpret_cast<__nv_bfloat162*>(slice + swz((uint32_t)row * RB + c * 2, MASK)) = lrelu2(p);
+      }
+    }
+    return;
+  }
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < (cin / 2) * rows; i += THREADS) {
+    const int cp = i / rows, row = i - cp * rows, s = s0 + row;
+    __nv_bfloat162 v;
+    v.x = v.y = zero;
+    if (s >= 0 && s < T_in) {
+      v.x = x[(size_t)(2 * cp) * T_in + s];
+      v.y = x[(size_t)(2 * cp + 1) * T_in + s];
+    }
+    const int h = 2 * cp / C, c = 2 * cp - h * C;
+    *reinterpret_cast<__nv_bfloat162*>(zin + h * zh + swz((uint32_t)row * RB + c * 2, MASK)) = lrelu2(v);
   }
 }
 
@@ -888,14 +1108,20 @@ __device__ unsigned char* run_chain_tc(Pipe& pipe, const Tower& tw, int g, const
 }
 
 // K3 on the tensor cores. x, y: [B, C, T] bf16 (y: [B, C_post, T] with a post
-// conv). H = Hc + (kp-1)/2, Hc the deepest chain's halo. w: every tap of the
-// tower as a pre-swizzled [C_out][C_in] tile, in call order. Grid (ceil(T / TT), B).
-template <int C>
+// conv). H >= Hc + (kp-1)/2, Hc the deepest chain's halo. w: every tap of the
+// tower as a pre-swizzled [C_out][C_in] tile, in call order. With the prologue x
+// is [B, C_in, T_in], T = u T_in, TT and H are multiples of u, and each chain
+// first recomputes its window x0 = convT(lrelu(x)) from the input window, which
+// lies in the y1 buffer until the chain's first conv. PRE: the prologue is
+// compiled in (tw.pre_u > 0); the kernel without it keeps the chains' code as
+// it was. Grid (ceil(T / TT), B).
+template <int C, bool PRE>
 __global__ void __launch_bounds__(THREADS, C == 64 ? 1 : 2)
 tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
              const float* __restrict__ bias, const __nv_bfloat16* __restrict__ wpost,
-             const float* __restrict__ bpost, __nv_bfloat16* __restrict__ y, Tower tw, int T, int TT,
-             int H, int Hc, int buf, int C_post, int kp, int post_tanh) {
+             const float* __restrict__ bpost, const float* __restrict__ bpre,
+             __nv_bfloat16* __restrict__ y, Tower tw, int T, int T_in, int TT, int H, int Hc, int buf,
+             int C_post, int kp, int post_tanh) {
   extern __shared__ unsigned char smem_raw[];
   constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK, LDS = C + 1;
   const int W = TT + 2 * H, P = H - Hc, aw = TT + 2 * P;  // the sum covers window rows [Hc, Hc + aw)
@@ -904,14 +1130,22 @@ tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
   float* sum = reinterpret_cast<float*>(s.extra);
   const int b = blockIdx.y, tile = blockIdx.x;
   const int t0 = tile * TT - H;
-  const __nv_bfloat16* xb = x + (size_t)b * C * T;
+  const __nv_bfloat16* xb = x + (size_t)b * (PRE ? (size_t)tw.pre_cin * T_in : (size_t)C * T);
   const float* bg = bias;
 #ifdef TOWER_PROFILE
   long long tl = 0, tc = 0, c0 = clock64(), cs = c0;
 #endif
   for (int g = 0; g < tw.G; ++g) {
     const int lo = Hc - chain_halo(tw, g);
-    load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T);
+    if constexpr (PRE) {
+      const int u = tw.pre_u, nq = W / u, rows = ((nq + 15) & ~15) + tw.pre_span;
+      const int zh = (rows * RB + 1023) / 1024 * 1024;
+      load_pre_window_tc<C>(xb, s.y1, zh, rows, t0 / u - tw.pre_mhi, T_in, tw.pre_cin);
+      __syncthreads();
+      for (int r = 0; r < u; ++r) pre_rows<C>(pipe, tw, r, smem_addr(s.y1), zh, bpre, s.cur, s.a, nq, t0, T);
+    } else {
+      load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T, T);
+    }
     __syncthreads();
 #ifdef TOWER_PROFILE
     long long c1 = clock64();
@@ -987,7 +1221,8 @@ template <int C>
 __global__ void __launch_bounds__(THREADS, C == 64 ? 1 : 2)
 gn_tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ outs,
-                float* __restrict__ part, Tower tw, int B, int T, int TT, int H, int buf) {
+                float* __restrict__ part, const int* __restrict__ lengths, Tower tw, int B, int T,
+                int TT, int H, int buf) {
   extern __shared__ unsigned char smem_raw[];
   constexpr int RB = Tc<C>::RB, MASK = Tc<C>::MASK;
   const int W = TT + 2 * H, G = tw.G;
@@ -996,6 +1231,7 @@ gn_tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
   const int b = blockIdx.y, tile = blockIdx.x, nT = gridDim.x;
   const int t0 = tile * TT - H;
   const int width = min(TT, T - tile * TT);  // centre rows inside [0, T)
+  const int Tv = valid_length(lengths, b, T);  // rows past it are read and written as 0
   const __nv_bfloat16* xb = x + (size_t)b * C * T;
   const float* bg = bias;
   // chain g's centre tile: rows g TT + j of the extra area; the last chain's
@@ -1003,9 +1239,9 @@ gn_tower_kernel(const __nv_bfloat16* __restrict__ x, const void* __restrict__ w,
   const unsigned char* last = nullptr;
   for (int g = 0; g < G; ++g) {
     const int lo = H - chain_halo(tw, g);
-    load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T);
+    load_window_tc<C>(xb, s.cur, s.a, lo, W - lo, t0, T, Tv);
     __syncthreads();
-    last = run_chain_tc<C>(pipe, tw, g, bg, s, lo, W, t0, T, M_KEEP, g + 1 < G ? H - g * TT : 0,
+    last = run_chain_tc<C>(pipe, tw, g, bg, s, lo, W, t0, Tv, M_KEEP, g + 1 < G ? H - g * TT : 0,
                            g + 1 < G ? s.extra : nullptr);
     bg += tw.n_convs[g] * C;
   }
@@ -1108,14 +1344,16 @@ __global__ void moments_reduce_kernel(const float* __restrict__ part, float* __r
 // m_h = sum_t r_h and q_hl = sum_t r_h r_l. One block per batch row, one
 // thread per channel, every operation a separately rounded f32 operation in
 // the order of the plain version (gn_affines). mom: [B, C, n_mom]; scales,
-// biases: [G, C] f32; A: [G, B, C]; K: [B, C]. Shared memory: 2 C floats.
+// biases: [G, C] f32; A: [G, B, C]; K: [B, C]. The statistics of row b are over
+// its valid length (lengths[b] clamped to [0, T], or T). Shared memory: 2 C floats.
 __global__ void gn_affine_kernel(const float* __restrict__ mom, const float* __restrict__ scales,
-                                 const float* __restrict__ biases, float* __restrict__ A_out,
-                                 float* __restrict__ K_out, int B, int C, int G, int gsize,
-                                 float Tf, float N, float eps) {
+                                 const float* __restrict__ biases, const int* __restrict__ lengths,
+                                 float* __restrict__ A_out, float* __restrict__ K_out, int B, int C,
+                                 int G, int gsize, int T, float eps) {
   extern __shared__ float sh[];
   float *sS = sh, *sQ = sh + C;
   const int b = blockIdx.x, c = threadIdx.x;
+  const float Tf = (float)valid_length(lengths, b, T), N = (float)gsize * Tf;
   const bool live = c < C;
   const int n_mom = G + G * (G + 1) / 2;
   float m[MAX_CHAINS], q[MAX_CHAINS][MAX_CHAINS], A[MAX_CHAINS], K = 0.f;
@@ -1185,14 +1423,17 @@ __global__ void gn_affine_kernel(const float* __restrict__ mom, const float* __r
 }
 
 // K4 pass 2b: y[b, c, t] = K / G + sum_g (A_g / G) r_g[b, c, t] in f32, rounded
-// once to S. rs: [G, B, C, T]. Grid (B C, ceil(T / (256 V))), V = 16 / sizeof(S)
+// once to S; 0 at t past row b's valid length (lengths[b] clamped to [0, T], or
+// T). rs: [G, B, C, T]. Grid (B C, ceil(T / (256 V))), V = 16 / sizeof(S)
 // elements per 16-byte load when T % V == 0, else one.
 template <typename S, int V>
 __global__ void gn_apply_kernel(const S* __restrict__ rs, const float* __restrict__ A,
-                                const float* __restrict__ K, S* __restrict__ y, int BC, int T, int G) {
+                                const float* __restrict__ K, const int* __restrict__ lengths,
+                                S* __restrict__ y, int C, int BC, int T, int G) {
   const int bc = blockIdx.x;
   const size_t t = ((size_t)blockIdx.y * blockDim.x + threadIdx.x) * V;
   if (t >= (size_t)T) return;
+  const int Tv = valid_length(lengths, bc / C, T);
   const float inv = 1.f / (float)G;
   float out[V];
   const float k = __fmul_rn(K[bc], inv);
@@ -1211,7 +1452,7 @@ __global__ void gn_apply_kernel(const S* __restrict__ rs, const float* __restric
   }
   alignas(16) S o[V];
 #pragma unroll
-  for (int e = 0; e < V; ++e) o[e] = from_f<S>(out[e]);
+  for (int e = 0; e < V; ++e) o[e] = t + e < (size_t)Tv ? from_f<S>(out[e]) : from_f<S>(0.f);
   S* dst = y + (size_t)bc * T + t;
   if constexpr (V == 1)
     dst[0] = o[0];
@@ -1221,24 +1462,35 @@ __global__ void gn_apply_kernel(const S* __restrict__ rs, const float* __restric
 
 // ------------------------------------------------------------ host side
 
-// spec: tc, G, resblock, k[MAX_CHAINS], n_convs[MAX_CHAINS], dil[MAX_CHAINS][MAX_CONVS]
+// spec: tc, G, resblock, k[MAX_CHAINS], n_convs[MAX_CHAINS], dil[MAX_CHAINS][MAX_CONVS],
+// then the prologue: u, C_in, m_hi, span, n[MAX_U], m[MAX_U][MAX_PRE_TAPS], j[MAX_U][MAX_PRE_TAPS]
 Tower make_tower(const int* spec) {
   Tower tw;
   tw.tc = spec[0];
   tw.G = spec[1];
   tw.resblock = spec[2];
-  for (int g = 0; g < MAX_CHAINS; ++g) {
-    tw.k[g] = spec[3 + g];
-    tw.n_convs[g] = spec[3 + MAX_CHAINS + g];
-    for (int i = 0; i < MAX_CONVS; ++i) tw.dil[g][i] = spec[3 + 2 * MAX_CHAINS + g * MAX_CONVS + i];
-  }
+  const int* p = spec + 3;
+  for (int g = 0; g < MAX_CHAINS; ++g) tw.k[g] = *p++;
+  for (int g = 0; g < MAX_CHAINS; ++g) tw.n_convs[g] = *p++;
+  for (int g = 0; g < MAX_CHAINS; ++g)
+    for (int i = 0; i < MAX_CONVS; ++i) tw.dil[g][i] = *p++;
+  tw.pre_u = *p++;
+  tw.pre_cin = *p++;
+  tw.pre_mhi = *p++;
+  tw.pre_span = *p++;
+  for (int r = 0; r < MAX_U; ++r) tw.pre_n[r] = *p++;
+  for (int r = 0; r < MAX_U; ++r)
+    for (int e = 0; e < MAX_PRE_TAPS; ++e) tw.pre_m[r][e] = *p++;
+  for (int r = 0; r < MAX_U; ++r)
+    for (int e = 0; e < MAX_PRE_TAPS; ++e) tw.pre_j[r][e] = *p++;
   return tw;
 }
 
 template <typename S>
 int run_tower_fma(const void* x, const void* w, const float* bias, const void* wpost,
-                  const float* bpost, void* y, const int* spec, int B, int C, int T, int TT, int H,
-                  int Hc, int C_post, int kp, int post_tanh, cudaStream_t stream) {
+                  const float* bpost, const void* wpre, const float* bpre, void* y, const Tower& tw,
+                  int B, int C, int T, int T_in, int TT, int H, int Hc, int C_post, int kp,
+                  int post_tanh, cudaStream_t stream) {
   const int ld = row_stride(TT + 2 * H), aw = TT + 2 * (H - Hc);
   const size_t smem = 3 * (size_t)C * ld * sizeof(S) + (size_t)C * aw * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(tower_fma_kernel<S>,
@@ -1247,28 +1499,42 @@ int run_tower_fma(const void* x, const void* w, const float* bias, const void* w
   const dim3 grid((T + TT - 1) / TT, B);
   tower_fma_kernel<S><<<grid, THREADS, smem, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(w), bias, static_cast<const S*>(wpost),
-      bpost, static_cast<S*>(y), make_tower(spec), C, T, TT, H, Hc, C_post, kp, post_tanh);
+      bpost, static_cast<const S*>(wpre), bpre, static_cast<S*>(y), tw, C, T, T_in, TT, H, Hc,
+      C_post, kp, post_tanh);
+  return (int)cudaGetLastError();
+}
+
+template <int C, bool PRE>
+int launch_tower_tc(const void* x, const void* w, const float* bias, const void* wpost,
+                 const float* bpost, const float* bpre, void* y, const Tower& tw, int B, int T,
+                 int T_in, int TT, int H, int Hc, int buf, int smem, int C_post, int kp,
+                 int post_tanh, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(tower_kernel<C, PRE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((T + TT - 1) / TT, B);
+  tower_kernel<C, PRE><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<const __nv_bfloat16*>(wpost),
+      bpost, bpre, static_cast<__nv_bfloat16*>(y), tw, T, T_in, TT, H, Hc, buf, C_post, kp,
+      post_tanh);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int run_tower_tc(const void* x, const void* w, const float* bias, const void* wpost,
-                 const float* bpost, void* y, const int* spec, int B, int T, int TT, int H, int Hc,
-                 int buf, int smem, int C_post, int kp, int post_tanh, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(tower_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + TT - 1) / TT, B);
-  tower_kernel<C><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<const __nv_bfloat16*>(wpost),
-      bpost, static_cast<__nv_bfloat16*>(y), make_tower(spec), T, TT, H, Hc, buf, C_post, kp,
-      post_tanh);
-  return (int)cudaGetLastError();
+                 const float* bpost, const float* bpre, void* y, const Tower& tw, int B, int T,
+                 int T_in, int TT, int H, int Hc, int buf, int smem, int C_post, int kp,
+                 int post_tanh, cudaStream_t stream) {
+  return tw.pre_u ? launch_tower_tc<C, true>(x, w, bias, wpost, bpost, bpre, y, tw, B, T, T_in, TT, H, Hc, buf,
+                                             smem, C_post, kp, post_tanh, stream)
+                  : launch_tower_tc<C, false>(x, w, bias, wpost, bpost, bpre, y, tw, B, T, T_in, TT, H, Hc, buf,
+                                              smem, C_post, kp, post_tanh, stream);
 }
 
 template <typename S>
 int run_gn_tower_fma(const void* x, const void* w, const float* bias, void* outs, float* part,
-                     const int* spec, int B, int C, int T, int TT, int H, cudaStream_t stream) {
+                     const int* lengths, const Tower& tw, int B, int C, int T, int TT, int H,
+                     cudaStream_t stream) {
   const int ld = row_stride(TT + 2 * H);
   const size_t smem = 3 * (size_t)C * ld * sizeof(S);
   cudaError_t err = cudaFuncSetAttribute(gn_tower_fma_kernel<S>,
@@ -1276,33 +1542,33 @@ int run_gn_tower_fma(const void* x, const void* w, const float* bias, void* outs
   if (err != cudaSuccess) return (int)err;
   gn_tower_fma_kernel<S><<<dim3((T + TT - 1) / TT, B), THREADS, smem, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(w), bias, static_cast<S*>(outs), part,
-      make_tower(spec), B, C, T, TT, H);
+      lengths, tw, B, C, T, TT, H);
   return (int)cudaGetLastError();
 }
 
 template <int C>
 int run_gn_tower_tc(const void* x, const void* w, const float* bias, void* outs, float* part,
-                    const int* spec, int B, int T, int TT, int H, int buf, int smem,
-                    cudaStream_t stream) {
+                    const int* lengths, const Tower& tw, int B, int T, int TT, int H, int buf,
+                    int smem, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(gn_tower_kernel<C>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   gn_tower_kernel<C><<<dim3((T + TT - 1) / TT, B), THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), w, bias, static_cast<__nv_bfloat16*>(outs), part,
-      make_tower(spec), B, T, TT, H, buf);
+      lengths, tw, B, T, TT, H, buf);
   return (int)cudaGetLastError();
 }
 
 template <typename S>
-int run_gn_apply(const void* rs, const float* A, const float* K, void* y, int BC, int T, int G,
-                 cudaStream_t stream) {
+int run_gn_apply(const void* rs, const float* A, const float* K, const int* lengths, void* y, int B,
+                 int C, int T, int G, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(S);
   if (T % V == 0)
-    gn_apply_kernel<S, V><<<dim3(BC, (T / V + 255) / 256), 256, 0, stream>>>(
-        static_cast<const S*>(rs), A, K, static_cast<S*>(y), BC, T, G);
+    gn_apply_kernel<S, V><<<dim3(B * C, (T / V + 255) / 256), 256, 0, stream>>>(
+        static_cast<const S*>(rs), A, K, lengths, static_cast<S*>(y), C, B * C, T, G);
   else
-    gn_apply_kernel<S, 1><<<dim3(BC, (T + 255) / 256), 256, 0, stream>>>(
-        static_cast<const S*>(rs), A, K, static_cast<S*>(y), BC, T, G);
+    gn_apply_kernel<S, 1><<<dim3(B * C, (T + 255) / 256), 256, 0, stream>>>(
+        static_cast<const S*>(rs), A, K, lengths, static_cast<S*>(y), C, B * C, T, G);
   return (int)cudaGetLastError();
 }
 
@@ -1310,77 +1576,85 @@ int run_gn_apply(const void* rs, const float* A, const float* K, void* y, int BC
 
 // buf and smem (bytes of one window and of the block's dynamic shared memory)
 // are read by the tensor-core path only (spec[0] = 1), which takes bf16 and C
-// in {16, 32, 64}; the FMA path sizes its own shared memory.
+// in {16, 32, 64}; the FMA path sizes its own shared memory. With a prologue
+// (spec's u > 0) x is [B, C_in, T_in], T = u T_in; wpre ([k][C][C_in]) is read by
+// the FMA path only, the tensor-core path takes its tiles from w.
 extern "C" int acad_resblock_tower(const void* x, const void* w, const float* bias,
-                                   const void* wpost, const float* bpost, void* y,
-                                   const int* spec, int B, int C, int T, int TT, int H, int Hc,
-                                   int buf, int smem, int C_post, int kp, int post_tanh, int bf16,
-                                   void* stream) {
+                                   const void* wpost, const float* bpost, const void* wpre,
+                                   const float* bpre, void* y, const int* spec, int B, int C, int T,
+                                   int T_in, int TT, int H, int Hc, int buf, int smem, int C_post,
+                                   int kp, int post_tanh, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (spec[0]) {
-    if (!bf16) return (int)cudaErrorInvalidValue;
+  const Tower tw = make_tower(spec);
+  if (tw.pre_u < 0 || tw.pre_u > MAX_U) return (int)cudaErrorInvalidValue;
+  if (tw.tc) {
+    if (!bf16 || (tw.pre_u && tw.pre_cin % C)) return (int)cudaErrorInvalidValue;
     if (C == 64)
-      return run_tower_tc<64>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
-                              kp, post_tanh, s);
+      return run_tower_tc<64>(x, w, bias, wpost, bpost, bpre, y, tw, B, T, T_in, TT, H, Hc, buf, smem,
+                              C_post, kp, post_tanh, s);
     if (C == 32)
-      return run_tower_tc<32>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
-                              kp, post_tanh, s);
+      return run_tower_tc<32>(x, w, bias, wpost, bpost, bpre, y, tw, B, T, T_in, TT, H, Hc, buf, smem,
+                              C_post, kp, post_tanh, s);
     if (C == 16)
-      return run_tower_tc<16>(x, w, bias, wpost, bpost, y, spec, B, T, TT, H, Hc, buf, smem, C_post,
-                              kp, post_tanh, s);
+      return run_tower_tc<16>(x, w, bias, wpost, bpost, bpre, y, tw, B, T, T_in, TT, H, Hc, buf, smem,
+                              C_post, kp, post_tanh, s);
     return (int)cudaErrorInvalidValue;
   }
   if (bf16)
-    return run_tower_fma<__nv_bfloat16>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc,
-                                        C_post, kp, post_tanh, s);
-  return run_tower_fma<float>(x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, C_post, kp,
-                              post_tanh, s);
+    return run_tower_fma<__nv_bfloat16>(x, w, bias, wpost, bpost, wpre, bpre, y, tw, B, C, T, T_in, TT,
+                                        H, Hc, C_post, kp, post_tanh, s);
+  return run_tower_fma<float>(x, w, bias, wpost, bpost, wpre, bpre, y, tw, B, C, T, T_in, TT, H, Hc,
+                              C_post, kp, post_tanh, s);
 }
 
-// K4 pass 1 and the reduction of its per-tile moments over the tiles
+// K4 pass 1 and the reduction of its per-tile moments over the tiles; lengths
+// [B] int32 or null
 extern "C" int acad_resblock_tower_gn(const void* x, const void* w, const float* bias,
-                                      void* outs, float* part, float* mom, const int* spec,
-                                      int B, int C, int T, int TT, int H, int buf, int smem,
-                                      int bf16, void* stream) {
+                                      void* outs, float* part, float* mom, const int* lengths,
+                                      const int* spec, int B, int C, int T, int TT, int H, int buf,
+                                      int smem, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Tower tw = make_tower(spec);
+  if (tw.pre_u) return (int)cudaErrorInvalidValue;
   int rc;
-  if (spec[0]) {
+  if (tw.tc) {
     if (!bf16) return (int)cudaErrorInvalidValue;
     if (C == 64)
-      rc = run_gn_tower_tc<64>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+      rc = run_gn_tower_tc<64>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, buf, smem, s);
     else if (C == 32)
-      rc = run_gn_tower_tc<32>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+      rc = run_gn_tower_tc<32>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, buf, smem, s);
     else if (C == 16)
-      rc = run_gn_tower_tc<16>(x, w, bias, outs, part, spec, B, T, TT, H, buf, smem, s);
+      rc = run_gn_tower_tc<16>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, buf, smem, s);
     else
       return (int)cudaErrorInvalidValue;
   } else if (bf16) {
-    rc = run_gn_tower_fma<__nv_bfloat16>(x, w, bias, outs, part, spec, B, C, T, TT, H, s);
+    rc = run_gn_tower_fma<__nv_bfloat16>(x, w, bias, outs, part, lengths, tw, B, C, T, TT, H, s);
   } else {
-    rc = run_gn_tower_fma<float>(x, w, bias, outs, part, spec, B, C, T, TT, H, s);
+    rc = run_gn_tower_fma<float>(x, w, bias, outs, part, lengths, tw, B, C, T, TT, H, s);
   }
   if (rc != 0) return rc;
-  const int G = spec[1], CM = C * (G + G * (G + 1) / 2), nT = (T + TT - 1) / TT;
+  const int G = tw.G, CM = C * (G + G * (G + 1) / 2), nT = (T + TT - 1) / TT;
   moments_reduce_kernel<<<(B * CM + 255) / 256, 256, 0, s>>>(part, mom, B, nT, CM);
   return (int)cudaGetLastError();
 }
 
-// K4 pass 2a: mom [B, C, n_mom], scales/biases [G, C] f32 -> A [G, B, C], K [B, C]
-extern "C" int acad_gn_affine(const float* mom, const float* scales, const float* biases, float* A,
-                              float* K, int B, int C, int G, int num_groups, int T, float eps,
-                              void* stream) {
+// K4 pass 2a: mom [B, C, n_mom], scales/biases [G, C] f32, lengths [B] int32 or null
+// -> A [G, B, C], K [B, C]
+extern "C" int acad_gn_affine(const float* mom, const float* scales, const float* biases,
+                              const int* lengths, float* A, float* K, int B, int C, int G,
+                              int num_groups, int T, float eps, void* stream) {
   if (G < 1 || G > MAX_CHAINS || C < 1 || C > 1024 || num_groups < 1 || C % num_groups)
     return (int)cudaErrorInvalidValue;
   const int gsize = C / num_groups, threads = (C + 31) / 32 * 32;
   gn_affine_kernel<<<B, threads, 2 * C * sizeof(float), static_cast<cudaStream_t>(stream)>>>(
-      mom, scales, biases, A, K, B, C, G, gsize, (float)T, (float)gsize * (float)T, eps);
+      mom, scales, biases, lengths, A, K, B, C, G, gsize, T, eps);
   return (int)cudaGetLastError();
 }
 
-// K4 pass 2b: rs [G, B, C, T], A [G, B, C], K [B, C] -> y [B, C, T]
-extern "C" int acad_gn_apply(const void* rs, const float* A, const float* K, void* y, int B, int C,
-                             int T, int G, int bf16, void* stream) {
+// K4 pass 2b: rs [G, B, C, T], A [G, B, C], K [B, C], lengths [B] int32 or null -> y [B, C, T]
+extern "C" int acad_gn_apply(const void* rs, const float* A, const float* K, const int* lengths,
+                             void* y, int B, int C, int T, int G, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return run_gn_apply<__nv_bfloat16>(rs, A, K, y, B * C, T, G, s);
-  return run_gn_apply<float>(rs, A, K, y, B * C, T, G, s);
+  if (bf16) return run_gn_apply<__nv_bfloat16>(rs, A, K, lengths, y, B, C, T, G, s);
+  return run_gn_apply<float>(rs, A, K, lengths, y, B, C, T, G, s);
 }

@@ -9,8 +9,14 @@ stages run K3. A causal config (``HiFiCodecConfig(causal=True)``) also
 decodes a stream chunk by chunk (``decode_stream``), with the state kept by
 the caller.
 
+``encode(x, lengths)`` is the length-masked encode of a zero-padded batch
+of files of different lengths (K4 takes the lengths on the card): each row's
+valid token frames equal its exact-length encode. ``generator.fused_pre =
+True`` fuses each narrow stage's upsampling conv-transpose into K3, as the
+JAX generator's option of that name does.
+
 Behavioral parity target: academicodec_tpu/models/hificodec.py:23-110
-(reference models/hificodec/vqvae.py:12-45), without ``lengths=``.
+(reference models/hificodec/vqvae.py:12-45).
 """
 
 from __future__ import annotations
@@ -83,11 +89,23 @@ class VQVAE(nn.Module):
             getattr(self, part).load_state_dict(_strip_ddp(ckpt[part]))
 
     @torch.no_grad()
-    def encode(self, x) -> torch.Tensor:
-        """wav ``[B, T]`` -> tokens ``[B, frames, n_res * G]`` int32 (reference vqvae.py:37-45)."""
+    def encode(self, x, lengths=None) -> torch.Tensor:
+        """wav ``[B, T]`` -> tokens ``[B, frames, n_res * G]`` int32 (reference
+        vqvae.py:37-45). ``lengths [B]``: the valid samples of each row of a
+        zero-padded batch; each row's first ``frames_for(lengths[b])`` token
+        frames are then those of its exact-length encode (JAX
+        models/hificodec.py:84-97); the caller trims the rest."""
         x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        c = self.encoder(x[:, None, :])
+        c = self.encoder(x[:, None, :], lengths)
         return self.quantizer.encode(c.transpose(1, 2))
+
+    def frames_for(self, n_samples: int) -> int:
+        """Token frames of an exact-length encode of ``n_samples`` samples: each
+        encoder stage's strided-conv output length."""
+        n = n_samples
+        for u, k in self.encoder.ups_cfg:
+            n = (n + 2 * ((k - u) // 2) - k) // u + 1
+        return n
 
     @torch.no_grad()
     def decode(self, codes) -> torch.Tensor:

@@ -7,11 +7,20 @@ reference ``g_*`` state dicts load with ``load_state_dict``.
 Stages with at most ``FUSED_MAX_CHANNELS`` channels run their resblock towers
 through ``ops/cuda/resblock``: the encoder's bundle through K4
 (``resblock_tower_gn``), the generator's through K3 (``resblock_tower``,
-with conv_post and tanh fused into the last stage). The wrappers launch the
-kernels for CUDA tensors and run their plain versions for CPU tensors.
-Wider stages run the plain chain of convs. Each fused stage keeps its packed
-operands (:class:`PackedStage`) and rebuilds them, weight norm included,
-only when a parameter changed.
+with conv_post and tanh fused into the last stage and, with
+``HiFiGANGenerator(fused_pre=True)``, the stage's lrelu and upsampling
+conv-transpose fused in front). The wrappers launch the kernels for CUDA
+tensors and run their plain versions for CPU tensors. Wider stages run the
+plain chain of convs. Each fused stage keeps its packed operands
+(:class:`PackedStage`) and rebuilds them, weight norm included, only when a
+parameter changed.
+
+``HiFiGANEncoder.forward(x, lengths)`` is the length-masked encode of the
+JAX package (academicodec_tpu/nn/hifigan.py:318-344): ``lengths [B]`` marks
+each row's valid prefix of a zero-padded batch, every conv output is zeroed
+past it and the GroupNorm statistics count only valid frames, so that each
+row's valid frames equal its exact-length encode. K4 takes the lengths
+itself.
 
 ``HiFiCodecConfig(causal=True)`` builds the causal generator of the JAX
 package: every conv left-padded with zeros (``SConv1d``), every upsample
@@ -20,16 +29,15 @@ streams chunk by chunk (``HiFiGANGenerator.stream``). Causal stages run the
 plain chain of convs at every width: the fused towers have no causal
 variant, as in JAX (nn/hifigan.py:536). The encoder has no causal variant.
 
-Behavioral parity target: academicodec_tpu/nn/hifigan.py:40-722, without
-the length-masked encode (reference models/hificodec/models.py: 18-189,
-364-427, including the GroupNorm of the accumulated sum at
-models.py:410-415).
+Behavioral parity target: academicodec_tpu/nn/hifigan.py:40-722
+(reference models/hificodec/models.py: 18-189, 364-427, including the
+GroupNorm of the accumulated sum at models.py:410-415).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Sequence, Tuple
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -38,6 +46,7 @@ import torch.nn.functional as F
 from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, SConv1d, SConvTranspose1d
 from academicodec_tpu_torch.ops.cuda.resblock import (
     PackedTower,
+    frame_mask,
     pack_tower,
     resblock_tower,
     resblock_tower_gn,
@@ -51,6 +60,10 @@ FUSED_MAX_CHANNELS = 64
 
 def _lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
+
+
+def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    return x if mask is None else x * mask
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -128,9 +141,12 @@ class ResBlock1(nn.Module):
         self.convs1 = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
         self.convs2 = nn.ModuleList(_res_conv(channels, kernel_size, 1, norm, causal) for _ in dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask [B, 1, T]`` (0/1) zeroes every conv's output past the valid
+        frames, as the exact-length convs' zero padding would see them."""
         for c1, c2 in zip(self.convs1, self.convs2):
-            x = c2(_lrelu(c1(_lrelu(x)))) + x
+            xt = _masked(c1(_lrelu(x)), mask)
+            x = _masked(c2(_lrelu(xt)), mask) + x
         return x
 
     def stream(self, x: torch.Tensor, state=None):
@@ -157,9 +173,9 @@ class ResBlock2(nn.Module):
         super().__init__()
         self.convs = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for c in self.convs:
-            x = c(_lrelu(x)) + x
+            x = _masked(c(_lrelu(x)), mask) + x
         return x
 
     def stream(self, x: torch.Tensor, state=None):
@@ -183,11 +199,23 @@ class GroupNormTorch(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask [B, 1, T]`` (0/1) and ``count [B]`` (its valid frames), set
+        together, restrict the statistics to the valid frames; they accumulate
+        in f32 (JAX nn/hifigan.py:239-280)."""
         B, C, T = x.shape
         xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
+        if mask is None:
+            mean = xg.mean(dim=(2, 3), keepdim=True)
+            var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
+        else:
+            m = mask.float()[:, None]  # [B, 1, 1, T]
+            xf = xg.float()
+            n = (count.float() * (C // self.num_groups)).reshape(B, 1, 1, 1)
+            mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
+            var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
+            mean, var = mean.to(x.dtype), var.to(x.dtype)
         xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
         return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
 
@@ -201,18 +229,24 @@ class PackedStage:
     def __init__(self):
         self.key, self.packed = None, None
 
-    def get(self, blocks, kernel_sizes, dilation_sizes, resblock: str, post=None) -> PackedTower:
+    def get(self, blocks, kernel_sizes, dilation_sizes, resblock: str, post=None, pre=None) -> PackedTower:
+        """``post``: the conv fused behind the tower; ``pre``: the upsampling
+        ``ConvTranspose1d`` fused in front of it (K3's prologue)."""
         def build():
             ws, bs = zip(*(rb.weights_and_biases() for rb in blocks))
             kw = {} if post is None else dict(post_weight=post.resolved_weight(), post_bias=post.bias)
+            if pre is not None:
+                kw.update(pre_weight=pre.resolved_weight(), pre_bias=pre.bias, pre_stride=pre.stride,
+                          pre_pad=pre.padding)
             return pack_tower(ws, bs, kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes,
                               resblock=resblock, **kw)
 
         if torch.is_grad_enabled():
             return build()
         params = [p for rb in blocks for p in rb.parameters()]
-        if post is not None:
-            params += list(post.parameters())
+        for m in (post, pre):
+            if m is not None:
+                params += list(m.parameters())
         key = tuple((p._version, p.dtype, p.device, p.data_ptr()) for p in params)
         if key != self.key:
             self.key, self.packed = key, build()
@@ -258,11 +292,23 @@ class HiFiGANEncoder(nn.Module):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
         return [*self.ups, self.conv_post]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x [B, 1, T]``; ``lengths [B]``: the valid samples of each row of a
+        zero-padded batch (the length-masked encode; frames past a row's
+        valid output frames are not meaningful)."""
         nk = len(self.rks)
         x = self.conv_pre(x)
-        for i, ups in enumerate(self.ups):
+        L = mask = None
+        if lengths is not None:
+            L = torch.as_tensor(lengths, device=x.device).reshape(-1).long()
+            mask = frame_mask(L, x.shape[2]).to(x.dtype)
+            x = x * mask  # the conv's bias leaks into the pad frames
+        for i, (ups, (u, k)) in enumerate(zip(self.ups, self.ups_cfg)):
             x = ups(_lrelu(x))
+            if L is not None:
+                L = (L + 2 * ((k - u) // 2) - k) // u + 1  # a strided conv's output length
+                mask = frame_mask(L, x.shape[2]).to(x.dtype)
+                x = x * mask
             ch = x.shape[1]
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             norms = self.normalize[i * nk:(i + 1) * nk]
@@ -271,24 +317,31 @@ class HiFiGANEncoder(nn.Module):
                 x = resblock_tower_gn(
                     x, packed, None,
                     torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
-                    num_groups=ch // 16, epsilon=1e-6,
+                    num_groups=ch // 16, epsilon=1e-6, lengths=L,
                 )
                 continue
             xs = None
             for rb, gn in zip(blocks, norms):
-                r = rb(x)
+                r = rb(x, mask)
                 # the reference normalizes the accumulated sum (models.py:410-415)
-                xs = gn(r if xs is None else xs + r)
+                xs = _masked(gn(r if xs is None else xs + r, mask, L), mask)
             x = xs / nk
         return self.conv_post(_lrelu(x, 0.01))  # default torch slope (models.py:417)
 
 
 class HiFiGANGenerator(nn.Module):
     """HiFi-GAN generator: ``[B, latent_dim, frames]`` -> ``[B, 1, T]``; causal
-    and streamable when ``config.causal`` (JAX nn/hifigan.py:528-560, 640-722)."""
+    and streamable when ``config.causal`` (JAX nn/hifigan.py:528-560, 640-722).
 
-    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm"):
+    ``fused_pre=True`` (JAX ``HiFiGANGenerator(fused_pre=True)``,
+    nn/hifigan.py:517, 586-630) hands each fused stage's lrelu and upsampling
+    conv-transpose to K3 as its prologue, so that the upsampled tensor is
+    never written out; the default runs them as PyTorch ops, as JAX does by
+    default. Causal generators never run K3 and ignore it."""
+
+    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm", fused_pre: bool = False):
         super().__init__()
+        self.fused_pre = fused_pre
         h = self.config = config
         nk = len(h.resblock_kernel_sizes)
         causal = dict(causal=True, pad_mode="zero", norm=norm)
@@ -329,18 +382,21 @@ class HiFiGANGenerator(nn.Module):
         x = self.conv_pre(x)
         n_up = len(self.ups)
         for i, ups in enumerate(self.ups):
-            # lrelu and the upsampling convT stay PyTorch ops even on fused
-            # stages: the JAX default fused_pre=False (nn/hifigan.py:512-517)
-            x = ups(_lrelu(x))
             blocks = self.resblocks[i * nk:(i + 1) * nk]
-            if x.shape[1] <= FUSED_MAX_CHANNELS and not h.causal:
-                # conv_post and tanh run inside the last tower
+            cout = h.upsample_initial_channel // 2 ** (i + 1)
+            if cout <= FUSED_MAX_CHANNELS and not h.causal:
+                # conv_post and tanh run inside the last tower; with fused_pre
+                # lrelu and the upsampling convT run in front of it
                 post = self.conv_post if i == n_up - 1 else None
-                packed = self._packed[i].get(blocks, ks, dss, h.resblock, post)
+                pre = ups if self.fused_pre else None
+                if pre is None:
+                    x = ups(_lrelu(x))
+                packed = self._packed[i].get(blocks, ks, dss, h.resblock, post, pre)
                 x = resblock_tower(x, packed, post_tanh=post is not None)
                 if post is not None:
                     return x
                 continue
+            x = ups(_lrelu(x))
             xs = None
             for rb in blocks:
                 r = rb(x)

@@ -42,15 +42,15 @@ _ENTRIES = {
     "acad_lstm2": (_I, [_P] * 10 + [_I] * 8 + [_P]),
     # barrier, iters, blocks, smem, stream
     "acad_grid_barrier": (_I, [_P, _I, _I, _I, _P]),
-    # x, w, bias, wpost, bpost, y, spec, B, C, T, TT, H, Hc, buf, smem, C_post, kp, post_tanh,
-    # bf16, stream
-    "acad_resblock_tower": (_I, [_P] * 6 + [_IP] + [_I] * 12 + [_P]),
-    # x, w, bias, outs, part, mom, spec, B, C, T, TT, H, buf, smem, bf16, stream
-    "acad_resblock_tower_gn": (_I, [_P] * 6 + [_IP] + [_I] * 8 + [_P]),
-    # mom, scales, biases, A, K, B, C, G, num_groups, T, eps, stream
-    "acad_gn_affine": (_I, [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P]),
-    # rs, A, K, y, B, C, T, G, bf16, stream
-    "acad_gn_apply": (_I, [_P] * 4 + [_I] * 5 + [_P]),
+    # x, w, bias, wpost, bpost, wpre, bpre, y, spec, B, C, T, T_in, TT, H, Hc, buf, smem,
+    # C_post, kp, post_tanh, bf16, stream
+    "acad_resblock_tower": (_I, [_P] * 8 + [_IP] + [_I] * 13 + [_P]),
+    # x, w, bias, outs, part, mom, lengths, spec, B, C, T, TT, H, buf, smem, bf16, stream
+    "acad_resblock_tower_gn": (_I, [_P] * 7 + [_IP] + [_I] * 8 + [_P]),
+    # mom, scales, biases, lengths, A, K, B, C, G, num_groups, T, eps, stream
+    "acad_gn_affine": (_I, [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
+    # rs, A, K, lengths, y, B, C, T, G, bf16, stream
+    "acad_gn_apply": (_I, [_P] * 5 + [_I] * 5 + [_P]),
     "acad_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -4,11 +4,18 @@ and their plain versions.
 K3 ``resblock_tower`` replaces the TPU kernel
 ``academicodec_tpu/ops/pallas/resblock.py:_tower_kernel`` (``resblock_tower``):
 the mean of G residual chains over one generator stage ``x [B, C, T]``, with
-an optional lrelu -> conv_post -> tanh epilogue. K4 ``resblock_tower_gn``
+an optional lrelu -> conv_post -> tanh epilogue and an optional lrelu ->
+ConvTranspose1d prologue (``pre_weight``: the stage's upsampling, computed
+phase-major inside the kernel from ``x [B, C_in, T_in]``, so that the
+upsampled tensor never goes to device memory). K4 ``resblock_tower_gn``
 replaces ``_gn_tower_kernel`` (``resblock_tower_gn``): every chain of an
 encoder stage from the same input plus the per-channel moments, then pass 2
 derives the chained GroupNorm affines ``xs_g = GN_g(xs_{g-1} + r_g)`` on
-``[B, C]`` scalars and applies one elementwise recombination.
+``[B, C]`` scalars and applies one elementwise recombination. With
+``lengths [B]`` each row is computed as if it were that long: frames past it
+are read as 0 and written as 0, and the GroupNorm statistics count the valid
+frames only (the JAX package's length-masked encode,
+academicodec_tpu/nn/hifigan.py:318-344, which it runs on its plain lowering).
 
 Chains follow the JAX call order: ResBlock1 convs ``(k, d0), (k, 1), (k, d1),
 (k, 1), ...`` in pairs with a residual add per pair, ResBlock2 one conv per
@@ -38,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
@@ -53,6 +61,8 @@ LRELU_SLOPE = 0.1
 # limits of csrc/resblock.cu: chains per tower, convs per chain, output
 # channels per thread, columns per warp unit
 MAX_CHAINS, MAX_CONVS, CO_TILE, STRIP = 4, 8, 8, 256
+# the prologue's largest stride and taps a phase (MAX_U, MAX_PRE_TAPS)
+MAX_U, MAX_PRE_TAPS = 8, 8
 
 Weights = Sequence[Sequence[torch.Tensor]]
 
@@ -76,6 +86,30 @@ def tower_halo(kernel_sizes: Sequence[int], dilation_sizes: Sequence[Sequence[in
     )
 
 
+def convt_phase_taps(k: int, u: int, pad: int):
+    """Tap placement of a phase-major transposed conv (the port's copy of
+    academicodec_tpu/ops/conv.py:103): ``y[u q + r] = sum_m x[q - m] K[r + pad
+    + u m]`` over the ``m`` with ``0 <= r + pad + u m < k``. Returns ``(m_min,
+    m_max, per-phase ((m, j), ...))``."""
+    phases = []
+    m_lo, m_hi = 10**9, -(10**9)
+    for r in range(u):
+        taps = []
+        for m in range(-k, k + 1):
+            j = r + pad + u * m
+            if 0 <= j < k:
+                taps.append((m, j))
+                m_lo = min(m_lo, m)
+                m_hi = max(m_hi, m)
+        phases.append(tuple(taps))
+    return m_lo, m_hi, tuple(phases)
+
+
+def frame_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """``[B, 1, T]`` bool: frame t of row b lies below ``lengths[b]``."""
+    return (torch.arange(T, device=lengths.device)[None, :] < lengths.reshape(-1, 1).long())[:, None, :]
+
+
 # ---------------------------------------------------------------- plain versions
 
 
@@ -89,25 +123,46 @@ def _conv(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor, d: int) -> torch.Te
     return F.conv1d(a.float(), w.to(a.dtype).float(), b.float(), padding=(k - 1) // 2 * d, dilation=d)
 
 
-def _chain(x: torch.Tensor, ws, bs, dils: Sequence[int], resblock: str) -> torch.Tensor:
+def _chain(x: torch.Tensor, ws, bs, dils: Sequence[int], resblock: str, mask=None) -> torch.Tensor:
+    """One chain; with ``mask [B, 1, T]`` every conv output is 0 where it is
+    False, as the kernels zero outputs past a row's valid length."""
     dt = x.dtype
+
+    def conv(a, w, b, d):
+        y = _conv(a, w, b, d)
+        return y if mask is None else torch.where(mask, y, 0.0)
+
     cur = x
     if resblock == "1":
         for p in range(0, len(dils), 2):
-            y1 = _conv(_lrelu(cur, dt), ws[p], bs[p], dils[p]).to(dt)
-            y2 = _conv(_lrelu(y1, dt), ws[p + 1], bs[p + 1], dils[p + 1])
+            y1 = conv(_lrelu(cur, dt), ws[p], bs[p], dils[p]).to(dt)
+            y2 = conv(_lrelu(y1, dt), ws[p + 1], bs[p + 1], dils[p + 1])
             cur = (cur.float() + y2).to(dt)
     else:
         for p, d in enumerate(dils):
-            cur = (cur.float() + _conv(_lrelu(cur, dt), ws[p], bs[p], d)).to(dt)
+            cur = (cur.float() + conv(_lrelu(cur, dt), ws[p], bs[p], d)).to(dt)
     return cur
 
 
-def _chains(x, weights, biases, dilation_sizes, resblock) -> List[torch.Tensor]:
+def _chains(x, weights, biases, dilation_sizes, resblock, mask=None) -> List[torch.Tensor]:
+    if mask is not None:
+        x = torch.where(mask, x, torch.zeros((), dtype=x.dtype))
     return [
-        _chain(x, weights[g], biases[g], chain_conv_dilations(ds, resblock), resblock)
+        _chain(x, weights[g], biases[g], chain_conv_dilations(ds, resblock), resblock, mask)
         for g, ds in enumerate(dilation_sizes)
     ]
+
+
+def convt_prologue_plain(x: torch.Tensor, pre_weight: torch.Tensor, pre_bias: Optional[torch.Tensor],
+                         stride: int, pad: int) -> torch.Tensor:
+    """K3's prologue: ``lrelu`` rounded to the storage dtype, then a
+    ConvTranspose1d in f32 (``pre_weight [C_in, C, k]`` in the storage dtype,
+    torch's crop of ``pad`` each side), rounded: ``[B, C_in, T_in] -> [B, C,
+    stride T_in]``."""
+    dt = x.dtype
+    b = None if pre_bias is None else pre_bias.float()
+    y = F.conv_transpose1d(_lrelu(x, dt).float(), pre_weight.to(dt).float(), b, stride=stride, padding=pad)
+    return y.to(dt)
 
 
 def resblock_tower_plain(
@@ -121,9 +176,16 @@ def resblock_tower_plain(
     post_weight: Optional[torch.Tensor] = None,
     post_bias: Optional[torch.Tensor] = None,
     post_tanh: bool = False,
+    pre_weight: Optional[torch.Tensor] = None,
+    pre_bias: Optional[torch.Tensor] = None,
+    pre_stride: int = 1,
+    pre_pad: int = 0,
 ) -> torch.Tensor:
-    """K3's function with ``F.conv1d``, rounding where the kernel rounds."""
+    """K3's function with ``F.conv1d`` (and ``F.conv_transpose1d`` for the
+    prologue), rounding where the kernel rounds."""
     dt = x.dtype
+    if pre_weight is not None:
+        x = convt_prologue_plain(x, pre_weight, pre_bias, pre_stride, pre_pad)
     acc = None
     for cur in _chains(x, weights, biases, dilation_sizes, resblock):
         acc = cur.float() if acc is None else acc + cur.float()
@@ -153,10 +215,11 @@ def gn_affines(
     gn_biases: torch.Tensor,
     num_groups: int,
     epsilon: float,
-    T: int,
+    T: Union[int, torch.Tensor],
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 2a of K4: the chained GroupNorm affines from the moments
-    ``[B, C, n_mom]`` of chain outputs of length ``T``. With ``xs_g =
+    ``[B, C, n_mom]`` of chain outputs of length ``T``, or of ``T[b]`` valid
+    frames in row ``b`` when ``T`` is a ``[B]`` tensor of counts. With ``xs_g =
     GN_g(xs_{g-1} + r_g)`` returns ``A [G, B, C]`` and ``K [B, C]`` (f32) such
     that ``xs_last = K + sum_g A_g r_g`` (academicodec_tpu/ops/pallas/
     resblock.py:585-631, operation for operation). Plain version of
@@ -171,7 +234,11 @@ def gn_affines(
             q[(g, h)] = q[(h, g)] = mom[:, :, col]
             col += 1
     gsize = C // num_groups
-    N = float(gsize * T)
+    if isinstance(T, torch.Tensor):
+        T = T.to(device=mom.device, dtype=torch.float32).reshape(B, 1)
+        N = float(gsize) * T
+    else:
+        N = float(gsize * T)
 
     def gsum(v):  # [B, C] -> per-group sum broadcast back to [B, C]
         s = v.reshape(B, num_groups, gsize).sum(dim=2, keepdim=True)
@@ -201,14 +268,18 @@ def gn_affines(
     return torch.stack(A), K
 
 
-def gn_apply(rs: Sequence[torch.Tensor], A: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+def gn_apply(rs: Sequence[torch.Tensor], A: torch.Tensor, K: torch.Tensor,
+             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pass 2b of K4: ``out = K / G + sum_g (A_g / G) r_g`` in f32, rounded once
-    to the storage dtype. Plain version of ``gn_apply_kernel``."""
+    to the storage dtype; with ``lengths [B]``, 0 past each row's length.
+    Plain version of ``gn_apply_kernel``."""
     G = len(rs)
     inv = 1.0 / float(G)
     out = K[:, :, None] * inv
     for g in range(G):
         out = out + (A[g] * inv)[:, :, None] * rs[g].float()
+    if lengths is not None:
+        out = torch.where(frame_mask(lengths, out.shape[2]), out, 0.0)
     return out.to(rs[0].dtype)
 
 
@@ -219,10 +290,22 @@ def gn_recombine(
     gn_biases: torch.Tensor,
     num_groups: int,
     epsilon: float,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Pass 2 of K4: :func:`gn_affines` then :func:`gn_apply`."""
-    A, K = gn_affines(mom, gn_scales, gn_biases, num_groups, epsilon, rs[0].shape[2])
-    return gn_apply(rs, A, K)
+    T = rs[0].shape[2] if lengths is None else lengths
+    A, K = gn_affines(mom, gn_scales, gn_biases, num_groups, epsilon, T)
+    return gn_apply(rs, A, K, lengths)
+
+
+def clamp_lengths(lengths, B: int, T: int, device) -> torch.Tensor:
+    """``lengths`` (any integer sequence or tensor of ``B`` entries) as a
+    contiguous int32 tensor on ``device``, clamped to ``[0, T]`` as the
+    kernels clamp them."""
+    L = torch.as_tensor(lengths, device=device).reshape(-1)
+    if L.numel() != B or L.is_floating_point():
+        raise ValueError(f"lengths: {B} integer lengths expected, got {tuple(L.shape)} {L.dtype}")
+    return L.clamp(0, T).to(torch.int32).contiguous()
 
 
 def resblock_tower_gn_plain(
@@ -237,11 +320,17 @@ def resblock_tower_gn_plain(
     resblock: str = "1",
     num_groups: int,
     epsilon: float = 1e-6,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K4's function: the chains with ``F.conv1d``, moments of the rounded
-    chain outputs, then :func:`gn_recombine`."""
-    rs = _chains(x, weights, biases, dilation_sizes, resblock)
-    return gn_recombine(rs, moments(rs), gn_scales, gn_biases, num_groups, epsilon)
+    chain outputs, then :func:`gn_recombine`; with ``lengths [B]`` every row
+    computed at its own length (frames past it 0)."""
+    mask = None
+    if lengths is not None:
+        lengths = clamp_lengths(lengths, x.shape[0], x.shape[2], x.device)
+        mask = frame_mask(lengths, x.shape[2])
+    rs = _chains(x, weights, biases, dilation_sizes, resblock, mask)
+    return gn_recombine(rs, moments(rs), gn_scales, gn_biases, num_groups, epsilon, lengths)
 
 
 # ---------------------------------------------------------------- kernel wrappers
@@ -267,15 +356,18 @@ def row_stride(width: int) -> int:
     return -(-width // 8) * 8
 
 
-def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool) -> Tuple[int, int]:
+def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool, u: int = 1) -> Tuple[int, int]:
     """FMA path: ``(TT, shared bytes)``, output columns per block. The window
     ``TT + 2H`` is ``64 // C`` 256-column strips where they fit (8 warps x 8
     channels busy), else the widest multiple of 8 columns that fits shared
-    memory (at least 16 output columns)."""
+    memory (at least 16 output columns). With K3's prologue of stride ``u``,
+    ``TT`` is a multiple of ``u`` (``H`` is already)."""
     least = 2 * H + 16
     top = max(-(-least // STRIP), 64 // C) * STRIP
     for width in range(top, least - 1, -8):
         tt = width - 2 * H
+        if tt % u:
+            continue
         smem = 3 * C * row_stride(width) * itemsize
         if with_acc:
             smem += C * (tt + 2 * post_halo) * 4
@@ -309,25 +401,58 @@ def chain_halos(kernel_sizes, dilation_sizes, resblock: str) -> Tuple[int, ...]:
     )
 
 
+@dataclass(frozen=True)
+class PreGeometry:
+    """K3's prologue as the tile geometry sees it: stride ``u``, ``n_half =
+    C_in / C`` input-channel slices on the tensor-core path, ``span = m_max -
+    m_min`` extra input rows, ``tiles`` = the ring tiles of one chain's
+    prologue (sum over phases of taps x slices)."""
+
+    u: int
+    n_half: int
+    span: int
+    tiles: int
+
+
+def pre_slice_bytes(C: int, nq: int, span: int) -> int:
+    """Bytes of one ``C``-channel slice of K3's prologue input window in shared
+    memory: ``ceil(nq / 16) * 16 + span`` rows of ``2C`` bytes (ragged m-tiles
+    read 16-row tiles), rounded up to 1024 (tower_kernel's ``zh``)."""
+    return -(-((-(-nq // 16) * 16 + span) * 2 * C) // 1024) * 1024
+
+
 @functools.lru_cache(maxsize=None)
 def pick_tile_tc(C: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tuple[int, ...], ...],
-                 resblock: str, post_halo: int, gn: bool) -> TileGeometry:
+                 resblock: str, post_halo: int, gn: bool, pre: Optional[PreGeometry] = None) -> TileGeometry:
     """Tensor-core path: the ``TT`` (a multiple of 8, at least 16) whose window
     fits its shared-memory budget and row cap and costs the fewest multiplied
     rows per output column. A conv over ``R`` rows costs ``k * ceil(ceil(R / 16) / 8)``
     rounds of 8 warps x 16 rows; chain ``g`` starts at its own halo, ``Hc -
     Hc_g`` rows into the window. Shared memory: 1024 bytes of alignment slack,
     the ring, three ``(W + 16)``-row windows, K3's f32 chain sum (row stride
-    ``C + 1``) or K4's ``G - 1`` centre tiles, the mbarriers."""
+    ``C + 1``) or K4's ``G - 1`` centre tiles, the mbarriers. With K3's
+    prologue (``pre``): ``TT`` is a multiple of ``u`` (``H`` is already), each
+    phase's ``W / u`` rows are at most 256 (two m-tiles a warp), the input
+    window's ``n_half`` slices fit in one window buffer, and each chain adds
+    its prologue's tiles at ``W / u`` rows to the cost."""
     rb = 2 * C
     halos = chain_halos(kernel_sizes, dilation_sizes, resblock)
     Hc, G = max(halos), len(kernel_sizes)
     H = Hc + post_halo
     n_mom = G + G * (G + 1) // 2
+    step = 8 if pre is None else 8 * pre.u // math.gcd(8, pre.u)
     best = None
-    for tt in range(16, TC_MAX_ROWS[C] - 2 * H + 1, 8):
+    for tt in range(-(-16 // step) * step, TC_MAX_ROWS[C] - 2 * H + 1, step):
         W = tt + 2 * H
         buf = -(-(W + TC_PAD_ROWS) * rb // 1024) * 1024
+        pre_rounds = 0
+        if pre is not None:
+            nq = W // pre.u
+            if nq > 256:
+                continue
+            buf = max(buf, pre.n_half * pre_slice_bytes(C, nq, pre.span))
+            m_tiles = -(-nq // 16)
+            pre_rounds = G * pre.tiles * -(-m_tiles // TC_WARPS)
         if gn:
             buf = max(buf, 1024 * n_mom)  # 2 buf >= the moments' scratch, 2048 n_mom bytes
             extra = (G - 1) * tt * rb  # the last chain's centre tile stays in a free window
@@ -336,7 +461,7 @@ def pick_tile_tc(C: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tu
         smem = 1024 + TC_STAGES * C * rb + 3 * buf + -(-extra // 16) * 16 + 16 * TC_STAGES
         if smem > TC_SMEM_BUDGET[C]:
             continue
-        rounds = 0
+        rounds = pre_rounds
         for k, ds, h in zip(kernel_sizes, dilation_sizes, halos):
             lo = Hc - h
             hi = W - lo
@@ -381,7 +506,9 @@ class PackedTower:
     the kernel's operands: every conv's weights in ``dtype`` (tap tiles for the
     tensor-core path, ``[C_in][k][C_out]`` for the FMA path), chain after chain
     in call order, the biases f32, the C ``spec`` array, the post conv's
-    operands. Build with :func:`pack_tower`."""
+    operands, the prologue's (on the tensor-core path its tiles lead each
+    chain's taps in ``w_all``; on the FMA path ``wpre [k][C][C_in]``). Build
+    with :func:`pack_tower`."""
 
     weights: Weights
     biases: Weights
@@ -393,12 +520,38 @@ class PackedTower:
     dtype: torch.dtype
     device: torch.device
     C: int
+    pre_weight: Optional[torch.Tensor] = None
+    pre_bias: Optional[torch.Tensor] = None
+    pre_stride: int = 1
+    pre_pad: int = 0
     tc: bool = False
     w_all: Optional[torch.Tensor] = None
     b_all: Optional[torch.Tensor] = None
     spec: Any = None
     wp: Optional[torch.Tensor] = None
     bp: Optional[torch.Tensor] = None
+    wpre: Optional[torch.Tensor] = None
+    bpre: Optional[torch.Tensor] = None
+    pre_geo: Optional[PreGeometry] = None
+
+    @property
+    def C_in(self) -> int:
+        """Channels of the tower's input: the prologue's, or C."""
+        return self.C if self.pre_weight is None else self.pre_weight.shape[0]
+
+
+def _pre_spec(pre_weight: torch.Tensor, C: int, u: int, pad: int):
+    """Validate K3's prologue; returns its phase taps and m_max, m_min."""
+    if pre_weight.dim() != 3 or pre_weight.shape[1] != C:
+        raise ValueError(f"resblock tower: pre weight {tuple(pre_weight.shape)} for C={C} ([C_in, C, k])")
+    k = pre_weight.shape[2]
+    if not (1 <= u <= MAX_U) or 2 * pad != k - u:
+        raise ValueError(f"resblock tower: the prologue takes stride 1..{MAX_U} and pad (k - stride) / 2; "
+                         f"got k={k}, stride {u}, pad {pad}")
+    m_lo, m_hi, phases = convt_phase_taps(k, u, pad)
+    if max(len(t) for t in phases) > MAX_PRE_TAPS:
+        raise ValueError(f"resblock tower: k={k}, stride {u}: more than {MAX_PRE_TAPS} taps a phase")
+    return phases, m_hi, m_lo
 
 
 def pack_tower(
@@ -410,12 +563,18 @@ def pack_tower(
     resblock: str = "1",
     post_weight: Optional[torch.Tensor] = None,
     post_bias: Optional[torch.Tensor] = None,
+    pre_weight: Optional[torch.Tensor] = None,
+    pre_bias: Optional[torch.Tensor] = None,
+    pre_stride: int = 1,
+    pre_pad: int = 0,
     dtype: Optional[torch.dtype] = None,
 ) -> PackedTower:
     """Validate a tower's operands and, when they lie on a card, pack them
     for the kernels in ``dtype`` (default: the weights' own). The result can
     be passed to :func:`resblock_tower` / :func:`resblock_tower_gn` in place of
-    the raw weights any number of times."""
+    the raw weights any number of times. ``pre_weight [C_in, C, k]`` (torch
+    ConvTranspose1d layout), ``pre_bias [C]``, ``pre_stride`` and ``pre_pad``
+    (``(k - stride) / 2``) give K3's prologue."""
     kernel_sizes = tuple(kernel_sizes)
     dilation_sizes = tuple(tuple(ds) for ds in dilation_sizes)
     G = len(kernel_sizes)
@@ -427,9 +586,11 @@ def pack_tower(
     C, dev = first.shape[0], first.device
     dtype = dtype or first.dtype
     packed = PackedTower(weights, biases, kernel_sizes, dilation_sizes, resblock, post_weight, post_bias,
-                         dtype, dev, C)
+                         dtype, dev, C, pre_weight, pre_bias, pre_stride, pre_pad)
+    if pre_weight is not None:
+        phases, m_hi, m_lo = _pre_spec(pre_weight, C, pre_stride, pre_pad)
     tensors = [*(t for ch in weights for t in ch), *(t for ch in biases for t in ch)]
-    tensors += [t for t in (post_weight, post_bias) if t is not None]
+    tensors += [t for t in (post_weight, post_bias, pre_weight, pre_bias) if t is not None]
     if any(t.device != dev for t in tensors):
         raise ValueError("resblock tower: weights and biases on different devices")
     if dev.type == "cpu":
@@ -440,15 +601,38 @@ def pack_tower(
         raise ValueError(f"resblock tower: no kernel for {dtype}")
     if C % CO_TILE or C == 0:
         raise ValueError(f"resblock tower: C={C} must be a positive multiple of {CO_TILE}")
-    packed.tc = uses_tc(dtype, C)
-    spec = [0] * (3 + 2 * MAX_CHAINS + MAX_CHAINS * MAX_CONVS)
+    # the tensor-core prologue reads its input in C-channel slices
+    packed.tc = uses_tc(dtype, C) and (pre_weight is None or packed.C_in % C == 0)
+    n_spec = 3 + 2 * MAX_CHAINS + MAX_CHAINS * MAX_CONVS
+    spec = [0] * (n_spec + 4 + MAX_U + 2 * MAX_U * MAX_PRE_TAPS)
     spec[0], spec[1], spec[2] = int(packed.tc), G, int(resblock)
+    pre_tiles = []
+    if pre_weight is not None:
+        C_in, u = packed.C_in, pre_stride
+        spec[n_spec:n_spec + 4] = [u, C_in, m_hi, m_hi - m_lo]
+        w = pre_weight.detach().to(dtype)
+        for r, taps in enumerate(phases):
+            spec[n_spec + 4 + r] = len(taps)
+            for e, (m, j) in enumerate(taps):
+                spec[n_spec + 4 + MAX_U + r * MAX_PRE_TAPS + e] = m
+                spec[n_spec + 4 + MAX_U + MAX_U * MAX_PRE_TAPS + r * MAX_PRE_TAPS + e] = j
+                if packed.tc:  # one [C_out][C] tile per input-channel slice h: W[h C + ci, co, j]
+                    pre_tiles += [pack_taps(w[h * C:(h + 1) * C, :, j].t()[:, :, None]) for h in range(C_in // C)]
+        if packed.tc:
+            packed.pre_geo = PreGeometry(u, C_in // C, m_hi - m_lo, len(pre_tiles))
+        else:
+            packed.wpre = w.permute(2, 1, 0).contiguous()  # [k][C][C_in]
+        bpre = pre_bias if pre_bias is not None else torch.zeros(C, device=dev)
+        if tuple(bpre.shape) != (C,):
+            raise ValueError(f"resblock_tower: pre bias {tuple(bpre.shape)}")
+        packed.bpre = bpre.detach().float().contiguous()
     ws, bs = [], []
     for g, (k, ds) in enumerate(zip(kernel_sizes, dilation_sizes)):
         dils = chain_conv_dilations(ds, resblock)
         if k % 2 == 0 or len(dils) > MAX_CONVS or len(weights[g]) != len(dils) or len(biases[g]) != len(dils):
             raise ValueError(f"resblock tower: chain {g}: k={k}, {len(dils)} convs, {len(weights[g])} weights")
         spec[3 + g], spec[3 + MAX_CHAINS + g] = k, len(dils)
+        ws += pre_tiles  # the tap stream: each chain recomputes its window through the prologue
         for i, d in enumerate(dils):
             spec[3 + 2 * MAX_CHAINS + g * MAX_CONVS + i] = d
             w, b = weights[g][i], biases[g][i]
@@ -471,36 +655,42 @@ def pack_tower(
     return packed
 
 
-def _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock, **post) -> PackedTower:
+def _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock, **extra) -> PackedTower:
     if isinstance(weights, PackedTower):
         return weights
     return pack_tower(weights, biases, kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes,
-                      resblock=resblock, dtype=x.dtype, **post)
+                      resblock=resblock, dtype=x.dtype, **extra)
 
 
 def _check_call(x: torch.Tensor, packed: PackedTower, name: str) -> None:
-    """A CUDA call launches or raises: ``x`` must be a contiguous ``[B, C, T]``
+    """A CUDA call launches or raises: ``x`` must be a contiguous ``[B, C_in, T]``
     tensor on the card and in the dtype the operands were packed for."""
     if x.device.type != "cuda" or packed.device != x.device:
         raise ValueError(f"{name}: x on {x.device}, weights on {packed.device}; the kernel takes CUDA tensors")
     if x.dim() != 3 or not x.is_contiguous():
         raise ValueError(f"{name}: x must be a contiguous [B, C, T] tensor")
-    if x.dtype != packed.dtype or x.shape[1] != packed.C:
+    if x.dtype != packed.dtype or x.shape[1] != packed.C_in:
         raise ValueError(f"{name}: x {x.dtype} [., {x.shape[1]}, .] for operands packed as "
-                         f"{packed.dtype} with C={packed.C}")
+                         f"{packed.dtype} with C_in={packed.C_in}")
 
 
 def tower_geometry(packed: PackedTower, gn: bool):
     """``(TT, H, Hc, buf, smem)`` of a launch; ``buf`` and ``smem`` are 0 on the
-    FMA path, which sizes its own shared memory."""
+    FMA path, which sizes its own shared memory. ``H`` is the deepest chain's
+    halo plus the post conv's, rounded up to a multiple of the prologue's
+    stride, so that every tile's window starts on a phase boundary (JAX rounds
+    its halo likewise, academicodec_tpu/ops/pallas/resblock.py:394-401)."""
     Hc = tower_halo(packed.kernel_sizes, packed.dilation_sizes, packed.resblock)
     P = 0 if packed.wp is None else (packed.wp.shape[2] - 1) // 2
+    u = 1 if packed.pre_weight is None else packed.pre_stride
+    H = -(-(Hc + P) // u) * u
     if packed.tc:
-        geo = pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes, packed.resblock, P, gn)
-        return geo.TT, Hc + P, Hc, geo.buf, geo.smem
+        geo = pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes, packed.resblock, H - Hc, gn,
+                           packed.pre_geo)
+        return geo.TT, H, Hc, geo.buf, geo.smem
     itemsize = 2 if packed.dtype == torch.bfloat16 else 4
-    TT, _ = pick_tile(packed.C, Hc + P, P, itemsize, with_acc=not gn)
-    return TT, Hc + P, Hc, 0, 0
+    TT, _ = pick_tile(packed.C, H, H - Hc, itemsize, with_acc=not gn, u=u)
+    return TT, H, Hc, 0, 0
 
 
 def resblock_tower(
@@ -514,31 +704,44 @@ def resblock_tower(
     post_weight: Optional[torch.Tensor] = None,
     post_bias: Optional[torch.Tensor] = None,
     post_tanh: bool = False,
+    pre_weight: Optional[torch.Tensor] = None,
+    pre_bias: Optional[torch.Tensor] = None,
+    pre_stride: int = 1,
+    pre_pad: int = 0,
 ) -> torch.Tensor:
     """Mean of the resblock chains over ``x [B, C, T]`` -> ``[B, C, T]``, or
     with ``post_weight [C_post, C, kp]``: ``(tanh)(conv(lrelu(mean)))`` ->
     ``[B, C_post, T]``. ``weights[g][i]`` is conv ``i`` of chain ``g``,
-    ``[C, C, k]``; ``biases[g][i]`` is ``[C]``. ``weights`` may instead be a
-    :class:`PackedTower` (then it carries the biases, the chain structure and
-    the post conv)."""
+    ``[C, C, k]``; ``biases[g][i]`` is ``[C]``. With ``pre_weight [C_in, C, k]``
+    the tower's input is ``ConvTranspose1d(lrelu(x))`` of ``x [B, C_in, T_in]``
+    (stride ``pre_stride``, crop ``pre_pad = (k - stride) / 2`` a side, so
+    ``T = stride T_in``). ``weights`` may instead be a :class:`PackedTower`
+    (then it carries the biases, the chain structure, the post conv and the
+    prologue)."""
     p = _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock,
-                   post_weight=post_weight, post_bias=post_bias)
+                   post_weight=post_weight, post_bias=post_bias, pre_weight=pre_weight, pre_bias=pre_bias,
+                   pre_stride=pre_stride, pre_pad=pre_pad)
     if x.device.type == "cpu" and p.device.type == "cpu":
         return resblock_tower_plain(
             x, p.weights, p.biases, kernel_sizes=p.kernel_sizes, dilation_sizes=p.dilation_sizes,
             resblock=p.resblock, post_weight=p.post_weight, post_bias=p.post_bias, post_tanh=post_tanh,
+            pre_weight=p.pre_weight, pre_bias=p.pre_bias, pre_stride=p.pre_stride, pre_pad=p.pre_pad,
         )
     _check_call(x, p, "resblock_tower")
-    B, C, T = x.shape
+    B, C, T_in = x.shape[0], p.C, x.shape[2]
+    T = T_in if p.pre_weight is None else T_in * p.pre_stride
     c_out, kp = (C, 1) if p.wp is None else (p.wp.shape[0], p.wp.shape[2])
     TT, H, Hc, buf, smem = tower_geometry(p, gn=False)
     y = torch.empty((B, c_out, T), dtype=x.dtype, device=x.device)
     if B == 0 or T == 0:
         return y
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     rc = load_library().acad_resblock_tower(
-        x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(),
-        None if p.wp is None else p.wp.data_ptr(), None if p.bp is None else p.bp.data_ptr(),
-        y.data_ptr(), p.spec, B, C, T, TT, H, Hc, buf, smem, c_out, kp, int(post_tanh),
+        x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(), ptr(p.wp), ptr(p.bp), ptr(p.wpre), ptr(p.bpre),
+        y.data_ptr(), p.spec, B, C, T, T_in, TT, H, Hc, buf, smem, c_out, kp, int(post_tanh),
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower")
@@ -547,55 +750,64 @@ def resblock_tower(
     return y
 
 
-def gn_tower_chains(x: torch.Tensor, p: PackedTower) -> Tuple[torch.Tensor, torch.Tensor]:
+def gn_tower_chains(x: torch.Tensor, p: PackedTower, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 of K4 on the card: the chain outputs ``[G, B, C, T]`` and their
-    moments ``[B, C, n_mom]`` (per-tile partials summed in tile order)."""
+    moments ``[B, C, n_mom]`` (per-tile partials summed in tile order); with
+    ``lengths [B]`` each row at its own length."""
     _check_call(x, p, "resblock_tower_gn")
+    if p.pre_weight is not None:
+        raise ValueError("resblock_tower_gn: K4 has no prologue")
     B, C, T = x.shape
     G = len(p.kernel_sizes)
     TT, H, _, buf, smem = tower_geometry(p, gn=True)
     n_mom = G + G * (G + 1) // 2
     nT = -(-T // TT)
+    L = None if lengths is None else clamp_lengths(lengths, B, T, x.device)
     outs = torch.empty((G, B, C, T), dtype=x.dtype, device=x.device)
     part = torch.empty((B, nT, C, n_mom), dtype=torch.float32, device=x.device)
     mom = torch.empty((B, C, n_mom), dtype=torch.float32, device=x.device)
     rc = load_library().acad_resblock_tower_gn(
         x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(), outs.data_ptr(), part.data_ptr(),
-        mom.data_ptr(), p.spec, B, C, T, TT, H, buf, smem, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        mom.data_ptr(), None if L is None else L.data_ptr(), p.spec, B, C, T, TT, H, buf, smem,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower_gn")
     return outs, mom
 
 
-def gn_affines_cuda(mom, gn_scales, gn_biases, num_groups: int, epsilon: float, T: int):
-    """``gn_affine_kernel``: :func:`gn_affines` on the card, one block per batch row."""
+def gn_affines_cuda(mom, gn_scales, gn_biases, num_groups: int, epsilon: float, T: int, lengths=None):
+    """``gn_affine_kernel``: :func:`gn_affines` on the card, one block per batch
+    row; with ``lengths [B]`` (clamped to ``[0, T]``) each row's statistics
+    count its valid frames."""
     B, C, _ = mom.shape
     G = gn_scales.shape[0]
     if mom.device.type != "cuda" or mom.dtype != torch.float32 or not mom.is_contiguous():
         raise ValueError("gn_affines_cuda: mom must be a contiguous f32 CUDA tensor")
     scales, bn = gn_scales.float().contiguous(), gn_biases.float().contiguous()
+    L = None if lengths is None else clamp_lengths(lengths, B, T, mom.device)
     A = torch.empty((G, B, C), dtype=torch.float32, device=mom.device)
     K = torch.empty((B, C), dtype=torch.float32, device=mom.device)
     rc = load_library().acad_gn_affine(
-        mom.data_ptr(), scales.data_ptr(), bn.data_ptr(), A.data_ptr(), K.data_ptr(), B, C, G,
-        num_groups, T, float(epsilon), torch.cuda.current_stream(mom.device).cuda_stream,
+        mom.data_ptr(), scales.data_ptr(), bn.data_ptr(), None if L is None else L.data_ptr(), A.data_ptr(),
+        K.data_ptr(), B, C, G, num_groups, T, float(epsilon), torch.cuda.current_stream(mom.device).cuda_stream,
     )
     check(rc, "gn_affine")
     return A, K
 
 
-def gn_apply_cuda(rs: torch.Tensor, A: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
-    """``gn_apply_kernel``: :func:`gn_apply` on the card, ``rs [G, B, C, T]`` in one pass."""
+def gn_apply_cuda(rs: torch.Tensor, A: torch.Tensor, K: torch.Tensor, lengths=None) -> torch.Tensor:
+    """``gn_apply_kernel``: :func:`gn_apply` on the card, ``rs [G, B, C, T]`` in
+    one pass; with ``lengths [B]``, 0 past each row's length."""
     G, B, C, T = rs.shape
     if rs.device.type != "cuda" or not rs.is_contiguous() or rs.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("gn_apply_cuda: rs must be a contiguous f32 or bf16 CUDA tensor")
     if tuple(A.shape) != (G, B, C) or tuple(K.shape) != (B, C) or A.dtype != torch.float32 or K.dtype != torch.float32:
         raise ValueError(f"gn_apply_cuda: A {tuple(A.shape)}, K {tuple(K.shape)} for rs {tuple(rs.shape)}")
+    L = None if lengths is None else clamp_lengths(lengths, B, T, rs.device)
     y = torch.empty((B, C, T), dtype=rs.dtype, device=rs.device)
     rc = load_library().acad_gn_apply(
-        rs.data_ptr(), A.contiguous().data_ptr(), K.contiguous().data_ptr(), y.data_ptr(), B, C, T, G,
-        int(rs.dtype == torch.bfloat16), torch.cuda.current_stream(rs.device).cuda_stream,
+        rs.data_ptr(), A.contiguous().data_ptr(), K.contiguous().data_ptr(), None if L is None else L.data_ptr(),
+        y.data_ptr(), B, C, T, G, int(rs.dtype == torch.bfloat16), torch.cuda.current_stream(rs.device).cuda_stream,
     )
     check(rc, "gn_apply")
     return y
@@ -613,17 +825,22 @@ def resblock_tower_gn(
     resblock: str = "1",
     num_groups: int,
     epsilon: float = 1e-6,
+    lengths=None,
 ) -> torch.Tensor:
     """Encoder resblock bundle over ``x [B, C, T]`` (reference
     models.py:405-416): ``xs_0 = GN_0(r_0)``, ``xs_g = GN_g(xs_{g-1} + r_g)``,
     ``out = xs_last / G``, every chain ``r_g`` reading ``x``.
     ``gn_scales``/``gn_biases`` are ``[G, C]``. ``weights`` may be a
-    :class:`PackedTower` (``biases`` is then not read)."""
+    :class:`PackedTower` (``biases`` is then not read). With ``lengths [B]``
+    (integers, clamped to ``[0, T]``) row ``b`` is computed as if it were
+    ``lengths[b]`` frames long and is 0 past them: the JAX package's masked
+    encode stage (academicodec_tpu/nn/hifigan.py:318-344, 456-468)."""
     p = _as_packed(x, weights, biases, kernel_sizes, dilation_sizes, resblock)
     if all(t.device.type == "cpu" for t in (x, gn_scales, gn_biases)) and p.device.type == "cpu":
         return resblock_tower_gn_plain(
             x, p.weights, p.biases, gn_scales, gn_biases, kernel_sizes=p.kernel_sizes,
             dilation_sizes=p.dilation_sizes, resblock=p.resblock, num_groups=num_groups, epsilon=epsilon,
+            lengths=lengths,
         )
     _check_call(x, p, "resblock_tower_gn")
     B, C, T = x.shape
@@ -634,8 +851,9 @@ def resblock_tower_gn(
         raise ValueError("resblock_tower_gn: GroupNorm params on another device")
     if B == 0 or T == 0:
         return torch.empty_like(x)
-    outs, mom = gn_tower_chains(x, p)
+    L = None if lengths is None else clamp_lengths(lengths, B, T, x.device)
+    outs, mom = gn_tower_chains(x, p, L)
     global GN_TOWER_LAUNCHES
     GN_TOWER_LAUNCHES += 1
-    A, K = gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T)
-    return gn_apply_cuda(outs, A, K)
+    A, K = gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T, L)
+    return gn_apply_cuda(outs, A, K, L)

@@ -3,19 +3,24 @@
 
 Builds the hand-written kernels from ``academicodec_tpu_torch/csrc``, holds
 each against its plain PyTorch version on the card (K1 RVQ search, K2 LSTM,
-K3 resblock tower, K4 GroupNorm resblock bundle and its two pass-2 kernels),
-then drives the port's two
+K3 resblock tower with and without its convT prologue, K4 GroupNorm
+resblock bundle with and without lengths, and its two pass-2 kernels),
+then drives the port's
 paths through the public entry points, each at batch 8 x 10 s in bf16 with
-seeded random weights: the flagship Encodec_24k_240d roundtrip (wav ->
-SEANet encoder -> RVQ -> SEANet decoder -> wav, N(0, 1) codebooks) and the
-HiFi-Codec hificodec_24k_320d roundtrip (wav -> HiFi-GAN encoder -> GRVQ
-tokens -> HiFi-GAN generator -> wav). Each path is followed by an f32
-check of the card against the CPU. Then the serving paths of the codec
-layer: K2 continuing a stream from a carry (``lstm2_carry``), streaming
-sessions of the causal Encodec_24k_240d (8 streams x 10 s in 100 ms chunks,
-wav -> tokens -> wav) and of the causal hificodec_24k_320d generator
-(``stream``), and ECDC file compression of 8 files x 10 s (``compress``).
-Any failed phase exits non-zero; without a CUDA device it exits 1 at once.
+seeded random weights and codebooks spread over latent frames: the
+flagship Encodec_24k_240d roundtrip (wav -> SEANet encoder -> RVQ -> SEANet
+decoder -> wav) and the HiFi-Codec hificodec_24k_320d roundtrip (wav ->
+HiFi-GAN encoder -> GRVQ tokens -> HiFi-GAN generator -> wav), the latter
+also with the generator's upsampling fused into K3 (``hifi_pre``). Each
+path is followed by an f32 check of the card against the CPU. Then the
+serving paths of the codec layer: K2 continuing a stream from a carry
+(``lstm2_carry``), streaming sessions of the causal Encodec_24k_240d (8
+streams x 10 s in 100 ms chunks, wav -> tokens -> wav) and of the causal
+hificodec_24k_320d generator (``stream``), ECDC file compression of 8
+files x 10 s (``compress``), and HiFi-Codec corpus tokenization of 8 files
+of 3-10 s through the ``extract_tokens`` CLI, batched with lengths and one
+file a call (``extract``). Any failed phase exits non-zero; without a CUDA
+device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -268,40 +273,61 @@ def timed_roundtrips(tag, model, wav, seconds, iters) -> dict:
     return result
 
 
+# tokens that follow the latents spread over many codebook entries; a path
+# that loses them collapses to one token a layer
+MIN_DISTINCT_TOKENS = 8
+
+
+def check_distinct(tag, codes) -> int:
+    """The number of distinct tokens in ``codes``; fails at MIN_DISTINCT_TOKENS or fewer."""
+    distinct = int(torch.unique(codes).numel())
+    print(f"[{tag}] {distinct} distinct tokens (floor {MIN_DISTINCT_TOKENS})")
+    if distinct <= MIN_DISTINCT_TOKENS:
+        raise AssertionError(f"{tag}: {distinct} distinct tokens, the tokens do not follow the latents")
+    return distinct
+
+
 def phase_main_path(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=5,
                     preset=FLAGSHIP, **overrides) -> dict:
     """One Encodec/SoundStream roundtrip through the public entry points,
     with the launch counts read around it; then ``iters`` timed roundtrips
-    (on the card only)."""
+    (on the card only). The codebooks are first spread over the latent
+    frames of two of the input rows (:func:`spread_codebooks`)."""
     model = load_codec(preset, device=device, dtype=dtype, **overrides)
     length = int(round(seconds * model.sample_rate))
     wav = seeded_wav(batch, length, device)
-    print(f"[main] {preset} {dtype} on {wav.device}")
+    spread_codebooks(model, latent_frames(model, wav[:2]))
+    print(f"[main] {preset} {dtype} on {wav.device}, codebooks from latent frames")
     frames = math.ceil(length / model.hop_length)
     expected = {"rvq_encode": 1, "lstm2": 2, "resblock_tower": 0, "resblock_tower_gn": 0}
     result = checked_roundtrip("main", model, wav, expected, (model.n_q, batch, frames))
+    result["distinct_tokens"] = check_distinct("main", result["codes"])
     if wav.device.type == "cuda" and iters:
         result.update(timed_roundtrips("main", model, wav, seconds, iters))
     return result
 
 
-def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2) -> None:
+def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2, fused_pre=False) -> None:
     """A full-width f32 model on the card against the same seeded model on
     the CPU (plain versions) on a small input: tokens, and the wav decoded
-    from the same tokens. HiFi-Codec codebooks are first spread over the CPU
-    model's latent frames, identically on both."""
+    from the same tokens. The codebooks are first spread over the CPU model's
+    latent frames, identically on both. ``fused_pre``: HiFi-Codec's generator
+    with its upsampling fused into K3."""
     wav = seeded_wav(batch, int(seconds * 24000), "cpu", seed=2)
     gpu = load_codec(preset, device=device)
     cpu = load_codec(preset, device="cpu")
-    if preset == HIFI:
-        frames = latent_frames(cpu, wav)
-        spread_codebooks(gpu, frames)
-        spread_codebooks(cpu, frames)
+    if fused_pre:
+        gpu.generator.fused_pre = cpu.generator.fused_pre = True
+        print(f"[cross] {preset} with generator.fused_pre")
+    frames = latent_frames(cpu, wav)
+    spread_codebooks(gpu, frames)
+    spread_codebooks(cpu, frames)
     codes_cpu = cpu.encode(wav)
     mismatch = (gpu.encode(wav).cpu() != codes_cpu).double().mean().item()
     err = (gpu.decode(codes_cpu).cpu() - cpu.decode(codes_cpu)).abs().max().item()
     print(f"[cross] f32 {preset} card vs CPU, {batch} x {seconds} s: token mismatch "
           f"{mismatch:.3g} (limit 1e-2), wav max abs diff {err:.3g} (atol 2e-4)")
+    check_distinct("cross", codes_cpu)
     if not (mismatch <= 1e-2 and err <= 2e-4):
         raise AssertionError(f"the card's {preset} roundtrip disagrees with the CPU's")
 
@@ -327,23 +353,25 @@ def _randn(shape, device, dtype, seed, scale=0.5):
     return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
 
 
-def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0):
+def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0, c_in=0, k_pre=0, u=1):
     """Bound of one tower call: its convs' operations at the bf16 peak, or
-    the input, the output and the weights moved once."""
+    the input, the output and the weights moved once. With the prologue
+    (``c_in`` channels, stride ``u``, ``k_pre`` taps) the input is ``[B, c_in,
+    T / u]`` and each output sample of the convT takes ``k_pre / u`` taps."""
     taps = sum(k * len(resblock_ops.chain_conv_dilations(ds, "1")) for k, ds in zip(ks, dss))
-    flops = 2.0 * B * T * C * C * taps + 2.0 * B * T * C * c_post * kp
-    nbytes = itemsize * (B * C * T + B * (c_post or C) * T + C * C * taps + c_post * C * kp)
+    flops = 2.0 * B * T * C * C * taps + 2.0 * B * T * C * c_post * kp + 2.0 * B * T * C * c_in * k_pre / u
+    x_elems = B * c_in * T // u if c_in else B * C * T
+    nbytes = itemsize * (x_elems + B * (c_post or C) * T + C * C * taps + c_post * C * kp + c_in * C * k_pre)
     return bound(flops, nbytes, PEAK_BF16_FLOPS)
 
 
 def _geometry(packed, gn: bool) -> dict:
     """The tile geometry of a tower launch, as the wrapper picks it."""
-    TT, H, _, buf, smem = resblock_ops.tower_geometry(packed, gn)
+    TT, H, Hc, buf, smem = resblock_ops.tower_geometry(packed, gn)
     geo = dict(TT=TT, W=TT + 2 * H, tensor_cores=packed.tc)
     if packed.tc:
-        post = 0 if packed.wp is None else (packed.wp.shape[2] - 1) // 2
         g = resblock_ops.pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes,
-                                      packed.resblock, post, gn)
+                                      packed.resblock, H - Hc, gn, packed.pre_geo)
         geo.update(smem_bytes=smem, blocks_per_sm=g.blocks_per_sm, chain_starts=list(g.starts),
                    rows_multiplied_per_output_row=g.cost)
     return geo
@@ -396,15 +424,85 @@ def phase_resblock(device, iters=5) -> dict:
         cases.append(case)
         del x, y, y_packed, ref
     timed = [c for c in cases if "ms" in c]
+    pre_cases = phase_resblock_pre(device, iters)
+    pre_timed = [c for c in pre_cases if "ms" in c]
     return dict(
         name="resblock_tower", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
         replaces="academicodec_tpu/ops/pallas/resblock.py:96",
-        max_abs_err=max(c["max_abs_err"] for c in timed),
+        max_abs_err=max(c["max_abs_err"] for c in timed + pre_timed),
         tolerance="2e-2 x max|plain| in bf16, atol 1e-4 in f32",
         ms=sum(c["ms"] for c in timed), plain_ms=sum(c["plain_ms"] for c in timed),
         bound_ms=sum(c["bound_ms"] for c in timed), bound_by="operations", library_ms=None,
-        note="ms, plain_ms and bound_ms sum the two launches of one decode (s2 + s3)", cases=cases,
+        ms_fused_pre=sum(c["ms"] for c in pre_timed), plain_ms_fused_pre=sum(c["plain_ms"] for c in pre_timed),
+        bound_ms_fused_pre=sum(c["bound_ms"] for c in pre_timed),
+        convt_library_ms=sum(c["convt_library_ms"] for c in pre_timed),
+        note="ms, plain_ms and bound_ms sum the two launches of one decode (s2 + s3); *_fused_pre the same "
+             "two launches with the upsampling convT fused in (the prologue, pre_weight), and "
+             "convt_library_ms the cuDNN conv_transpose1d + lrelu that the prologue replaces, at both stages",
+        cases=cases + pre_cases,
     )
+
+
+def phase_resblock_pre(device, iters=5) -> list:
+    """K3 with its prologue (lrelu -> phase-major ConvTranspose1d, ``pre_weight``)
+    against its plain version at the generator's stage 2 ([8,128,30000] ->
+    [8,64,120000], k 8, stride 4) and stage 3 ([8,64,120000] -> [8,1,240000], k 4,
+    stride 2, post conv + tanh) shapes, bf16 and f32; bf16 timed beside its
+    bound, the same stage without the prologue, and cuDNN's conv_transpose1d
+    + lrelu on the same input (the library yardstick of the prologue)."""
+    cases = []
+    for tag, dtype, B, C_in, C, T_in, u, kT, post in (
+        ("s2 pre", torch.bfloat16, 8, 128, 64, 30000, 4, 8, False),
+        ("s3 pre", torch.bfloat16, 8, 64, 32, 120000, 2, 4, True),
+        ("s2 pre f32", torch.float32, 8, 128, 64, 30000, 4, 8, False),
+        ("s3 pre f32", torch.float32, 8, 64, 32, 120000, 2, 4, True),
+    ):
+        weights, biases = _tower_weights(C, RB1_KS, RB1_DS, device, dtype, seed=C)
+        g = torch.Generator().manual_seed(9)
+        pkw = dict(pre_weight=(torch.randn((C_in, C, kT), generator=g) / math.sqrt(C_in * kT / u)).to(device, dtype),
+                   pre_bias=(torch.randn(C, generator=g) * 0.1).to(device, dtype), pre_stride=u,
+                   pre_pad=(kT - u) // 2)
+        if post:
+            pkw.update(post_weight=(torch.randn((1, C, 7), generator=g) * (0.5 / math.sqrt(C * 7))).to(device, dtype),
+                       post_bias=torch.zeros(1, device=device, dtype=dtype))
+        kw = dict(kernel_sizes=RB1_KS, dilation_sizes=RB1_DS, resblock="1")
+        x = _randn((B, C_in, T_in), device, dtype, seed=T_in + 1)
+        packed = resblock_ops.pack_tower(weights, biases, **kw, **pkw)
+        with torch.no_grad():
+            y = resblock_ops.resblock_tower(x, packed, post_tanh=post).float()
+            ref = resblock_ops.resblock_tower_plain(x, weights, biases, post_tanh=post, **kw, **pkw).float()
+        err = (y - ref).abs().max().item()
+        tol = 2e-2 * ref.abs().max().item() if dtype == torch.bfloat16 else 1e-4
+        geo = _geometry(packed, gn=False)
+        print(f"[resblock] {tag} {dtype} [{B},{C_in},{T_in}] -> [{B},{1 if post else C},{T_in * u}] post={post}: "
+              f"max abs diff {err:.3g} (tol {tol:.3g}); {geo}")
+        if not (y.shape == ref.shape and err <= tol):
+            raise AssertionError(f"resblock_tower with its prologue disagrees with the plain version ({tag})")
+        case = dict(case=tag, shape=[B, C_in, T_in], stride=u, post=post, max_abs_err=err, tolerance=tol,
+                    geometry=geo)
+        if dtype == torch.bfloat16:
+            up = resblock_ops.convt_prologue_plain(x, pkw["pre_weight"], pkw["pre_bias"], u, (kT - u) // 2)
+            post_kw = {k: v for k, v in pkw.items() if k.startswith("post")}
+            unfused = resblock_ops.pack_tower(weights, biases, **kw, **post_kw)
+            with torch.no_grad():
+                case["ms"] = time_ms(lambda: resblock_ops.resblock_tower(x, packed, post_tanh=post), iters)
+                case["ms_without_prologue"] = time_ms(
+                    lambda: resblock_ops.resblock_tower(up, unfused, post_tanh=post), iters)
+                case["convt_library_ms"] = time_ms(lambda: torch.nn.functional.conv_transpose1d(
+                    torch.nn.functional.leaky_relu(x, 0.1), pkw["pre_weight"], pkw["pre_bias"], stride=u,
+                    padding=(kT - u) // 2), iters)
+                case["plain_ms"] = time_ms(
+                    lambda: resblock_ops.resblock_tower_plain(x, weights, biases, post_tanh=post, **kw, **pkw), 2)
+            case["bound_ms"], case["bound_by"] = _tower_bound(B, C, T_in * u, RB1_KS, RB1_DS, 2,
+                                                              *((1, 7) if post else (0, 0)), C_in, kT, u)
+            case["share_of_bound"] = case["bound_ms"] / case["ms"]
+            print(f"[resblock] {tag} kernel {case['ms']:.4f} ms (without the prologue {case['ms_without_prologue']:.4f} "
+                  f"ms, plus cuDNN convT + lrelu {case['convt_library_ms']:.4f} ms), plain {case['plain_ms']:.4f} ms, "
+                  f"bound {case['bound_ms']:.4f} ms ({case['bound_by']}): {case['share_of_bound']:.1%} of the bound rate")
+            del up
+        cases.append(case)
+        del x, y, ref
+    return cases
 
 
 def _check_gn_pass2(outs, mom, scs, gbs, num_groups, T) -> dict:
@@ -480,16 +578,74 @@ def phase_resblock_gn(device, iters=5) -> dict:
             timed = case
         cases.append(case)
         del x, y, y_again, ref, outs
+    cases += phase_resblock_gn_lengths(device, iters)
+    with_lengths = next(c for c in cases if "ms" in c and "lengths" in c)
     return dict(
         name="resblock_tower_gn", route="cuda", source="academicodec_tpu_torch/csrc/resblock.cu",
         replaces="academicodec_tpu/ops/pallas/resblock.py:230", max_abs_err=timed["max_abs_err"],
-        tolerance="atol 5e-2 in bf16, 1e-4 in f32; A, K rtol 1e-5; apply one ulp",
+        tolerance="atol 5e-2 in bf16, 1e-4 in f32; A, K rtol 1e-5; apply one ulp; with lengths the same, "
+                  "pad frames exactly 0",
         ms=timed["ms"], plain_ms=timed["plain_ms"],
         bound_ms=timed["bound_ms"], bound_by=timed["bound_by"], library_ms=None,
         pass1_ms=timed["pass1_ms"], affine_ms=timed["affine_ms"], apply_ms=timed["apply_ms"],
+        ms_lengths=with_lengths["ms"], plain_ms_lengths=with_lengths["plain_ms"],
+        bound_ms_lengths=with_lengths["bound_ms"],
         note="ms times the whole wrapper: the pass-1 kernel, the moments reduction, "
-             "gn_affine_kernel and gn_apply_kernel", cases=cases,
+             "gn_affine_kernel and gn_apply_kernel; *_lengths the same with lengths spread over "
+             "40000-120000 frames (the bound counts the valid frames' operations)", cases=cases,
     )
+
+
+def phase_resblock_gn_lengths(device, iters=5, B=8, C=64, T=120000) -> list:
+    """K4 with ``lengths`` at the encoder's stage 0 shape, the lengths spread
+    over 40000-120000 frames and the input nonzero past them, bf16 and f32:
+    against its plain version at K4's limits, pad frames exactly 0, and each
+    row's valid frames against a call on that row alone at its exact length
+    (0 difference expected: the same tiles in the same order, the pad adding
+    exact zeros to the moments)."""
+    ks, dss = tuple(reversed(RB1_KS)), RB1_DS
+    L = torch.linspace(40000, T, B).round().to(torch.int32).to(device)
+    lengths = L.tolist()
+    cases = []
+    for tag, dtype in (("s0 lengths", torch.bfloat16), ("s0 lengths f32", torch.float32)):
+        weights, biases = _tower_weights(C, ks, dss, device, dtype, seed=C + 1)
+        g = torch.Generator().manual_seed(8)
+        scs = (torch.randn((3, C), generator=g) * 0.3 + 1.0).to(device, dtype)
+        gbs = (torch.randn((3, C), generator=g) * 0.1).to(device, dtype)
+        gkw = dict(num_groups=C // 16)
+        x = _randn((B, C, T), device, dtype, seed=T + 2)
+        packed = resblock_ops.pack_tower(weights, biases, kernel_sizes=ks, dilation_sizes=dss, resblock="1")
+        with torch.no_grad():
+            y = resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, lengths=L, **gkw)
+            ref = resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, kernel_sizes=ks,
+                                                       dilation_sizes=dss, lengths=L, **gkw).float()
+            err = (y.float() - ref).abs().max().item()
+            pad_nonzero = sum(int(torch.count_nonzero(y[b, :, n:])) for b, n in enumerate(lengths))
+            alone = max((y[b:b + 1, :, :n].float() - resblock_ops.resblock_tower_gn(
+                x[b:b + 1, :, :n].contiguous(), packed, None, scs, gbs, **gkw).float()).abs().max().item()
+                for b, n in enumerate(lengths))
+        tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        print(f"[resblock_gn] {tag} {dtype} [{B},{C},{T}] lengths {lengths}: max abs diff {err:.3g} (atol {tol}); "
+              f"nonzero pad values {pad_nonzero} (limit 0); each row against its exact-length call: max abs "
+              f"diff {alone:.3g} (atol {tol}, 0 expected)")
+        if not (err <= tol and pad_nonzero == 0 and alone <= tol):
+            raise AssertionError(f"resblock_tower_gn with lengths disagrees ({tag})")
+        case = dict(case=tag, shape=[B, C, T], lengths=lengths, max_abs_err=err, tolerance=tol,
+                    pad_nonzero=pad_nonzero, max_abs_diff_vs_exact_length=alone)
+        if dtype == torch.bfloat16:
+            with torch.no_grad():
+                case["ms"] = time_ms(
+                    lambda: resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, lengths=L, **gkw), iters)
+                case["plain_ms"] = time_ms(lambda: resblock_ops.resblock_tower_gn_plain(
+                    x, weights, biases, scs, gbs, kernel_sizes=ks, dilation_sizes=dss, lengths=L, **gkw), 2)
+            taps = sum(k * len(resblock_ops.chain_conv_dilations(ds, "1")) for k, ds in zip(ks, dss))
+            case["bound_ms"], case["bound_by"] = bound(2.0 * sum(lengths) * C * C * taps,
+                                                       2 * (2 * B * C * T + C * C * taps), PEAK_BF16_FLOPS)
+            print(f"[resblock_gn] {tag} kernel {case['ms']:.4f} ms, plain {case['plain_ms']:.4f} ms, bound "
+                  f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+        cases.append(case)
+        del x, y, ref
+    return cases
 
 
 def fused_stage_counts(config) -> dict:
@@ -546,10 +702,152 @@ def phase_hificodec(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, 
     n_tok = model.quantizer.n_residual * model.quantizer.n_groups
     expected = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(model.config)}
     result = checked_roundtrip("hifi", model, wav, expected, (batch, frames, n_tok))
-    result["distinct_tokens"] = int(torch.unique(result["codes"]).numel())
-    print(f"[hifi] {result['distinct_tokens']} distinct tokens")
+    result["distinct_tokens"] = check_distinct("hifi", result["codes"])
     if wav.device.type == "cuda" and iters:
         result.update(timed_roundtrips("hifi", model, wav, seconds, iters))
+    return result
+
+
+def phase_hifi_pre(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=3,
+                   preset=HIFI, **overrides) -> dict:
+    """The HiFi-Codec roundtrip with ``generator.fused_pre = True`` (each fused
+    stage's upsampling convT runs as K3's prologue), launch counts read
+    around it, codebooks spread as in :func:`phase_hificodec`. The wav it
+    decodes is held against the ``fused_pre=False`` decode of the same
+    tokens: max abs diff / max |wav| <= 2e-2 (the two round the convT's
+    output to bf16 after other summation orders). On the card both are
+    timed, in turns."""
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    length = int(round(seconds * model.config.sampling_rate))
+    wav = seeded_wav(batch, length, device)
+    spread_codebooks(model, latent_frames(model, wav[:2]))
+    with torch.no_grad():
+        codes = model.encode(wav)
+        unfused = model.decode(codes)
+    model.generator.fused_pre = True
+    print(f"[hifi_pre] {preset} {dtype} on {wav.device}, generator.fused_pre, codebooks from latent frames")
+    frames = -(-length // model.hop_length)
+    n_tok = model.quantizer.n_residual * model.quantizer.n_groups
+    expected = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(model.config)}
+    result = checked_roundtrip("hifi_pre", model, wav, expected, (batch, frames, n_tok))
+    result["distinct_tokens"] = check_distinct("hifi_pre", result["codes"])
+    with torch.no_grad():
+        err = _rel_err(model.decode(codes), unfused)
+    result["wav_rel_err_vs_unfused"] = err
+    print(f"[hifi_pre] decode with the prologue vs without, same tokens: max abs diff / max |wav| {err:.3g} "
+          f"(limit 2e-2)")
+    if not err <= 2e-2:
+        raise AssertionError(f"hifi_pre: the fused_pre decode disagrees with the unfused one: {err:.3g}")
+    if wav.device.type == "cuda" and iters:
+        for fused in (False, True, True, False):
+            model.generator.fused_pre = fused
+            key = "fused_pre" if fused else "unfused"
+            timed = timed_roundtrips(f"hifi_pre {key}", model, wav, seconds, iters)
+            if key in result:  # the second of the turns: keep the mean of both
+                timed = {k: (v + result[key][k]) / 2 for k, v in timed.items()}
+            result[key] = timed
+    return result
+
+
+def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, bucket_seconds=10.0,
+                  preset=HIFI, **overrides) -> dict:
+    """Corpus tokenization through ``cli.extract_tokens.main``: ``n_files``
+    seeded wavs of ``min_seconds``-``max_seconds`` and the seeded f32 model
+    (codebooks spread over one file's latent frames) saved as a reference
+    ``g_*`` file in a temporary directory; the CLI runs in-process,
+    batched (``--batch_files n_files --bucket_seconds``, each row encoded
+    with its length) with the launch counts read around it, then one file a
+    call at exact lengths, both writing tokens and synthesized wavs. The two
+    token sets must agree (mismatch <= 1e-3; 0 expected, JAX asserts
+    bit-exactness). To locate a difference, a third run takes one file a
+    call padded to whole buckets with its length (the batched run's shapes
+    but batch 1), and the encoder's latents of one file padded with its
+    length are held against its exact-length latents. On the card: audio
+    seconds per wall second of the batched run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import extract_tokens
+    from academicodec_tpu_torch.data.wavio import write_wav
+
+    model = load_codec(preset, device=device, **overrides)
+    sr = model.config.sampling_rate
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(int(min_seconds * sr), int(max_seconds * sr) + 1, n_files)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    spread_codebooks(model, latent_frames(model, torch.from_numpy(wavs[0][None])))
+    on_card = model.device.type == "cuda"
+    hop = model.hop_length
+    bucket = math.ceil(round(bucket_seconds * sr) / hop) * hop
+    w0 = torch.from_numpy(wavs[0])[None, None].to(model.device)
+    with torch.no_grad():
+        exact = model.encoder(w0)
+        padded = model.encoder(torch.nn.functional.pad(w0, (0, -(-w0.shape[2] // bucket) * bucket - w0.shape[2])),
+                               lengths=[w0.shape[2]])
+    latent_diff = (padded[:, :, :exact.shape[2]] - exact).abs().max().item()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "wavs"))
+        for i, w in enumerate(wavs):
+            write_wav(os.path.join(tmp, "wavs", f"f{i}.wav"), w, sr)
+        ckpt = os.path.join(tmp, "g_00000000")
+        torch.save({part: getattr(model, part).state_dict() for part in ("encoder", "generator", "quantizer")},
+                   ckpt)
+        config = os.path.join(tmp, "config.json")
+        with open(config, "w") as fh:
+            json.dump(dataclasses.asdict(model.config), fh)
+        del model
+        flags = ["--config", config, "--model_path", ckpt, "--input", os.path.join(tmp, "wavs"),
+                 "--device", str(device)]
+        if on_card:
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_b"), "--tokens_out",
+                                     os.path.join(tmp, "b.npz"), "--batch_files", str(n_files),
+                                     "--bucket_seconds", str(bucket_seconds)])
+        if on_card:
+            torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_launches()
+        extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_s"), "--tokens_out",
+                                     os.path.join(tmp, "s.npz"), "--batch_files", "1"])
+        extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_p"), "--tokens_out",
+                                     os.path.join(tmp, "p.npz"), "--no_synth", "--bucket_seconds", str(bucket_seconds)])
+        batched, single, padded_single = (np.load(os.path.join(tmp, f"{t}.npz")) for t in "bsp")
+        keys = sorted(batched.files)
+        if not keys == sorted(single.files) == sorted(padded_single.files) or len(keys) != n_files:
+            raise AssertionError(f"extract: token files {keys} and {sorted(single.files)}")
+        shapes_ok = all(batched[k].shape == single[k].shape == padded_single[k].shape for k in keys)
+        total = sum(batched[k].size for k in keys)
+
+        def differ(a, b):
+            return sum(int((a[k] != b[k]).sum()) for k in keys) if shapes_ok else total
+
+        differ_b_s, differ_b_p, differ_p_s = differ(batched, single), differ(batched, padded_single), \
+            differ(padded_single, single)
+        distinct = check_distinct("extract", torch.from_numpy(np.concatenate([batched[k].reshape(-1) for k in keys])))
+        synth = sorted(f for f in os.listdir(os.path.join(tmp, "out_b")) if f.endswith(".wav"))
+    expected = {"rvq_encode": 0, "lstm2": 0, "resblock_tower": 2 if on_card else 0,
+                "resblock_tower_gn": 1 if on_card else 0}
+    mismatch = differ_b_s / total
+    audio_s = float(lengths.sum()) / sr
+    print(f"[extract] {n_files} files, {audio_s:.2f} s of audio: batched vs one file a call token mismatch "
+          f"{mismatch:.3g} ({differ_b_s} of {total}; limit 1e-3, 0 expected), {len(synth)} wavs synthesized, "
+          f"launches of the batched run {launches} (expected {expected})")
+    print(f"[extract] to locate it: batched vs one padded file a call {differ_b_p} tokens differ, one padded "
+          f"file a call vs exact lengths {differ_p_s}; latents of f0 padded with its length vs exact length: "
+          f"max abs diff {latent_diff:.3g}")
+    if not (shapes_ok and mismatch <= 1e-3 and len(synth) == n_files and launches == expected):
+        raise AssertionError(f"extract: mismatch {mismatch:.3g}, shapes {shapes_ok}, {len(synth)} wavs, "
+                             f"launches {launches}")
+    result = {"launches": launches, "token_mismatch": mismatch, "distinct_tokens": distinct,
+              "audio_seconds": audio_s, "tokens_differ_batched_vs_padded_single": differ_b_p,
+              "tokens_differ_padded_single_vs_exact": differ_p_s, "latent_max_abs_diff_padded_vs_exact": latent_diff}
+    if on_card:
+        result.update(wall_s=wall_s, audio_seconds_per_wall_second=audio_s / wall_s)
+        print(f"[extract] batched run {wall_s:.3f} s wall (model load, reads, encode, synthesis, writes): "
+              f"{audio_s / wall_s:.1f} audio seconds per wall second ({nvidia_smi()})")
     return result
 
 
@@ -967,20 +1265,28 @@ def main() -> int:
     phase_cross_check(device)
     hifi = phase_hificodec(device)
     phase_cross_check(device, HIFI)
+    hifi_pre = phase_hifi_pre(device)
+    phase_cross_check(device, HIFI, fused_pre=True)
     stream = phase_stream(device)
     stream_hifi = phase_stream_hifi(device)
     stream_check = phase_stream_check(device)
     compress = phase_compress(device)
+    extract = phase_extract(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
         k["launches_per_stream_chunk"] = stream["launches_per_chunk"][name]
         k["launches_compress_roundtrip"] = compress["launches"][name]
     k3["launches"] = hifi["launches"]["resblock_tower"]
+    k3["launches_fused_pre"] = hifi_pre["launches"]["resblock_tower"]
+    k3["launches_extract"] = extract["launches"]["resblock_tower"]
     k4["launches"] = hifi["launches"]["resblock_tower_gn"]
+    k4["launches_extract"] = extract["launches"]["resblock_tower_gn"]
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
-    print(f"[main] {json.dumps({k: main_path[k] for k in keys})}")
+    print(f"[main] {json.dumps({'distinct_tokens': main_path['distinct_tokens'], **{k: main_path[k] for k in keys}})}")
     print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
+    print(f"[hifi_pre] {json.dumps({k: hifi_pre[k] for k in ('distinct_tokens', 'wav_rel_err_vs_unfused', 'unfused', 'fused_pre')})}")
+    print(f"[extract] {json.dumps(extract)}")
     skip = ("launches", "profile")
     print(f"[stream] {json.dumps({k: v for k, v in stream.items() if k not in skip})}")
     print(f"[stream_hifi] {json.dumps({k: v for k, v in stream_hifi.items() if k not in skip})}")

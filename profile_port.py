@@ -9,7 +9,12 @@ kernel name, the sums for the port's kernels (K1 ``rvq_encode``, K2
 everything else, and the device's busy and idle shares of the profiled
 window. Needs one CUDA device.
 
-    python3 profile_port.py [--preset hificodec_24k_320d] [--top 20]
+    python3 profile_port.py [--preset hificodec_24k_320d [--fused-pre]] [--top 20]
+
+``--fused-pre`` profiles the HiFi-Codec roundtrip with
+``generator.fused_pre = True``: each fused stage's lrelu and upsampling
+conv-transpose run inside K3, so their cuDNN and elementwise passes leave
+the table.
 
 ``--stream`` runs ``chip_smoke.phase_stream`` (or ``phase_stream_hifi``)
 instead (causal models, 8 streams, bf16: 100 ms wav chunks through the
@@ -80,7 +85,11 @@ def main(argv=None) -> int:
     parser.add_argument("--chunks", type=int, default=10, help="chunks in the --stream window")
     parser.add_argument("--tower-clocks", action="store_true",
                         help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
+    parser.add_argument("--fused-pre", action="store_true",
+                        help="HiFi-Codec: fuse each narrow stage's upsampling convT into K3 (generator.fused_pre)")
     args = parser.parse_args(argv)
+    if args.fused_pre and (args.preset != chip_smoke.HIFI or args.stream):
+        parser.error("--fused-pre applies to the HiFi-Codec roundtrip (--preset hificodec_24k_320d, no --stream)")
     if not torch.cuda.is_available():
         print("profile_port: no CUDA device is available", file=sys.stderr)
         return 1
@@ -103,8 +112,12 @@ def main(argv=None) -> int:
         else:
             run = chip_smoke.phase_main_path("cuda", iters=3)
         model, wav = run["model"], run["input"]
-        wall_ms, _, _, prof = chip_smoke.device_busy(lambda: model.decode(model.encode(wav)))
         window = "one roundtrip"
+        if args.fused_pre:
+            model.generator.fused_pre = True
+            model.decode(model.encode(wav))  # packs the stages with their prologue
+            window += " with generator.fused_pre"
+        wall_ms, _, _, prof = chip_smoke.device_busy(lambda: model.decode(model.encode(wav)))
 
     per_name = defaultdict(lambda: [0.0, 0])
     for evt in prof.events():
@@ -130,7 +143,7 @@ def main(argv=None) -> int:
         for e in host:
             print(f"[profile]   {e.self_cpu_time_total / 1e3:9.3f} ms  x{e.count / args.chunks:<7.1f}/chunk {e.key[:90]}")
     print(json.dumps({
-        "preset": args.preset, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "preset": args.preset, "fused_pre": args.fused_pre, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "groups_ms": dict(per_group), "card": smi,
     }))
     return 0

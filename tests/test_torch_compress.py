@@ -1,8 +1,10 @@
 """The port's ECDC codec layer against the JAX package's, on the CPU.
 
-The model is tests/test_bucketed.py's tiny SoundStream in f32, with N(0, 1)
-codebooks so that every code is reachable; its JAX weights are carried
-across with ``utils/convert``. The contract: blobs byte-identical to the
+The model is tests/test_bucketed.py's tiny SoundStream in f32, its JAX
+weights carried across with ``utils/convert``. Its codebooks are spread over
+the JAX encoder's latent frames of the test wavs (tests/test_torch_soundstream.py
+``with_spread_codebooks``): with N(0, 1) codebooks every layer would code
+every frame as one token, the tokens of an all-zero wav. The contract: blobs byte-identical to the
 JAX compressor's, decoded wav within atol 1e-4 of JAX's, the native and the
 numpy bit packers byte-identical.
 """
@@ -36,6 +38,7 @@ from academicodec_tpu_torch.data.wavio import read_wav, write_wav
 from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.native.build import get_bitpack_lib
 from academicodec_tpu_torch.utils.convert import soundstream_state_from_jax
+from test_torch_soundstream import assert_tokens_follow_the_wav, with_spread_codebooks
 
 KW = dict(n_filters=4, dimension=32, ratios=(8, 5, 4, 2), sample_rate=16000, target_bandwidths=(1, 2, 4))
 
@@ -47,11 +50,8 @@ def models():
     variables = jax.jit(jmodel.init, static_argnames=("training",))(
         {"params": rng, "rvq": rng}, jnp.zeros((1, 3200)), n_q=jmodel.n_q, training=False
     )
-    shape = variables["codebook"]["quantizer"]["vq"]["embed"].shape
-    embed = jnp.asarray(np.random.default_rng(0).standard_normal(shape).astype(np.float32))
-    codebook = {"embed": embed, "embed_avg": embed, "cluster_size": jnp.ones(shape[:2]),
-                "inited": jnp.ones(shape[:1], bool)}
-    variables = {"params": variables["params"], "codebook": {"quantizer": {"vq": codebook}}}
+    wavs = _wavs([1000, 3999, 4001, 7777])
+    variables = with_spread_codebooks(jmodel, variables, np.concatenate(wavs)[None])
     model = SoundStream(**KW, device="cpu")
     model.load_state_dict(soundstream_state_from_jax(variables))
     return jmodel, variables, model
@@ -71,6 +71,12 @@ def test_compress_blob_byte_identical_to_jax(models, T):
     assert ours == ref
     codes, meta = decompress_codes(ours)
     assert codes.shape == (jmodel.n_q_for_bandwidth(4), -(-T // 320)) and meta["audio_length"] == T
+    assert_tokens_follow_the_wav(_jax_codes(jmodel, variables), wav, codes)
+
+
+def _jax_codes(jmodel, variables):
+    """wav -> the codes of the JAX compressor's blob."""
+    return lambda w: decompress_codes(JCompressor(jmodel, variables, target_bw=4).compress(w))[0]
 
 
 def test_compress_batch_bucketed_byte_identical_and_decodes_like_jax(models):
@@ -80,6 +86,8 @@ def test_compress_batch_bucketed_byte_identical_and_decodes_like_jax(models):
     ref = JCompressor(jmodel, variables, target_bw=4, bucket_seconds=0.25)
     blobs = ours.compress_batch(wavs, pad_to_batch=6)
     assert blobs == ref.compress_batch(wavs, pad_to_batch=6)
+    for wav, blob in zip(wavs, blobs):
+        assert_tokens_follow_the_wav(_jax_codes(jmodel, variables), wav, decompress_codes(blob)[0])
     out, out_ref = ours.decompress_batch(blobs, pad_to_batch=6), ref.decompress_batch(blobs, pad_to_batch=6)
     for (w, sr), (w_ref, sr_ref), wav in zip(out, out_ref, wavs):
         assert sr == sr_ref == 16000 and w.shape == wav.shape and w.dtype == np.float32
@@ -173,7 +181,7 @@ def test_lm_coded_blob_raises():
 def test_cli_writes_the_jax_cli_files(models, tmp_path, monkeypatch):
     """Both CLIs on one reference-layout ``.pth`` and two wavs written by the
     port's ``wavio``: byte-identical ``.ecdc`` files, wavs within atol 1e-4."""
-    _, variables, _ = models
+    jmodel, variables, _ = models
     pth = tmp_path / "tiny.pth"
     torch.save({k: torch.as_tensor(np.array(v)) for k, v in export_soundstream(variables).items()}, pth)
     wav_dir = tmp_path / "wavs"
@@ -188,8 +196,10 @@ def test_cli_writes_the_jax_cli_files(models, tmp_path, monkeypatch):
     jcli.main()
     assert sorted(os.listdir(tmp_path / "ours")) == sorted(os.listdir(tmp_path / "ref")) == \
         ["a.ecdc", "a.wav", "b.ecdc", "b.wav"]
-    for name in ("a", "b"):
-        assert (tmp_path / "ours" / f"{name}.ecdc").read_bytes() == (tmp_path / "ref" / f"{name}.ecdc").read_bytes()
+    for name, wav in zip(("a", "b"), _wavs([5000, 7100], seed=11)):
+        blob = (tmp_path / "ours" / f"{name}.ecdc").read_bytes()
+        assert blob == (tmp_path / "ref" / f"{name}.ecdc").read_bytes()
+        assert_tokens_follow_the_wav(_jax_codes(jmodel, variables), wav, decompress_codes(blob)[0])
         ours, sr = read_wav(str(tmp_path / "ours" / f"{name}.wav"))
         ref, sr_ref = read_wav(str(tmp_path / "ref" / f"{name}.wav"))
         assert sr == sr_ref == 16000 and ours.shape == ref.shape

@@ -529,3 +529,140 @@ def test_causal_vqvae_streaming_cuda_matches_cpu(cuda):
     torch.cuda.synchronize()
     assert rb_ops.TOWER_LAUNCHES == k3
     torch.testing.assert_close(out.cpu(), on_cpu.decode(toks), atol=1e-4, rtol=1e-3)
+
+
+# ---------------------------------------------------------------- K3's convT prologue, K4's lengths
+
+
+def _k3_pre_case(cuda, dtype, B, C_in, C, T_in, u, kT, post, seed=0):
+    """One K3 call with the convT prologue against its plain version; returns
+    the kernel's output."""
+    resblock, ks, dss = RB1
+    rng = np.random.default_rng(seed + C_in + T_in)
+    weights, biases = _tower(rng, C, ks, dss, resblock, cuda, dtype)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock,
+              pre_weight=_randn(rng, (C_in, C, kT), cuda, 1.0 / np.sqrt(C_in * kT / u)).to(dtype),
+              pre_bias=_randn(rng, (C,), cuda, 0.1).to(dtype), pre_stride=u, pre_pad=(kT - u) // 2)
+    if post:
+        kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
+                  post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=True)
+    x = _randn(rng, (B, C_in, T_in), cuda, 0.5).to(dtype)
+    before = rb_ops.TOWER_LAUNCHES
+    y = rb_ops.resblock_tower(x, weights, biases, **kw)
+    torch.cuda.synchronize()
+    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert y.dtype == dtype and y.shape == (B, 1 if post else C, T_in * u)
+    ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
+    torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,C_in,C,T_in,u,kT,post",
+    [
+        (2, 128, 64, 300, 4, 8, False),  # generator stage 2's widths: several tiles
+        (2, 128, 64, 296, 4, 8, False),  # T_in % 8 == 0: 16-byte loads of the input window
+        (1, 64, 32, 777, 2, 4, True),    # stage 3's, with conv_post + tanh
+        (1, 64, 32, 512, 2, 4, True),    # likewise with 16-byte loads
+        (2, 32, 16, 45, 2, 4, True),     # C 16
+        (2, 64, 32, 3, 2, 4, True),      # T = 6, below the halo
+        (1, 40, 16, 100, 8, 16, False),  # C_in not a multiple of C: the FMA path in bf16 too
+        (1, 96, 48, 200, 5, 11, False),  # stride 5 (k 11), C 48: the FMA path
+        (1, 64, 32, 300, 1, 3, False),   # stride 1
+    ],
+)
+def test_resblock_tower_pre_kernel_matches_plain(cuda, dtype, B, C_in, C, T_in, u, kT, post):
+    """K3 with its prologue (lrelu -> phase-major ConvTranspose1d) in
+    tower_kernel<C> and tower_fma_kernel, at K3's limits."""
+    _k3_pre_case(cuda, dtype, B, C_in, C, T_in, u, kT, post)
+
+
+@pytest.mark.parametrize("tag,C_in,C,T_in,u,kT,post", [("s2", 128, 64, 30000, 4, 8, False),
+                                                        ("s3", 64, 32, 120000, 2, 4, True)])
+def test_resblock_tower_pre_flagship_shapes(cuda, tag, C_in, C, T_in, u, kT, post):
+    """hificodec_24k_320d's two fused generator stages with their upsampling
+    fused in, batch 8 x 10 s, bf16: twice the same bits."""
+    y0 = _k3_pre_case(cuda, torch.bfloat16, 8, C_in, C, T_in, u, kT, post, seed=1)
+    y1 = _k3_pre_case(cuda, torch.bfloat16, 8, C_in, C, T_in, u, kT, post, seed=1)
+    assert torch.equal(y0, y1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "ks,dss,C,T,lengths",
+    [
+        ((11, 7, 3), ((1, 3, 5),) * 3, 64, 1100, (1100, 517, 1)),
+        ((11, 7, 3), ((1, 3, 5),) * 3, 32, 575, (300, 575)),
+        ((3, 7), ((1, 3), (1, 3)), 16, 401, (400, 9, 401)),
+        ((11, 7, 3), ((1, 3, 5),) * 3, 128, 333, (333, 100)),  # bf16: the FMA path
+    ],
+)
+def test_resblock_tower_gn_lengths_kernel(cuda, dtype, ks, dss, C, T, lengths):
+    """K4 with lengths: against its plain version at K4's limits, pad frames
+    exactly 0 (with a nonzero input there), and each row's valid frames the
+    bits of a call on that row alone at its exact length."""
+    rng = np.random.default_rng(T + C)
+    G = len(ks)
+    weights, biases = _tower(rng, C, ks, dss, "1", cuda, dtype)
+    scs = (_randn(rng, (G, C), cuda, 0.3) + 1.0).to(dtype)
+    gbs = _randn(rng, (G, C), cuda, 0.1).to(dtype)
+    x = _randn(rng, (len(lengths), C, T), cuda, 0.5).to(dtype)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
+    L = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = rb_ops.GN_TOWER_LAUNCHES
+    y = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, lengths=L, **kw)
+    torch.cuda.synchronize()
+    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, lengths=L, **kw).float()
+    torch.testing.assert_close(y.float(), ref, atol=5e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
+    for b, n in enumerate(lengths):
+        assert torch.count_nonzero(y[b, :, n:]) == 0
+        alone = rb_ops.resblock_tower_gn(x[b:b + 1, :, :n].contiguous(), weights, biases, scs, gbs, **kw)
+        assert torch.equal(y[b:b + 1, :, :n], alone)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gn_pass2_kernels_with_lengths_match_plain(cuda, dtype):
+    """``gn_affine_kernel`` and ``gn_apply_kernel`` with per-row counts against
+    their plain versions."""
+    rng = np.random.default_rng(4)
+    G, B, C, T = 3, 3, 64, 1000
+    L = torch.tensor([1000, 400, 7], dtype=torch.int32, device=cuda)
+    rs = _randn(rng, (G, B, C, T), cuda, 0.7).to(dtype) * rb_ops.frame_mask(L, T).to(dtype)
+    mom = rb_ops.moments(list(rs))
+    scs, gbs = _randn(rng, (G, C), cuda, 0.3) + 1.0, _randn(rng, (G, C), cuda, 0.1)
+    A, K = rb_ops.gn_affines_cuda(mom, scs, gbs, 4, 1e-6, T, L)
+    A_ref, K_ref = rb_ops.gn_affines(mom, scs, gbs, 4, 1e-6, L)
+    torch.testing.assert_close(A, A_ref, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(K, K_ref, rtol=1e-5, atol=1e-6)
+    y = rb_ops.gn_apply_cuda(rs, A_ref, K_ref, L)
+    assert torch.equal(y, rb_ops.gn_apply(list(rs), A_ref, K_ref, L))
+
+
+def test_vqvae_masked_encode_and_fused_pre_on_the_card(cuda):
+    """The tiny VQVAE on the card, f32: the masked encode of a padded batch
+    equals each file's exact-length encode, and the generator with its
+    upsampling fused into K3 agrees with the unfused one."""
+    from academicodec_tpu_torch.models.hificodec import VQVAE
+    from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
+
+    cfg = HiFiCodecConfig(upsample_rates=(4, 4, 2), upsample_kernel_sizes=(8, 8, 4),
+                          upsample_initial_channel=256, encoder_base_channels=16)
+    model = VQVAE(cfg, device=cuda)
+    rng = np.random.default_rng(13)
+    lengths = [1777, 2400, 3999]
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    batch = torch.from_numpy(np.stack([np.pad(w, (0, 3999 - len(w))) for w in wavs]))
+    codes = model.encode(batch, lengths=lengths)
+    for i, w in enumerate(wavs):
+        alone = model.encode(torch.from_numpy(w[None]))
+        assert alone.shape[1] == model.frames_for(len(w))
+        assert torch.equal(codes[i:i + 1, :alone.shape[1]], alone)
+    before = rb_ops.TOWER_LAUNCHES
+    out = model.decode(codes)
+    model.generator.fused_pre = True
+    out_pre = model.decode(codes)
+    torch.cuda.synchronize()
+    assert rb_ops.TOWER_LAUNCHES == before + 4
+    torch.testing.assert_close(out_pre, out, atol=1e-4, rtol=1e-3)

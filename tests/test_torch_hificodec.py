@@ -171,3 +171,45 @@ def test_chip_smoke_hificodec_rehearsal():
     assert tuple(result["codes"].shape) == (2, 150, 4)
     assert tuple(result["wav"].shape) == (2, 4800)
     assert result["distinct_tokens"] > 8
+
+
+def test_generator_fused_pre_matches_jax():
+    """The generator with each fused stage's upsampling convT run as K3's
+    prologue (``fused_pre``; the plain versions on the CPU) against JAX's
+    ``HiFiGANGenerator(fused_resblock=True, fused_pre=True)`` (the Pallas
+    towers in interpret mode) on the same weights, and against the port's own
+    ``fused_pre=False``: atol 1e-4, rtol 1e-3."""
+    from academicodec_tpu.nn.hifigan import HiFiGANGenerator as JGenerator
+
+    from academicodec_tpu_torch.nn.hifigan import HiFiGANGenerator
+    from academicodec_tpu_torch.utils.convert import hifigan_state_from_jax
+
+    cfg = dict(TINY, upsample_initial_channel=128)
+    jgen = JGenerator(config=JConfig(**cfg), fused_resblock=True, fused_pre=True)
+    z = (np.random.default_rng(4).standard_normal((2, 12, JConfig(**cfg).latent_dim)) * 0.5).astype(np.float32)
+    params = jax.jit(jgen.init)(jax.random.PRNGKey(4), jnp.asarray(z))
+    ref = np.asarray(jax.jit(jgen.apply)(params, jnp.asarray(z)))[..., 0]
+    gen = HiFiGANGenerator(HiFiCodecConfig(**cfg), fused_pre=True)
+    gen.load_state_dict(hifigan_state_from_jax(params["params"], transposed_ups=True))
+    x = torch.from_numpy(np.ascontiguousarray(z.transpose(0, 2, 1)))
+    with torch.no_grad():
+        out = gen(x)[:, 0].numpy()
+        gen.fused_pre = False
+        unfused = gen(x)[:, 0].numpy()
+    assert out.shape == ref.shape == (2, 12 * 32)
+    assert np.abs(ref).max() > 1e-3  # the output is not vanishingly small
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-3)
+    np.testing.assert_allclose(out, unfused, atol=1e-4, rtol=1e-3)
+
+
+def test_chip_smoke_fused_pre_and_extract_rehearsal():
+    """chip_smoke's ``hifi_pre`` and ``extract`` phases at a tiny width on the
+    CPU: launch counts of 0, the fused_pre decode equal to the unfused one,
+    batched and one-file-a-call tokens equal."""
+    tiny = dict(TINY, n_codes=64)
+    r = chip_smoke.phase_hifi_pre(device="cpu", dtype=torch.float32, batch=2, seconds=0.2, iters=0, **tiny)
+    assert not any(r["launches"].values()) and r["wav_rel_err_vs_unfused"] <= 1e-6
+    assert r["distinct_tokens"] > 8
+    r = chip_smoke.phase_extract(device="cpu", n_files=3, min_seconds=0.1, max_seconds=0.3, bucket_seconds=0.2,
+                                 **tiny)
+    assert not any(r["launches"].values()) and r["token_mismatch"] == 0.0

@@ -11,14 +11,15 @@ import importlib, pkgutil, sys
 before = set(sys.modules)
 import academicodec_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
-serving = ["academicodec_tpu_torch." + n for n in ("streaming", "codec.compress", "cli.compress", "data.wavio")]
+serving = ["academicodec_tpu_torch." + n for n in ("streaming", "codec.compress", "cli.compress", "data.wavio",
+                                                   "cli.extract_tokens", "utils.fold", "data.dataset")]
 for name in serving + names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "flax", "academicodec_tpu")
 loaded = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in banned)
 print(len(names), loaded)
-sys.exit(1 if loaded or len(names) < 22 or not set(serving) <= set(names) else 0)
+sys.exit(1 if loaded or len(names) < 25 or not set(serving) <= set(names) else 0)
 """
 
 

@@ -383,3 +383,179 @@ def test_packed_stage_rebuilds_after_cast_and_with_grad():
     assert all(st.packed is p for st, p in zip(gen._packed, kept))  # untouched by the call
     out.sum().backward()
     assert gen.resblocks[0].convs1[0].weight_v.grad is not None
+
+
+# ---------------------------------------------------------------- K3's convT prologue
+
+
+@pytest.mark.parametrize("u,kT,post", [(4, 8, True), (2, 4, False)])
+def test_tower_plain_pre_matches_pallas(monkeypatch, u, kT, post):
+    """K3's prologue (lrelu -> phase-major ConvTranspose1d) feeding the
+    tower, against the Pallas ``pre`` branch in interpret mode across its tile
+    boundaries (the case of tests/test_pallas_resblock.py:114-136, and one
+    with stride 2, k 4 and no post conv), f32."""
+    monkeypatch.setattr(jrb, "_pick_tile", lambda C, H, u=1: 256)
+    rng = np.random.default_rng(3 + u)
+    resblock, ks, dss = RB1
+    B, T_in, C_in, C = 1, 500, 16, 32
+    z = (rng.standard_normal((B, T_in, C_in)) * 0.5).astype(np.float32)
+    weights, biases = _rand_tower(rng, ks, dss, resblock, C)
+    wT = (rng.standard_normal((kT, C_in, C)) * 0.1).astype(np.float32)
+    bT = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    jkw = dict(pre_kernel=jnp.asarray(wT), pre_bias=jnp.asarray(bT), pre_stride=u, pre_pad=(kT - u) // 2)
+    tkw = dict(pre_weight=torch.from_numpy(np.ascontiguousarray(wT.transpose(1, 2, 0))),
+               pre_bias=torch.from_numpy(bT), pre_stride=u, pre_pad=(kT - u) // 2)
+    if post:
+        wp = (rng.standard_normal((7, C, 1)) * 0.1).astype(np.float32)
+        bp = (rng.standard_normal(1) * 0.1).astype(np.float32)
+        jkw.update(post_kernel=jnp.asarray(wp), post_bias=jnp.asarray(bp), post_tanh=True)
+        tkw.update(post_weight=torch.from_numpy(np.ascontiguousarray(wp.transpose(2, 1, 0))),
+                   post_bias=torch.from_numpy(bp), post_tanh=True)
+    jw, jb = _to_jax(weights, biases)
+    ref = np.asarray(jrb.resblock_tower(jnp.asarray(z), jw, jb, kernel_sizes=ks, dilation_sizes=dss,
+                                        resblock=resblock, interpret=True, **jkw))
+    tw, tb = _to_torch(weights, biases)
+    before = rb.TOWER_LAUNCHES
+    out = rb.resblock_tower(torch.from_numpy(np.ascontiguousarray(z.transpose(0, 2, 1))), tw, tb,
+                            kernel_sizes=ks, dilation_sizes=dss, resblock=resblock, **tkw)
+    assert rb.TOWER_LAUNCHES == before
+    assert out.shape == (B, 1 if post else C, T_in * u)
+    np.testing.assert_allclose(out.numpy().transpose(0, 2, 1), ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("k,u", [(16, 8), (11, 5), (8, 4), (4, 2), (3, 1)])
+def test_convt_phase_taps_match_jax(k, u):
+    from academicodec_tpu.ops.conv import convt_phase_taps as jtaps
+
+    assert rb.convt_phase_taps(k, u, (k - u) // 2) == jtaps(k, u, (k - u) // 2)
+
+
+@pytest.mark.parametrize("C,C_in,u,kT,post,dtype", [
+    (64, 128, 4, 8, False, torch.bfloat16),  # hificodec_24k_320d generator stage 2
+    (32, 64, 2, 4, True, torch.bfloat16),    # stage 3 with conv_post
+    (32, 64, 2, 4, True, torch.float32),     # the FMA path
+    (16, 40, 8, 16, False, torch.bfloat16),  # C_in not a multiple of C: the FMA path
+])
+def test_pre_tile_geometry(C, C_in, u, kT, post, dtype):
+    """With the prologue the halo and the tile are multiples of the stride (a
+    tile's window starts on a phase boundary), each phase's rows fit two
+    m-tiles a warp, and the input window's slices fit one window buffer."""
+    resblock, ks, dss = RB1
+    P = 3 if post else 0
+    packed = rb.PackedTower([], [], ks, dss, resblock, torch.zeros((1, C, 7)) if post else None, None, dtype,
+                            torch.device("cuda"), C, torch.zeros((C_in, C, kT)), None, u, (kT - u) // 2)
+    packed.tc = rb.uses_tc(dtype, C) and C_in % C == 0
+    packed.wp = packed.post_weight
+    _, m_hi, m_lo = rb._pre_spec(packed.pre_weight, C, u, (kT - u) // 2)
+    if packed.tc:
+        packed.pre_geo = rb.PreGeometry(u, C_in // C, m_hi - m_lo, kT // u * (C_in // C) * u)
+    TT, H, Hc, buf, smem = rb.tower_geometry(packed, gn=False)
+    assert H % u == 0 and TT % u == 0 and H >= Hc + P and H - (Hc + P) < u
+    if packed.tc:
+        W = TT + 2 * H
+        assert W // u <= 256 and buf >= packed.pre_geo.n_half * rb.pre_slice_bytes(C, W // u, m_hi - m_lo)
+        assert smem <= rb.TC_SMEM_BUDGET[C]
+
+
+def test_pack_tower_checks_the_prologue():
+    resblock, ks, dss = RB1
+    weights, biases = _to_torch(*_rand_tower(np.random.default_rng(0), ks, dss, resblock, 16))
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock=resblock)
+    with pytest.raises(ValueError, match="pad"):
+        rb.pack_tower(weights, biases, pre_weight=torch.zeros((32, 16, 8)), pre_stride=4, pre_pad=1, **kw)
+    with pytest.raises(ValueError, match="pre weight"):
+        rb.pack_tower(weights, biases, pre_weight=torch.zeros((32, 8, 8)), pre_stride=4, pre_pad=2, **kw)
+    p = rb.pack_tower(weights, biases, pre_weight=torch.zeros((32, 16, 8)), pre_stride=4, pre_pad=2, **kw)
+    assert p.C_in == 32 and p.C == 16
+
+
+# ---------------------------------------------------------------- K4 with lengths
+
+
+def _k4_case(seed, B, C, T, ks, dss):
+    rng = np.random.default_rng(seed)
+    G = len(ks)
+    weights, biases = _to_torch(*_rand_tower(rng, ks, dss, "1", C))
+    scs = torch.from_numpy((rng.standard_normal((G, C)) * 0.3 + 1.0).astype(np.float32))
+    gbs = torch.from_numpy((rng.standard_normal((G, C)) * 0.1).astype(np.float32))
+    x = torch.from_numpy((rng.standard_normal((B, C, T)) * 0.3).astype(np.float32))
+    return weights, biases, scs, gbs, x
+
+
+def test_gn_tower_plain_lengths_equal_exact_length_calls():
+    """Each row of a padded call with lengths equals that row alone at its
+    exact length; pad frames are exactly 0 (even where the input is not)."""
+    ks, dss = (11, 7, 3), ((1, 3, 5),) * 3
+    weights, biases, scs, gbs, x = _k4_case(12, 3, 32, 300, ks, dss)
+    kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=2)
+    lengths = [300, 177, 60]
+    out = rb.resblock_tower_gn(x, weights, biases, scs, gbs, lengths=torch.tensor(lengths), **kw)
+    for b, L in enumerate(lengths):
+        alone = rb.resblock_tower_gn(x[b:b + 1, :, :L].contiguous(), weights, biases, scs, gbs, **kw)
+        np.testing.assert_allclose(out[b, :, :L].numpy(), alone[0].numpy(), atol=1e-5)
+        assert torch.count_nonzero(out[b, :, L:]) == 0
+    full = rb.resblock_tower_gn(x, weights, biases, scs, gbs, **kw)
+    assert torch.equal(rb.resblock_tower_gn(x, weights, biases, scs, gbs, lengths=[300] * 3, **kw), full)
+
+
+def test_gn_tower_plain_lengths_match_the_unfused_masked_stage():
+    """The masked K4 plain version equals the port's unfused masked stage
+    (ResBlock1 with a mask, GroupNormTorch with mask and count, JAX
+    nn/hifigan.py:151-184, 239-280) on the same weights."""
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, ResBlock1
+
+    ks, dss = (11, 7, 3), ((1, 3, 5),) * 3
+    C, T = 32, 260
+    blocks = [ResBlock1(C, k, ds, norm="none") for k, ds in zip(ks, dss)]
+    norms = [GroupNormTorch(C // 16, C) for _ in ks]
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for m in [*blocks, *norms]:
+            for p in m.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.1 + (1.0 if p.dim() == 1 and m in norms else 0.0))
+    L = torch.tensor([260, 131])
+    mask = rb.frame_mask(L, T).float()
+    x = torch.randn((2, C, T), generator=g) * 0.3 * mask
+    xs = None
+    with torch.no_grad():
+        for blk, gn in zip(blocks, norms):
+            r = blk(x, mask)
+            xs = gn(r if xs is None else xs + r, mask, L) * mask
+        ref = xs / len(ks)
+        ws, bs = zip(*(blk.weights_and_biases() for blk in blocks))
+        out = rb.resblock_tower_gn(x, ws, bs, torch.stack([n.weight for n in norms]),
+                                   torch.stack([n.bias for n in norms]), kernel_sizes=ks, dilation_sizes=dss,
+                                   num_groups=C // 16, lengths=L)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=3e-5)
+
+
+def test_gn_affines_counts_equal_scalar_length():
+    """A ``[B]`` tensor of counts all equal to T gives the scalar-T affines bit for bit."""
+    rng = np.random.default_rng(2)
+    rs = [torch.from_numpy(rng.standard_normal((2, 32, 97)).astype(np.float32)) for _ in range(3)]
+    scs = torch.from_numpy((rng.standard_normal((3, 32)) * 0.3 + 1.0).astype(np.float32))
+    gbs = torch.from_numpy((rng.standard_normal((3, 32)) * 0.1).astype(np.float32))
+    mom = rb.moments(rs)
+    A, K = rb.gn_affines(mom, scs, gbs, 2, 1e-6, 97)
+    A2, K2 = rb.gn_affines(mom, scs, gbs, 2, 1e-6, torch.tensor([97, 97], dtype=torch.int32))
+    assert torch.equal(A, A2) and torch.equal(K, K2)
+
+
+def test_packed_stage_with_fused_pre_rebuilds_after_an_ups_update():
+    """With ``fused_pre`` a stage's packed operands hold its upsampling convT:
+    an in-place update of that weight is seen by the next call, and turning
+    ``fused_pre`` off and on repacks."""
+    gen, z = _tiny_generator()
+    with torch.no_grad():
+        y0 = gen(z)
+        gen.fused_pre = True
+        assert torch.allclose(gen(z), y0, atol=1e-6)
+        kept = [st.packed for st in gen._packed]
+        assert all(p.pre_weight is not None for p in kept)
+        gen.ups[0].weight_g.mul_(1.5)
+        y1 = gen(z)
+        fresh, _ = _tiny_generator()
+        fresh.ups[0].weight_g.mul_(1.5)
+        expected = fresh(z)
+    assert gen._packed[0].packed is not kept[0] and gen._packed[1].packed is kept[1]
+    assert torch.allclose(y1, expected, atol=1e-6) and not torch.allclose(y1, y0, atol=1e-6)

@@ -4,6 +4,13 @@ JAX variables are carried across with ``soundstream_state_from_jax``; the
 same seeded wav goes through both. The contract is the JAX package's own
 (tests/test_model_parity.py): tokens identical, wav within atol 1e-4 /
 rtol 1e-3 at tiny width and atol 2e-4 at flagship width.
+
+The codebooks are redrawn from the JAX encoder's latent frames of the wav a
+test encodes (:func:`with_spread_codebooks`), as tests/test_torch_hificodec.py
+redraws the GRVQ codebooks: N(0, 1) codebooks lie far from the random encoders' latents, so every layer
+would emit one token for every frame, the tokens of an all-zero wav. Each
+token test therefore also asserts more than 8 distinct tokens and a nonzero
+mismatch against the zero wav's tokens.
 """
 
 import numpy as np
@@ -24,21 +31,53 @@ from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.utils.convert import soundstream_state_from_jax
 
 
-def _jax_model(ratios, sr, bws, n_filters=4, dimension=32, seed=0):
-    """A JAX SoundStream with seeded random weights and N(0, 1) codebooks."""
+def with_spread_codebooks(model, variables, wav, seed: int = 0) -> dict:
+    """``variables`` with the RVQ codebooks redrawn from the JAX encoder's
+    latent frames of ``wav [B, T]``, as tests/test_torch_hificodec.py redraws
+    the GRVQ codebooks: entries N(0, std^2) per latent dimension, except
+    layer 0's first entry, the frames' mean, which every frame picks. The
+    residuals of later layers are then centred, and their distances are
+    well conditioned in f32: entries drawn around the mean instead leave
+    |r|^2 hundreds of times the nearest distance at the flagship width,
+    where both packages' f32 rounding flips near-ties."""
+    e = np.asarray(jax.jit(lambda v, w: model.apply(v, w[..., None], method=lambda m, x: m.encoder(x)))(
+        variables, jnp.asarray(wav)))
+    frames = e.reshape(-1, e.shape[-1])
+    shape = variables["codebook"]["quantizer"]["vq"]["embed"].shape
+    embed = np.random.default_rng(seed).standard_normal(shape) * frames.std(axis=0)
+    embed[0, 0] = frames.mean(axis=0)
+    embed = jnp.asarray(embed.astype(np.float32))
+    codebook = {
+        "embed": embed, "embed_avg": embed,
+        "cluster_size": jnp.ones(shape[:2]), "inited": jnp.ones(shape[:1], bool),
+    }
+    return {"params": variables["params"], "codebook": {"quantizer": {"vq": codebook}}}
+
+
+def assert_tokens_follow_the_wav(encode, wav, codes_ref) -> None:
+    """The tokens spread (more than 8 distinct) and differ from those of an
+    all-zero wav of the same shape, so that equal tokens test the path from
+    latents to tokens."""
+    assert len(np.unique(codes_ref)) > 8
+    assert np.mean(np.asarray(encode(np.zeros_like(wav))) != codes_ref) > 0
+
+
+def _jax_model(ratios, sr, bws, n_filters=4, dimension=32, seed=0, wav=None):
+    """A JAX SoundStream with seeded random weights and codebooks spread over
+    its latent frames of ``wav`` (default: the seeded test wav of ``seed``)."""
     model = JSoundStream(n_filters=n_filters, dimension=dimension, ratios=ratios,
                          sample_rate=sr, target_bandwidths=bws)
     rng = jax.random.PRNGKey(seed)
     variables = jax.jit(model.init, static_argnames=("training",))(
         {"params": rng, "rvq": rng}, jnp.zeros((1, 4800)), n_q=model.n_q, training=False
     )
-    shape = variables["codebook"]["quantizer"]["vq"]["embed"].shape
-    embed = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    codebook = {
-        "embed": jnp.asarray(embed), "embed_avg": jnp.asarray(embed),
-        "cluster_size": jnp.ones(shape[:2]), "inited": jnp.ones(shape[:1], bool),
-    }
-    return model, {"params": variables["params"], "codebook": {"quantizer": {"vq": codebook}}}
+    if wav is None:
+        wav = _test_wav(seed, (2, 4800))
+    return model, with_spread_codebooks(model, variables, wav, seed)
+
+
+def _test_wav(seed, shape):
+    return (np.random.default_rng(seed).standard_normal(shape) * 0.1).astype(np.float32)
 
 
 def _port_model(variables, ratios, sr, bws, n_filters=4, dimension=32):
@@ -71,13 +110,19 @@ def test_state_from_jax_equals_export_soundstream():
         np.testing.assert_array_equal(sd[key].numpy(), value, err_msg=key)
 
 
+def _jax_encode(model, variables, **kw):
+    return lambda w: jax.jit(lambda v, x: model.apply(v, x, method=JSoundStream.encode, **kw))(
+        variables, jnp.asarray(w))
+
+
 @pytest.mark.parametrize("ratios,sr,bws", OPERATING_POINTS)
 def test_tiny_soundstream_matches_jax(ratios, sr, bws):
-    jmodel, variables = _jax_model(ratios, sr, bws)
+    wav = _test_wav(0, (2, 4800))
+    jmodel, variables = _jax_model(ratios, sr, bws, wav=wav)
     model = _port_model(variables, ratios, sr, bws)
     assert (model.n_q, model.frame_rate, model.hop_length) == (jmodel.n_q, jmodel.frame_rate, jmodel.hop_length)
-    wav = (np.random.default_rng(0).standard_normal((2, 4800)) * 0.1).astype(np.float32)
     codes_ref, out_ref = _jax_roundtrip(jmodel, variables, wav, target_bw=bws[-1])
+    assert_tokens_follow_the_wav(_jax_encode(jmodel, variables, target_bw=bws[-1]), wav, codes_ref)
     codes = model.encode(torch.from_numpy(wav), target_bw=bws[-1])
     assert codes.dtype == torch.int32
     np.testing.assert_array_equal(codes.numpy(), codes_ref)
@@ -87,10 +132,11 @@ def test_tiny_soundstream_matches_jax(ratios, sr, bws):
 def test_partial_stack_encode_matches_jax():
     """``st > 0`` with a bandwidth below the maximum (SpearTTS-style extraction)."""
     ratios, sr, bws = OPERATING_POINTS[0]
-    jmodel, variables = _jax_model(ratios, sr, bws, seed=1)
+    wav = _test_wav(1, (1, 4800))
+    jmodel, variables = _jax_model(ratios, sr, bws, seed=1, wav=wav)
     model = _port_model(variables, ratios, sr, bws)
-    wav = (np.random.default_rng(1).standard_normal((1, 4800)) * 0.1).astype(np.float32)
     codes_ref, _ = _jax_roundtrip(jmodel, variables, wav, target_bw=6, st=2)
+    assert_tokens_follow_the_wav(_jax_encode(jmodel, variables, target_bw=6, st=2), wav, codes_ref)
     np.testing.assert_array_equal(model.encode(torch.from_numpy(wav), target_bw=6, st=2).numpy(), codes_ref)
 
 
@@ -98,11 +144,12 @@ def test_flagship_width_soundstream_matches_jax():
     """n_filters 32, D 512 (H 512 LSTM, 12 codebooks of 1024): the widths the
     tiny models cannot reach."""
     ratios, sr, bws = OPERATING_POINTS[1]
-    jmodel, variables = _jax_model(ratios, sr, bws, n_filters=32, dimension=512, seed=5)
+    wav = _test_wav(5, (2, 7200))
+    jmodel, variables = _jax_model(ratios, sr, bws, n_filters=32, dimension=512, seed=5, wav=wav)
     model = _port_model(variables, ratios, sr, bws, n_filters=32, dimension=512)
     assert model.n_q == 12
-    wav = (np.random.default_rng(5).standard_normal((2, 7200)) * 0.1).astype(np.float32)
     codes_ref, out_ref = _jax_roundtrip(jmodel, variables, wav)
+    assert_tokens_follow_the_wav(_jax_encode(jmodel, variables), wav, codes_ref)
     codes = model.encode(torch.from_numpy(wav))
     np.testing.assert_array_equal(codes.numpy(), codes_ref)
     np.testing.assert_allclose(model.decode(codes).numpy(), out_ref, atol=2e-4, rtol=1e-3)

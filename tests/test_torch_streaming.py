@@ -2,8 +2,10 @@
 
 The models are those of tests/test_streaming.py (a tiny causal Encodec with
 zero padding) and tests/test_hificodec_causal.py (a tiny causal HiFi-Codec
-generator), their JAX weights carried across with ``utils/convert``. The
-contract: Encodec tokens identical to the JAX sessions', wav within atol
+generator), their JAX weights carried across with ``utils/convert``; the
+Encodec codebooks are spread over the JAX encoder's latent frames of the
+streamed wav (tests/test_torch_soundstream.py ``with_spread_codebooks``), so
+that its tokens follow the wav. The contract: Encodec tokens identical to the JAX sessions', wav within atol
 1e-4, rtol 1e-3; streaming equal to the port's own full causal call within
 the same tolerance.
 """
@@ -29,6 +31,7 @@ from academicodec_tpu_torch.nn.conv import SConv1d, SConvTranspose1d
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
 from academicodec_tpu_torch.utils.convert import hificodec_state_from_jax, soundstream_state_from_jax
+from test_torch_soundstream import assert_tokens_follow_the_wav, with_spread_codebooks
 
 SS_KW = dict(n_filters=4, dimension=32, ratios=(8, 5, 4, 2), sample_rate=16000,
              target_bandwidths=(1, 2, 4), causal=True, pad_mode="zero")
@@ -43,17 +46,14 @@ HIFI_KW = dict(
 
 @pytest.fixture(scope="module")
 def encodec():
-    """The causal JAX model with N(0, 1) codebooks, and the port's copy."""
+    """The causal JAX model with its codebooks spread over its latent frames
+    of the streamed wav ``_wav(1)``, and the port's copy."""
     jmodel = JSoundStream(**SS_KW)
     rng = jax.random.PRNGKey(0)
     variables = jax.jit(jmodel.init, static_argnames=("training",))(
         {"params": rng, "rvq": rng}, jnp.zeros((2, T)), n_q=jmodel.n_q, training=False
     )
-    shape = variables["codebook"]["quantizer"]["vq"]["embed"].shape
-    embed = jnp.asarray(np.random.default_rng(0).standard_normal(shape).astype(np.float32))
-    codebook = {"embed": embed, "embed_avg": embed, "cluster_size": jnp.ones(shape[:2]),
-                "inited": jnp.ones(shape[:1], bool)}
-    variables = {"params": variables["params"], "codebook": {"quantizer": {"vq": codebook}}}
+    variables = with_spread_codebooks(jmodel, variables, _wav(1))
     model = SoundStream(**SS_KW, device="cpu")
     model.load_state_dict(soundstream_state_from_jax(variables))
     return jmodel, variables, model
@@ -82,6 +82,10 @@ def test_streaming_encoder_tokens_match_jax(encodec):
     wav = _wav(1)
     chunks = [wav[:, i:i + CHUNK] for i in range(0, T, CHUNK)]
     ref = np.concatenate(_stream(JStreamingEncoder(jmodel, variables, target_bw=4), map(jnp.asarray, chunks)), -1)
+    assert_tokens_follow_the_wav(
+        lambda w: np.concatenate(_stream(JStreamingEncoder(jmodel, variables, target_bw=4),
+                                         (jnp.asarray(w[:, i:i + CHUNK]) for i in range(0, T, CHUNK))), -1),
+        wav, ref)
     ours = np.concatenate(_stream(StreamingEncoder(model, target_bw=4), map(torch.from_numpy, chunks)), -1)
     assert ours.shape == ref.shape == (jmodel.n_q_for_bandwidth(4), 2, T // 320)
     np.testing.assert_array_equal(ours, ref)
