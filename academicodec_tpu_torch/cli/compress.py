@@ -10,11 +10,17 @@ file's compressed ``.ecdc`` stream. The flags and output files are those of
     python -m academicodec_tpu_torch.cli.compress --input wavs/ --output out/ \\
         --resume_path best.pth --sr 24000 --ratios 6 5 4 2 \\
         --target_bandwidths 1 2 4 8 12 --target_bw 12 --dtype bf16 \\
-        --ecdc --bucket_seconds 10 --batch_files 8
+        --ecdc --bucket_seconds 10 --batch_files 8 [--lm lm_dir/]
 
-Not ported yet: orbax checkpoint directories, ``--lm`` (LM entropy
-coding), ``--data_parallel`` and ``--sequence_parallel``. ``--packed_conv``
-is a TPU lowering that the port does not carry.
+``--lm`` takes a token-LM checkpoint directory of the port
+(``models/lm.py``: ``lm_config.json`` and ``lm_<step>.pt``) whose family is
+``encodec`` and whose streams are those of ``--target_bw``; each file is
+then LM-entropy-coded where that is smaller than raw packing.
+
+Not ported yet: orbax checkpoint directories, ``--data_parallel`` and
+``--sequence_parallel`` (multi-GPU serving, ROADMAP.md Queue 1 item 9).
+``--packed_conv`` selects a TPU lowering; the port accepts it and runs its
+one path.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch
 from academicodec_tpu_torch.api import reference_state_dict
 from academicodec_tpu_torch.codec.compress import SoundStreamCompressor
 from academicodec_tpu_torch.data.wavio import read_wav, write_wav
+from academicodec_tpu_torch.models.lm import load_lm
 from academicodec_tpu_torch.models.soundstream import SoundStream
 
 
@@ -47,7 +54,12 @@ def get_args(argv=None):
     p.add_argument("--dimension", type=int, default=512)
     p.add_argument("--bins", type=int, default=1024)
     p.add_argument("-r", "--rescale", action="store_true")
+    p.add_argument("--packed_conv", action="store_true",
+                   help="the JAX CLI's lanes-packed TPU lowering; the port accepts it and runs its one path")
     p.add_argument("--ecdc", action="store_true", help="also write .ecdc streams")
+    p.add_argument("--lm", type=str, default=None,
+                   help="token-LM checkpoint directory (lm_config.json + lm_<step>.pt, family encodec) for "
+                        "entropy-coded streams; a file keeps raw packing where that is smaller")
     p.add_argument("--bucket_seconds", type=float, default=None,
                    help="pad inputs to multiples of this many seconds so that a corpus of "
                         "many lengths runs in a few batch shapes; the last few frames may "
@@ -58,9 +70,16 @@ def get_args(argv=None):
                    help="encode/decode this many files per device call (requires "
                         "--bucket_seconds); files are grouped by bucket count and partial "
                         "groups batch-padded. Output order follows group completion")
+    p.add_argument("--data_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
+    p.add_argument("--sequence_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; the card unless cpu is asked for")
     args = p.parse_args(argv)
+    if args.data_parallel or args.sequence_parallel:
+        p.error("--data_parallel/--sequence_parallel: multi-GPU serving is not ported yet "
+                "(ROADMAP.md Queue 1 item 9)")
+    if args.lm and not os.path.exists(args.lm):
+        p.error(f"--lm: no LM checkpoint at {args.lm}")
     if args.batch_files > 1 and not args.bucket_seconds:
         p.error("--batch_files needs --bucket_seconds (uniform padded lengths per device batch)")
     if not (os.path.isfile(args.resume_path) and args.resume_path.endswith((".pth", ".pt"))):
@@ -143,10 +162,31 @@ def build_model(args) -> SoundStream:
 
 def main(argv=None):
     args = get_args(argv)
-    compressor = SoundStreamCompressor(build_model(args), target_bw=args.target_bw,
-                                       bucket_seconds=args.bucket_seconds)
+    model = build_model(args)
+    lm = lm_trained_frames = None
+    if args.lm:
+        try:
+            lm, lm_meta = load_lm(args.lm, expect_family="encodec", expect_nq=model.n_q_for_bandwidth(args.target_bw),
+                                  expect_bins=model.bins, device=args.device)
+        except (ValueError, FileNotFoundError) as e:
+            sys.exit(f"--lm: {e}")
+        lm_trained_frames = lm_meta.get("trained_frames")
+    compressor = SoundStreamCompressor(model, target_bw=args.target_bw, bucket_seconds=args.bucket_seconds, lm=lm)
     os.makedirs(args.output, exist_ok=True)
     names = sorted(f for f in os.listdir(args.input) if f.endswith(".wav"))
+    warned_lm_len = False
+
+    def warn_lm(name: str, n_samples: int) -> None:
+        """Once: a file longer than the LM's training crops codes worse (JAX cli/compress.py:213-235)."""
+        nonlocal warned_lm_len
+        frames = -(-n_samples // model.hop_length)
+        if lm_trained_frames and frames > lm_trained_frames and not warned_lm_len:
+            warned_lm_len = True
+            print(f"NOTE: {name} is {frames} frames but the LM was trained on {lm_trained_frames}-frame crops; "
+                  "positions and context past the trained length are out of distribution and the LM-coded "
+                  "rate degrades. Files do not grow past raw packing (the guard keeps the raw blob, "
+                  "codec/compress.compress_tokens_guarded), but for the entropy-coding gain train on crops "
+                  "as long as your files.", file=sys.stderr)
 
     def complete(submitted):
         """Host half of a group: fetch tokens, pack, decode, write."""
@@ -168,6 +208,7 @@ def main(argv=None):
     def named_reads():
         paths = [os.path.join(args.input, n) for n in names]
         for path, wav in prefetch_reads(paths, args.sr, depth=2 * args.batch_files):
+            warn_lm(os.path.basename(path), len(wav))
             yield os.path.basename(path), wav
 
     pipelined_groups(

@@ -4,11 +4,11 @@ Writes each wav's acoustic tokens ``{fid: [1, frames, 4]}`` to an ``.npz``
 (``--tokens_out``; the VALL-E/SoundStorm hand-off, egs/HiFi-Codec-*/
 infer.ipynb, with its ``--normalize`` peak convention), the reconstructed
 wavs to ``--outputdir`` unless ``--no_synth`` (models/hificodec/
-vqvae_copy_syn.py), and with ``--tokens_ecdc`` one raw-packed ECDC token blob
-per file. The flags and output files are those of
-``academicodec_tpu/cli/extract_tokens.py``, plus ``--device`` (the card unless
-``cpu`` is asked for). The model computes in f32 from a reference ``g_*``
-checkpoint.
+vqvae_copy_syn.py), and with ``--tokens_ecdc`` one ECDC token blob per file,
+raw-packed, or LM-entropy-coded with ``--lm`` where that is smaller. The
+flags and output files are those of ``academicodec_tpu/cli/extract_tokens.py``,
+plus ``--device`` (the card unless ``cpu`` is asked for). The model computes
+in f32 from a reference ``g_*`` checkpoint.
 
     python -m academicodec_tpu_torch.cli.extract_tokens --config config_24k_320d.json \\
         --model_path g_00100000 --input wavs/ --outputdir out/ --tokens_out tokens.npz \\
@@ -17,28 +17,41 @@ checkpoint.
 With ``--bucket_seconds`` each file is zero-padded to whole buckets and
 encoded with its length (``VQVAE.encode(lengths=)``), so that its tokens equal
 an exact-length encode; ``--batch_files`` encodes (and decodes) that many
-same-bucket files per call. Not ported yet: ``--lm`` (LM entropy coding,
-ROADMAP.md Queue 1 item 8), ``--int8_min_channels`` (W8A8 serving, item 3),
-``--data_parallel`` and ``--sequence_parallel`` (item 9), orbax checkpoint
-directories. The JAX CLI's ``--packed_conv`` and ``--fused_resblock`` choose
-TPU lowerings, which the port does not carry.
+same-bucket files per call.
+
+``--int8_min_channels N`` serves the resblock convs of the stages of at least
+N channels that the fused towers do not take (wider than 64) as W8A8 int8,
+with activation scales calibrated on the first input file (peak-normalized
+with ``--normalize``): the JAX CLI's ``--fused_resblock --int8_min_channels
+N``. ``--lm`` takes a token-LM checkpoint directory of the port
+(``models/lm.py``) of family ``hificodec``, with ``--tokens_ecdc``.
+
+Not ported yet: ``--data_parallel`` and ``--sequence_parallel`` (multi-GPU
+serving, ROADMAP.md Queue 1 item 9) and orbax checkpoint directories. The
+JAX CLI's ``--packed_conv`` and ``--fused_resblock`` choose TPU lowerings;
+the port accepts them and runs its one path, in which the narrow stages
+always take the fused towers.
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import torch
 
 from academicodec_tpu_torch.cli.compress import pipelined_groups, prefetch_reads
+from academicodec_tpu_torch.codec.binary import read_ecdc_header
 from academicodec_tpu_torch.codec.compress import compress_tokens_guarded
 from academicodec_tpu_torch.data.dataset import list_audio_files
 from academicodec_tpu_torch.data.wavio import read_wav, write_wav
-from academicodec_tpu_torch.models.hificodec import VQVAE
+from academicodec_tpu_torch.models.hificodec import VQVAE, calibrate_quant
+from academicodec_tpu_torch.models.lm import load_lm
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.utils.fold import fold_vqvae
 
@@ -51,16 +64,26 @@ def get_args(argv=None):
     p.add_argument("--outputdir", type=str, required=True)
     p.add_argument("--tokens_out", type=str, default=None, help=".npz path for tokens")
     p.add_argument("--tokens_ecdc", type=str, default=None,
-                   help="directory: also write one raw-packed ECDC token blob <fid>.ecdc per file "
-                        "([n_q, T] in the [l0g0, l0g1, l1g0, l1g1] stream order)")
-    p.add_argument("--lm", type=str, default=None, help="not ported yet (LM entropy coding)")
+                   help="directory: also write one ECDC token blob <fid>.ecdc per file ([n_q, T] in the "
+                        "[l0g0, l0g1, l1g0, l1g1] stream order), raw-packed or LM-coded with --lm")
+    p.add_argument("--lm", type=str, default=None,
+                   help="token-LM checkpoint directory (lm_config.json + lm_<step>.pt, family hificodec) for "
+                        "entropy-coded --tokens_ecdc blobs; a file keeps raw packing where that is smaller")
     p.add_argument("--sample_rate", type=int, default=24000)
     p.add_argument("--no_synth", action="store_true", help="tokens only")
     p.add_argument("--normalize", action="store_true", help="peak-normalize *0.95 (infer.ipynb convention)")
+    p.add_argument("--packed_conv", action="store_true",
+                   help="the JAX CLI's lanes-packed TPU lowering; the port accepts it and runs its one path")
+    p.add_argument("--fused_resblock", action="store_true",
+                   help="the JAX CLI's fused TPU towers; the port always fuses the stages of at most 64 channels")
     p.add_argument("--fold_weight_norm", action="store_true",
                    help="fold weight norm into plain weights (reference remove_weight_norm, "
                         "vqvae_copy_syn.py:33)")
-    p.add_argument("--int8_min_channels", type=int, default=0, help="not ported yet (W8A8 serving); 0 only")
+    p.add_argument("--int8_min_channels", type=int, default=0,
+                   help="W8A8 int8 serving of the resblock stages with at least this many channels that are "
+                        "not fused (the fused towers take the stages of at most 64); 0 = off, 128 takes "
+                        "hificodec_24k_320d's wide stages. Calibrates on the first input file. The JAX CLI's "
+                        "--fused_resblock --int8_min_channels N")
     p.add_argument("--bucket_seconds", type=float, default=None,
                    help="pad inputs to multiples of this many seconds and encode each with its length, "
                         "so that a corpus of many lengths runs in a few shapes with exact tokens")
@@ -71,10 +94,10 @@ def get_args(argv=None):
     p.add_argument("--sequence_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
     p.add_argument("--device", type=str, default="cuda", help="torch device; the card unless cpu is asked for")
     args = p.parse_args(argv)
-    if args.lm:
-        p.error("--lm: LM entropy coding is not ported yet (ROADMAP.md Queue 1 item 8)")
-    if args.int8_min_channels > 0:
-        p.error("--int8_min_channels: W8A8 int8 serving is not ported yet (ROADMAP.md Queue 1 item 3)")
+    if args.lm and not args.tokens_ecdc:
+        p.error("--lm entropy-codes --tokens_ecdc blobs: pass --tokens_ecdc")
+    if args.lm and not os.path.exists(args.lm):
+        p.error(f"--lm: no LM checkpoint at {args.lm}")
     if args.data_parallel or args.sequence_parallel:
         p.error("--data_parallel/--sequence_parallel: multi-GPU serving is not ported yet "
                 "(ROADMAP.md Queue 1 item 9)")
@@ -85,10 +108,13 @@ def get_args(argv=None):
     return args
 
 
-def build_model(args) -> VQVAE:
+def read_config(args) -> HiFiCodecConfig:
     with open(args.config) as fh:
-        cfg = HiFiCodecConfig.from_json(json.load(fh))
-    model = VQVAE(cfg, device=args.device)
+        return HiFiCodecConfig.from_json(json.load(fh))
+
+
+def build_model(args, cfg: HiFiCodecConfig) -> VQVAE:
+    model = VQVAE(cfg, device=args.device, int8_min_channels=args.int8_min_channels)
     model.load_reference(torch.load(args.model_path, map_location="cpu", weights_only=True))
     return fold_vqvae(model) if args.fold_weight_norm else model
 
@@ -175,25 +201,43 @@ def run_sequential(args, model: VQVAE, files, bucket, tokens: dict) -> None:
         print(f"{fid}: tokens {codes.shape}")
 
 
-def write_tokens_ecdc(args, cfg: HiFiCodecConfig, tokens: dict) -> None:
+def write_tokens_ecdc(args, cfg: HiFiCodecConfig, tokens: dict, lm=None) -> None:
     """One ECDC blob per file: the GRVQ streams ``[n_q, T]`` packed raw at
-    ``ceil(log2(n_codes))`` bits (JAX cli/extract_tokens.py:228-264, without an LM)."""
+    ``ceil(log2(n_codes))`` bits, or LM-coded where ``lm`` makes the blob
+    smaller (JAX cli/extract_tokens.py:228-264)."""
     bits = max(1, math.ceil(math.log2(cfg.n_codes)))
     os.makedirs(args.tokens_ecdc, exist_ok=True)
+    lm_used = 0
     for fid, toks in tokens.items():
         c = np.asarray(toks)[0].T.astype(np.int32)  # [n_q, T], [l0g0, l0g1, l1g0, l1g1]
         blob = compress_tokens_guarded(c, bits_per_codebook=bits,
-                                       metadata=dict(model="hificodec", sr=int(args.sample_rate)))
+                                       metadata=dict(model="hificodec", sr=int(args.sample_rate)), lm=lm)
         with open(os.path.join(args.tokens_ecdc, fid + ".ecdc"), "wb") as fh:
             fh.write(blob)
+        # the header's lm flag is the guard's decision
+        lm_used += bool(lm is not None and read_ecdc_header(io.BytesIO(blob)).get("lm"))
         print(f"{fid}: {len(blob)} bytes, {len(blob) * 8 / c.size:.2f} bits/token (raw {bits})")
+    if lm is not None:
+        print(f"tokens_ecdc: LM coding won on {lm_used}/{len(tokens)} files (raw packing on the rest)")
 
 
 def main(argv=None) -> dict:
     """Runs the CLI; returns the tokens ``{fid: [1, frames, 4]}``."""
     args = get_args(argv)
-    model = build_model(args)
+    cfg = read_config(args)
+    lm = None
+    if args.lm:  # checked before the model loads
+        try:
+            lm, _ = load_lm(args.lm, expect_family="hificodec", expect_nq=2 * cfg.n_code_groups,
+                            expect_bins=cfg.n_codes, device=args.device)
+        except (ValueError, FileNotFoundError) as e:
+            sys.exit(f"--lm: {e}")
+    model = build_model(args, cfg)
     files = list_audio_files(args.input)
+    if args.int8_min_channels:
+        wav0, _ = read_wav(files[0], sr=args.sample_rate)
+        # calibrate on what the model will see: --normalize peak-normalizes every input
+        calibrate_quant(model, torch.from_numpy(_normalized(args, wav0)[None]))
     bucket = None
     if args.bucket_seconds:
         raw = max(1, int(round(args.bucket_seconds * args.sample_rate)))
@@ -208,7 +252,7 @@ def main(argv=None) -> dict:
         np.savez(args.tokens_out, **tokens)
         print(f"wrote {len(tokens)} token tensors to {args.tokens_out}")
     if args.tokens_ecdc:
-        write_tokens_ecdc(args, model.config, tokens)
+        write_tokens_ecdc(args, model.config, tokens, lm=lm)
     return tokens
 
 

@@ -9,10 +9,11 @@ Format: ECDC header (JSON metadata: model family, sr, ratios, bandwidth,
 n_frames, audio_length) followed by the codebook indices packed LSB-first at
 ``bits_per_codebook`` bits, layer-major (codes[k, t] iterated k, t), one
 stream per file. Blobs are byte-identical to the JAX package's on the same
-weights and wav.
+weights and wav. With a token LM (``models/lm.py``), a file is also
+LM-entropy-coded (``codec/lm_compress.py``) and whichever blob is smaller is
+kept; the header's ``lm`` flag tells the decoder which it got.
 
-Not ported yet: LM entropy coding (a blob whose header sets ``lm`` raises)
-and mesh sharding of the batch or time axis.
+Not ported yet: mesh sharding of the batch or time axis.
 
 Behavioral parity target: academicodec_tpu/codec/compress.py:31-350.
 """
@@ -32,6 +33,7 @@ from academicodec_tpu_torch.codec.binary import (
     unpack_array,
     write_ecdc_header,
 )
+from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, decompress_tokens_with_lm
 
 
 def compress_codes(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
@@ -54,18 +56,27 @@ def decompress_codes(blob: bytes) -> Tuple[np.ndarray, dict]:
     return out.reshape(n_q, n_frames), meta
 
 
-def compress_tokens_guarded(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
-    """codes ``[n_q, T]`` -> ECDC bytes. The JAX package also tries LM entropy
-    coding here and keeps the smaller blob; without an LM (all the port has
-    yet) that is the raw-packed blob."""
-    return compress_codes(codes, bits_per_codebook=bits_per_codebook, metadata=metadata)
+def compress_tokens_guarded(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict, lm=None) -> bytes:
+    """codes ``[n_q, T]`` -> ECDC bytes: raw-packed, or LM-entropy-coded when
+    ``lm`` is given and that blob is smaller. An LM fed streams unlike its
+    training data (longer, or another codec's) can code past raw packing,
+    so the raw blob is always built and the smaller one kept (JAX
+    codec/compress.py:56-81)."""
+    raw = compress_codes(codes, bits_per_codebook=bits_per_codebook, metadata=metadata)
+    if lm is not None:
+        lm_blob = compress_tokens_with_lm(lm, codes, metadata=metadata)
+        if len(lm_blob) < len(raw):
+            return lm_blob
+    return raw
 
 
-def decompress_tokens(blob: bytes) -> Tuple[np.ndarray, dict]:
-    """Inverse of :func:`compress_tokens_guarded`. A blob whose header sets the
-    ``lm`` flag is LM-entropy-coded, which the port cannot decode yet."""
+def decompress_tokens(blob: bytes, lm=None) -> Tuple[np.ndarray, dict]:
+    """Inverse of :func:`compress_tokens_guarded`: the header's ``lm`` flag
+    selects raw unpacking or LM decoding, which needs ``lm``."""
     if read_ecdc_header(io.BytesIO(blob)).get("lm"):
-        raise ValueError("stream is LM-entropy-coded; LM decoding is not ported to academicodec_tpu_torch yet")
+        if lm is None:
+            raise ValueError("stream is LM-entropy-coded; pass lm (cli: --lm <checkpoint dir>)")
+        return decompress_tokens_with_lm(lm, blob)
     return decompress_codes(blob)
 
 
@@ -81,10 +92,15 @@ class SoundStreamCompressor:
     outputs are trimmed back to each file's exact frame and sample counts.
     The non-causal encoder's tail then sees zeros instead of reflect
     padding, so the last few frames may differ from an exact-length encode.
+
+    ``lm``: a token LM of the model's streams at ``target_bw``; each blob is
+    then LM-coded where that is smaller (:func:`compress_tokens_guarded`).
     """
 
-    def __init__(self, model, target_bw: Optional[float] = None, bucket_seconds: Optional[float] = None):
+    def __init__(self, model, target_bw: Optional[float] = None, bucket_seconds: Optional[float] = None,
+                 lm=None):
         self.model = model
+        self.lm = lm
         self.target_bw = target_bw if target_bw is not None else model.target_bandwidths[-1]
         self.bucket = None
         if bucket_seconds:
@@ -145,6 +161,7 @@ class SoundStreamCompressor:
                 codes[:, i, : self._exact_frames(int(T))],
                 bits_per_codebook=self.model.bits_per_codebook,
                 metadata=self._meta(int(T)),
+                lm=self.lm,
             )
             for i, T in enumerate(lengths)
         ]
@@ -158,7 +175,7 @@ class SoundStreamCompressor:
         of ``(wav [T], sample_rate)`` through one decode. Streams are padded
         (by repeating their last frame) to the longest whole bucket in the
         batch and trimmed back to each item's ``audio_length``."""
-        items = [decompress_tokens(blob) for blob in blobs]
+        items = [decompress_tokens(blob, lm=self.lm) for blob in blobs]
         n_qs = {c.shape[0] for c, _ in items}
         if len(n_qs) > 1:
             raise ValueError(f"decompress_batch needs a uniform codebook count, got {n_qs}")

@@ -15,13 +15,18 @@ valid token frames equal its exact-length encode. ``generator.fused_pre =
 True`` fuses each narrow stage's upsampling conv-transpose into K3, as the
 JAX generator's option of that name does.
 
-Behavioral parity target: academicodec_tpu/models/hificodec.py:23-110
+``VQVAE(int8_min_channels=N)`` serves the resblock convs of the unfused
+stages of at least N channels as W8A8 int8 (``nn/hifigan.py``), once
+:func:`calibrate_quant` has recorded their activation scales; the scales
+of the JAX package's ``'quant'`` collection load with :meth:`VQVAE.load_quant`.
+
+Behavioral parity target: academicodec_tpu/models/hificodec.py:23-135
 (reference models/hificodec/vqvae.py:12-45).
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -47,17 +52,20 @@ class VQVAE(nn.Module):
         config: HiFiCodecConfig = HiFiCodecConfig(),
         norm: str = "weight_norm",
         *,
+        int8_min_channels: int = 0,
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
     ):
         """Builds the model with random weights drawn from ``seed`` on the CPU
-        (identical on every device), then moves it to ``device`` and ``dtype``."""
+        (identical on every device), then moves it to ``device`` and ``dtype``.
+        ``int8_min_channels`` > 0: W8A8 serving of the unfused stages that wide
+        (the causal generator stays at full precision, as in JAX)."""
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.encoder = HiFiGANEncoder(config, norm)
-        self.generator = HiFiGANGenerator(config, norm)
+        self.encoder = HiFiGANEncoder(config, norm, int8_min_channels=int8_min_channels)
+        self.generator = HiFiGANGenerator(config, norm, int8_min_channels=0 if config.causal else int8_min_channels)
         self.quantizer = GroupResidualVQ(
             dim=config.latent_dim, n_codes=config.n_codes, n_groups=config.n_code_groups, n_residual=2
         )
@@ -87,6 +95,19 @@ class VQVAE(nn.Module):
         'quantizer'}`` (DDP ``module.`` prefixes removed)."""
         for part in ("encoder", "generator", "quantizer"):
             getattr(self, part).load_state_dict(_strip_ddp(ckpt[part]))
+
+    def w8a8_convs(self) -> Dict[str, Conv1d]:
+        """The int8 convs by module path (``encoder.resblocks.3.convs1.0``)."""
+        return {name: m for name, m in self.named_modules() if isinstance(m, Conv1d) and m.w8a8}
+
+    def load_quant(self, act_amax: Mapping[str, torch.Tensor]) -> None:
+        """Set the int8 convs' activation scales from ``{module path: max |x|}``
+        (``utils/convert.hificodec_quant_from_jax``); every int8 conv needs one."""
+        convs = self.w8a8_convs()
+        if set(act_amax) != set(convs):
+            raise KeyError(f"act_amax for {sorted(act_amax)}, the model's int8 convs are {sorted(convs)}")
+        for name, conv in convs.items():
+            conv.act_amax = torch.as_tensor(act_amax[name], dtype=torch.float32).reshape(()).to(self.device)
 
     @torch.no_grad()
     def encode(self, x, lengths=None) -> torch.Tensor:
@@ -123,3 +144,23 @@ class VQVAE(nn.Module):
         q = self.quantizer.embed(codes)
         y, state = self.generator.stream(q.transpose(1, 2).contiguous(), state)
         return y[:, 0, :], state
+
+
+@torch.no_grad()
+def calibrate_quant(model: VQVAE, wav) -> VQVAE:
+    """Record the activation scale of every int8 conv of ``model`` from one
+    full-precision roundtrip (encode, then decode of its tokens) of ``wav
+    [B, T]``: each conv keeps the max |input| it saw, across calls. Calibrate
+    on representative audio, with the threshold used for serving; louder
+    inputs clip at that max. Returns ``model`` (JAX models/hificodec.py:113-135)."""
+    convs = model.w8a8_convs().values()
+    if not convs:
+        raise ValueError("the model has no int8 convs to calibrate (int8_min_channels=0 or all stages fused)")
+    for conv in convs:
+        conv.calibrating = True
+    try:
+        model.decode(model.encode(wav))
+    finally:
+        for conv in convs:
+            conv.calibrating = False
+    return model

@@ -59,7 +59,7 @@ HIFICODEC_PRESETS: Dict[str, dict] = {
 }
 
 # keyword arguments of the VQVAE module itself; the rest configure HiFiCodecConfig
-_VQVAE_KW = ("norm", "device", "dtype", "seed")
+_VQVAE_KW = ("norm", "int8_min_channels", "device", "dtype", "seed")
 
 
 def names():
@@ -68,7 +68,8 @@ def names():
 
 def build(name: str, **kwargs) -> Union[SoundStream, VQVAE]:
     """Build a preset; ``kwargs`` override preset fields or pass ``device``,
-    ``dtype`` and ``seed`` (and ``norm``) to the model."""
+    ``dtype`` and ``seed`` (and ``norm``, and HiFi-Codec's ``int8_min_channels``)
+    to the model."""
     if name in SOUNDSTREAM_PRESETS:
         return SoundStream(**{**SOUNDSTREAM_PRESETS[name], **kwargs})
     if name in HIFICODEC_PRESETS:

@@ -52,13 +52,17 @@ class SoundStream(nn.Module):
         causal: bool = False,
         pad_mode: str = "reflect",
         norm: str = "weight_norm",
+        lstm: int = 2,
         *,
         device: Union[str, torch.device] = "cuda",
         dtype: torch.dtype = torch.float32,
         seed: int = 0,
     ):
         """Builds the model with random weights drawn from ``seed`` on the CPU
-        (identical on every device), then moves it to ``device`` and ``dtype``."""
+        (identical on every device), then moves it to ``device`` and ``dtype``.
+        ``norm``: the SEANet convs' norm (``nn/conv.NORMS``); ``lstm``: the
+        SLSTM's layer count, 0 for none (SEANet's own options, which the JAX
+        SoundStream fixes at 2)."""
         super().__init__()
         device = resolve_device(device)
         self.ratios = tuple(ratios)
@@ -68,7 +72,7 @@ class SoundStream(nn.Module):
         self.causal = causal
         common = dict(
             n_filters=n_filters, dimension=dimension, ratios=self.ratios,
-            causal=causal, pad_mode=pad_mode, norm=norm,
+            causal=causal, pad_mode=pad_mode, norm=norm, lstm=lstm,
         )
         self.encoder = SEANetEncoder(**common)
         self.decoder = SEANetDecoder(**common)
@@ -104,6 +108,10 @@ class SoundStream(nn.Module):
     def n_q(self) -> int:
         # reference net3.py:25-26
         return int(1000 * self.target_bandwidths[-1] // (self.frame_rate * 10))
+
+    def n_q_for_bandwidth(self, bw: Optional[float]) -> int:
+        """The streams ``encode`` emits at bandwidth ``bw`` (all of them for None)."""
+        return self.quantizer.get_num_quantizers_for_bandwidth(self.frame_rate, bw)
 
     @torch.no_grad()
     def encode(self, x, target_bw: Optional[float] = None, st: int = 0) -> torch.Tensor:

@@ -7,11 +7,22 @@ resolved on every call as ``g * v / ||v||`` with no eps, exactly as
 ``academicodec_tpu/nn/conv.py`` does: per out-channel for conv, per
 in-channel for conv-transpose.
 
-``NormConv1d`` / ``NormConvTranspose1d`` only add the reference's extra
-module level, so state-dict keys read ``conv.conv.weight_v`` and
-``convtr.convtr.weight_v`` as in a reference checkpoint.
+``NormConv1d`` / ``NormConvTranspose1d`` add the reference's extra module
+level, so state-dict keys read ``conv.conv.weight_v`` and
+``convtr.convtr.weight_v`` as in a reference checkpoint. ``NormConv1d`` also
+holds the post-conv norms ``layer_norm`` and ``time_group_norm`` (a plain
+kernel, then ``nn/norm.py`` on the conv's output, keys ``conv.norm.weight``
+/ ``conv.norm.bias``); a conv-transpose with either mode keeps a plain
+kernel and no norm, as the JAX package's ``ConvTranspose1d`` does.
 
-Streaming (causal convs only): ``SConv1d.stream`` and
+``Conv1d(w8a8=True)`` is the W8A8 int8 serving conv of ``ops/int8.py``: its
+static activation scale, ``act_amax`` (max |input|), is recorded by a
+calibration pass (``calibrating = True``, full-precision conv meanwhile;
+``models/hificodec.calibrate_quant``) and is not part of the state dict,
+so reference checkpoints load unchanged.
+
+Streaming (causal convs only, not with ``time_group_norm``, whose
+statistics span the whole utterance): ``SConv1d.stream`` and
 ``SConvTranspose1d.stream`` take one chunk and the state the previous chunk
 left, and return the output and the next state, so that chunk after chunk
 equals one full-length call (exactly for ``pad_mode='zero'`` models). The
@@ -31,17 +42,27 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from academicodec_tpu_torch.nn.norm import POST_NORMS
+from academicodec_tpu_torch.ops.int8 import act_scale_from_amax, conv1d_w8a8
 from academicodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d, pad1d, unpad1d
 
-NORMS = ("none", "weight_norm")
+# norms of a kernel itself; the S-convs also take the post-conv norms of nn/norm.py
+KERNEL_NORMS = ("none", "weight_norm")
+NORMS = KERNEL_NORMS + tuple(POST_NORMS)
+
+
+def _kernel_norm(norm: str) -> str:
+    if norm not in NORMS:
+        raise ValueError(f"unsupported norm {norm!r}; the port has {NORMS}")
+    return "none" if norm in POST_NORMS else norm
 
 
 class _NormedWeight(nn.Module):
     """A kernel held either plain (``weight``) or weight-normed (``weight_v``/``weight_g``)."""
 
     def _make_weight(self, shape, norm: str) -> None:
-        if norm not in NORMS:
-            raise ValueError(f"unsupported norm {norm!r}; the port has {NORMS}")
+        if norm not in KERNEL_NORMS:
+            raise ValueError(f"unsupported kernel norm {norm!r}; a kernel has {KERNEL_NORMS}")
         self.norm = norm
         if norm == "weight_norm":
             self.weight_v = nn.Parameter(torch.empty(shape))
@@ -77,7 +98,8 @@ def _channel_norm(v: torch.Tensor) -> torch.Tensor:
 class Conv1d(_NormedWeight):
     """Cross-correlation over ``[B, C, T]`` with a ``[O, I/groups, K]`` kernel
     and ``padding`` zeros on each side (the HiFi-Codec convs' fixed "same"
-    padding; academicodec_tpu/nn/conv.py:128-229)."""
+    padding; academicodec_tpu/nn/conv.py:128-229). ``w8a8``: int8 serving
+    once calibrated (module docstring)."""
 
     def __init__(
         self,
@@ -90,18 +112,38 @@ class Conv1d(_NormedWeight):
         bias: bool = True,
         norm: str = "none",
         padding: int = 0,
+        w8a8: bool = False,
     ):
         super().__init__()
+        if w8a8 and groups != 1:
+            raise ValueError("w8a8 convs have groups=1 only")
         self.stride, self.dilation, self.groups, self.padding = stride, dilation, groups, padding
         self.fan_in = (in_channels // groups) * kernel_size
         self._make_weight((out_channels, in_channels // groups, kernel_size), norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+        self.w8a8, self.calibrating = w8a8, False
+        self.act_amax: Optional[torch.Tensor] = None  # f32 scalar once calibrated
 
     def reset_parameters(self, generator: torch.Generator, normal_std=None) -> None:
         """Torch's default uniform init, or N(0, normal_std^2) weights."""
         self._init_weight(generator, self.fan_in, normal_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.w8a8:
+            if self.calibrating:  # record max |x|, convolve at full precision
+                amax = x.detach().abs().max().float()
+                self.act_amax = amax if self.act_amax is None else torch.maximum(self.act_amax, amax)
+            elif self.act_amax is None:
+                raise ValueError(
+                    "a w8a8 Conv1d has no calibrated act_amax: run "
+                    "models.hificodec.calibrate_quant on the model first"
+                )
+            else:
+                return conv1d_w8a8(
+                    x, self.resolved_weight(), self.bias,
+                    act_scale_from_amax(self.act_amax.to(x.device)), stride=self.stride,
+                    dilation=self.dilation, padding=(self.padding, self.padding),
+                )
         return F.conv1d(
             x, self.resolved_weight(), self.bias, stride=self.stride,
             padding=self.padding, dilation=self.dilation, groups=self.groups,
@@ -140,18 +182,26 @@ class ConvTranspose1d(_NormedWeight):
 
 
 class NormConv1d(nn.Module):
-    def __init__(self, *args, **kwargs):
+    """``Conv1d`` and its post-conv norm (``nn.Identity`` unless ``layer_norm``
+    or ``time_group_norm``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, *args, norm: str = "none", **kwargs):
         super().__init__()
-        self.conv = Conv1d(*args, **kwargs)
+        self.conv = Conv1d(in_channels, out_channels, *args, norm=_kernel_norm(norm), **kwargs)
+        self.norm_type = norm
+        self.norm = POST_NORMS[norm](out_channels) if norm in POST_NORMS else nn.Identity()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(x)
+        return self.norm(self.conv(x))
 
 
 class NormConvTranspose1d(nn.Module):
-    def __init__(self, *args, **kwargs):
+    """``ConvTranspose1d``; the post-conv norms leave its kernel plain and add
+    nothing (JAX nn/conv.py:231-321 applies none)."""
+
+    def __init__(self, *args, norm: str = "none", **kwargs):
         super().__init__()
-        self.convtr = ConvTranspose1d(*args, **kwargs)
+        self.convtr = ConvTranspose1d(*args, norm=_kernel_norm(norm), **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.convtr(x)
@@ -203,6 +253,8 @@ class SConv1d(nn.Module):
         zeros at the start of a stream, in the input's dtype (JAX nn/conv.py:415-438)."""
         if not self.causal:
             raise ValueError("streaming needs a causal conv")
+        if self.conv.norm_type == "time_group_norm":
+            raise ValueError("time_group_norm does not stream: its statistics span the whole utterance")
         k, s, d = self.kernel_size, self.stride, self.dilation
         if x.shape[-1] % s:
             raise ValueError(f"a stream chunk of {x.shape[-1]} samples is not a multiple of the stride {s}")

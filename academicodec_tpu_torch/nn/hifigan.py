@@ -22,6 +22,15 @@ past it and the GroupNorm statistics count only valid frames, so that each
 row's valid frames equal its exact-length encode. K4 takes the lengths
 itself.
 
+``int8_min_channels`` (0 = off) serves the resblock convs of every stage of
+at least that many channels that is not fused as W8A8 int8
+(``Conv1d(w8a8=True)``, ``ops/int8.py``), after a calibration pass
+(``models/hificodec.calibrate_quant``). Fused stages (at most
+``FUSED_MAX_CHANNELS``) stay in K3/K4 at full precision, so the port's
+threshold N serves what JAX's ``fused_resblock=True, int8_min_channels=N``
+serves (JAX nn/hifigan.py:403-451, 670-684). The causal generator has no
+int8 variant.
+
 ``HiFiCodecConfig(causal=True)`` builds the causal generator of the JAX
 package: every conv left-padded with zeros (``SConv1d``), every upsample
 conv-transpose right-trimmed (``SConvTranspose1d``), so that tokens -> wav
@@ -113,14 +122,17 @@ class HiFiCodecConfig:
         return cls(**kw)
 
 
-def _res_conv(channels: int, kernel_size: int, dilation: int, norm: str, causal: bool = False):
+def _res_conv(channels: int, kernel_size: int, dilation: int, norm: str, causal: bool = False,
+              w8a8: bool = False):
     """A resblock conv: symmetric "same" zero padding, or its causal
-    counterpart, all on the left (JAX nn/hifigan.py:88-110)."""
+    counterpart, all on the left (JAX nn/hifigan.py:88-122)."""
     if causal:
+        if w8a8:
+            raise ValueError("int8 serving has no causal variant")
         return SConv1d(channels, channels, kernel_size, dilation=dilation, norm=norm,
                        causal=True, pad_mode="zero")
     return Conv1d(channels, channels, kernel_size, dilation=dilation,
-                  padding=get_padding(kernel_size, dilation), norm=norm)
+                  padding=get_padding(kernel_size, dilation), norm=norm, w8a8=w8a8)
 
 
 def _inner_conv(m: nn.Module) -> nn.Module:
@@ -136,10 +148,10 @@ class ResBlock1(nn.Module):
     """3x [lrelu -> dilated conv -> lrelu -> unit conv] with residual adds."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: Sequence[int] = (1, 3, 5),
-                 norm: str = "weight_norm", causal: bool = False):
+                 norm: str = "weight_norm", causal: bool = False, w8a8: bool = False):
         super().__init__()
-        self.convs1 = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
-        self.convs2 = nn.ModuleList(_res_conv(channels, kernel_size, 1, norm, causal) for _ in dilation)
+        self.convs1 = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal, w8a8) for d in dilation)
+        self.convs2 = nn.ModuleList(_res_conv(channels, kernel_size, 1, norm, causal, w8a8) for _ in dilation)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask [B, 1, T]`` (0/1) zeroes every conv's output past the valid
@@ -169,9 +181,9 @@ class ResBlock2(nn.Module):
     """2x [lrelu -> dilated conv] with residual adds."""
 
     def __init__(self, channels: int, kernel_size: int = 3, dilation: Sequence[int] = (1, 3),
-                 norm: str = "weight_norm", causal: bool = False):
+                 norm: str = "weight_norm", causal: bool = False, w8a8: bool = False):
         super().__init__()
-        self.convs = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal) for d in dilation)
+        self.convs = nn.ModuleList(_res_conv(channels, kernel_size, d, norm, causal, w8a8) for d in dilation)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for c in self.convs:
@@ -257,11 +269,17 @@ def _resblock_cls(h: HiFiCodecConfig):
     return ResBlock1 if h.resblock == "1" else ResBlock2
 
 
+def stage_w8a8(channels: int, int8_min_channels: int) -> bool:
+    """Whether a stage's resblock convs serve int8: at least ``int8_min_channels``
+    (> 0) channels and too wide for the fused towers."""
+    return 0 < int8_min_channels <= channels and channels > FUSED_MAX_CHANNELS
+
+
 class HiFiGANEncoder(nn.Module):
     """The mirrored generator used as the HiFi-Codec encoder:
     ``[B, 1, T]`` -> ``[B, latent_dim, frames]``."""
 
-    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm"):
+    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm", int8_min_channels: int = 0):
         super().__init__()
         h = self.config = config
         base = h.encoder_base_channels
@@ -279,8 +297,9 @@ class HiFiGANEncoder(nn.Module):
                     "but GroupNorm uses ch//16 groups (reference models.py:412)"
                 )
             ups.append(Conv1d(base * 2 ** i, ch, k, stride=u, padding=(k - u) // 2, norm=norm))
+            w8a8 = stage_w8a8(ch, int8_min_channels)
             for j in range(nk):
-                resblocks.append(_resblock_cls(h)(ch, self.rks[j], self.rds[j], norm=norm))
+                resblocks.append(_resblock_cls(h)(ch, self.rks[j], self.rds[j], norm=norm, w8a8=w8a8))
                 norms.append(GroupNormTorch(ch // 16, ch, epsilon=1e-6))
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(resblocks)
@@ -339,10 +358,13 @@ class HiFiGANGenerator(nn.Module):
     never written out; the default runs them as PyTorch ops, as JAX does by
     default. Causal generators never run K3 and ignore it."""
 
-    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm", fused_pre: bool = False):
+    def __init__(self, config: HiFiCodecConfig, norm: str = "weight_norm", fused_pre: bool = False,
+                 int8_min_channels: int = 0):
         super().__init__()
         self.fused_pre = fused_pre
         h = self.config = config
+        if int8_min_channels and h.causal:
+            raise ValueError("int8 serving has no causal variant")
         nk = len(h.resblock_kernel_sizes)
         causal = dict(causal=True, pad_mode="zero", norm=norm)
         if h.causal:
@@ -358,9 +380,10 @@ class HiFiGANGenerator(nn.Module):
                                             norm=norm))
             else:
                 ups.append(ConvTranspose1d(cin, cout, k, stride=u, padding=(k - u) // 2, norm=norm))
+            w8a8 = stage_w8a8(cout, int8_min_channels)
             for j in range(nk):
-                resblocks.append(_resblock_cls(h)(cout, h.resblock_kernel_sizes[j],
-                                                  h.resblock_dilation_sizes[j], norm=norm, causal=h.causal))
+                resblocks.append(_resblock_cls(h)(cout, h.resblock_kernel_sizes[j], h.resblock_dilation_sizes[j],
+                                                  norm=norm, causal=h.causal, w8a8=w8a8))
         self.ups = nn.ModuleList(ups)
         self.resblocks = nn.ModuleList(resblocks)
         c_post = h.upsample_initial_channel // 2 ** len(ups)

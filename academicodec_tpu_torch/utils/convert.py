@@ -8,8 +8,16 @@ whose ``ResidualVQ`` folds the per-layer codebooks into its stacked buffer;
 ``export_hificodec`` turns a JAX ``VQVAE`` tree into the reference ``g_*``
 dict that ``VQVAE.load_reference`` takes.
 
+Beyond the JAX exporter, which has no mapping for them: the post-conv norms
+of the SEANet convs (JAX ``norm/scale,bias`` for TimeGroupNorm and
+``norm/ln/scale,bias`` for ConvLayerNorm -> the reference ``NormConv1d``'s
+``conv.norm.weight,bias``), SLSTMs of any layer count, the int8 scales of
+JAX's ``'quant'`` collection (:func:`hificodec_quant_from_jax`) and the
+token LM (:func:`lm_state_from_jax`).
+
 Layouts (JAX -> torch): conv ``[K, I, O]`` -> ``[O, I, K]``, conv-transpose
-``[K, I, O]`` -> ``[I, O, K]``; LSTM weights are already torch-layout.
+``[K, I, O]`` -> ``[I, O, K]``, dense ``[I, O]`` -> ``[O, I]``; LSTM and
+attention in-projection weights are already torch-layout.
 """
 
 from __future__ import annotations
@@ -47,6 +55,24 @@ def conv_state_from_jax(node: Mapping[str, Any], transposed: bool) -> Dict[str, 
     return out
 
 
+def norm_state_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX post-conv norm (``{'scale', 'bias'}``, or ``{'ln': {...}}`` for
+    ConvLayerNorm) or LayerNorm -> ``{'weight', 'bias'}``."""
+    node = node.get("ln", node)
+    return {"weight": _t(_np32(node["scale"])), "bias": _t(_np32(node["bias"]))}
+
+
+def sconv_state_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX ``Conv1d`` inside an S-conv -> the port's ``NormConv1d`` state:
+    ``conv.*`` and, with a post-conv norm, ``norm.weight`` / ``norm.bias``."""
+    node = dict(node)
+    norm = node.pop("norm", None)
+    sd = {f"conv.{k}": v for k, v in conv_state_from_jax(node, False).items()}
+    if norm is not None:
+        sd.update({f"norm.{k}": v for k, v in norm_state_from_jax(norm).items()})
+    return sd
+
+
 def _is_lstm_layer(name: str) -> bool:
     return name.startswith("l") and name[1:].isdigit()
 
@@ -74,14 +100,13 @@ def seanet_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         prefix = f"model.{mod_name[len('model_'):]}"
         for sub, node in mod.items():
             if sub == "conv":
-                put(f"{prefix}.conv.conv", conv_state_from_jax(node, False))
+                put(f"{prefix}.conv", sconv_state_from_jax(node))
             elif sub == "convtr":
                 put(f"{prefix}.convtr.convtr", conv_state_from_jax(node, True))
             elif sub == "shortcut":
-                put(f"{prefix}.shortcut.conv.conv", conv_state_from_jax(node["conv"], False))
+                put(f"{prefix}.shortcut.conv", sconv_state_from_jax(node["conv"]))
             elif sub.startswith("block_"):
-                put(f"{prefix}.block.{sub[len('block_'):]}.conv.conv",
-                    conv_state_from_jax(node["conv"], False))
+                put(f"{prefix}.block.{sub[len('block_'):]}.conv", sconv_state_from_jax(node["conv"]))
             elif _is_lstm_layer(sub):
                 put(prefix, slstm_state_from_jax({sub: node}))
             else:
@@ -165,3 +190,54 @@ def hificodec_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, Dict[str
         "encoder": hifigan_state_from_jax(p["encoder"], transposed_ups=False),
         "quantizer": q,
     }
+
+
+def hificodec_quant_from_jax(quant: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX VQVAE's ``'quant'`` collection -> ``{module path: act_amax}``, the
+    paths of the port's w8a8 convs (``encoder.resblocks.3.convs1.0``), for
+    :meth:`VQVAE.load_quant`."""
+    out: Dict[str, torch.Tensor] = {}
+    for tower, blocks in quant.items():
+        for block, convs in blocks.items():
+            if not block.startswith("resblocks_"):
+                raise KeyError(f"unconvertible quant entry {tower}/{block}")
+            for conv_name, node in convs.items():
+                stem, j = conv_name.rsplit("_", 1)
+                path = f"{tower}.resblocks.{block[len('resblocks_'):]}.{stem}.{j}"
+                out[path] = _t(_np32(node["act_amax"]).reshape(()))
+    return out
+
+
+def lm_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``RVQTokenLM`` params -> the port's ``RVQTokenLM`` state dict (torch
+    ``MultiheadAttention`` / ``Linear`` / ``LayerNorm`` names)."""
+    sd: Dict[str, torch.Tensor] = {"embeddings": _t(_np32(params["embeddings"]))}
+
+    def dense(prefix, node):
+        sd[f"{prefix}.weight"] = _t(np.ascontiguousarray(_np32(node["kernel"]).T))
+        sd[f"{prefix}.bias"] = _t(_np32(node["bias"]))
+
+    def norm(prefix, node):
+        sd.update({f"{prefix}.{k}": v for k, v in norm_state_from_jax(node).items()})
+
+    trunk = params["transformer"]
+    norm("transformer.norm_in", trunk["norm_in"])
+    layers = sorted((k for k in trunk if k.startswith("layers_")), key=lambda k: int(k[len("layers_"):]))
+    for name in layers:
+        node, prefix = trunk[name], f"transformer.layers.{name[len('layers_'):]}"
+        attn = node["self_attn"]
+        sd[f"{prefix}.self_attn.in_proj_weight"] = _t(_np32(attn["in_proj_weight"]))
+        sd[f"{prefix}.self_attn.in_proj_bias"] = _t(_np32(attn["in_proj_bias"]))
+        sd[f"{prefix}.self_attn.out_proj.weight"] = _t(_np32(attn["out_proj_kernel"]))
+        sd[f"{prefix}.self_attn.out_proj.bias"] = _t(_np32(attn["out_proj_bias"]))
+        norm(f"{prefix}.norm1", node["norm1"])
+        dense(f"{prefix}.linear1", node["linear1"])
+        dense(f"{prefix}.linear2", node["linear2"])
+        norm(f"{prefix}.norm2", node["norm2"])
+    heads = sorted((k for k in params if k.startswith("head_")), key=lambda k: int(k[len("head_"):]))
+    for name in heads:
+        dense(f"heads.{name[len('head_'):]}", params[name])
+    unknown = set(params) - {"embeddings", "transformer", *heads}
+    if unknown:
+        raise KeyError(f"unconvertible LM params {sorted(unknown)}")
+    return sd

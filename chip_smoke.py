@@ -19,8 +19,13 @@ streams x 10 s in 100 ms chunks, wav -> tokens -> wav) and of the causal
 hificodec_24k_320d generator (``stream``), ECDC file compression of 8
 files x 10 s (``compress``), and HiFi-Codec corpus tokenization of 8 files
 of 3-10 s through the ``extract_tokens`` CLI, batched with lengths and one
-file a call (``extract``). Any failed phase exits non-zero; without a CUDA
-device it exits 1 at once.
+file a call (``extract``; and once more batched with W8A8 int8 serving and
+LM-coded token blobs). Then the serving options: LM entropy coding of one
+10 s flagship file with a token LM at ``cli/train_lm.py``'s default width
+(``lm``), W8A8 int8 HiFi-Codec serving of 8 x 10 s against bf16 (``int8``),
+and the SEANet layer options ``time_group_norm``, ``layer_norm`` and a
+3-layer SLSTM at the flagship's widths, streamed too (``layer_opts``). Any
+failed phase exits non-zero; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -37,6 +42,7 @@ c.phase_device(); c.phase_build(); c.phase_stream('cuda')"``.
 from __future__ import annotations
 
 import copy
+import io
 import json
 import math
 import statistics
@@ -50,10 +56,20 @@ import torch
 
 from academicodec_tpu_torch.api import load_codec
 from academicodec_tpu_torch.codec import binary
-from academicodec_tpu_torch.codec.compress import SoundStreamCompressor, decompress_codes
+from academicodec_tpu_torch.codec.compress import (
+    SoundStreamCompressor,
+    compress_codes,
+    compress_tokens_guarded,
+    decompress_codes,
+    decompress_tokens,
+)
+from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, decompress_tokens_with_lm, make_step
+from academicodec_tpu_torch.models.hificodec import calibrate_quant
+from academicodec_tpu_torch.models.lm import RVQTokenLM, save_lm
 from academicodec_tpu_torch.native.build import get_bitpack_lib
 from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS
 from academicodec_tpu_torch.nn.lstm import SLSTM
+from academicodec_tpu_torch.ops import int8 as int8_ops
 from academicodec_tpu_torch.ops.cuda import build as kernel_build
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
@@ -67,13 +83,26 @@ HBM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = "encodec_24k_240d"
 HIFI = "hificodec_24k_320d"
+# the token LM at cli/train_lm.py's default width (JAX cli/train_lm.py:57-60)
+LM_WIDTH = dict(dim=200, num_heads=8, num_layers=5, past_context=1000)
+# int8 takes hificodec_24k_320d's stages of 128 channels and more
+INT8_MIN_CHANNELS = 128
+# int8 card vs CPU, f32: the int8 quantizer is a step function, so inputs that
+# differ by f32 rounding land on other integers at a few sites, and the one-LSB
+# jumps grow along the 18-conv chains (on an H100: 0.9% of the int8 activations,
+# every site's int32 sums on the same inputs exact, token mismatch 0.0398);
+# the JAX contract's 1e-2 is for continuous paths
+INT8_CROSS_TOKEN_LIMIT = 0.1
 
 
 def reset_launches() -> None:
+    """Every kernel's count to 0, and the int8 GEMM's (a library call, read
+    apart from the kernels by ``int8_ops.INT_MM_CALLS``)."""
     rvq_ops.LAUNCHES = 0
     lstm_ops.LAUNCHES = 0
     resblock_ops.TOWER_LAUNCHES = 0
     resblock_ops.GN_TOWER_LAUNCHES = 0
+    int8_ops.INT_MM_CALLS = 0
 
 
 def read_launches() -> dict:
@@ -287,19 +316,25 @@ def check_distinct(tag, codes) -> int:
     return distinct
 
 
+def k2_slstms(model) -> int:
+    """The model's 2-layer SLSTMs, each one K2 launch a call; other layer counts run cuDNN's LSTM."""
+    return sum(isinstance(m, SLSTM) and m.num_layers == 2 for m in model.modules())
+
+
 def phase_main_path(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=5,
                     preset=FLAGSHIP, **overrides) -> dict:
     """One Encodec/SoundStream roundtrip through the public entry points,
     with the launch counts read around it; then ``iters`` timed roundtrips
     (on the card only). The codebooks are first spread over the latent
-    frames of two of the input rows (:func:`spread_codebooks`)."""
+    frames of two of the input rows (:func:`spread_codebooks`). ``overrides``
+    may set SEANet's ``norm`` and ``lstm``; K2 then runs once per 2-layer SLSTM."""
     model = load_codec(preset, device=device, dtype=dtype, **overrides)
     length = int(round(seconds * model.sample_rate))
     wav = seeded_wav(batch, length, device)
     spread_codebooks(model, latent_frames(model, wav[:2]))
     print(f"[main] {preset} {dtype} on {wav.device}, codebooks from latent frames")
     frames = math.ceil(length / model.hop_length)
-    expected = {"rvq_encode": 1, "lstm2": 2, "resblock_tower": 0, "resblock_tower_gn": 0}
+    expected = {"rvq_encode": 1, "lstm2": k2_slstms(model), "resblock_tower": 0, "resblock_tower_gn": 0}
     result = checked_roundtrip("main", model, wav, expected, (model.n_q, batch, frames))
     result["distinct_tokens"] = check_distinct("main", result["codes"])
     if wav.device.type == "cuda" and iters:
@@ -307,15 +342,15 @@ def phase_main_path(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, 
     return result
 
 
-def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2, fused_pre=False) -> None:
+def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2, fused_pre=False, **overrides) -> None:
     """A full-width f32 model on the card against the same seeded model on
     the CPU (plain versions) on a small input: tokens, and the wav decoded
     from the same tokens. The codebooks are first spread over the CPU model's
     latent frames, identically on both. ``fused_pre``: HiFi-Codec's generator
-    with its upsampling fused into K3."""
+    with its upsampling fused into K3; ``overrides`` go to both models."""
     wav = seeded_wav(batch, int(seconds * 24000), "cpu", seed=2)
-    gpu = load_codec(preset, device=device)
-    cpu = load_codec(preset, device="cpu")
+    gpu = load_codec(preset, device=device, **overrides)
+    cpu = load_codec(preset, device="cpu", **overrides)
     if fused_pre:
         gpu.generator.fused_pre = cpu.generator.fused_pre = True
         print(f"[cross] {preset} with generator.fused_pre")
@@ -325,7 +360,7 @@ def phase_cross_check(device, preset=FLAGSHIP, seconds=0.3, batch=2, fused_pre=F
     codes_cpu = cpu.encode(wav)
     mismatch = (gpu.encode(wav).cpu() != codes_cpu).double().mean().item()
     err = (gpu.decode(codes_cpu).cpu() - cpu.decode(codes_cpu)).abs().max().item()
-    print(f"[cross] f32 {preset} card vs CPU, {batch} x {seconds} s: token mismatch "
+    print(f"[cross] f32 {preset} {overrides or ''} card vs CPU, {batch} x {seconds} s: token mismatch "
           f"{mismatch:.3g} (limit 1e-2), wav max abs diff {err:.3g} (atol 2e-4)")
     check_distinct("cross", codes_cpu)
     if not (mismatch <= 1e-2 and err <= 2e-4):
@@ -750,7 +785,7 @@ def phase_hifi_pre(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, i
 
 
 def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, bucket_seconds=10.0,
-                  preset=HIFI, **overrides) -> dict:
+                  int8_min_channels=INT8_MIN_CHANNELS, lm_width=LM_WIDTH, preset=HIFI, **overrides) -> dict:
     """Corpus tokenization through ``cli.extract_tokens.main``: ``n_files``
     seeded wavs of ``min_seconds``-``max_seconds`` and the seeded f32 model
     (codebooks spread over one file's latent frames) saved as a reference
@@ -763,7 +798,13 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
     call padded to whole buckets with its length (the batched run's shapes
     but batch 1), and the encoder's latents of one file padded with its
     length are held against its exact-length latents. On the card: audio
-    seconds per wall second of the batched run."""
+    seconds per wall second of the batched run.
+
+    Then one more batched run with ``--int8_min_channels --tokens_ecdc --lm``:
+    int8 serving calibrated on the first file, and a seeded LM of
+    ``lm_width``, biased to the first batched run's tokens
+    (:func:`bias_heads_to`), saved as a checkpoint directory. Every blob must
+    decode to that run's own tokens, and the int8 GEMMs must have run."""
     import dataclasses
     import os
     import tempfile
@@ -796,6 +837,7 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
         config = os.path.join(tmp, "config.json")
         with open(config, "w") as fh:
             json.dump(dataclasses.asdict(model.config), fh)
+        n_codes = model.config.n_codes
         del model
         flags = ["--config", config, "--model_path", ckpt, "--input", os.path.join(tmp, "wavs"),
                  "--device", str(device)]
@@ -828,6 +870,23 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
             differ(padded_single, single)
         distinct = check_distinct("extract", torch.from_numpy(np.concatenate([batched[k].reshape(-1) for k in keys])))
         synth = sorted(f for f in os.listdir(os.path.join(tmp, "out_b")) if f.endswith(".wav"))
+        lm = RVQTokenLM(n_q=batched[keys[0]].shape[2], bins=n_codes, **lm_width, device=device)
+        bias_heads_to(lm, np.concatenate([batched[k][0].T for k in keys], 1))
+        save_lm(lm, os.path.join(tmp, "lm"), family="hificodec")
+        reset_launches()
+        extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_q"), "--tokens_out",
+                                     os.path.join(tmp, "q.npz"), "--batch_files", str(n_files), "--bucket_seconds",
+                                     str(bucket_seconds), "--int8_min_channels", str(int8_min_channels),
+                                     "--tokens_ecdc", os.path.join(tmp, "ecdc_q"), "--lm", os.path.join(tmp, "lm")])
+        gemms = int8_ops.INT_MM_CALLS
+        q_launches = read_launches()
+        int8_tokens = np.load(os.path.join(tmp, "q.npz"))
+        blobs = {k: open(os.path.join(tmp, "ecdc_q", f"{k}.ecdc"), "rb").read() for k in keys}
+        lm_coded = sum(bool(binary.read_ecdc_header(io.BytesIO(b)).get("lm")) for b in blobs.values())
+        blobs_exact = sorted(int8_tokens.files) == keys and all(
+            np.array_equal(decompress_tokens(blobs[k], lm=lm)[0], int8_tokens[k][0].T) for k in keys)
+        int8_differ = differ(batched, int8_tokens) if all(
+            int8_tokens[k].shape == batched[k].shape for k in keys) else total
     expected = {"rvq_encode": 0, "lstm2": 0, "resblock_tower": 2 if on_card else 0,
                 "resblock_tower_gn": 1 if on_card else 0}
     mismatch = differ_b_s / total
@@ -838,10 +897,19 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
     print(f"[extract] to locate it: batched vs one padded file a call {differ_b_p} tokens differ, one padded "
           f"file a call vs exact lengths {differ_p_s}; latents of f0 padded with its length vs exact length: "
           f"max abs diff {latent_diff:.3g}")
+    print(f"[extract] --int8_min_channels {int8_min_channels} --tokens_ecdc --lm: {gemms} int8 GEMMs, launches "
+          f"{q_launches}; {lm_coded} of {n_files} blobs LM-coded ({sum(map(len, blobs.values()))} bytes for "
+          f"{total} tokens), every blob decodes to the run's tokens: {blobs_exact}; int8 vs f32 tokens differ in "
+          f"{int8_differ} of {total}")
     if not (shapes_ok and mismatch <= 1e-3 and len(synth) == n_files and launches == expected):
         raise AssertionError(f"extract: mismatch {mismatch:.3g}, shapes {shapes_ok}, {len(synth)} wavs, "
                              f"launches {launches}")
+    if not (blobs_exact and (gemms > 0) == on_card):
+        raise AssertionError(f"extract --int8_min_channels --lm: blobs exact {blobs_exact}, {gemms} int8 GEMMs")
     result = {"launches": launches, "token_mismatch": mismatch, "distinct_tokens": distinct,
+              "int8_lm": {"launches": q_launches, "int8_gemms": gemms, "lm_coded_blobs": lm_coded,
+                          "blob_bytes": sum(map(len, blobs.values())), "tokens": total,
+                          "tokens_differ_vs_f32": int8_differ},
               "audio_seconds": audio_s, "tokens_differ_batched_vs_padded_single": differ_b_p,
               "tokens_differ_padded_single_vs_exact": differ_p_s, "latent_max_abs_diff_padded_vs_exact": latent_diff}
     if on_card:
@@ -849,6 +917,300 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
         print(f"[extract] batched run {wall_s:.3f} s wall (model load, reads, encode, synthesis, writes): "
               f"{audio_s / wall_s:.1f} audio seconds per wall second ({nvidia_smi()})")
     return result
+
+
+def bias_heads_to(lm, codes: np.ndarray) -> None:
+    """Stand in for training (as tests/test_lm_compress.py biases its heads):
+    each head's bias becomes the log frequencies of its stream in ``codes
+    [n_q, T]``, and its weights shrink 10x, so that the untrained trunk moves
+    the logits by about 0.1 and LM coding beats raw packing."""
+    with torch.no_grad():
+        for q, head in enumerate(lm.heads):
+            freq = np.bincount(codes[q], minlength=lm.bins) + 0.01
+            head.bias.copy_(torch.from_numpy(np.log(freq / freq.sum())).float())
+            head.weight.mul_(0.1)
+
+
+def _host_s(fn, on_card):
+    """``(fn(), seconds by the host clock)``, synchronized on the card."""
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if on_card:
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_lm(device="cuda", dtype=torch.bfloat16, seconds=10.0, lm_width=LM_WIDTH, preset=FLAGSHIP,
+             **overrides) -> dict:
+    """LM entropy coding of one file: ``seconds`` of seeded audio through
+    ``SoundStreamCompressor(lm=)`` (the encode runs K1 and K2, then the LM
+    codes the ``n_q`` streams frame by frame) and back through
+    ``decompress`` (LM decoding, then the decode, K2), with the launch
+    counts read around both. The LM is seeded at ``lm_width`` with its heads
+    biased to the file's tokens (:func:`bias_heads_to`), so the guard keeps
+    the LM blob, which must decode to exactly ``model.encode``'s tokens and
+    give ``model.decode``'s wav bitwise. A second, unbiased LM must make the
+    guard keep the raw blob, byte-identical to ``compress_codes``'s. Prints
+    bits per token, coder and decoder ms per frame (host clock), the LM
+    step's wall time, the device's busy share while coding, and whether the
+    card's blob decodes on the CPU (asserted on neither side: float pdfs of
+    two device kinds need not agree bitwise). ``step_ms`` is the host clock of
+    one LM step, which ends in the copy of its pdfs to the host."""
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    wav = seeded_wav(1, int(round(seconds * model.sample_rate)), "cpu", seed=8)
+    spread_codebooks(model, latent_frames(model, wav))
+    on_card = model.device.type == "cuda"
+    codes = model.encode(wav).cpu().numpy()[:, 0]  # [n_q, T]
+    n_q, T = codes.shape
+    lm = RVQTokenLM(n_q=n_q, bins=model.bins, **lm_width, device=device)
+    bias_heads_to(lm, codes)
+    comp = SoundStreamCompressor(model, lm=lm)
+    reset_launches()
+    blob, compress_s = _host_s(lambda: comp.compress(wav[0].numpy()), on_card)
+    (out, _), decompress_s = _host_s(lambda: comp.decompress(blob), on_card)
+    launches = read_launches()
+    expected = {"rvq_encode": 1, "lstm2": k2_slstms(model), "resblock_tower": 0, "resblock_tower_gn": 0}
+    expected = {k: (n if on_card else 0) for k, n in expected.items()}
+    header = binary.read_ecdc_header(io.BytesIO(blob))
+    tokens_exact = np.array_equal(decompress_tokens(blob, lm=lm)[0], codes)
+    ref = model.decode(torch.from_numpy(codes[:, None])).float().cpu().numpy()[0, :wav.shape[1]]
+    wav_exact = np.array_equal(out, ref)
+    raw = compress_codes(codes, bits_per_codebook=model.bits_per_codebook, metadata=comp._meta(wav.shape[1]))
+    bits = dict(lm=len(blob) * 8 / codes.size, raw_blob=len(raw) * 8 / codes.size, raw_packing=model.bits_per_codebook)
+    print(f"[lm] {preset} {dtype} 1 x {seconds} s: {n_q} x {T} tokens, LM {lm_width}; blob {len(blob)} bytes, "
+          f"lm={header.get('lm')}, {bits['lm']:.4f} bits/token vs raw blob {bits['raw_blob']:.4f} (packing "
+          f"{bits['raw_packing']}); tokens exact {tokens_exact}, wav equal to model.decode {wav_exact}; "
+          f"launches {launches} (expected {expected})")
+    if launches != expected or not (header.get("lm") and tokens_exact and wav_exact and len(blob) < len(raw)):
+        raise AssertionError(f"lm: launches {launches}, lm {header.get('lm')}, tokens {tokens_exact}, "
+                             f"wav {wav_exact}, {len(blob)} vs raw {len(raw)} bytes")
+    plain = RVQTokenLM(n_q=n_q, bins=model.bins, **lm_width, device=device, seed=1)
+    guarded = compress_tokens_guarded(codes, bits_per_codebook=model.bits_per_codebook,
+                                      metadata=comp._meta(wav.shape[1]), lm=plain)
+    print(f"[lm] an unbiased LM: the guard keeps the raw blob, byte-identical to compress_codes: {guarded == raw}")
+    if guarded != raw:
+        raise AssertionError("lm: with an unbiased LM the guard did not keep the raw blob")
+    lm_blob, code_s = _host_s(lambda: compress_tokens_with_lm(lm, codes), on_card)
+    _, decode_s = _host_s(lambda: decompress_tokens_with_lm(lm, lm_blob), on_card)
+    result = {"launches": launches, "frames": T, "streams": n_q, "bits_per_token": bits,
+              "coder_ms_per_frame": code_s / T * 1e3, "decoder_ms_per_frame": decode_s / T * 1e3,
+              "compress_s": compress_s, "decompress_s": decompress_s}
+    if on_card:
+        step = make_step(lm)
+        prev = torch.full((1, 1, n_q), lm.bins, dtype=torch.long, device=lm.device)
+        _, states, offset = step(prev, None, None)
+        _, step_s = _host_s(lambda: [step(prev, states, offset) for _ in range(20)], on_card)
+        wall_ms, busy_ms, ops, _ = device_busy(lambda: compress_tokens_with_lm(lm, codes[:, :50]))
+        result.update(step_ms=step_s / 20 * 1e3, profiled_frames=50, profiled_wall_ms=wall_ms,
+                      device_busy_ms=busy_ms, device_ops_per_frame=ops / 50,
+                      idle_share=None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms))
+    cpu_lm = RVQTokenLM(n_q=n_q, bins=model.bins, **lm_width, device="cpu")
+    cpu_lm.load_state_dict(lm.state_dict())
+    try:
+        result["card_blob_decodes_on_cpu"] = np.array_equal(decompress_tokens_with_lm(cpu_lm, lm_blob)[0], codes)
+    except (EOFError, RuntimeError, AssertionError, ValueError):  # a desynchronized range decoder
+        result["card_blob_decodes_on_cpu"] = False
+    print(f"[lm] coder {result['coder_ms_per_frame']:.3f} ms/frame, decoder {result['decoder_ms_per_frame']:.3f} "
+          f"ms/frame (host clock, {T} frames x {n_q} streams); one LM step {result.get('step_ms')} ms (host clock, "
+          f"its launches and the copy of the pdfs to the host); coding 50 frames with the profiler on: device busy "
+          f"{result.get('device_busy_ms')} ms of {result.get('profiled_wall_ms')} ms wall, "
+          f"{result.get('device_ops_per_frame')} device operations a frame (idle share {result.get('idle_share')}); "
+          f"the card's blob decodes on the CPU: "
+          f"{result['card_blob_decodes_on_cpu']}" + (f" ({nvidia_smi()})" if on_card else ""))
+    return result
+
+
+def _int8_site_inputs(model, run) -> dict:
+    """``{int8 conv path: its first input}`` while ``run()`` drives ``model``."""
+    inputs, hooks = {}, []
+
+    def record(name):
+        def hook(module, args):
+            inputs.setdefault(name, args[0].detach().clone())  # returns None: the input goes on unchanged
+        return hook
+
+    for name, conv in model.w8a8_convs().items():
+        hooks.append(conv.register_forward_pre_hook(record(name)))
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return inputs
+
+
+def _int8_site_times(model, wav, iters=5) -> dict:
+    """Each int8 stage's convs timed alone on seeded inputs of their shapes:
+    the int8 conv (quantize, im2col, GEMM, dequantize), its int32 part (im2col
+    and GEMM), and the cuDNN conv of the model's dtype it replaces; summed by
+    stage (``encoder.s2``: the encoder's third stage)."""
+    nk = len(model.config.resblock_kernel_sizes)
+    shapes = {k: v.shape for k, v in _int8_site_inputs(model, lambda: model.decode(model.encode(wav))).items()}
+    by_config: dict = {}  # convs of one input shape, kernel size and dilation take the same time
+    for name, shape in shapes.items():
+        conv = model.get_submodule(name)
+        by_config.setdefault((tuple(shape), conv.fan_in, conv.dilation, conv.padding), []).append(name)
+    stages: dict = {}
+    g = torch.Generator(device=wav.device).manual_seed(10)
+    for (shape, _, dil, pad), names in by_config.items():
+        conv = model.get_submodule(names[0])
+        x = torch.randn(shape, generator=g, device=wav.device).to(model.dtype)
+        w, b = conv.resolved_weight().detach(), conv.bias.detach()
+        scale = int8_ops.act_scale_from_amax(x.float().abs().max())
+        xi = int8_ops.quantize_act(x, scale)
+        wi, _ = int8_ops.quantize_kernel_per_cout(w)
+        with torch.no_grad():
+            t = dict(
+                int8_ms=time_ms(lambda: int8_ops.conv1d_w8a8(x, w, b, scale, dilation=dil, padding=(pad, pad)), iters),
+                int32_ms=time_ms(lambda: int8_ops.conv1d_int32(xi, wi, 1, dil, (pad, pad)), iters),
+                cudnn_ms=time_ms(lambda: torch.nn.functional.conv1d(x, w.to(x.dtype), b.to(x.dtype), padding=pad,
+                                                                    dilation=dil), iters),
+            )
+        for name in names:
+            tower, _, block = name.split(".")[:3]
+            st = stages.setdefault(f"{tower}.s{int(block) // nk}", dict(convs=0, channels=shape[1], frames=shape[2],
+                                                                         int8_ms=0.0, int32_ms=0.0, cudnn_ms=0.0))
+            st["convs"] += 1
+            for k, v in t.items():
+                st[k] += v
+    return stages
+
+
+def phase_int8(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=3, threshold=INT8_MIN_CHANNELS,
+               cross_seconds=0.3, preset=HIFI, **overrides) -> dict:
+    """W8A8 HiFi-Codec serving: the model with ``int8_min_channels=threshold``
+    and the same seeded model without, codebooks spread over the same latent
+    frames; the int8 model calibrated on one item (``calibrate_quant``), then
+    one roundtrip of ``batch`` x ``seconds`` with the launch counts and the
+    int8 GEMMs read around it (K3 and K4 still run the fused stages; one GEMM
+    per int8 conv). The int8 decode of the bf16 tokens against the bf16
+    decode: relative L2 error <= 0.12, JAX's bound (tests/test_int8.py:121);
+    the token mismatch of the two encodes and the roundtrips' relative L2
+    error are printed. On the card: both roundtrips timed in turns, and each
+    int8 stage's convs against the cuDNN convs they replace. Then the card
+    against the CPU (:func:`_int8_cross_check`)."""
+    fp = load_codec(preset, device=device, dtype=dtype, **overrides)
+    q = load_codec(preset, device=device, dtype=dtype, int8_min_channels=threshold, **overrides)
+    wav = seeded_wav(batch, int(round(seconds * fp.config.sampling_rate)), device, seed=9)
+    frames = latent_frames(fp, wav[:2])
+    spread_codebooks(fp, frames)
+    spread_codebooks(q, frames)
+    calibrate_quant(q, wav[:1])
+    on_card = wav.device.type == "cuda"
+    sites = len(q.w8a8_convs())
+    n_tok = q.quantizer.n_residual * q.quantizer.n_groups
+    expected = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(q.config)}
+    result = checked_roundtrip("int8", q, wav, expected, (batch, -(-wav.shape[1] // q.hop_length), n_tok))
+    gemms = int8_ops.INT_MM_CALLS
+    with torch.no_grad():
+        codes_fp = fp.encode(wav)
+        out_fp = fp.decode(codes_fp).float()
+        out_q_same = q.decode(codes_fp).float()
+    rel = ((out_q_same - out_fp).norm() / out_fp.norm()).item()
+    rel_rt = ((result["wav"].float() - out_fp).norm() / out_fp.norm()).item()
+    mismatch = (result["codes"] != codes_fp).double().mean().item()
+    distinct = check_distinct("int8", codes_fp)
+    print(f"[int8] {preset} {dtype}, int8_min_channels {threshold}: {sites} int8 convs, {gemms} int8 GEMMs in the "
+          f"roundtrip (expected {sites if on_card else 0}); int8 decode of the bf16 tokens vs the bf16 decode: "
+          f"relative L2 {rel:.4g} (limit 0.12); roundtrips: relative L2 {rel_rt:.4g}, token mismatch {mismatch:.4g}")
+    if gemms != (sites if on_card else 0) or not rel <= 0.12:
+        raise AssertionError(f"int8: {gemms} GEMMs for {sites} sites, relative L2 {rel:.4g}")
+    out = {"launches": result["launches"], "int8_convs": sites, "int8_gemms": gemms, "wav_rel_l2_same_tokens": rel,
+           "wav_rel_l2_roundtrip": rel_rt, "token_mismatch_vs_bf16": mismatch, "distinct_tokens": distinct}
+    if on_card and iters:
+        for tag, model in (("bf16", fp), ("int8", q), ("int8", q), ("bf16", fp)):
+            timed = timed_roundtrips(f"int8 {tag}", model, wav, seconds, iters)
+            if tag in out:
+                timed = {k: (v + out[tag][k]) / 2 for k, v in timed.items()}
+            out[tag] = timed
+        out["stages"] = _int8_site_times(q, wav)
+        for stage, t in out["stages"].items():
+            print(f"[int8] {stage} ({t['channels']} ch x {t['frames']} frames, {t['convs']} convs): int8 "
+                  f"{t['int8_ms']:.3f} ms (im2col + GEMM {t['int32_ms']:.3f}) vs cuDNN {dtype} {t['cudnn_ms']:.3f} ms")
+    out.update(_int8_cross_check(device, preset, threshold, cross_seconds, **overrides))
+    return out
+
+
+def _int8_cross_check(device, preset, threshold, seconds, **overrides) -> dict:
+    """The int8 model on the card against the CPU: f32, ``seconds`` x 2, the
+    CPU's calibrated scales on both, codebooks spread as in :func:`phase_int8`.
+    Each int8 site's int32 sums on the card equal the plain version's on the
+    CPU's own inputs of that site (exactly); the int8 activations of the two
+    runs, whose f32 inputs differ by float rounding, are counted where they
+    land on different integers (the generators decode the CPU's tokens); then
+    tokens (mismatch <= ``INT8_CROSS_TOKEN_LIMIT``) and the wav decoded from
+    the CPU's tokens (atol 2e-4)."""
+    cwav = seeded_wav(2, int(seconds * 24000), "cpu", seed=2)
+    cframes = latent_frames(load_codec(preset, device="cpu", **overrides), cwav)
+    cpu = load_codec(preset, device="cpu", int8_min_channels=threshold, **overrides)
+    gpu = load_codec(preset, device=device, int8_min_channels=threshold, **overrides)
+    spread_codebooks(cpu, cframes)
+    spread_codebooks(gpu, cframes)
+    calibrate_quant(cpu, cwav)
+    gpu.load_quant({name: conv.act_amax for name, conv in cpu.w8a8_convs().items()})
+    codes_cpu = cpu.encode(cwav)
+    x_cpu = _int8_site_inputs(cpu, lambda: cpu.decode(cpu.encode(cwav)))
+    x_gpu = _int8_site_inputs(gpu, lambda: (gpu.encode(cwav), gpu.decode(codes_cpu)))  # one set of tokens
+    sums_exact, flips, total, first = True, {"encoder": 0, "generator": 0}, 0, {}
+    for name, x in x_cpu.items():  # in the order the sites ran
+        conv = cpu.get_submodule(name)
+        scale = int8_ops.act_scale_from_amax(conv.act_amax)
+        xi = int8_ops.quantize_act(x, scale)
+        wi, _ = int8_ops.quantize_kernel_per_cout(conv.resolved_weight().detach())
+        args = (1, conv.dilation, (conv.padding, conv.padding))
+        card = int8_ops.conv1d_int32(xi.to(gpu.device), wi.to(gpu.device), *args).cpu()
+        sums_exact &= torch.equal(card, int8_ops.conv1d_int32_plain(xi, wi, *args))
+        differ = int((int8_ops.quantize_act(x_gpu[name].cpu(), scale) != xi).sum())
+        flips[name.split(".")[0]] += differ
+        first.setdefault(name.split(".")[0], (name, differ, xi.numel()))
+        total += xi.numel()
+    cross = (gpu.encode(cwav).cpu() != codes_cpu).double().mean().item()
+    ref = cpu.decode(codes_cpu)
+    diff = gpu.decode(codes_cpu).cpu() - ref
+    err, rel = diff.abs().max().item(), (diff.norm() / ref.norm()).item()
+    print(f"[int8] f32 card vs CPU, 2 x {seconds} s, the CPU's scales: int32 sums of all {len(x_cpu)} sites on "
+          f"the CPU's inputs equal {sums_exact}; int8 activations on other integers {flips} of {total} (first "
+          f"sites, whose inputs differ by f32 rounding only: {first}); token mismatch {cross:.3g} (limit "
+          f"{INT8_CROSS_TOKEN_LIMIT}), wav from the same tokens max abs diff {err:.3g} (atol 2e-4), relative L2 "
+          f"{rel:.3g}")
+    check_distinct("int8 cross", codes_cpu)
+    if not (sums_exact and cross <= INT8_CROSS_TOKEN_LIMIT and err <= 2e-4):
+        raise AssertionError(f"int8: the card's int8 path disagrees with the CPU's: sums exact {sums_exact}, "
+                             f"token mismatch {cross:.3g}, wav {err:.3g}")
+    return {"cross_int32_sums_exact": sums_exact, "cross_int8_activations_differ": flips,
+            "cross_int8_activations": total, "cross_first_sites": first, "cross_token_mismatch": cross,
+            "cross_wav_max_abs_diff": err, "cross_wav_rel_l2": rel}
+
+
+LAYER_OPTS = ({"norm": "time_group_norm"}, {"norm": "layer_norm"}, {"lstm": 3})
+
+
+def phase_layer_opts(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters=3, cross_seconds=0.3,
+                     stream_seconds=2.0, **overrides) -> dict:
+    """The SEANet layer options at the flagship's widths: for each of
+    ``LAYER_OPTS`` one roundtrip with its launch counts (K2 only for 2-layer
+    SLSTMs; 3 layers run cuDNN's LSTM) and ``iters`` timed ones, then the card
+    against the CPU (f32 at ``cross_seconds``: token mismatch <= 1e-2, wav
+    atol 2e-4, more than 8 distinct tokens). Then the causal stream with a
+    3-layer SLSTM, chunk by chunk against the whole call, in bf16 and f32."""
+    out = {}
+    for opts in LAYER_OPTS:
+        tag = ",".join(f"{k}={v}" for k, v in opts.items())
+        print(f"[layer_opts] {tag}")
+        r = phase_main_path(device, dtype, batch, seconds, iters, **opts, **overrides)
+        out[tag] = {k: r[k] for k in ("launches", "distinct_tokens", "roundtrip_ms", "realtime_factor",
+                                      "peak_mem_gib") if k in r}
+        if cross_seconds:
+            phase_cross_check(device, FLAGSHIP, seconds=cross_seconds, **opts, **overrides)
+    print("[layer_opts] causal stream, lstm=3")
+    r = phase_stream(device, dtype, batch, stream_seconds, lstm=3, **overrides)
+    out["stream_lstm=3"] = {k: v for k, v in r.items() if k not in ("launches", "profile")}
+    if cross_seconds:
+        out["stream_check_lstm=3"] = phase_stream_check(device, lstm=3, **overrides)
+    return out
 
 
 def phase_lstm2_carry(device, B=8, T=1000, H=512, ragged_t=70, iters=20) -> dict:
@@ -1037,7 +1399,8 @@ def phase_stream(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, chu
     wall_s = time.perf_counter() - t0
     launches = read_launches()
     codes, out = torch.cat(codes, -1), torch.cat(outs, -1)
-    expected = {"rvq_encode": n_chunks, "lstm2": 2 * n_chunks, "resblock_tower": 0, "resblock_tower_gn": 0}
+    expected = {"rvq_encode": n_chunks, "lstm2": k2_slstms(model) * n_chunks, "resblock_tower": 0,
+                "resblock_tower_gn": 0}
     expected = {k: (n if on_card else 0) for k, n in expected.items()}
     finite = bool(torch.isfinite(out.float()).all())
     print(f"[stream] codes {tuple(codes.shape)}, wav {tuple(out.shape)}, finite {finite}, launches {launches}")
@@ -1127,14 +1490,15 @@ def phase_stream_hifi(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0
     return result
 
 
-def phase_stream_check(device, seconds=1.0, batch=2) -> dict:
+def phase_stream_check(device, seconds=1.0, batch=2, **overrides) -> dict:
     """Streaming against the full causal call on the same card, f32 with TF32
     off, full width: Encodec tokens with codebooks spread over the latents
     (mismatch <= 2%, JAX's bound for
     shape-dependent near-tie flips, tests/test_streaming.py), Encodec wav
     decoded chunk by chunk from the full encode's tokens (atol 1e-4), and the
-    HiFi-Codec generator's streaming decode of seeded tokens (atol 1e-4)."""
-    model = load_codec(FLAGSHIP, device=device, causal=True, pad_mode="zero")
+    HiFi-Codec generator's streaming decode of seeded tokens (atol 1e-4).
+    ``overrides`` go to the Encodec model (SEANet's ``norm``, ``lstm``)."""
+    model = load_codec(FLAGSHIP, device=device, causal=True, pad_mode="zero", **overrides)
     chunk = model.hop_length * 10
     wav = seeded_wav(batch, int(seconds * model.sample_rate) // chunk * chunk, device, seed=3)
     spread_codebooks(model, latent_frames(model, wav))
@@ -1149,7 +1513,7 @@ def phase_stream_check(device, seconds=1.0, batch=2) -> dict:
     hdec = StreamingVQVAEDecoder(hifi)
     hifi_err = (torch.cat([hdec.process(c) for c in toks.split(10, 1)], -1) - hifi.decode(toks)).abs().max().item()
     distinct = int(torch.unique(full).numel())
-    print(f"[stream_check] f32, {batch} x {seconds} s: Encodec streaming vs full tokens ({distinct} distinct) mismatch {mismatch:.3g} "
+    print(f"[stream_check] f32, {batch} x {seconds} s{' ' + str(overrides) if overrides else ''}: Encodec streaming vs full tokens ({distinct} distinct) mismatch {mismatch:.3g} "
           f"(limit 0.02), wav max abs diff {wav_err:.3g} (atol 1e-4); HiFi-Codec streaming vs full decode "
           f"{hifi_err:.3g} (atol 1e-4)")
     if not (mismatch <= 0.02 and wav_err <= 1e-4 and hifi_err <= 1e-4):
@@ -1272,16 +1636,22 @@ def main() -> int:
     stream_check = phase_stream_check(device)
     compress = phase_compress(device)
     extract = phase_extract(device)
+    lm = phase_lm(device)
+    int8 = phase_int8(device)
+    layer_opts = phase_layer_opts(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
         k["launches_per_stream_chunk"] = stream["launches_per_chunk"][name]
         k["launches_compress_roundtrip"] = compress["launches"][name]
+        k["launches_lm_compress_roundtrip"] = lm["launches"][name]
     k3["launches"] = hifi["launches"]["resblock_tower"]
     k3["launches_fused_pre"] = hifi_pre["launches"]["resblock_tower"]
     k3["launches_extract"] = extract["launches"]["resblock_tower"]
+    k3["launches_int8_roundtrip"] = int8["launches"]["resblock_tower"]
     k4["launches"] = hifi["launches"]["resblock_tower_gn"]
     k4["launches_extract"] = extract["launches"]["resblock_tower_gn"]
+    k4["launches_int8_roundtrip"] = int8["launches"]["resblock_tower_gn"]
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
     print(f"[main] {json.dumps({'distinct_tokens': main_path['distinct_tokens'], **{k: main_path[k] for k in keys}})}")
     print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
@@ -1292,6 +1662,9 @@ def main() -> int:
     print(f"[stream_hifi] {json.dumps({k: v for k, v in stream_hifi.items() if k not in skip})}")
     print(f"[stream_check] {json.dumps(stream_check)}")
     print(f"[compress] {json.dumps(compress)}")
+    print(f"[lm] {json.dumps(lm)}")
+    print(f"[int8] {json.dumps(int8)}")
+    print(f"[layer_opts] {json.dumps(layer_opts)}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -666,3 +666,108 @@ def test_vqvae_masked_encode_and_fused_pre_on_the_card(cuda):
     torch.cuda.synchronize()
     assert rb_ops.TOWER_LAUNCHES == before + 4
     torch.testing.assert_close(out_pre, out, atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize(
+    "B,C,O,K,T,stride,dilation,padding",
+    [
+        (2, 128, 128, 11, 300, 1, 5, (25, 25)),  # hificodec's widest dilation at 128 channels
+        (1, 12, 20, 3, 9, 1, 1, (1, 1)),  # 9 rows: the GEMM's M is padded past 16; K*C=36, O=20 padded to 8s
+        (3, 40, 24, 5, 50, 3, 2, (2, 1)),
+    ],
+)
+def test_int8_conv_gemm_matches_plain(cuda, B, C, O, K, T, stride, dilation, padding):
+    """cuBLASLt's int8 GEMM on the im2col (``torch._int_mm``) against the f64
+    plain version: equal int32 sums, and one GEMM a call."""
+    from academicodec_tpu_torch.ops import int8
+
+    g = torch.Generator().manual_seed(B * C + K)
+    xi = torch.randint(-127, 128, (B, C, T), generator=g, dtype=torch.int8)
+    wi = torch.randint(-127, 128, (O, C, K), generator=g, dtype=torch.int8)
+    before = int8.INT_MM_CALLS
+    y = int8.conv1d_int32(xi.to(cuda), wi.to(cuda), stride, dilation, padding)
+    torch.cuda.synchronize()
+    assert int8.INT_MM_CALLS == before + 1 and y.dtype == torch.int32
+    assert torch.equal(y.cpu(), int8.conv1d_int32_plain(xi, wi, stride, dilation, padding))
+
+
+def _lm_pair(cuda, **kw):
+    from academicodec_tpu_torch.models.lm import RVQTokenLM
+
+    kw = {**dict(n_q=4, bins=64, dim=32, num_heads=4, num_layers=2, past_context=16), **kw}
+    cpu = RVQTokenLM(**kw, device="cpu", seed=3)
+    gpu = RVQTokenLM(**kw, device=cuda, seed=3)
+    return cpu, gpu
+
+
+def test_lm_step_on_the_card_matches_the_cpu(cuda):
+    """The LM coding step, f32, card against CPU over 20 frames past the
+    context: probabilities within atol 1e-5."""
+    from academicodec_tpu_torch.codec.lm_compress import make_step
+
+    cpu, gpu = _lm_pair(cuda)
+    codes = np.random.default_rng(3).integers(0, 64, (4, 20))
+    steps = [make_step(cpu), make_step(gpu)]
+    carried = [(None, None), (None, None)]
+    prev = [torch.full((1, 1, 4), 64), torch.full((1, 1, 4), 64, device=cuda)]
+    for t in range(20):
+        pdfs = []
+        for i, step in enumerate(steps):
+            pdf, *carried[i] = step(prev[i], *carried[i])
+            pdfs.append(pdf)
+            prev[i] = torch.from_numpy(codes[:, t].reshape(1, 1, 4)).to(prev[i].device)
+        np.testing.assert_allclose(pdfs[1], pdfs[0], atol=1e-5, rtol=0, err_msg=f"frame {t}")
+
+
+def test_lm_blob_coded_on_the_card_decodes_on_the_card(cuda):
+    from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, decompress_tokens_with_lm
+
+    _, gpu = _lm_pair(cuda)
+    codes = np.random.default_rng(4).integers(0, 64, (4, 40)).astype(np.int32)
+    blob = compress_tokens_with_lm(gpu, codes, metadata={"sr": 24000})
+    torch.backends.cuda.matmul.allow_tf32 = True  # the step pins its own precision
+    try:
+        out, meta = decompress_tokens_with_lm(gpu, blob)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    np.testing.assert_array_equal(out, codes)
+    assert meta["lm"] is True
+
+
+@pytest.mark.parametrize("layers", [1, 3])
+def test_slstm_library_lstm_on_the_card_matches_the_cpu(cuda, layers):
+    """N-layer SLSTMs: cuDNN's LSTM on the card against the plain step loop
+    on the CPU, f32, from a carry: output and final carry within atol 1e-5."""
+    from academicodec_tpu_torch.nn.lstm import SLSTM
+
+    mod = SLSTM(64, num_layers=layers)
+    mod.lstm.reset_parameters(torch.Generator().manual_seed(layers))
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 64, 50), generator=g) * 0.5
+    carry = tuple((torch.randn((2, 64), generator=g), torch.randn((2, 64), generator=g)) for _ in range(layers))
+    with torch.no_grad():
+        y_cpu, c_cpu = mod(x, carry, return_carry=True)
+        gpu = mod.to(cuda)
+        y, c = gpu(x.to(cuda), tuple(tuple(t.to(cuda) for t in hc) for hc in carry), return_carry=True)
+    before = lstm_ops.LAUNCHES
+    torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-5, rtol=0)
+    for hc, hc_cpu in zip(c, c_cpu):
+        for a, b in zip(hc, hc_cpu):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+    assert lstm_ops.LAUNCHES == before  # no K2: it is 2-layer only
+
+
+@pytest.mark.parametrize("norm", ["layer_norm", "time_group_norm"])
+def test_post_conv_norms_on_the_card_match_the_cpu(cuda, norm):
+    from academicodec_tpu_torch.nn.conv import SConv1d
+
+    conv = SConv1d(16, 24, 7, norm=norm)
+    g = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        conv.conv.conv.reset_parameters(g)
+        conv.conv.norm.weight.normal_(1.0, 0.2, generator=g)
+        conv.conv.norm.bias.normal_(0.0, 0.2, generator=g)
+        x = torch.randn((2, 16, 300), generator=g)
+        ref = conv(x)
+        y = conv.to(cuda)(x.to(cuda))
+    torch.testing.assert_close(y.cpu(), ref, atol=1e-5, rtol=1e-5)

@@ -193,8 +193,8 @@ def test_extract_tokens_cli_matches_jax_batched_and_sequential(corpus, tmp_path,
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--lm", "lm_dir", "--tokens_ecdc", "x"], "Queue 1 item 8"),
-    (["--int8_min_channels", "128"], "Queue 1 item 3"),
+    (["--lm", "lm_dir"], "pass --tokens_ecdc"),
+    (["--lm", "no_such_lm_dir", "--tokens_ecdc", "x"], "no LM checkpoint"),
     (["--data_parallel", "--batch_files", "2", "--bucket_seconds", "1"], "Queue 1 item 9"),
     (["--sequence_parallel"], "Queue 1 item 9"),
     (["--batch_files", "2"], "needs --bucket_seconds"),

@@ -211,5 +211,5 @@ def test_chip_smoke_fused_pre_and_extract_rehearsal():
     assert not any(r["launches"].values()) and r["wav_rel_err_vs_unfused"] <= 1e-6
     assert r["distinct_tokens"] > 8
     r = chip_smoke.phase_extract(device="cpu", n_files=3, min_seconds=0.1, max_seconds=0.3, bucket_seconds=0.2,
-                                 **tiny)
+                                 lm_width=dict(dim=16, num_heads=2, num_layers=1, past_context=8), **tiny)
     assert not any(r["launches"].values()) and r["token_mismatch"] == 0.0

@@ -68,9 +68,23 @@ def test_lstm2_wrapper_takes_plain_version_on_cpu_and_checks_devices():
         lstm2(args[0].to("meta"), *args[1:], out_dtype=torch.float32)
 
 
-def test_slstm_is_two_layers_only():
+def test_slstm_is_two_layers_only(monkeypatch):
+    """Only a 2-layer SLSTM runs the fused recurrence (``lstm2``, K2 on the
+    card); other layer counts run the library LSTM, and 0 layers raise."""
+    from academicodec_tpu_torch.nn import lstm as lstm_mod
+
     with pytest.raises(ValueError):
-        SLSTM(8, num_layers=3)
+        SLSTM(8, num_layers=0)
+    calls = []
+    monkeypatch.setattr(lstm_mod, "lstm2", lambda *a, **k: calls.append(1) or lstm2(*a, **k))
+    x = torch.randn(2, 8, 5, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for n in (1, 2, 3):
+            mod = SLSTM(8, num_layers=n)
+            mod.lstm.reset_parameters(torch.Generator().manual_seed(n))
+            y, carry = mod(x, return_carry=True)
+            assert y.shape == x.shape and len(carry) == n
+    assert len(calls) == 1  # the 2-layer one only
 
 
 @pytest.mark.parametrize(
