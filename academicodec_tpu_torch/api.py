@@ -12,9 +12,10 @@ from academicodec_tpu_torch.models.soundstream import SoundStream
 
 
 def reference_state_dict(ckpt: dict) -> dict:
-    """A reference SoundStream ``state_dict`` from a loaded ``.pth``: the flat
-    ``best_*.pth`` dict or the ``'soundstream'`` entry of ``latest.pth``,
-    with DDP ``module.`` prefixes removed."""
+    """A reference SoundStream ``state_dict`` from a loaded checkpoint: the flat
+    ``best_*.pth`` dict, or the ``'soundstream'`` entry of a reference
+    ``latest.pth`` or of a port training checkpoint (``utils/checkpoint.py``,
+    ``<prefix>_<step>.pt``), with DDP ``module.`` prefixes removed."""
     sd = ckpt.get("soundstream", ckpt)
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
@@ -31,7 +32,8 @@ def load_codec(
     """Build a preset on ``device`` and load its weights.
 
     ``checkpoint`` is a reference PyTorch file (a SoundStream ``.pth``, or a
-    HiFi-Codec ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``), or
+    HiFi-Codec ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``), a port
+    training checkpoint of ``cli/train_encodec.py`` (``latest_<step>.pt``), or
     None for random weights drawn from ``seed``. The default device is the
     card; without one this raises rather than running on the CPU.
     """

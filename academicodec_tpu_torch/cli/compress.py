@@ -5,7 +5,8 @@ the reconstructions to ``--output``; with ``--ecdc`` it also writes each
 file's compressed ``.ecdc`` stream. The flags and output files are those of
 ``academicodec_tpu/cli/compress.py``, plus ``--device`` (the card unless
 ``cpu`` is asked for). The checkpoint is a reference PyTorch ``.pth`` (DDP
-``module.`` prefixes removed, test.py:172-178).
+``module.`` prefixes removed, test.py:172-178) or a training checkpoint of
+the port's ``cli/train_encodec.py`` (``latest_<step>.pt``, ``best_<step>.pt``).
 
     python -m academicodec_tpu_torch.cli.compress --input wavs/ --output out/ \\
         --resume_path best.pth --sr 24000 --ratios 6 5 4 2 \\
@@ -17,7 +18,8 @@ file's compressed ``.ecdc`` stream. The flags and output files are those of
 ``encodec`` and whose streams are those of ``--target_bw``; each file is
 then LM-entropy-coded where that is smaller than raw packing.
 
-Not ported yet: orbax checkpoint directories, ``--data_parallel`` and
+Not ported: the JAX trainer's orbax checkpoint directories (the port's
+trainer writes ``.pt`` files instead), ``--data_parallel`` and
 ``--sequence_parallel`` (multi-GPU serving, ROADMAP.md Queue 1 item 9).
 ``--packed_conv`` selects a TPU lowering; the port accepts it and runs its
 one path.
@@ -45,7 +47,8 @@ def get_args(argv=None):
     p = argparse.ArgumentParser("compress")
     p.add_argument("--input", type=str, required=True, help="wav dir")
     p.add_argument("--output", type=str, required=True, help="output dir")
-    p.add_argument("--resume_path", type=str, required=True, help="reference .pth checkpoint")
+    p.add_argument("--resume_path", type=str, required=True,
+                   help="reference .pth checkpoint, or a .pt training checkpoint of the port")
     p.add_argument("--sr", type=int, default=16000)
     p.add_argument("--ratios", type=int, nargs="+", default=[8, 5, 4, 2])
     p.add_argument("--target_bandwidths", type=float, nargs="+", default=[1, 1.5, 2, 4, 6, 12])
@@ -83,7 +86,8 @@ def get_args(argv=None):
     if args.batch_files > 1 and not args.bucket_seconds:
         p.error("--batch_files needs --bucket_seconds (uniform padded lengths per device batch)")
     if not (os.path.isfile(args.resume_path) and args.resume_path.endswith((".pth", ".pt"))):
-        p.error("--resume_path must be a reference .pth file (orbax directories are not ported)")
+        p.error("--resume_path must be a reference .pth or a port training .pt file "
+                "(orbax directories are not ported)")
     return args
 
 

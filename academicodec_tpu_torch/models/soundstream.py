@@ -113,6 +113,26 @@ class SoundStream(nn.Module):
         """The streams ``encode`` emits at bandwidth ``bw`` (all of them for None)."""
         return self.quantizer.get_num_quantizers_for_bandwidth(self.frame_rate, bw)
 
+    def sample_n_q(self, generator: torch.Generator) -> int:
+        """The layer count of a uniformly drawn target bandwidth (reference
+        net3.py:40-41, JAX models/soundstream.py:72), drawn from ``generator``."""
+        choices = [self.n_q_for_bandwidth(bw) for bw in self.target_bandwidths]
+        return choices[int(torch.randint(len(choices), (), generator=generator))]
+
+    def forward(self, x: torch.Tensor, n_q: Optional[int] = None, training: bool = False,
+                draws: Optional[torch.Tensor] = None):
+        """Training/eval forward, wav ``[B, T]`` on the model's device, in any float
+        dtype the weights take -> ``(recon [B, T], commit loss, codes [n_q, B,
+        frames])`` (JAX models/soundstream.py:99-111). ``training`` updates the
+        codebooks' EMA state and needs ``draws`` (``quant/core_vq.py``). The 2-layer
+        SLSTMs run K2 when autograd does not record the call, else the library LSTM."""
+        e = self.encoder(x[:, None, :])
+        quantized, codes, _bw, commit = self.quantizer(
+            e.transpose(1, 2), self.frame_rate, n_q=n_q if n_q is not None else self.n_q,
+            training=training, draws=draws,
+        )
+        return self.decoder(quantized.transpose(1, 2))[:, 0, :], commit, codes
+
     @torch.no_grad()
     def encode(self, x, target_bw: Optional[float] = None, st: int = 0) -> torch.Tensor:
         """wav ``[B, T]`` -> codes ``[n_q - st, B, frames]`` int32 (reference net3.py:47-56)."""

@@ -2,10 +2,12 @@
 
 Parameters use the reference PyTorch layouts and names: ``weight_v`` /
 ``weight_g`` (torch ``weight_norm(dim=0)``) or a plain ``weight``, with
-``[O, I, K]`` conv and ``[I, O, K]`` conv-transpose kernels. Weight norm is
-resolved on every call as ``g * v / ||v||`` with no eps, exactly as
-``academicodec_tpu/nn/conv.py`` does: per out-channel for conv, per
-in-channel for conv-transpose.
+``[O, I, K]`` conv, ``[I, O, K]`` conv-transpose and ``[O, I, kh, kw]``
+``Conv2d`` kernels. Weight norm is resolved on every call as ``g * v /
+||v||`` with no eps, exactly as ``academicodec_tpu/nn/conv.py`` does: per
+out-channel for conv, per in-channel for conv-transpose. The resolution is
+plain differentiable torch, so under autograd the gradients reach ``g`` and
+``v`` (the discriminators and the trainer train through it).
 
 ``NormConv1d`` / ``NormConvTranspose1d`` add the reference's extra module
 level, so state-dict keys read ``conv.conv.weight_v`` and
@@ -36,7 +38,7 @@ SConvTranspose1d); reference academicodec/modules/conv.py:213-323.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -66,7 +68,7 @@ class _NormedWeight(nn.Module):
         self.norm = norm
         if norm == "weight_norm":
             self.weight_v = nn.Parameter(torch.empty(shape))
-            self.weight_g = nn.Parameter(torch.empty(shape[0], 1, 1))
+            self.weight_g = nn.Parameter(torch.empty((shape[0],) + (1,) * (len(shape) - 1)))
         else:
             self.weight = nn.Parameter(torch.empty(shape))
 
@@ -92,7 +94,7 @@ class _NormedWeight(nn.Module):
 
 
 def _channel_norm(v: torch.Tensor) -> torch.Tensor:
-    return v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+    return v.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
 
 
 class Conv1d(_NormedWeight):
@@ -178,6 +180,43 @@ class ConvTranspose1d(_NormedWeight):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(
             x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding
+        )
+
+
+class Conv2d(_NormedWeight):
+    """Cross-correlation over ``[B, C, H, W]`` with an ``[O, I/groups, kh, kw]``
+    kernel (torch's layout), norm ``none`` or ``weight_norm`` (per out-channel),
+    and ``padding`` zeros ``(ph, pw)`` on both sides of each dim
+    (academicodec_tpu/nn/conv.py:324-365, whose kernels are ``[kh, kw, I, O]``
+    on ``[B, H, W, C]``)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: Tuple[int, int],
+        stride: Tuple[int, int] = (1, 1),
+        dilation: Tuple[int, int] = (1, 1),
+        padding: Tuple[int, int] = (0, 0),
+        groups: int = 1,
+        bias: bool = True,
+        norm: str = "none",
+    ):
+        super().__init__()
+        kh, kw = kernel_size
+        self.stride, self.dilation, self.padding, self.groups = tuple(stride), tuple(dilation), tuple(padding), groups
+        self.fan_in = (in_channels // groups) * kh * kw
+        self._make_weight((out_channels, in_channels // groups, kh, kw), norm)
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, generator: torch.Generator, normal_std=None) -> None:
+        """Torch's default uniform init, or N(0, normal_std^2) weights."""
+        self._init_weight(generator, self.fan_in, normal_std)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(
+            x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding,
+            dilation=self.dilation, groups=self.groups,
         )
 
 

@@ -215,19 +215,32 @@ class GroupNormTorch(nn.Module):
                 count: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``mask [B, 1, T]`` (0/1) and ``count [B]`` (its valid frames), set
         together, restrict the statistics to the valid frames; they accumulate
-        in f32 (JAX nn/hifigan.py:239-280)."""
+        in f32 (JAX nn/hifigan.py:239-280).
+
+        On the card f32 inputs accumulate in f64, masked or not: CUDA's
+        reductions pick their order from the reduced length, so f32 sums over
+        a zero-padded row and over the same row at its exact length part by
+        an ulp, and the tokens of a batched encode part from a single one's at
+        near-ties (ROADMAP.md Queue 3 item 3). In f64 both round to the same
+        f32 statistics. bf16 serving keeps its sums: its tokens are not held
+        batched against single, and f64 passes over the wide stages cost it time."""
         B, C, T = x.shape
         xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
-        if mask is None:
+        acc = torch.float64 if x.is_cuda and x.dtype == torch.float32 else None
+        if mask is None and acc is None:
             mean = xg.mean(dim=(2, 3), keepdim=True)
             var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
         else:
-            m = mask.float()[:, None]  # [B, 1, 1, T]
-            xf = xg.float()
-            n = (count.float() * (C // self.num_groups)).reshape(B, 1, 1, 1)
-            mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
-            var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
-            mean, var = mean.to(x.dtype), var.to(x.dtype)
+            xf = xg.to(acc or torch.float32)
+            if mask is None:
+                mean = xf.mean(dim=(2, 3), keepdim=True)
+                var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
+            else:
+                m = mask.to(xf.dtype)[:, None]  # [B, 1, 1, T]
+                n = (count.to(xf.dtype) * (C // self.num_groups)).reshape(B, 1, 1, 1)
+                mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
+                var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
+            mean, var = mean.float().to(x.dtype), var.float().to(x.dtype)
         xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
         return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
 

@@ -11,6 +11,13 @@ the f32 scan path's.
 Parameters are registered under the names of ``torch.nn.LSTM``
 (``lstm.weight_ih_l0`` ...), so reference checkpoints load as they are.
 
+Under autograd the 2-layer SLSTM runs the library LSTM below instead, since
+K2 has no backward kernel (nor has the Pallas kernel: the JAX trainer runs
+its plain scan): when ``torch.is_grad_enabled()`` and the input or a
+parameter requires grad, the call goes to :func:`lstm_layers`; otherwise
+(``no_grad``, ``inference_mode``, frozen weights) it launches K2. The choice
+depends on the autograd mode only, never on a failure.
+
 Any other layer count runs a library LSTM, as JAX runs its scan there
 (the Pallas kernel is 2-layer only): for CUDA tensors cuDNN's, through
 ``torch._VF.lstm`` on the same parameters, and for CPU tensors the plain
@@ -100,7 +107,9 @@ def lstm_layers(x: torch.Tensor, layers: Sequence[Tuple[torch.Tensor, ...]], car
         c0 = torch.stack([c for _, c in carry]).to(x.dtype)
         with warnings.catch_warnings():  # the weights are separate tensors, not one cuDNN buffer
             warnings.filterwarnings("ignore", message="RNN module weights are not part of single contiguous")
-            y, h_n, c_n = torch._VF.lstm(x, (h0, c0), flat, True, len(layers), 0.0, False, False, False)
+            # train=True keeps cuDNN's reserve space for a backward (dropout is 0 either way)
+            y, h_n, c_n = torch._VF.lstm(x, (h0, c0), flat, True, len(layers), 0.0, torch.is_grad_enabled(),
+                                         False, False)
         finals = list(zip(h_n.unbind(0), c_n.unbind(0)))
     else:
         raise ValueError(f"lstm_layers: no LSTM for {x.device}")
@@ -131,9 +140,13 @@ class SLSTM(nn.Module):
         z = torch.zeros((batch, w.shape[1]), dtype=torch.float32, device=w.device)
         return tuple((z, z) for _ in range(self.num_layers))
 
+    def needs_grad(self, x: torch.Tensor) -> bool:
+        """Whether this call is recorded by autograd, so that K2 (no backward) cannot run it."""
+        return torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in self.parameters()))
+
     def forward(self, x: torch.Tensor, carry: Optional[tuple] = None, return_carry: bool = False):
         """``x [B, C, T]`` -> ``y [B, C, T]``; with ``return_carry``, ``(y, final carry)``."""
-        if self.num_layers == 2:
+        if self.num_layers == 2 and not self.needs_grad(x):
             flat = None if carry is None else (*carry[0], *carry[1])
             out = lstm2(*self.recurrence_inputs(x), out_dtype=x.dtype, carry=flat, return_carry=return_carry)
             y, final = out if return_carry else (out, None)

@@ -1,14 +1,15 @@
 """Bandwidth-driven residual vector quantizer.
 
-Behavioral parity target: academicodec_tpu/quant/vq.py:58-69 (the
+Behavioral parity target: academicodec_tpu/quant/vq.py:58-96 (the
 ``n_q = floor(bandwidth / (log2(bins) * frame_rate / 1000))`` selection,
-clamped to the codebook count).
+clamped to the codebook count, and the training forward's
+``(quantized, codes, bandwidth, mean commit loss)``).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,6 +35,24 @@ class ResidualVectorQuantizer(nn.Module):
             bw_per_q = self.get_bandwidth_per_quantizer(frame_rate)
             n_q = int(min(self.n_q, max(1, math.floor(bandwidth / bw_per_q))))
         return n_q
+
+    def forward(
+        self,
+        x: torch.Tensor,
+        frame_rate: int,
+        bandwidth: Optional[float] = None,
+        n_q: Optional[int] = None,
+        training: bool = False,
+        draws: Optional[torch.Tensor] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, float, torch.Tensor]:
+        """Training/eval forward on ``[B, T, D]`` with ``n_q`` layers (from
+        ``bandwidth`` when None) -> ``(quantized, codes [n_q, B, T], kb/s, commit
+        loss)``; the commit loss is the mean over the active layers."""
+        if n_q is None:
+            n_q = self.get_num_quantizers_for_bandwidth(frame_rate, bandwidth)
+        quantized, codes, losses = self.vq(x, n_q=n_q, training=training, draws=draws)
+        bw = n_q * self.get_bandwidth_per_quantizer(frame_rate)
+        return quantized, codes, bw, losses.sum() / max(n_q, 1)
 
     def encode(
         self, x: torch.Tensor, frame_rate: int, bandwidth: Optional[float] = None, st: int = 0

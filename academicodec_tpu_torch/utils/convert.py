@@ -12,8 +12,11 @@ Beyond the JAX exporter, which has no mapping for them: the post-conv norms
 of the SEANet convs (JAX ``norm/scale,bias`` for TimeGroupNorm and
 ``norm/ln/scale,bias`` for ConvLayerNorm -> the reference ``NormConv1d``'s
 ``conv.norm.weight,bias``), SLSTMs of any layer count, the int8 scales of
-JAX's ``'quant'`` collection (:func:`hificodec_quant_from_jax`) and the
-token LM (:func:`lm_state_from_jax`).
+JAX's ``'quant'`` collection (:func:`hificodec_quant_from_jax`), the
+token LM (:func:`lm_state_from_jax`), and the Encodec trainer's state
+(:func:`train_state_from_jax`): the codebooks' EMA collection, the
+discriminators (Conv2d HWIO -> OIHW, weight norm's g/v) and the optax AdamW
+states (``count``, ``mu``, ``nu``, ``learning_rate``) as ``torch.optim`` states.
 
 Layouts (JAX -> torch): conv ``[K, I, O]`` -> ``[O, I, K]``, conv-transpose
 ``[K, I, O]`` -> ``[I, O, K]``, dense ``[I, O]`` -> ``[O, I]``; LSTM and
@@ -131,10 +134,92 @@ def soundstream_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.
         sd[base + "cluster_size"] = _t(cluster_size[i])
         # the reference registers inited as a [1] f32 tensor
         sd[base + "inited"] = _t(np.asarray([float(inited[i])], np.float32))
-    for tower in ("encoder", "decoder"):
-        tower_sd = seanet_state_from_jax(variables["params"][tower])
-        sd.update({f"{tower}.{k}": v for k, v in tower_sd.items()})
+    sd.update(soundstream_params_from_jax(variables["params"]))
     return sd
+
+
+def soundstream_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The trained part of a JAX SoundStream (its ``'params'``) -> the port's
+    parameter names (``encoder.model.0.conv.conv.weight_v`` ...)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for tower in ("encoder", "decoder"):
+        sd.update({f"{tower}.{k}": v for k, v in seanet_state_from_jax(params[tower]).items()})
+    return sd
+
+
+def conv2d_state_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """One JAX ``Conv2d``'s params (kernel ``[kh, kw, I, O]``, weight norm's
+    ``g`` ``[1, 1, 1, O]``) -> the port's ``Conv2d`` (``[O, I, kh, kw]``)."""
+    out = {}
+    for ours, value in node.items():
+        if ours not in _CONV_NAMES:
+            raise KeyError(f"unconvertible conv param {ours!r}")
+        a = _np32(value)
+        out[_CONV_NAMES[ours]] = _t(a if ours == "bias" else np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1))))
+    return out
+
+
+def discriminators_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX Encodec trainer's discriminator params (``stft_disc``, ``mpd``,
+    ``msd``) -> the port's ``train.encodec.Discriminators`` state dict:
+    ``discriminators_0/convs_1`` becomes ``discriminators.0.convs.1``, 2D kernels
+    HWIO -> OIHW, 1D kernels ``[K, I, O]`` -> ``[O, I, K]``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix, node):
+        if "kernel" in node or "kernel_v" in node:
+            ndim = np.asarray(node.get("kernel", node.get("kernel_v"))).ndim
+            conv = conv2d_state_from_jax(node) if ndim == 4 else conv_state_from_jax(node, False)
+            sd.update({f"{prefix}.{k}": v for k, v in conv.items()})
+            return
+        for name, child in node.items():
+            stem, _, idx = name.rpartition("_")
+            walk(f"{prefix}.{stem}.{idx}" if idx.isdigit() else f"{prefix}.{name}", child)
+
+    for family in ("stft_disc", "mpd", "msd"):
+        walk(family, params[family])
+    unknown = set(params) - {"stft_disc", "mpd", "msd"}
+    if unknown:
+        raise KeyError(f"unconvertible discriminator trees {sorted(unknown)}")
+    return sd
+
+
+def adamw_state_from_jax(opt_state: Any, to_port, module: torch.nn.Module) -> Dict[str, Any]:
+    """An optax ``inject_hyperparams(adamw | adam)`` state (``hyperparams
+    ['learning_rate']``, ``inner_state[0]`` with ``count``, ``mu``, ``nu``) -> a
+    ``torch.optim.AdamW`` / ``Adam`` state dict over ``module.parameters()``.
+    ``to_port`` maps a JAX param tree to the port's names (the function that
+    converted the params). Load it with ``optimizer.load_state_dict``, whose
+    ``param_groups`` it must match in everything but ``lr`` and the moments."""
+    adam = opt_state.inner_state[0]
+    mu, nu = to_port(adam.mu), to_port(adam.nu)
+    step = torch.tensor(float(np.asarray(adam.count)))
+    names = [name for name, _ in module.named_parameters()]
+    missing = set(names) ^ set(mu)
+    if missing:
+        raise KeyError(f"optimizer moments and parameters differ in {sorted(missing)}")
+    state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
+    return {"state": state, "lr": float(np.asarray(opt_state.hyperparams["learning_rate"]))}
+
+
+def train_state_from_jax(jstate: Any, state: Any) -> None:
+    """Load a JAX ``GANTrainState`` of the Encodec trainer (``step``, ``g_params``,
+    ``g_extra['codebook']``, ``d_params``, both optax states) into the port's
+    ``GANTrainState`` in place, so that both compute the same step from it. The
+    random key is not carried: draws are given to the step (``draws=``)."""
+    state.step = int(np.asarray(jstate.step))
+    state.generator.load_state_dict(
+        soundstream_state_from_jax({"params": jstate.g_params, "codebook": jstate.g_extra["codebook"]}))
+    state.discriminators.load_state_dict(discriminators_state_from_jax(jstate.d_params))
+    for opt, jopt, fn, module in ((state.g_opt, jstate.g_opt_state, soundstream_params_from_jax, state.generator),
+                                  (state.d_opt, jstate.d_opt_state, discriminators_state_from_jax,
+                                   state.discriminators)):
+        converted = adamw_state_from_jax(jopt, fn, module)
+        sd = opt.state_dict()
+        for group in sd["param_groups"]:
+            group["lr"] = converted["lr"]
+        sd["state"] = converted["state"]
+        opt.load_state_dict(sd)
 
 
 def hifigan_state_from_jax(params: Mapping[str, Any], transposed_ups: bool) -> Dict[str, torch.Tensor]:

@@ -24,8 +24,15 @@ LM-coded token blobs). Then the serving options: LM entropy coding of one
 10 s flagship file with a token LM at ``cli/train_lm.py``'s default width
 (``lm``), W8A8 int8 HiFi-Codec serving of 8 x 10 s against bf16 (``int8``),
 and the SEANet layer options ``time_group_norm``, ``layer_norm`` and a
-3-layer SLSTM at the flagship's widths, streamed too (``layer_opts``). Any
-failed phase exits non-zero; without a CUDA device it exits 1 at once.
+3-layer SLSTM at the flagship's widths, streamed too (``layer_opts``).
+Last, training (``train``): the Encodec/SoundStream GAN trainer at
+Encodec_24k_240d's full width with the reference discriminators, 16 x 1 s,
+f32 and bf16 mixed precision, with K1 in the quantizer's search and k-means
+and K2 in the no-grad regenerate, each also held against its plain version
+at the trainer's shapes; one reduced-width step on the card
+against the CPU; and ``cli.train_encodec`` for 2 epochs, resumed for a third,
+whose checkpoint ``cli.compress`` then serves. Any failed phase exits
+non-zero; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -36,7 +43,11 @@ card's name and power limit from nvidia-smi, and the result line
 The phase functions take the device and the model's overrides as
 arguments, so a CPU test can rehearse the main path at a tiny width. One
 phase alone, on the card: ``python3 -c "import chip_smoke as c;
-c.phase_device(); c.phase_build(); c.phase_stream('cuda')"``.
+c.phase_device(); c.phase_build(); c.phase_stream('cuda')"``. Opt-in, not in
+the run: ``phase_extract_stages`` (where batched and one-file-a-call
+extraction part, every encoder stage held against the exact-length encode)
+and ``phase_extract_groupnorm`` (what f64 GroupNorm statistics cost corpus
+tokenization).
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from academicodec_tpu_torch.ops.cuda import build as kernel_build
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
+from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
 
 # NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
@@ -812,12 +824,8 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
     from academicodec_tpu_torch.cli import extract_tokens
     from academicodec_tpu_torch.data.wavio import write_wav
 
-    model = load_codec(preset, device=device, **overrides)
+    model, wavs, lengths = extract_corpus(device, n_files, min_seconds, max_seconds, preset, **overrides)
     sr = model.config.sampling_rate
-    rng = np.random.default_rng(11)
-    lengths = rng.integers(int(min_seconds * sr), int(max_seconds * sr) + 1, n_files)
-    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
-    spread_codebooks(model, latent_frames(model, torch.from_numpy(wavs[0][None])))
     on_card = model.device.type == "cuda"
     hop = model.hop_length
     bucket = math.ceil(round(bucket_seconds * sr) / hop) * hop
@@ -843,6 +851,7 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
                  "--device", str(device)]
         if on_card:
             torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
         reset_launches()
         t0 = time.perf_counter()
         extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_b"), "--tokens_out",
@@ -851,6 +860,7 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
         if on_card:
             torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
         launches = read_launches()
         extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, "out_s"), "--tokens_out",
                                      os.path.join(tmp, "s.npz"), "--batch_files", "1"])
@@ -913,9 +923,10 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
               "audio_seconds": audio_s, "tokens_differ_batched_vs_padded_single": differ_b_p,
               "tokens_differ_padded_single_vs_exact": differ_p_s, "latent_max_abs_diff_padded_vs_exact": latent_diff}
     if on_card:
-        result.update(wall_s=wall_s, audio_seconds_per_wall_second=audio_s / wall_s)
+        result.update(wall_s=wall_s, audio_seconds_per_wall_second=audio_s / wall_s, peak_mem_gib=peak_gib)
         print(f"[extract] batched run {wall_s:.3f} s wall (model load, reads, encode, synthesis, writes): "
-              f"{audio_s / wall_s:.1f} audio seconds per wall second ({nvidia_smi()})")
+              f"{audio_s / wall_s:.1f} audio seconds per wall second, peak memory {peak_gib:.3f} GiB "
+              f"({nvidia_smi()})")
     return result
 
 
@@ -1613,6 +1624,768 @@ def phase_compress(device="cuda", dtype=torch.bfloat16, n_files=8, seconds=10.0,
     return result
 
 
+# ---------------------------------------------------------------------------
+# training: the Encodec/SoundStream GAN trainer (train/encodec.py)
+
+# Encodec_24k_240d at the recipe's settings (egs/Encodec_24k_240d/start.sh; f32,
+# the reference discriminators), with every loss term live from the first step
+TRAIN_RECIPE = dict(sr=24000, ratios=(6, 5, 4, 2), target_bandwidths=(1, 2, 4, 8, 12), n_filters=32,
+                    dimension=512, bins=1024, discriminator_iter_start=1)
+# card against the CPU: one step at a reduced width, TF32 off (phase_device)
+TRAIN_CROSS = dict(TRAIN_RECIPE, n_filters=8, dimension=64, bins=64, stft_filters=8, stft_n_ffts=(1024,),
+                   mpd_periods=(2, 3), msd_scales=1)
+# limits of the card-vs-CPU step: losses rtol, each gradient leaf within this share
+# of the larger of its max |g| and a hundredth of its phase's max |g|, the codebook
+# state atol (+ rtol); codes equal. The floor: a leaf that is one sum with
+# cancellation (the gain of a one-channel conv, a hinge's bias) carries f32
+# noise of its terms' size, not of its own (the CPU on one thread against
+# itself on 8 parts such leaves by ~1e-2 of their own max); the controls of
+# _cross_controls show what a kernel fault moves instead (PERF.md section 6)
+TRAIN_CROSS_LIMITS = dict(loss_rtol=1e-4, grad_rel=5e-3, codebook_atol=1e-4)
+
+
+def train_launches(model, init_layers: int, accum: int = 1) -> dict:
+    """K1 and K2 launches of one ``train_step`` by the trainer's code. After init:
+    one K1 search per phase, and K2 only in the D phase's no-grad regenerate (once
+    per 2-layer SLSTM; the G phase's SLSTMs run under autograd, in the library
+    LSTM). An init step whose G phase draws every layer and inits
+    ``init_layers`` of them searches layer by layer: per init layer its k-means'
+    assignments (``KMEANS_ITERS`` Lloyd steps and the final buckets), per layer one
+    search; its D phase searches once."""
+    vq = model.quantizer.vq
+    g = vq.num_quantizers + init_layers * (KMEANS_ITERS + 1) if init_layers else 1
+    return {"rvq_encode": (g + 1) * accum, "lstm2": k2_slstms(model) * accum}
+
+
+def _train_seconds(fn, on_card: bool) -> float:
+    if on_card:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def _train_run(tag, trainer, batch, seconds, steps, seed=0) -> dict:
+    """An init step (every layer drawn in both phases, so that every layer's
+    k-means runs in it), then ``steps`` steps with drawn bandwidths, each timed;
+    launch counts of the init step and of the last, every loss finite."""
+    from academicodec_tpu_torch.train.encodec import ForwardDraws, StepDraws
+
+    on_card = trainer.device.type == "cuda"
+    state = trainer.init_state(seed)
+    model = state.generator
+    x = seeded_wav(batch, int(round(seconds * trainer.cfg.sr)), trainer.device, seed=seed)
+    n_q = model.quantizer.vq.num_quantizers
+    drawn = trainer.draw(state, tuple(x.shape))
+    draws = StepDraws(ForwardDraws(n_q, drawn.g.rows), ForwardDraws(n_q, drawn.d.rows))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    out, losses = {}, []
+
+    def step(d=None):
+        nonlocal state
+        state, metrics = trainer.train_step(state, x, draws=d)
+        losses.append({k: float(v) for k, v in metrics.items()})
+
+    reset_launches()
+    init_s = _train_seconds(lambda: step(draws), on_card)
+    init_launches = read_launches()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        reset_launches()
+        times.append(_train_seconds(step, on_card))
+    wall_s = time.perf_counter() - t0
+    later_launches = read_launches()
+    # the init step again on a fresh state, with every kernel and library call warm
+    state = trainer.init_state(seed + 1)
+    warm_s = _train_seconds(lambda: step(draws), on_card)
+    expected_init = train_launches(model, n_q, trainer.cfg.accum_steps)
+    expected = train_launches(model, 0, trainer.cfg.accum_steps)
+    if not on_card:  # the plain versions launch nothing
+        expected_init = expected = {k: 0 for k in expected}
+    finite = all(math.isfinite(v) for m in losses for v in m.values())
+    out.update(
+        init_step_ms=init_s * 1e3, init_step_warm_ms=warm_s * 1e3, step_ms_median=statistics.median(times) * 1e3, step_ms_max=max(times) * 1e3,
+        audio_s_per_s=batch * seconds * steps / wall_s, steps=steps, batch=batch, seconds=seconds,
+        launches_init_step={k: init_launches[k] for k in expected_init},
+        launches_step={k: later_launches[k] for k in expected}, expected_init_step=expected_init,
+        expected_step=expected, losses_init_step=losses[0], losses_last_step=losses[-2],
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+        inited=all(model.quantizer.vq.inited_layers()),
+    )
+    print(f"[{tag}] {batch} x {seconds} s, {'bf16 mixed precision' if trainer.cfg.mixed_precision else 'f32'}: "
+          f"init step {out['init_step_ms']:.1f} ms (the process's first; warm {out['init_step_warm_ms']:.1f}), "
+          f"step median {out['step_ms_median']:.1f} ms (max "
+          f"{out['step_ms_max']:.1f}) of {steps}, {out['audio_s_per_s']:.1f} audio s trained per wall s, peak memory "
+          f"{out['peak_mem_gib'] if out['peak_mem_gib'] is None else round(out['peak_mem_gib'], 3)} GiB")
+    print(f"[{tag}] launches: init step {out['launches_init_step']} (expected {expected_init}), a later step "
+          f"{out['launches_step']} (expected {expected})")
+    print(f"[{tag}] losses of the init step {losses[0]}; of the last timed step {losses[-2]}")
+    if not finite:
+        raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+    if out["launches_init_step"] != expected_init or out["launches_step"] != expected or not out["inited"]:
+        raise AssertionError(f"{tag}: launches {out['launches_init_step']} / {out['launches_step']}, expected "
+                             f"{expected_init} / {expected}")
+    out["state"], out["x"] = state, x
+    return out
+
+
+def _k1_train_shapes(device, n=1600, d=512, k=1024, n_q=12, iters=10) -> dict:
+    """K1 at the trainer's shapes against its plain version: the search of a
+    batch of 16 x 1 s (N 1600 latent frames, 12 layers) and one k-means
+    assignment (N 1600 against 1024 means drawn from the samples)."""
+    g = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((n, d), generator=g, device=device)
+    embed = torch.randn((n_q, k, d), generator=g, device=device)
+    means = x[torch.randperm(n, generator=torch.Generator().manual_seed(3))[:k].to(device)][None]
+    out = {}
+    for name, e in (("train", embed), ("kmeans", means)):
+        codes, ref = rvq_ops.rvq_encode(x, e), rvq_ops.rvq_encode_plain(x, e)
+        out[f"{name}_token_mismatch"] = (codes != ref).double().mean().item()
+        out[f"{name}_ms"] = time_ms(lambda: rvq_ops.rvq_encode(x, e), iters)
+        out[f"{name}_plain_ms"] = time_ms(lambda: rvq_ops.rvq_encode_plain(x, e), 3)
+        layers = e.shape[0]
+        out[f"{name}_bound_ms"], out[f"{name}_bound_by"] = bound(
+            2.0 * n * k * d * layers, 4.0 * (n * d + layers * k * d + layers * n), PEAK_F32_FLOPS)
+        print(f"[train] K1 at N {n} x {list(e.shape)}: kernel {out[f'{name}_ms']:.4f} ms, plain "
+              f"{out[f'{name}_plain_ms']:.4f} ms, bound {out[f'{name}_bound_ms']:.4f} ms "
+              f"({out[f'{name}_bound_by']}), token mismatch {out[f'{name}_token_mismatch']:.3g} (limit 1e-4)")
+    if not (out["train_token_mismatch"] <= 1e-4 and out["kmeans_token_mismatch"] <= 1e-4):
+        raise AssertionError("rvq_encode disagrees with rvq_encode_plain at the training shapes")
+    return out
+
+
+def _k2_train_shapes(device, B=16, T=100, H=512, iters=20) -> dict:
+    """K2 against its plain version at the shape of the D phase's no-grad
+    regenerate of a batch of 16 x 1 s (x_proj [100, 16, 2048]): f32, as the f32
+    step calls it, and with bf16 weights, as mixed precision does, at
+    ``phase_lstm``'s tolerances. B 16 takes two MMA column tiles of 8 rows
+    where the serving checks' B 8 takes one (csrc/lstm2.cu)."""
+    slstm = SLSTM(H)
+    slstm.lstm.reset_parameters(torch.Generator().manual_seed(2))
+    g = torch.Generator(device=device).manual_seed(2)
+    out = {}
+    for tag, dtype, tol, rtol, peak in (("f32", torch.float32, 1e-4, 0.0, PEAK_F32_FLOPS),
+                                        ("bf16", torch.bfloat16, 1e-2, 1e-2, PEAK_BF16_FLOPS)):
+        mod = copy.deepcopy(slstm).to(device=device, dtype=dtype)
+        x = (torch.randn((B, H, T), generator=g, device=device) * 0.5).to(dtype)
+        with torch.no_grad():
+            args = mod.recurrence_inputs(x)
+            y = lstm_ops.lstm2(*args, out_dtype=dtype).float()
+            ref = lstm_ops.lstm2_plain(*args, out_dtype=dtype).float()
+            err = (y - ref).abs().max().item()
+            ms = time_ms(lambda: lstm_ops.lstm2(*args, out_dtype=dtype), iters)
+            plain_ms = time_ms(lambda: lstm_ops.lstm2_plain(*args, out_dtype=dtype), 2)
+            # yardstick only: cuDNN's 2-layer LSTM on the same weights (it also projects the input)
+            ref_lstm = torch.nn.LSTM(H, H, num_layers=2).to(device=device, dtype=dtype)
+            ref_lstm.load_state_dict({k[len("lstm."):]: v for k, v in mod.state_dict().items()})
+            ref_lstm.flatten_parameters()
+            xt = x.permute(2, 0, 1).contiguous()
+            library_ms = time_ms(lambda: ref_lstm(xt), iters)
+        size = torch.finfo(dtype).bits // 8
+        nbytes = T * B * 4 * H * 4 + 3 * 4 * H * H * size + 4 * H * 4 + T * B * H * size
+        bound_ms, bound_by = bound(2.0 * 3 * 4 * H * H * B * T, nbytes, peak)
+        out.update({f"train_{tag}_max_abs_err": err, f"train_{tag}_ms": ms, f"train_{tag}_plain_ms": plain_ms,
+                    f"train_{tag}_bound_ms": bound_ms, f"train_{tag}_bound_by": bound_by,
+                    f"train_{tag}_library_ms": library_ms})
+        print(f"[train] K2 {tag} at x_proj [{T},{B},{4 * H}]: max abs diff {err:.3g} (atol {tol}, rtol {rtol}); "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), cuDNN LSTM "
+              f"{library_ms:.4f} ms")
+        if not torch.allclose(y, ref, atol=tol, rtol=rtol):
+            raise AssertionError(f"lstm2 disagrees with lstm2_plain at the training shape in {tag}")
+    return out
+
+
+def spread_training_codebooks(model, wav: torch.Tensor, seed: int = 0) -> None:
+    """A trained-looking codebook state for ``model`` over the latent frames of
+    ``wav``, as tests/test_torch_soundstream.py spreads serving codebooks:
+    entries N(0, std^2) per latent dimension; in layer 0 the frames' mean and,
+    10 std away from it, the other entries, so that every frame takes the
+    mean by a wide margin and the later layers see centred residuals with
+    well-conditioned distances; cluster sizes 10 (no dead code: a replaced
+    code is a copy of one frame, and a random encoder's frames at one
+    position of every item lie close together, by the LSTM's transient from
+    its zero state, so copies of them tie), EMA sums to match."""
+    vq = model.quantizer.vq
+    with torch.no_grad():
+        e = model.encoder(wav[:, None, :].to(model.device)).transpose(1, 2).reshape(-1, vq.dim).float().cpu()
+        embed = torch.randn(vq.embed.shape, generator=torch.Generator().manual_seed(seed)) * e.std(dim=0)
+        embed[0] = e.mean(dim=0) + 10 * embed[0]
+        embed[0, 0] = e.mean(dim=0)
+        sizes = torch.full(vq.cluster_size.shape, 10.0)
+        vq.embed.copy_(embed)
+        vq.embed_avg.copy_(embed * sizes[..., None])
+        vq.cluster_size.copy_(sizes)
+        vq.set_inited(True)
+
+
+def _captured_searches(model, run):
+    """``run()``, and for each call of ``model``'s quantizer in it the CPU copies
+    of its input latents ``[B, T, D]`` and of the codebooks it searched."""
+    seen = []
+    hook = model.quantizer.vq.register_forward_pre_hook(
+        lambda mod, args: seen.append((args[0].detach().float().cpu(), mod.embed.detach().float().cpu())))
+    try:
+        out = run()
+    finally:
+        hook.remove()
+    return out, seen
+
+
+def _search_codes(model, wav: torch.Tensor, n_q: int):
+    """The G phase's codes of ``wav`` (its SLSTMs under autograd, as in a step),
+    with no EMA update: ``([n_q, B, frames] on the CPU, the search's latents
+    and codebooks)``."""
+    with torch.enable_grad():
+        (_wav, _commit, codes), seen = _captured_searches(
+            model, lambda: model(wav.to(model.device), n_q=n_q, training=False))
+    return codes.cpu(), seen[0]
+
+
+def _near_ties(search, codes_card: torch.Tensor, codes_cpu: torch.Tensor, items=None) -> list:
+    """For each frame whose codes part between the card and the CPU, at the first
+    layer they part: ``(item, frame, layer, margin, conditioning)``, the CPU's
+    margin there, (second nearest - nearest) / nearest, and |r|^2 / nearest
+    (the cancellation in ``|r|^2 - 2 r.e + |e|^2``), from the CPU search's
+    latents and codebooks ``search``. ``items`` maps a batch row to its item."""
+    latents, embed = search
+    n_q, B, T = codes_cpu.shape
+    items = list(range(B)) if items is None else items
+    flat_cpu, differ = codes_cpu.reshape(n_q, -1).long(), (codes_card != codes_cpu).reshape(n_q, -1)
+    r = latents.reshape(-1, latents.shape[-1])
+    seen = torch.zeros(r.shape[0], dtype=torch.bool)
+    out = []
+    for layer in range(n_q):
+        e = embed[layer]
+        d = r.square().sum(1, keepdim=True) - 2 * r @ e.t() + e.square().sum(1)
+        two = d.topk(2, dim=1, largest=False).values
+        for i in (differ[layer] & ~seen).nonzero().flatten().tolist():
+            out.append((items[i // T], i % T, layer, ((two[i, 1] - two[i, 0]) / two[i, 0].abs()).item(),
+                        (r[i].square().sum() / two[i, 0].abs()).item()))
+        seen |= differ[layer]
+        r = r - e[flat_cpu[layer]]
+    return out
+
+
+def _cross_run(trainer, state, x, draws) -> dict:
+    """One step; its losses, every gradient leaf (G and D), both phases' codes,
+    the latents and codebooks of both phases' searches, and the codebook
+    state after the step, on the CPU."""
+    (state, metrics, codes), searches = _captured_searches(
+        state.generator, lambda: trainer.train_step(state, x, draws=draws, return_codes=True))
+    grads = {f"g.{n}": p.grad.float().cpu() for n, p in state.generator.named_parameters()}
+    grads.update({f"d.{n}": p.grad.float().cpu() for n, p in state.discriminators.named_parameters()})
+    vq = state.generator.quantizer.vq
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, grads=grads, codes=codes["g"][0].cpu(),
+                codes_d=codes["d"][0].cpu(), searches=searches,
+                cb={n: getattr(vq, n).cpu() for n in ("embed", "embed_avg", "cluster_size")})
+
+
+def _cross_compare(card: dict, cpu: dict, limits: dict) -> dict:
+    loss_rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items()}
+    # each leaf against the larger of its own max |g| and a hundredth of its phase's
+    # (generator or discriminator) max |g| (TRAIN_CROSS_LIMITS); against its own
+    # max alone, reported
+    floor = {p: max(g.abs().max().item() for n, g in cpu["grads"].items() if n.startswith(p)) / 100
+             for p in ("g.", "d.")}
+    diff = {n: (card["grads"][n] - g).abs().max().item() for n, g in cpu["grads"].items()}
+    own = {n: g.abs().max().item() for n, g in cpu["grads"].items()}
+    grad_rel = {n: diff[n] / max(own[n], floor[n[:2]], 1e-30) for n in diff}
+    grad_rel_own = {n: diff[n] / max(own[n], 1e-30) for n in diff}
+    worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
+    worst_own = sorted(grad_rel_own, key=grad_rel_own.get, reverse=True)[:3]
+    return dict(
+        loss_max_rel_diff=max(loss_rel.values()), loss_rel_diff=loss_rel, grad_max_rel_diff=grad_rel[worst[0]],
+        grad_worst_leaves={n: grad_rel[n] for n in worst}, grad_max_rel_diff_own=grad_rel_own[worst_own[0]],
+        grad_worst_leaves_own={n: (grad_rel_own[n], own[n] / floor[n[:2]] / 100) for n in worst_own},
+        codes_differ=int((card["codes"] != cpu["codes"]).sum()),
+        codebook_max_abs_diff=max((card["cb"][n] - v).abs().max().item() for n, v in cpu["cb"].items()),
+        codes_d_differ=int((card["codes_d"] != cpu["codes_d"]).sum()),
+        codebook_close=all(torch.allclose(card["cb"][n], v, atol=limits["codebook_atol"],
+                                          rtol=limits["codebook_atol"]) for n, v in cpu["cb"].items()),
+        codes_equal=torch.equal(card["codes"], cpu["codes"]), distinct_codes=int(torch.unique(cpu["codes"]).numel()),
+        grad_leaves=len(cpu["grads"]),
+    )
+
+
+def _cross_ok(out: dict, limits: dict) -> bool:
+    """The step's check: losses, gradient leaves, codebook state, both phases' codes."""
+    return (out["loss_max_rel_diff"] <= limits["loss_rtol"] and out["grad_max_rel_diff"] <= limits["grad_rel"]
+            and out["codebook_close"] and out["codes_equal"] and out["codes_d_differ"] == 0
+            and out["distinct_codes"] > MIN_DISTINCT_TOKENS)
+
+
+def _held_step(card_tr, card_state, cpu_tr, cpu_state, start, x, parted, cpu_runs) -> dict:
+    """The step from ``start`` on the items of ``x`` not in ``parted``, on the card
+    and the CPU with the same draws. An item whose codes part in it (either
+    phase) at a near-tie is set aside in turn, and the step runs again, up to 3 rounds;
+    ``step_ties`` gives the CPU's margins where they parted, in that phase's
+    own search. ``cpu_runs`` keeps the CPU's step of each set of items."""
+    from academicodec_tpu_torch.train.encodec import ForwardDraws, StepDraws
+
+    n_q = cpu_state.generator.quantizer.vq.num_quantizers
+    parted, step_ties = set(parted), []
+    for _round in range(3):
+        keep = [i for i in range(x.shape[0]) if i not in parted]
+        if tuple(keep) not in cpu_runs:
+            cpu_state.load_state_dict(start)
+            drawn = cpu_tr.draw(cpu_state, (len(keep), x.shape[1]))
+            draws = StepDraws(ForwardDraws(n_q, drawn.g.rows), ForwardDraws(n_q, drawn.d.rows))
+            cpu_runs[tuple(keep)] = draws, _cross_run(cpu_tr, cpu_state, x[keep], draws)
+        draws, cpu = cpu_runs[tuple(keep)]
+        card_state.load_state_dict(start)
+        card = _cross_run(card_tr, card_state, x[keep], draws)
+        split = [tie for phase, codes in enumerate(("codes", "codes_d"))
+                 for tie in _near_ties(cpu["searches"][phase], card[codes], cpu[codes], keep)]
+        step_ties += split
+        parted |= {item for item, *_ in split}
+        if not split or any(margin >= NEAR_TIE_MARGIN for *_, margin, _cond in split):
+            break  # held, or failed: a parting away from a near-tie
+    return dict(card=card, cpu=cpu, keep=keep, draws=draws, step_ties=step_ties, parted=sorted(parted))
+
+
+def _held_check(held: dict, ties: list, batch: int, limits: dict) -> tuple:
+    """``(passes, comparison)`` of a held step: every parting at a near-tie, at
+    most half of the items set aside, and :func:`_cross_ok`."""
+    out = _cross_compare(held["card"], held["cpu"], limits)
+    ties_ok = (all(margin < NEAR_TIE_MARGIN for *_, margin, _cond in ties + held["step_ties"])
+               and len(held["parted"]) <= batch // 2)
+    return ties_ok and _cross_ok(out, limits), out
+
+
+def _cross_controls(card_tr, card_state, cpu_tr, cpu_state, start, x, ties, held, cpu_runs, limits) -> dict:
+    """Controls of the held step, from ``start`` with the probe's items set
+    aside: the CPU's step on one thread against the CPU's (another reduction
+    order: the f32 noise of each leaf); then the whole check again with a
+    fault on the card: K2's output off by a relative 1e-2, 1e-3 and 1e-4 (every
+    K2 launch of the D phase's regenerate), and K1 giving, for every 97th row
+    of each search, the next code instead of the nearest. The K1 fault and
+    K2's at 1e-2 must fail the check; the smaller K2 faults are reported (at
+    a tiny width the D phase's few codes may not see them)."""
+    from academicodec_tpu_torch.nn import lstm as nn_lstm
+    from academicodec_tpu_torch.quant import core_vq
+
+    out = {}
+    keep = held["keep"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu_state.load_state_dict(start)
+        order = _cross_compare(_cross_run(cpu_tr, cpu_state, x[keep], held["draws"]), held["cpu"], limits)
+    finally:
+        torch.set_num_threads(threads)
+    out["cpu_one_thread"] = {k: order[k] for k in ("loss_max_rel_diff", "grad_max_rel_diff", "grad_max_rel_diff_own",
+                                                   "grad_worst_leaves_own")}
+    lstm2, rvq_encode = nn_lstm.lstm2, core_vq.rvq_encode
+
+    def k2_off(delta):
+        return lambda *a, **kw: lstm2(*a, **kw) * (1 + delta)
+
+    def k1_off(x_, embed):
+        codes = rvq_encode(x_, embed).clone()
+        codes[:, ::97] = (codes[:, ::97] + 1) % embed.shape[1]
+        return codes
+
+    faults = [(f"k2_{delta:g}", nn_lstm, "lstm2", k2_off(delta)) for delta in (1e-2, 1e-3, 1e-4)]
+    for tag, target, name, fault in faults + [("k1_next_code", core_vq, "rvq_encode", k1_off)]:
+        original = getattr(target, name)
+        setattr(target, name, fault)
+        try:
+            bad = _held_step(card_tr, card_state, cpu_tr, cpu_state, start, x, {i for i, *_ in ties}, cpu_runs)
+        finally:
+            setattr(target, name, original)
+        ok, cmp = _held_check(bad, ties, x.shape[0], limits)
+        out[tag] = dict(caught=not ok, items_set_aside=len(bad["parted"]),
+                        parted_at_near_ties=sum(m < NEAR_TIE_MARGIN for *_, m, _c in bad["step_ties"]),
+                        parted_frames=len(bad["step_ties"]), loss_max_rel_diff=cmp["loss_max_rel_diff"],
+                        grad_max_rel_diff=cmp["grad_max_rel_diff"], codes_differ=cmp["codes_differ"],
+                        codes_d_differ=cmp["codes_d_differ"])
+    print(f"[train] controls of the step: the CPU on one thread against the CPU {out['cpu_one_thread']}; "
+          + "; ".join(f"{k} {v}" for k, v in out.items() if k != "cpu_one_thread"))
+    if not (out["k1_next_code"]["caught"] and out["k2_0.01"]["caught"]):
+        raise AssertionError(f"train: a fault passed the card-vs-CPU step check: {out}")
+    return out
+
+
+# codes may part between the card and the CPU only at a near-tie: a CPU margin,
+# (second nearest - nearest) / nearest, below this (the latents of the two part
+# by ~2e-6 relative at TRAIN_CROSS, H100), in at most half of the items (at these
+# margins about one search in 3,000 parts, and a step makes 2 x 12 x 400)
+NEAR_TIE_MARGIN = 1e-4
+
+
+def _train_cross(device, batch=16, seconds=0.25, cross=TRAIN_CROSS, limits=TRAIN_CROSS_LIMITS) -> dict:
+    """A reduced-width trainer on the card and on the CPU, at lr 0, so that the D
+    phase regenerates from the weights both hold (AdamW moves a weight by
+    about ``lr * sign(g)``, which a gradient near 0 splits). From one seeded
+    state with the same draws, the init step (k-means of every drawn layer)
+    runs on both and is reported only: on the latents of a random encoder,
+    k-means codebooks leave distances ill conditioned (|r|^2 far above the
+    nearest distance), and 50 Lloyd steps amplify f32 differences at
+    near-ties. Then the CPU's state after it, with its codebooks spread over
+    the next batch's latent frames (:func:`spread_training_codebooks`), is
+    loaded by both. The G phase's search of that batch runs on both: where
+    codes part, it must be at a near-tie (``NEAR_TIE_MARGIN``; the devices'
+    f32 latents differ by ~1e-6), and those items are set aside. The step
+    (every layer drawn in both phases), one search per phase, then runs on the
+    other items. Where its codes part (the D phase searches codebooks that
+    the G phase's EMA moved), the CPU's margins in that phase's own search
+    must show a near-tie too; those items are set aside and the step runs
+    again from the same state, at most half of the items in all. The step
+    is held to ``limits``: losses, every gradient leaf of both phases
+    (:func:`_cross_compare`), the codebook state after the step, both
+    phases' codes equal; then :func:`_cross_controls`. Dead-code replacement is held card against CPU by
+    tests/test_torch_cuda.py (``ResidualVQ``'s training forward) and
+    reported in the init step here."""
+    from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
+
+    cfg = EncodecTrainConfig(**cross, lr=0.0)
+    card_tr, cpu_tr = EncodecTrainer(cfg, device=device), EncodecTrainer(cfg, device="cpu")
+    card_state, cpu_state = card_tr.init_state(7), cpu_tr.init_state(7)
+    length = int(round(seconds * cfg.sr))
+    x = seeded_wav(batch, length, "cpu", seed=7)
+    draws = cpu_tr.draw(cpu_state, tuple(x.shape))
+    init = _cross_compare(_cross_run(card_tr, card_state, x, draws), _cross_run(cpu_tr, cpu_state, x, draws), limits)
+    x = seeded_wav(batch, length, "cpu", seed=8)
+    spread_training_codebooks(cpu_state.generator, x)
+    start = copy.deepcopy(cpu_state.state_dict())
+    card_state.load_state_dict(start)
+    n_q = cpu_state.generator.quantizer.vq.num_quantizers
+    (probe_card, _), (probe_cpu, probe_search) = (_search_codes(card_state.generator, x, n_q),
+                                                  _search_codes(cpu_state.generator, x, n_q))
+    ties = _near_ties(probe_search, probe_card, probe_cpu)
+    cpu_runs = {}
+    held = _held_step(card_tr, card_state, cpu_tr, cpu_state, start, x, {item for item, *_ in ties}, cpu_runs)
+    ok, out = _held_check(held, ties, batch, limits)
+    keep, draws, step_ties, parted = held["keep"], held["draws"], held["step_ties"], held["parted"]
+    out.update(limits=limits, n_q_g=draws.g.n_q, n_q_d=draws.d.n_q, init_step=init, near_ties=ties,
+               near_ties_in_step=step_ties, near_tie_margin=NEAR_TIE_MARGIN, items_set_aside=parted,
+               items_held=len(keep))
+    print(f"[train] card vs CPU at n_filters {cross['n_filters']}, D {cross['dimension']}, {cross['bins']} bins, "
+          f"f32, lr 0: the init step (reported): losses {init['loss_max_rel_diff']:.3g} apart, {init['codes_differ']} "
+          f"codes differ; the next batch's search parts at {len(ties)} frames (item, frame, layer, CPU margin, "
+          f"|r|^2/nearest: {ties}; limit: margins below {NEAR_TIE_MARGIN}); in the step at {len(step_ties)} frames "
+          f"({step_ties}; the same limit); {len(parted)} items set aside in all (limit {batch // 2})")
+    print(f"[train] the step on the other {len(keep)} items: losses max rel diff {out['loss_max_rel_diff']:.3g} "
+          f"(limit {limits['loss_rtol']}), {out['grad_leaves']} gradient leaves max diff "
+          f"{out['grad_max_rel_diff']:.3g} of their scale (limit {limits['grad_rel']}; worst "
+          f"{out['grad_worst_leaves']}; of their own max |g| {out['grad_max_rel_diff_own']:.3g}, worst (diff, own max "
+          f"/ phase max) {out['grad_worst_leaves_own']}), codebook state max abs "
+          f"diff {out['codebook_max_abs_diff']:.3g} (limit atol = rtol = {limits['codebook_atol']}), codes equal "
+          f"{out['codes_equal']} ({out['distinct_codes']} distinct, floor {MIN_DISTINCT_TOKENS})")
+    if not ok:
+        raise AssertionError(f"train: the card's step disagrees with the CPU's: {out}")
+    out["controls"] = _cross_controls(card_tr, card_state, cpu_tr, cpu_state, start, x, ties, held, cpu_runs, limits)
+    return out
+
+
+def _train_cli(device, n_files=32, file_seconds=1.5, batch=16, segment_seconds=1.0, width=TRAIN_RECIPE) -> dict:
+    """``cli.train_encodec`` end to end: ``n_files`` seeded wavs, 2 epochs at the
+    flagship widths with the debug discriminators, ``--resume`` for one more
+    (the step must go on from the checkpoint), then ``cli.compress
+    --resume_path`` on the newest checkpoint for one file, whose ``.ecdc`` blob
+    is decompressed and decoded again."""
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import compress as compress_cli
+    from academicodec_tpu_torch.cli import train_encodec
+    from academicodec_tpu_torch.data.wavio import read_wav, write_wav
+    from academicodec_tpu_torch.utils.checkpoint import checkpoint_step, scan_checkpoint
+
+    sr = width["sr"]
+    flags = ["--sr", str(sr), "--ratios", *map(str, width["ratios"]),
+             "--target_bandwidths", *map(str, width["target_bandwidths"]),
+             "--n_filters", str(width["n_filters"]), "--dimension", str(width["dimension"]),
+             "--bins", str(width["bins"]), "--device", str(device)]
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "wavs"), os.path.join(tmp, "ckpt")
+        os.makedirs(data)
+        for i in range(n_files):
+            write_wav(os.path.join(data, f"w{i:02d}.wav"),
+                      (rng.standard_normal(int(file_seconds * sr)) * 0.1).astype(np.float32), sr)
+        argv = ["--train_data_path", data, "--valid_data_path", data, "--path", out, *flags,
+                "--batch_size", str(batch), "--segment_seconds", str(segment_seconds), "--n_epochs", "1",
+                "--discriminator_iter_start", "1", "--debug_tiny_discs", "--print_freq", "1"]
+        t0 = time.perf_counter()
+        train_encodec.main(argv)
+        first = scan_checkpoint(out, "latest")
+        argv[argv.index("--n_epochs") + 1] = "2"
+        train_encodec.main(argv + ["--resume"])
+        wall_s = time.perf_counter() - t0
+        latest = scan_checkpoint(out, "latest")
+        steps_per_epoch = n_files // batch
+        step_first, step_last = checkpoint_step(first), checkpoint_step(latest)
+        log = open(os.path.join(out, "logs", "log.txt")).read()
+        one = os.path.join(tmp, "one")
+        os.makedirs(one)
+        os.link(os.path.join(data, "w00.wav"), os.path.join(one, "w00.wav"))
+        served = os.path.join(tmp, "served")
+        compress_cli.main(["--input", one, "--output", served, "--resume_path", latest, *flags,
+                           "--target_bw", str(width["target_bandwidths"][-1]), "--ecdc"])
+        blob = open(os.path.join(served, "w00.ecdc"), "rb").read()
+        wav_cli, _ = read_wav(os.path.join(served, "w00.wav"))
+        model = soundstream_from_checkpoint(latest, width, device)
+        codes, _meta = decompress_codes(blob)
+        with torch.no_grad():
+            wav = model.decode(torch.as_tensor(codes)[:, None, :]).float().cpu().numpy()[0]
+    n = min(len(wav), len(wav_cli))
+    # the CLI's wav is PCM16 (steps of 1/32767), clipped to [-1, 1]
+    inside = np.abs(wav[:n]) < 0.999
+    wav_diff = float(np.abs(wav[:n] - wav_cli[:n])[inside].max())
+    result = dict(epochs=3, steps_after_two_epochs=step_first, steps_after_resume=step_last, wall_s=wall_s,
+                  ecdc_bytes=len(blob), decoded_samples=len(wav), decoded_vs_cli_wav_max_abs_diff=wav_diff)
+    print(f"[train] cli: 2 epochs -> step {step_first}, --resume 1 epoch -> step {step_last} "
+          f"({steps_per_epoch} steps an epoch; {wall_s:.1f} s wall); cli.compress --resume_path {os.path.basename(latest)}: "
+          f"{len(blob)} bytes, decoded {len(wav)} samples, {wav_diff:.3g} from the CLI's PCM16 wav")
+    if not (step_first == 2 * steps_per_epoch and step_last == 3 * steps_per_epoch
+            and "resumed from" in log and np.isfinite(wav).all() and len(wav) == int(file_seconds * sr)
+            and wav_diff <= 2.0 / 32767):
+        raise AssertionError(f"train cli: {result}")
+    return result
+
+
+def soundstream_from_checkpoint(path, width, device):
+    """The SoundStream of a training checkpoint, as ``cli.compress`` builds it."""
+    from academicodec_tpu_torch.api import reference_state_dict
+    from academicodec_tpu_torch.models.soundstream import SoundStream
+    from academicodec_tpu_torch.utils.checkpoint import load_checkpoint
+
+    model = SoundStream(n_filters=width["n_filters"], dimension=width["dimension"], ratios=width["ratios"],
+                        sample_rate=width["sr"], target_bandwidths=width["target_bandwidths"], bins=width["bins"],
+                        device=device)
+    model.load_state_dict(reference_state_dict(load_checkpoint(path)))
+    return model
+
+
+def phase_train(device="cuda", batch=16, seconds=1.0, steps=8, mp_steps=2, profile_steps=5,
+                recipe=TRAIN_RECIPE, cross=TRAIN_CROSS, cross_batch=16, cross_seconds=0.25, cli_width=TRAIN_RECIPE,
+                cli_files=32,
+                cli_batch=16, cli_segment_seconds=1.0) -> dict:
+    """The Encodec/SoundStream GAN trainer through ``train.encodec.EncodecTrainer``
+    (what ``cli.train_encodec`` calls): (a) ``recipe`` at ``batch`` x ``seconds``
+    seeded noise, f32: an init step and ``steps`` timed steps, launch counts
+    against :func:`train_launches`, every loss finite; the device's idle share
+    over ``profile_steps`` steps (torch.profiler); then ``mixed_precision`` for an
+    init step and ``mp_steps`` more. K1 at the trainer's shapes. (b) card
+    against CPU (:func:`_train_cross`). (c) the CLI end to end (:func:`_train_cli`)."""
+    from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    result = {}
+    trainer = EncodecTrainer(EncodecTrainConfig(**recipe), device=device)
+    f32 = _train_run("train", trainer, batch, seconds, steps)
+    state, x = f32.pop("state"), f32.pop("x")
+    if on_card and profile_steps:
+        def run_one():
+            nonlocal state
+            state, _m = trainer.train_step(state, x)
+
+        def run():
+            for _ in range(profile_steps):
+                run_one()
+
+        wall_ms, busy_ms, ops, prof = device_busy(run)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / profile_steps
+        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+        f32.update(profiled_steps=profile_steps, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                   device_ops_per_step=ops / profile_steps, top_device_ms_per_step=top,
+                   idle_share=None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms))
+        print("[train] device ms a step by kernel, top 12: " + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top.items()))
+        # PyTorch's default for cuDNN convs (TF32), which the CLI keeps; the runs above are strict f32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            times = []
+            for _ in range(3):
+                times.append(_train_seconds(lambda: run_one(), on_card))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        f32["step_ms_median_cudnn_tf32"] = statistics.median(times) * 1e3
+        print(f"[train] with cuDNN's TF32 convs (PyTorch's default): step median "
+              f"{f32['step_ms_median_cudnn_tf32']:.1f} ms of 3")
+        print(f"[train] profiled {profile_steps} steps: wall {wall_ms:.1f} ms, device busy "
+              f"{'not measured' if busy_ms is None else f'{busy_ms:.1f} ms'}, idle share {f32['idle_share']}, "
+              f"{ops / profile_steps:.0f} device operations a step ({nvidia_smi()})")
+    del state, x
+    result["f32"] = f32
+    mp = _train_run("train_mp", EncodecTrainer(EncodecTrainConfig(**recipe, mixed_precision=True), device=device),
+                    batch, seconds, mp_steps)
+    mp.pop("state"), mp.pop("x")
+    result["mixed_precision"] = mp
+    if on_card:
+        result["k1_shapes"] = _k1_train_shapes(device)
+        result["k2_shapes"] = _k2_train_shapes(device)
+    result["cross"] = _train_cross(device, batch=cross_batch, seconds=cross_seconds, cross=cross)
+    result["cli"] = _train_cli(device, n_files=cli_files, batch=cli_batch, segment_seconds=cli_segment_seconds,
+                               width=cli_width)
+    return result
+
+
+# ---------------------------------------------------------------------------
+# ROADMAP.md Queue 3 item 3: where batched and one-file-a-call extraction part
+
+def extract_corpus(device, n_files=8, min_seconds=3.0, max_seconds=10.0, preset=HIFI, **overrides):
+    """``phase_extract``'s model (codebooks spread over the first file's latent
+    frames) and its ``n_files`` seeded wavs of ``min_seconds``-``max_seconds``."""
+    model = load_codec(preset, device=device, **overrides)
+    sr = model.config.sampling_rate
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(int(min_seconds * sr), int(max_seconds * sr) + 1, n_files)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    spread_codebooks(model, latent_frames(model, torch.from_numpy(wavs[0][None])))
+    return model, wavs, lengths
+
+
+def _encoder_captures(model, run):
+    """``run()``'s tokens and every encoder stage's output in call order: the
+    first conv, each strided conv's input and output, each wide stage's
+    resblocks and GroupNorms, the last conv's input and output."""
+    enc = model.encoder
+    caps, hooks = [], []
+
+    def out_hook(name):
+        return lambda mod, args, out: caps.append((name, out.detach().float()))
+
+    def in_hook(name):
+        return lambda mod, args: caps.append((name, args[0].detach().float()))
+
+    named = [("conv_pre", enc.conv_pre), ("conv_post", enc.conv_post)]
+    named += [(f"ups.{i}", m) for i, m in enumerate(enc.ups)]
+    named += [(f"resblocks.{i}", m) for i, m in enumerate(enc.resblocks)]
+    named += [(f"normalize.{i}", m) for i, m in enumerate(enc.normalize)]
+    for name, m in named:
+        hooks.append(m.register_forward_hook(out_hook(name)))
+        if name.startswith("ups") or name == "conv_post":
+            hooks.append(m.register_forward_pre_hook(in_hook(name + ".in")))
+    try:
+        tokens = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return tokens, caps
+
+
+def _groupnorm_f32_forward(self, x, mask=None, count=None):
+    """``GroupNormTorch.forward`` with f32 statistics on every device, as the
+    port had it before its card sums of f32 inputs went to f64."""
+    B, C, T = x.shape
+    xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
+    if mask is None:
+        mean = xg.mean(dim=(2, 3), keepdim=True)
+        var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
+    else:
+        m, xf = mask.float()[:, None], xg.float()
+        n = (count.float() * (C // self.num_groups)).reshape(B, 1, 1, 1)
+        mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
+        var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
+        mean, var = mean.to(x.dtype), var.to(x.dtype)
+    xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
+    return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
+
+
+def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extract) -> dict:
+    """What f64 GroupNorm statistics cost corpus tokenization: ``phase_extract``
+    with ``GroupNormTorch`` as it is (f32 inputs on the card sum in f64) and
+    with f32 statistics (:func:`_groupnorm_f32_forward`), after a warm-up run,
+    in the order f32, f64, f64, f32; for each run the batched run's audio
+    seconds per wall second, its peak memory and the token mismatch batched
+    vs one file a call. On the card, then, the batched masked encode of the
+    same corpus alone in the same order: device ms (CUDA events, mean of
+    ``iters``) and peak memory."""
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
+
+    f64_forward, runs, encodes, shape = GroupNormTorch.forward, [], [], None
+    order = ("f32", "f64", "f64", "f32")
+    try:
+        for stats in ("warm-up",) + order:
+            GroupNormTorch.forward = _groupnorm_f32_forward if stats == "f32" else f64_forward
+            r = phase_extract(device, bucket_seconds=bucket_seconds, **extract)
+            runs.append(dict(stats=stats, audio_s_per_s=r.get("audio_seconds_per_wall_second"),
+                             peak_mem_gib=r.get("peak_mem_gib"), token_mismatch=r["token_mismatch"]))
+        if torch.device(device).type == "cuda":
+            corpus = {k: v for k, v in extract.items() if k not in ("int8_min_channels", "lm_width")}
+            model, wavs, lengths = extract_corpus(device, **corpus)
+            bucket = math.ceil(round(bucket_seconds * model.config.sampling_rate) / model.hop_length) * model.hop_length
+            batch = torch.zeros((len(wavs), -(-int(lengths.max()) // bucket) * bucket))
+            for i, w in enumerate(wavs):
+                batch[i, : len(w)] = torch.from_numpy(w)
+            batch, lens, shape = batch.to(model.device), torch.from_numpy(lengths), list(batch.shape)
+            for stats in order:
+                GroupNormTorch.forward = _groupnorm_f32_forward if stats == "f32" else f64_forward
+                with torch.no_grad():
+                    model.encode(batch, lengths=lens)
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    ms = time_ms(lambda: model.encode(batch, lengths=lens), iters, warmup=0)
+                encodes.append(dict(stats=stats, encode_ms=ms, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
+    finally:
+        GroupNormTorch.forward = f64_forward
+    print(f"[extract_groupnorm] {json.dumps(runs[1:])}")
+    if encodes:
+        print(f"[extract_groupnorm] the batched masked encode of {shape}: {json.dumps(encodes)} ({nvidia_smi()})")
+    return {"runs": runs[1:], "encodes": encodes}
+
+
+def phase_extract_stages(device="cuda", bucket_seconds=10.0, **corpus) -> dict:
+    """Each file of ``phase_extract``'s corpus encoded alone at its exact length
+    and in the batch padded to whole buckets with its length (the CLI's two
+    runs), every encoder stage captured: per stage the largest |batched -
+    exact| over the files' valid frames and the first stage that differs for
+    a file whose tokens differ. Run with cuDNN's convs and again with cuDNN
+    off (PyTorch's own CUDA convs), to tell a per-shape cuDNN algorithm from a
+    masked sum of the port's that reads past a length."""
+    model, wavs, lengths = extract_corpus(device, **corpus)
+    sr, hop = model.config.sampling_rate, model.hop_length
+    bucket = math.ceil(round(bucket_seconds * sr) / hop) * hop
+    width = -(-int(lengths.max()) // bucket) * bucket
+    batch = torch.zeros((len(wavs), width))
+    for i, w in enumerate(wavs):
+        batch[i, : len(w)] = torch.from_numpy(w)
+    result = {}
+    for backend in ("cudnn", "native"):
+        torch.backends.cudnn.enabled = backend == "cudnn"
+        try:
+            with torch.no_grad():
+                tok_b, cap_b = _encoder_captures(model, lambda: model.encode(batch, lengths=torch.from_numpy(lengths)))
+                singles = [_encoder_captures(model, lambda w=w: model.encode(torch.from_numpy(w)[None]))
+                           for w in wavs]
+        finally:
+            torch.backends.cudnn.enabled = True
+        stage_diff, first_stage, tokens_differ = {}, {}, {}
+        for f, (tok_s, cap_s) in enumerate(singles):
+            frames = tok_s.shape[1]
+            tokens_differ[f] = int((tok_b[f, :frames] != tok_s[0]).sum())
+            if len(cap_s) != len(cap_b):
+                raise AssertionError(f"extract stages: {len(cap_s)} captures alone, {len(cap_b)} batched")
+            for (name, a), (name_b, b) in zip(cap_s, cap_b):
+                t = a.shape[-1]
+                d = (b[f, :, :t] - a[0]).abs().max().item() / max(a.abs().max().item(), 1e-30)
+                stage_diff[name] = max(stage_diff.get(name, 0.0), d)
+                if d > 0 and f not in first_stage:
+                    first_stage[f] = name
+        differing = [f for f, n in tokens_differ.items() if n]
+        result[backend] = dict(tokens_differ=sum(tokens_differ.values()), files_differ=differing,
+                               first_stage_that_differs={f: first_stage.get(f) for f in differing},
+                               first_stage_any_file=next((n for n, d in stage_diff.items() if d > 0), None),
+                               max_rel_diff_by_stage=stage_diff)
+        print(f"[extract_stages] {backend}: {sum(tokens_differ.values())} tokens differ (files {differing}); first "
+              f"stage that differs for them {result[backend]['first_stage_that_differs']}; per stage the largest "
+              f"|batched - exact| / max|exact| over valid frames: "
+              + ", ".join(f"{n} {d:.3g}" for n, d in stage_diff.items()))
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1639,12 +2412,17 @@ def main() -> int:
     lm = phase_lm(device)
     int8 = phase_int8(device)
     layer_opts = phase_layer_opts(device)
+    train = phase_train(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
         k["launches_per_stream_chunk"] = stream["launches_per_chunk"][name]
         k["launches_compress_roundtrip"] = compress["launches"][name]
         k["launches_lm_compress_roundtrip"] = lm["launches"][name]
+        k["launches_train_step"] = train["f32"]["launches_step"][name]
+        k["launches_train_init_step"] = train["f32"]["launches_init_step"][name]
+    k1.update(train["k1_shapes"])
+    k2.update(train["k2_shapes"])
     k3["launches"] = hifi["launches"]["resblock_tower"]
     k3["launches_fused_pre"] = hifi_pre["launches"]["resblock_tower"]
     k3["launches_extract"] = extract["launches"]["resblock_tower"]
@@ -1665,6 +2443,7 @@ def main() -> int:
     print(f"[lm] {json.dumps(lm)}")
     print(f"[int8] {json.dumps(int8)}")
     print(f"[layer_opts] {json.dumps(layer_opts)}")
+    print(f"[train] {json.dumps(train)}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,13 @@ kernel then print the ``clock64`` counts of their phases (window loads, the
 chains, and inside the chains the waits for tap tiles and the epilogues).
 
     python3 profile_port.py --tower-clocks
+
+``--train-flops`` counts, with ``torch.utils.flop_counter`` on the CPU (no
+card needed), the forward FLOPs of each module of the Encodec_24k_240d
+trainer (``chip_smoke.TRAIN_RECIPE``) for one 1 s item: the SEANet encoder
+and decoder, the three discriminator families and the mel loss.
+
+    python3 profile_port.py --train-flops
 """
 
 from __future__ import annotations
@@ -76,6 +83,33 @@ def tower_clocks() -> None:
         torch.cuda.synchronize()
 
 
+def train_flops() -> dict:
+    """Forward GFLOP of each trainer module for one 1 s item at the recipe's widths."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from academicodec_tpu_torch.losses.mel import mel_reconstruction_loss
+    from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
+
+    cfg = EncodecTrainConfig(**chip_smoke.TRAIN_RECIPE)
+    state = EncodecTrainer(cfg, device="cpu").init_state(0)
+    x = chip_smoke.seeded_wav(1, cfg.sr, "cpu")
+    model, discs = state.generator, state.discriminators
+    out = {}
+
+    def count(name, fn):
+        with torch.no_grad(), FlopCounterMode(display=False) as fc:
+            result = fn()
+        out[name] = fc.get_total_flops() / 1e9
+        return result
+
+    e = count("encoder", lambda: model.encoder(x[:, None]))
+    y = count("decoder", lambda: model.decoder(e))[:, 0]
+    for family in ("stft_disc", "mpd", "msd"):
+        count(family, lambda: getattr(discs, family)(x))
+    count("mel_loss", lambda: mel_reconstruction_loss(x, y, cfg.sr, scale_powers=cfg.mel_scale_powers))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", default=chip_smoke.FLAGSHIP,
@@ -87,7 +121,12 @@ def main(argv=None) -> int:
                         help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
     parser.add_argument("--fused-pre", action="store_true",
                         help="HiFi-Codec: fuse each narrow stage's upsampling convT into K3 (generator.fused_pre)")
+    parser.add_argument("--train-flops", action="store_true",
+                        help="count the Encodec trainer's forward FLOPs per 1 s item (on the CPU)")
     args = parser.parse_args(argv)
+    if args.train_flops:
+        print(f"[train_flops] forward GFLOP per 1 s item: {json.dumps(train_flops())}")
+        return 0
     if args.fused_pre and (args.preset != chip_smoke.HIFI or args.stream):
         parser.error("--fused-pre applies to the HiFi-Codec roundtrip (--preset hificodec_24k_320d, no --stream)")
     if not torch.cuda.is_available():

@@ -86,6 +86,10 @@ def test_rvq_kernel_flagship_shape(cuda):
         (torch.float32, torch.float32, 5, 1, 64, 1e-4),
         (torch.bfloat16, torch.bfloat16, 8, 30, 600, 1e-2),    # 150 units of 4 > 132 SMs: 8 a block
         (torch.float32, torch.float32, 3, 12, 536, 1e-4),      # f32: 134 blocks of 4 > 132 SMs
+        # the trainer's no-grad regenerate of 16 x 1 s: B 16 takes two MMA column
+        # tiles; f32 as the f32 step, bf16 weights as mixed precision
+        (torch.float32, torch.float32, 16, 100, 512, 1e-4),
+        (torch.bfloat16, torch.bfloat16, 16, 100, 512, 1e-2),
     ],
 )
 def test_lstm2_kernel_matches_plain(cuda, wdt, odt, B, T, H, atol):
@@ -771,3 +775,118 @@ def test_post_conv_norms_on_the_card_match_the_cpu(cuda, norm):
         ref = conv(x)
         y = conv.to(cuda)(x.to(cuda))
     torch.testing.assert_close(y.cpu(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_rvq_kernel_as_kmeans_assignment(cuda):
+    """K1 with one layer as the trainer's k-means assignment: N 1600 latent
+    frames against 1024 means drawn from them, tokens equal the plain version's."""
+    rng = np.random.default_rng(16)
+    x = _randn(rng, (1600, 512), cuda)
+    means = x[torch.from_numpy(rng.permutation(1600)[:1024]).to(cuda)][None]
+    before = rvq_ops.LAUNCHES
+    codes = rvq_ops.rvq_encode(x, means)
+    torch.cuda.synchronize()
+    assert rvq_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(codes, rvq_ops.rvq_encode_plain(x, means), rtol=0, atol=0)
+
+
+def test_training_forward_on_the_card_matches_the_cpu(cuda):
+    """``ResidualVQ``'s training forward from an un-inited state, three calls
+    (k-means of 3 layers, of the other 3 with the first live, then one search):
+    codes equal, quantized, losses and EMA state within 1e-5 (atol and rtol),
+    with the K1 launches the code predicts."""
+    from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS, ResidualVQ, sample_rows
+
+    n_q, dim, bins = 6, 64, 128
+    cpu = ResidualVQ(n_q, dim, bins)
+    cpu.init_training_state()
+    gpu = ResidualVQ(n_q, dim, bins).to(cuda)
+    gpu.init_training_state()
+    rng = np.random.default_rng(2)
+    g = torch.Generator().manual_seed(3)
+    for call, active in enumerate((3, 6, 6)):
+        x = torch.from_numpy(rng.standard_normal((4, 100, dim)).astype(np.float32))
+        rows = torch.stack([sample_rows(g, 400, bins) for _ in range(n_q)])
+        before = rvq_ops.LAUNCHES
+        q, codes, losses = gpu(x.to(cuda), n_q=active, training=True, draws=rows)
+        torch.cuda.synchronize()
+        launches = rvq_ops.LAUNCHES - before
+        q_ref, codes_ref, losses_ref = cpu(x, n_q=active, training=True, draws=rows)
+        expected = {0: 3 * (KMEANS_ITERS + 1) + 3, 1: 3 * (KMEANS_ITERS + 1) + 6, 2: 1}[call]
+        assert launches == expected, (call, launches)
+        torch.testing.assert_close(codes.cpu(), codes_ref, rtol=0, atol=0)
+        assert len(torch.unique(codes_ref)) > 8
+        torch.testing.assert_close(q.cpu(), q_ref, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(losses.cpu(), losses_ref, atol=1e-5, rtol=1e-5)
+        for name in ("embed", "embed_avg", "cluster_size"):
+            torch.testing.assert_close(getattr(gpu, name).cpu(), getattr(cpu, name), atol=1e-5, rtol=1e-5)
+        assert torch.equal(gpu.inited.cpu(), cpu.inited)
+
+
+def _slstm(cuda):
+    from academicodec_tpu_torch.nn.lstm import SLSTM
+
+    mod = SLSTM(64)
+    mod.lstm.reset_parameters(torch.Generator().manual_seed(4))
+    x = torch.randn((2, 64, 40), generator=torch.Generator().manual_seed(5)) * 0.5
+    return mod, x
+
+
+def test_slstm_under_autograd_runs_the_library_lstm(cuda):
+    """The 2-layer SLSTM with a gradient to take: cuDNN's LSTM, no K2 launch;
+    output and input gradient against the plain loop on the CPU (atol 1e-5)."""
+    mod, x = _slstm(cuda)
+    xc = x.clone().requires_grad_(True)
+    mod(xc).square().sum().backward()
+    gpu = mod.to(cuda)
+    xg = x.to(cuda).requires_grad_(True)
+    before = lstm_ops.LAUNCHES
+    y = gpu(xg)
+    y.square().sum().backward()
+    torch.cuda.synchronize()
+    assert lstm_ops.LAUNCHES == before
+    torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
+    assert gpu.lstm.weight_hh_l0.grad is not None and torch.isfinite(gpu.lstm.weight_hh_l0.grad).all()
+
+
+def test_slstm_without_grad_launches_k2(cuda):
+    """The same SLSTM under ``no_grad``: one K2 launch, the output within atol 1e-4
+    of the autograd path's on the card (cuDNN against the kernel, f32)."""
+    mod, x = _slstm(cuda)
+    gpu = mod.to(cuda)
+    xg = x.to(cuda)
+    ref = gpu(xg).detach()  # parameters require grad: the library LSTM
+    before = lstm_ops.LAUNCHES
+    with torch.no_grad():
+        y = gpu(xg)
+    torch.cuda.synchronize()
+    assert lstm_ops.LAUNCHES == before + 1
+    torch.testing.assert_close(y, ref, atol=1e-4, rtol=0)
+
+
+def test_masked_groupnorm_of_a_padded_row_equals_its_exact_length(cuda):
+    """``GroupNormTorch`` on the card, f32: a row zero-padded to a bucket, with
+    its mask and count, normalizes its valid frames bitwise as the same row at
+    its exact length (the wide HiFi-Codec encoder stages of a batched encode;
+    ROADMAP.md Queue 3 item 3)."""
+    dtype = torch.float32
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, frame_mask
+
+    gn = GroupNormTorch(8, 128, epsilon=1e-6)
+    with torch.no_grad():
+        gn.weight.normal_(1.0, 0.1, generator=torch.Generator().manual_seed(0))
+        gn.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(1))
+    gn = gn.to(cuda)
+    rng = np.random.default_rng(9)
+    lengths = [29_997, 17_311, 30_000]
+    width = 32_768
+    rows = [(_randn(rng, (128, n), cuda) + 0.3).to(dtype) for n in lengths]
+    batch = torch.zeros((len(rows), 128, width), device=cuda, dtype=dtype)
+    for i, r in enumerate(rows):
+        batch[i, :, : r.shape[1]] = r
+    count = torch.tensor(lengths, device=cuda)
+    with torch.no_grad():
+        padded = gn(batch, frame_mask(count, width).to(dtype), count)
+        for i, r in enumerate(rows):
+            exact = gn(r[None])
+            assert torch.equal(padded[i, :, : r.shape[1]], exact[0]), i

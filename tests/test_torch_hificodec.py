@@ -213,3 +213,54 @@ def test_chip_smoke_fused_pre_and_extract_rehearsal():
     r = chip_smoke.phase_extract(device="cpu", n_files=3, min_seconds=0.1, max_seconds=0.3, bucket_seconds=0.2,
                                  lm_width=dict(dim=16, num_heads=2, num_layers=1, past_context=8), **tiny)
     assert not any(r["launches"].values()) and r["token_mismatch"] == 0.0
+
+
+def test_chip_smoke_extract_stages_rehearsal():
+    """chip_smoke's ``extract_stages`` at a tiny width on the CPU: every encoder
+    stage captured in the batched and the exact-length encodes, which agree
+    here token for token (the JAX contract on the CPU)."""
+    tiny = dict(TINY, n_codes=64)
+    r = chip_smoke.phase_extract_stages("cpu", bucket_seconds=0.2, n_files=3, min_seconds=0.1, max_seconds=0.3,
+                                        **tiny)
+    for backend in ("cudnn", "native"):
+        stages = r[backend]["max_rel_diff_by_stage"]
+        assert r[backend]["tokens_differ"] == 0 and r[backend]["files_differ"] == []
+        assert {"conv_pre", "conv_post", "conv_post.in", "ups.0", "ups.0.in"} <= set(stages)
+        assert max(stages.values()) <= 1e-5
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_chip_smoke_groupnorm_f32_statistics_match_the_module_on_the_cpu(masked):
+    """``chip_smoke._groupnorm_f32_forward`` (the f32 statistics that
+    ``phase_extract_groupnorm`` times against the f64 ones) is
+    ``GroupNormTorch.forward`` bit for bit on the CPU, where the module keeps
+    f32 sums, with and without a length mask."""
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
+
+    gn = GroupNormTorch(4, 16)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        gn.weight.copy_(torch.randn(16, generator=g))
+        gn.bias.copy_(torch.randn(16, generator=g))
+        x = torch.randn((3, 16, 50), generator=g)
+        kw = {}
+        if masked:
+            count = torch.tensor([50, 31, 7])
+            kw = dict(mask=(torch.arange(50)[None] < count[:, None]).float()[:, None], count=count)
+        assert torch.equal(chip_smoke._groupnorm_f32_forward(gn, x, **kw), gn(x, **kw))
+
+
+def test_chip_smoke_extract_groupnorm_rehearsal():
+    """chip_smoke's opt-in ``extract_groupnorm`` at a tiny width on the CPU: a
+    warm-up and four corpus tokenizations, f32 and f64 statistics in turn,
+    each token for token equal batched and one file a call, and
+    ``GroupNormTorch.forward`` restored after it."""
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
+
+    forward = GroupNormTorch.forward
+    tiny = dict(TINY, n_codes=64)
+    r = chip_smoke.phase_extract_groupnorm("cpu", n_files=2, min_seconds=0.1, max_seconds=0.2, bucket_seconds=0.2,
+                                           lm_width=dict(dim=16, num_heads=2, num_layers=1, past_context=8), **tiny)
+    assert [run["stats"] for run in r["runs"]] == ["f32", "f64", "f64", "f32"]
+    assert all(run["token_mismatch"] == 0.0 and run["audio_s_per_s"] is None for run in r["runs"])
+    assert GroupNormTorch.forward is forward

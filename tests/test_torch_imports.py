@@ -14,7 +14,10 @@ names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".
 serving = ["academicodec_tpu_torch." + n for n in ("streaming", "codec.compress", "cli.compress", "data.wavio",
                                                    "cli.extract_tokens", "utils.fold", "data.dataset", "nn.norm",
                                                    "ops.int8", "nn.transformer", "models.lm", "codec.ac",
-                                                   "codec.lm_compress")]
+                                                   "codec.lm_compress", "ops.stft", "losses.gan", "losses.mel",
+                                                   "nn.discriminators", "train.state", "train.encodec",
+                                                   "data.mt64", "utils.checkpoint", "utils.logging",
+                                                   "utils.profiling", "cli.train_encodec")]
 for name in serving + names:
     importlib.import_module(name)
 import chip_smoke

@@ -87,9 +87,12 @@ def test_state_dict_uses_reference_keys_and_folds_layers():
           for i in range(3)
           for name, value in (("embed", embed[i]), ("embed_avg", embed[i]),
                               ("cluster_size", torch.ones(8)), ("inited", torch.ones(1)))}
-    mod.load_state_dict(sd)  # strict: the EMA statistics are accepted
-    assert torch.equal(mod.embed, embed)
-    assert sorted(mod.state_dict()) == [f"layers.{i}._codebook.embed" for i in range(3)]
+    mod.load_state_dict(sd)  # strict: the EMA statistics are loaded too
+    assert torch.equal(mod.embed, embed) and torch.equal(mod.embed_avg, embed)
+    assert torch.equal(mod.cluster_size, torch.ones(3, 8)) and mod.inited.all()
+    assert sorted(mod.state_dict()) == sorted(sd)
+    for key, value in mod.state_dict().items():
+        assert torch.equal(value, sd[key]), key
     with pytest.raises(RuntimeError, match="Unexpected"):
         mod.load_state_dict({**sd, "layers.3._codebook.embed": embed[0]})
     with pytest.raises(RuntimeError, match="Missing"):
