@@ -33,8 +33,9 @@ def load_codec(
 
     ``checkpoint`` is a reference PyTorch file (a SoundStream ``.pth``, or a
     HiFi-Codec ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``), a port
-    training checkpoint of ``cli/train_encodec.py`` (``latest_<step>.pt``), or
-    None for random weights drawn from ``seed``. The default device is the
+    training checkpoint of ``cli/train_encodec.py`` (``latest_<step>.pt``) or
+    ``cli/train_hificodec.py`` (``state_<step>.pt``, which holds the ``g_*``
+    parts), or None for random weights drawn from ``seed``. The default device is the
     card; without one this raises rather than running on the CPU.
     """
     model = presets.build(preset, device=device, dtype=dtype, seed=seed, **overrides)

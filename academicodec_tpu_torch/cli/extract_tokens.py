@@ -8,7 +8,8 @@ vqvae_copy_syn.py), and with ``--tokens_ecdc`` one ECDC token blob per file,
 raw-packed, or LM-entropy-coded with ``--lm`` where that is smaller. The
 flags and output files are those of ``academicodec_tpu/cli/extract_tokens.py``,
 plus ``--device`` (the card unless ``cpu`` is asked for). The model computes
-in f32 from a reference ``g_*`` checkpoint.
+in f32 from a reference ``g_*`` checkpoint or a training state of the port's
+``cli/train_hificodec.py`` (``state_<step>.pt``).
 
     python -m academicodec_tpu_torch.cli.extract_tokens --config config_24k_320d.json \\
         --model_path g_00100000 --input wavs/ --outputdir out/ --tokens_out tokens.npz \\
@@ -59,7 +60,8 @@ from academicodec_tpu_torch.utils.fold import fold_vqvae
 def get_args(argv=None):
     p = argparse.ArgumentParser("extract_tokens")
     p.add_argument("--config", type=str, required=True, help="model config JSON")
-    p.add_argument("--model_path", type=str, required=True, help="reference g_* checkpoint file")
+    p.add_argument("--model_path", type=str, required=True,
+                   help="reference g_* checkpoint file, or a state_<step>.pt of cli/train_hificodec.py")
     p.add_argument("--input", type=str, required=True, help="wav dir or filelist")
     p.add_argument("--outputdir", type=str, required=True)
     p.add_argument("--tokens_out", type=str, default=None, help=".npz path for tokens")
@@ -104,7 +106,8 @@ def get_args(argv=None):
     if args.batch_files > 1 and not args.bucket_seconds:
         p.error("--batch_files needs --bucket_seconds (uniform padded lengths per device batch)")
     if not os.path.isfile(args.model_path):
-        p.error("--model_path must be a reference g_* file (orbax directories are not ported)")
+        p.error("--model_path must be a reference g_* file or a port training state (orbax directories "
+                "are not ported)")
     return args
 
 

@@ -1,0 +1,143 @@
+"""HiFi-Codec training CLI of the port (the JAX CLI's flags plus ``--device``).
+
+    python -m academicodec_tpu_torch.cli.train_hificodec \\
+        --config recipes/HiFi-Codec-24k-320d/config_24k_320d.json \\
+        --input_training_file train.lst --input_validation_file valid.lst \\
+        --checkpoint_path ckpts/hificodec_24k --device cuda
+
+The config is the reference JSON (unknown keys ignored); it is copied to
+``config.json`` beside the checkpoints. The learning rate decays by
+``lr_decay`` each epoch. States are ``state_<step>.pt`` under
+``--checkpoint_path`` (``utils/checkpoint.py``, the newest
+``--num_ckpt_keep`` kept, the epoch in their metadata); a run resumes from
+the newest one there. Each holds the generator as a reference ``g_*`` dict,
+so ``cli/extract_tokens.py --model_path`` and ``api.load_codec`` serve it.
+Validation (the mel error of every validation batch) runs every
+``--validation_interval`` steps. ``--fine_tuning --input_mels_dir`` trains
+on mel-aligned crops (``data/dataset.MelNpyCropDataset``).
+
+Not ported: ``--multihost`` (multi-GPU training, ROADMAP.md Queue 1 item 9)
+and ``--native_loader`` (the C++ crop loader, item 6) exit with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from academicodec_tpu_torch.data.dataset import MelNpyCropDataset, WavCropDataset, batch_iterator
+from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
+from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig, HiFiCodecTrainer
+from academicodec_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta, save_checkpoint, scan_checkpoint
+from academicodec_tpu_torch.utils.logging import Logger
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser("train_hificodec")
+    p.add_argument("--config", type=str, required=True)
+    p.add_argument("--input_training_file", type=str, required=True)
+    p.add_argument("--input_validation_file", type=str, required=True)
+    p.add_argument("--checkpoint_path", type=str, default="checkpoints")
+    p.add_argument("--training_epochs", type=int, default=2000)
+    p.add_argument("--stdout_interval", type=int, default=5)
+    p.add_argument("--checkpoint_interval", type=int, default=5000)
+    p.add_argument("--validation_interval", type=int, default=5000)
+    p.add_argument("--num_ckpt_keep", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=None, help="override config")
+    p.add_argument("--accum_steps", type=int, default=1,
+                   help="gradient accumulation: sequential microbatches per optimizer update "
+                        "(batch_size %% accum_steps == 0); equal to the monolithic step for this family")
+    p.add_argument("--mixed_precision", action="store_true",
+                   help="bf16 forwards/backwards with f32 master weights, optimizer state, spectral-norm u "
+                        "and loss reductions")
+    p.add_argument("--multihost", action="store_true", help="not ported yet (multi-GPU training)")
+    p.add_argument("--native_loader", action="store_true", help="not ported yet (the C++ crop loader)")
+    p.add_argument("--fine_tuning", action="store_true",
+                   help="mel-aligned crops from precomputed mel .npy files (reference meldataset.py:183-206)")
+    p.add_argument("--input_mels_dir", type=str, default=None, help="dir of <stem>.npy mels for --fine_tuning")
+    p.add_argument("--device", type=str, default="cuda", help="torch device; the card unless cpu is asked for")
+    args = p.parse_args(argv)
+    if args.multihost:
+        p.error("--multihost: multi-GPU training is not ported yet (ROADMAP.md Queue 1 item 9)")
+    if args.native_loader:
+        p.error("--native_loader: the C++ crop loader is not ported yet (ROADMAP.md Queue 1 item 6)")
+    if args.fine_tuning and not args.input_mels_dir:
+        p.error("--fine_tuning requires --input_mels_dir")
+    return args
+
+
+def main(argv=None):
+    args = get_args(argv)
+    with open(args.config) as fh:
+        raw = json.load(fh)
+    model_cfg = HiFiCodecConfig.from_json(raw)
+    cfg = HiFiCodecTrainConfig(
+        model=model_cfg, learning_rate=raw.get("learning_rate", 2e-4), adam_b1=raw.get("adam_b1", 0.5),
+        adam_b2=raw.get("adam_b2", 0.9), lr_decay=raw.get("lr_decay", 0.98), accum_steps=args.accum_steps,
+        mixed_precision=args.mixed_precision,
+    )
+    batch_size = args.batch_size or raw.get("batch_size", 16)
+    if batch_size % args.accum_steps:
+        raise SystemExit(f"batch_size {batch_size} is not divisible by --accum_steps {args.accum_steps}")
+    trainer = HiFiCodecTrainer(cfg, device=args.device)
+    logger = Logger(args.checkpoint_path, args=vars(args))
+    device = trainer.device
+    logger.log_info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    # the config beside the checkpoints (reference env.py:11-16)
+    dst = os.path.join(args.checkpoint_path, "config.json")
+    if os.path.abspath(args.config) != os.path.abspath(dst):
+        shutil.copyfile(args.config, dst)
+
+    seed = raw.get("seed", 1234)
+    segment = model_cfg.segment_size
+    if args.fine_tuning:
+        train_ds = MelNpyCropDataset(args.input_training_file, segment, hop_size=model_cfg.hop_size,
+                                     base_mels_path=args.input_mels_dir, sample_rate=model_cfg.sampling_rate,
+                                     seed=seed)
+    else:
+        train_ds = WavCropDataset(args.input_training_file, segment, sample_rate=model_cfg.sampling_rate, seed=seed)
+    valid_ds = WavCropDataset(args.input_validation_file, segment, sample_rate=model_cfg.sampling_rate)
+
+    state = trainer.init_state(seed)
+    start_epoch = 0
+    latest = scan_checkpoint(args.checkpoint_path, "state")
+    if latest:
+        state.load_state_dict(load_checkpoint(latest))
+        start_epoch = int(load_checkpoint_meta(latest).get(
+            "epoch", state.step // max(1, len(train_ds) // batch_size)))
+        logger.log_info(f"resumed from {latest} at step {state.step}, epoch {start_epoch}")
+
+    for epoch in range(start_epoch, args.training_epochs):
+        trainer.set_epoch_lr(state, epoch)
+        t_epoch = time.time()
+        for batch in batch_iterator(train_ds, batch_size, seed=seed, epochs=1, start_epoch=epoch):
+            if isinstance(batch, tuple):  # fine-tuning: (wav, mel); the loss recomputes mels from the wav
+                batch, _mel = batch
+            t0 = time.time()
+            state, metrics = trainer.train_step(state, batch)
+            step = state.step
+            if step % args.stdout_interval == 0:
+                logger.log_info(
+                    "Steps : {:d}, Gen Loss Total : {:4.3f}, Loss Q : {:4.3f}, Mel-Spec. Error : {:4.3f}, "
+                    "s/b : {:4.3f}".format(step, float(metrics["loss_gen_all"]), float(metrics["loss_q"]),
+                                           float(metrics["mel_error"]), time.time() - t0))
+            if step % args.checkpoint_interval == 0:
+                save_checkpoint(args.checkpoint_path, "state", step, state.state_dict(),
+                                num_ckpt_keep=args.num_ckpt_keep, meta={"epoch": epoch})
+            if step % args.validation_interval == 0:
+                errs = [float(trainer.eval_step(state, vb)["val_mel_error"])
+                        for vb in batch_iterator(valid_ds, batch_size, shuffle=False, epochs=1)]
+                if errs:
+                    logger.log_info(f"validation/mel_spec_error {np.mean(errs):.4f}")
+        logger.log_info(f"Time taken for epoch {epoch + 1} is {int(time.time() - t_epoch)} sec")
+    logger.close()
+
+
+if __name__ == "__main__":
+    main()

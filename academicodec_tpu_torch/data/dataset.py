@@ -10,8 +10,9 @@ f32 batches.
 Every random decision is keyed on ``(seed, epoch, item)`` through the
 ``std::mt19937_64`` streams of ``data/mt64.py``, so for the same arguments
 the batches equal the JAX package's bit for bit, whatever the thread
-schedule. ``MelNpyCropDataset`` (HiFi-Codec fine-tuning) and the native
-loader are not ported yet (ROADMAP.md Queue 1 items 6-7).
+schedule. ``MelNpyCropDataset`` is HiFi-Codec fine-tuning's mel-aligned
+crop, paired with its precomputed mel. The native loader is not ported yet
+(ROADMAP.md Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -84,6 +85,50 @@ class WavCropDataset:
         return x
 
 
+class MelNpyCropDataset(WavCropDataset):
+    """Fine-tuning crops (reference meldataset.py:183-206): each file's
+    precomputed mel ``base_mels_path/<stem>.npy`` (``[num_mels, frames]``, or
+    with a leading batch dim of 1) and a crop aligned to its frames;
+    ``sample`` returns ``(wav [segment], mel [num_mels, ceil(segment / hop)])``.
+    A file or mel too short for a crop is zero-padded to those shapes. The
+    mel is not the loss target (the trainer recomputes mels from the audio);
+    it rides along for consumers that plot or condition on it."""
+
+    def __init__(self, source: str, segment_length: int, hop_size: int, base_mels_path: str,
+                 sample_rate: Optional[int] = None, seed: int = 0):
+        super().__init__(source, segment_length, sample_rate=sample_rate, seed=seed)
+        self.hop_size = hop_size
+        self.base_mels_path = base_mels_path
+        self.frames_per_seg = -(-segment_length // hop_size)
+
+    def sample(self, index: int, *, epoch: int = 0, item: Optional[int] = None):
+        if item is None:
+            item = index
+        rng = item_rng(self.seed, epoch, item)
+        path = self.files[index % len(self.files)]
+        stem = os.path.splitext(os.path.basename(path))[0]
+        mel = np.load(os.path.join(self.base_mels_path, stem + ".npy"))
+        if mel.ndim == 3:
+            mel = mel[0]
+        seg, hop, fps = self.segment_length, self.hop_size, self.frames_per_seg
+        try:
+            wav, _sr = read_wav(path, sr=self.sample_rate)
+        except (OSError, ValueError, EOFError, struct.error):
+            wav = (np.random.default_rng(0).standard_normal(seg) * 0.05).astype(np.float32)
+        if wav.shape[-1] >= seg and mel.shape[-1] >= fps:
+            start = rng.next() % (mel.shape[-1] - fps + 1)  # every frame offset reachable
+            mel = mel[:, start:start + fps]
+            wav = wav[start * hop:start * hop + seg]
+            out = np.zeros(seg, np.float32)
+            out[: wav.shape[-1]] = wav  # a ragged last hop
+            return out, mel.astype(np.float32)
+        mel_out = np.zeros((mel.shape[0], fps), np.float32)
+        mel_out[:, : min(fps, mel.shape[-1])] = mel[:, :fps]
+        wav_out = np.zeros(seg, np.float32)
+        wav_out[: min(seg, wav.shape[-1])] = wav[:seg]
+        return wav_out, mel_out
+
+
 def shard_indices(idx: np.ndarray, process_index: int, process_count: int) -> np.ndarray:
     """DistributedSampler sharding: pad by wrapping so that every process draws
     the same count, then stride by rank."""
@@ -110,7 +155,8 @@ def batch_iterator(
     process_count: int = 1,
     start_epoch: int = 0,
 ) -> Iterator[np.ndarray]:
-    """``[batch_size, segment_length]`` f32 batches with threaded prefetch;
+    """``[batch_size, segment_length]`` f32 batches (a tuple of stacked columns
+    for a dataset of pairs, :class:`MelNpyCropDataset`) with threaded prefetch;
     ``epochs=None`` streams forever, reshuffling each pass. ``start_epoch``
     offsets every stream's epoch key, so a resumed run continues the original
     order. ``batch_size`` is per process."""
@@ -129,6 +175,10 @@ def batch_iterator(
             for start in range(0, limit, batch_size):
                 chunk = idx[start : start + batch_size]
                 batch = list(pool.map(draw, list(enumerate(chunk.tolist(), start=start))))
-                if len(batch) == batch_size:
+                if len(batch) < batch_size:
+                    continue
+                if isinstance(batch[0], tuple):
+                    yield tuple(np.stack(col).astype(np.float32) for col in zip(*batch))
+                else:
                     yield np.stack(batch).astype(np.float32)
             epoch += 1

@@ -1,4 +1,4 @@
-"""HiFi-Codec: HiFi-GAN encoder -> GRVQ -> HiFi-GAN generator, serving only.
+"""HiFi-Codec: HiFi-GAN encoder -> GRVQ -> HiFi-GAN generator.
 
 ``encode(wav [B, T]) -> tokens [B, frames, 4]`` (the VALL-E/SoundStorm
 hand-off, stream order ``[l0 g0, l0 g1, l1 g0, l1 g1]``) and
@@ -14,6 +14,12 @@ of files of different lengths (K4 takes the lengths on the card): each row's
 valid token frames equal its exact-length encode. ``generator.fused_pre =
 True`` fuses each narrow stage's upsampling conv-transpose into K3, as the
 JAX generator's option of that name does.
+
+``forward(x, training)`` is the trainer's forward (``train/hificodec.py``):
+wav ``[B, T]`` -> ``(wav [B, T], loss_q, codes)``, differentiable. Under
+autograd the narrow stages run their unfused chains (K3/K4 have no backward,
+and the JAX trainer runs them unfused too); without a gradient they launch
+K3/K4 as in serving.
 
 ``VQVAE(int8_min_channels=N)`` serves the resblock convs of the unfused
 stages of at least N channels as W8A8 int8 (``nn/hifigan.py``), once
@@ -67,7 +73,8 @@ class VQVAE(nn.Module):
         self.encoder = HiFiGANEncoder(config, norm, int8_min_channels=int8_min_channels)
         self.generator = HiFiGANGenerator(config, norm, int8_min_channels=0 if config.causal else int8_min_channels)
         self.quantizer = GroupResidualVQ(
-            dim=config.latent_dim, n_codes=config.n_codes, n_groups=config.n_code_groups, n_residual=2
+            dim=config.latent_dim, n_codes=config.n_codes, n_groups=config.n_code_groups, n_residual=2,
+            codebook_loss_lambda=config.codebook_loss_lambda, commitment_loss_lambda=config.commitment_loss_lambda,
         )
         generator = torch.Generator().manual_seed(seed)
         normal = {id(c) for c in self.encoder.normal_init_convs() + self.generator.normal_init_convs()}
@@ -95,6 +102,19 @@ class VQVAE(nn.Module):
         'quantizer'}`` (DDP ``module.`` prefixes removed)."""
         for part in ("encoder", "generator", "quantizer"):
             getattr(self, part).load_state_dict(_strip_ddp(ckpt[part]))
+
+    def reference_state_dict(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The reference ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``
+        (what :meth:`load_reference` reads)."""
+        return {part: getattr(self, part).state_dict() for part in ("generator", "encoder", "quantizer")}
+
+    def forward(self, x: torch.Tensor, training: bool = False):
+        """wav ``[B, T]`` -> ``(wav [B, T], loss_q, codes [B, frames, n_res * G])``
+        (JAX models/hificodec.py:74-82), in the dtype of ``x`` and the weights."""
+        c = self.encoder(x[:, None, :])
+        q, loss_q, codes = self.quantizer(c.transpose(1, 2), training=training)
+        y = self.generator(q.transpose(1, 2).contiguous())
+        return y[:, 0, :], loss_q, codes
 
     def w8a8_convs(self) -> Dict[str, Conv1d]:
         """The int8 convs by module path (``encoder.resblocks.3.convs1.0``)."""

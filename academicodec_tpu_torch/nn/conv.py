@@ -9,6 +9,17 @@ out-channel for conv, per in-channel for conv-transpose. The resolution is
 plain differentiable torch, so under autograd the gradients reach ``g`` and
 ``v`` (the discriminators and the trainer train through it).
 
+Spectral norm (``norm="spectral_norm"``, the first scale of the HiFi-Codec
+multi-scale discriminator) holds a plain ``weight`` and its power-iteration
+vector ``weight_u`` (a buffer, the JAX ``'spectral'`` collection's
+``kernel_u``) and divides the weight by ``sigma = u^T W v`` on every call,
+with ``u`` and ``v`` detached (JAX nn/conv.py:99-127). ``forward(x,
+advance=True)`` is JAX's mutable apply: one power-iteration step from the
+stored ``u``, whose result is stored and used; the default is its
+non-mutable apply, which uses the stored ``u`` as it is. The trainer says
+where ``u`` advances (once a step); ``torch.nn.utils.spectral_norm``, whose
+hook advances it on every training call, is not used.
+
 ``NormConv1d`` / ``NormConvTranspose1d`` add the reference's extra module
 level, so state-dict keys read ``conv.conv.weight_v`` and
 ``convtr.convtr.weight_v`` as in a reference checkpoint. ``NormConv1d`` also
@@ -49,7 +60,8 @@ from academicodec_tpu_torch.ops.int8 import act_scale_from_amax, conv1d_w8a8
 from academicodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d, pad1d, unpad1d
 
 # norms of a kernel itself; the S-convs also take the post-conv norms of nn/norm.py
-KERNEL_NORMS = ("none", "weight_norm")
+KERNEL_NORMS = ("none", "weight_norm", "spectral_norm")
+SPECTRAL_EPS = 1e-12  # inside each norm of the power iteration, as in JAX
 NORMS = KERNEL_NORMS + tuple(POST_NORMS)
 
 
@@ -60,7 +72,8 @@ def _kernel_norm(norm: str) -> str:
 
 
 class _NormedWeight(nn.Module):
-    """A kernel held either plain (``weight``) or weight-normed (``weight_v``/``weight_g``)."""
+    """A kernel held plain (``weight``), weight-normed (``weight_v``/``weight_g``)
+    or spectral-normed (``weight`` and the buffer ``weight_u``)."""
 
     def _make_weight(self, shape, norm: str) -> None:
         if norm not in KERNEL_NORMS:
@@ -71,6 +84,8 @@ class _NormedWeight(nn.Module):
             self.weight_g = nn.Parameter(torch.empty((shape[0],) + (1,) * (len(shape) - 1)))
         else:
             self.weight = nn.Parameter(torch.empty(shape))
+        if norm == "spectral_norm":
+            self.register_buffer("weight_u", torch.empty(shape[0]))
 
     def _init_weight(self, generator: torch.Generator, fan_in: int, normal_std=None) -> None:
         bound = 1.0 / math.sqrt(fan_in)
@@ -86,11 +101,37 @@ class _NormedWeight(nn.Module):
                 self.bias.copy_(
                     torch.empty(self.bias.shape).uniform_(-bound, bound, generator=generator)
                 )
+            if self.norm == "spectral_norm":  # u ~ N(0, 1), as JAX draws it
+                self.weight_u.copy_(torch.empty(self.weight_u.shape).normal_(generator=generator))
 
-    def resolved_weight(self) -> torch.Tensor:
+    def resolved_weight(self, advance: bool = False) -> torch.Tensor:
+        """The kernel the conv applies; ``advance`` steps a spectral norm's ``u``
+        (module docstring) and is ignored by the other norms."""
         if self.norm == "weight_norm":
             return self.weight_g * self.weight_v / _channel_norm(self.weight_v)
+        if self.norm == "spectral_norm":
+            return spectral_normalize(self.weight, self.weight_u, advance)
         return self.weight
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    return v / (v.norm() + SPECTRAL_EPS)
+
+
+def spectral_normalize(w: torch.Tensor, u_buf: torch.Tensor, advance: bool) -> torch.Tensor:
+    """``w / sigma`` with ``sigma = u^T W v`` of ``W = w.reshape(out, -1)`` in f32:
+    ``v = unit(W^T unit(u))``; with ``advance`` ``u = unit(W v)`` is stored in
+    ``u_buf`` and used, else the stored ``unit(u)`` is used. ``u`` and ``v``
+    carry no gradient (JAX nn/conv.py:99-127)."""
+    w_mat = w.reshape(w.shape[0], -1).float()
+    with torch.no_grad():
+        u = _unit(u_buf.float())
+        v = _unit(w_mat.t() @ u)
+        if advance:
+            u = _unit(w_mat @ v)
+            u_buf.copy_(u)
+    sigma = torch.dot(u, w_mat @ v)
+    return (w.float() / sigma).to(w.dtype)
 
 
 def _channel_norm(v: torch.Tensor) -> torch.Tensor:
@@ -130,7 +171,8 @@ class Conv1d(_NormedWeight):
         """Torch's default uniform init, or N(0, normal_std^2) weights."""
         self._init_weight(generator, self.fan_in, normal_std)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, advance: bool = False) -> torch.Tensor:
+        """``advance``: step a spectral norm's ``u`` in this call (module docstring)."""
         if self.w8a8:
             if self.calibrating:  # record max |x|, convolve at full precision
                 amax = x.detach().abs().max().float()
@@ -147,7 +189,7 @@ class Conv1d(_NormedWeight):
                     dilation=self.dilation, padding=(self.padding, self.padding),
                 )
         return F.conv1d(
-            x, self.resolved_weight(), self.bias, stride=self.stride,
+            x, self.resolved_weight(advance), self.bias, stride=self.stride,
             padding=self.padding, dilation=self.dilation, groups=self.groups,
         )
 
@@ -185,7 +227,7 @@ class ConvTranspose1d(_NormedWeight):
 
 class Conv2d(_NormedWeight):
     """Cross-correlation over ``[B, C, H, W]`` with an ``[O, I/groups, kh, kw]``
-    kernel (torch's layout), norm ``none`` or ``weight_norm`` (per out-channel),
+    kernel (torch's layout), a kernel norm (weight norm per out-channel),
     and ``padding`` zeros ``(ph, pw)`` on both sides of each dim
     (academicodec_tpu/nn/conv.py:324-365, whose kernels are ``[kh, kw, I, O]``
     on ``[B, H, W, C]``)."""

@@ -5,12 +5,14 @@ flattened to ``[B, n]`` and its list of feature maps. The maps are
 channels-first (``[B, C, H, W]`` / ``[B, C, T]``), where the JAX package's
 are channels-last; the flattened logits are in the same order in both.
 
-Only the "soundstream" flavor of the period and scale families is ported
-(thin 32-channel convs, no norm, LeakyReLU 0.2, reference
-models/soundstream/models.py:14-160), the one the Encodec/SoundStream
-trainer uses. The "hificodec" flavor (weight and spectral norm, 32 -> 1024
-channels) belongs to the HiFi-Codec trainer and raises until it is ported
-(ROADMAP.md Queue 1 item 7).
+The period and scale families come in two flavors: "soundstream" (thin
+32-channel convs, no norm, LeakyReLU 0.2, reference
+models/soundstream/models.py:14-160), which the Encodec/SoundStream trainer
+uses, and "hificodec" (32 -> 1024 channels, weight norm, LeakyReLU 0.1;
+the first scale spectral-normed, reference models/hificodec/models.py:
+192-361), which the HiFi-Codec trainer uses. The multi-scale family's
+``forward(x, advance=True)`` steps the spectral norm's ``u`` (``nn/conv.py``);
+the trainer asks for it once a step.
 
 Module names follow the JAX package's (``convs.0`` for ``convs_0``), so that
 ``utils/convert.discriminators_state_from_jax`` is a rename and a transpose.
@@ -32,15 +34,10 @@ from academicodec_tpu_torch.ops.stft import stft
 
 DiscOutput = Tuple[List[torch.Tensor], List[List[torch.Tensor]]]
 
-FLAVORS = ("soundstream",)
+FLAVORS = ("soundstream", "hificodec")
 
 
 def _check_flavor(flavor: str) -> None:
-    if flavor == "hificodec":
-        raise NotImplementedError(
-            "the hificodec discriminator flavor (weight and spectral norm) comes with the "
-            "HiFi-Codec trainer, ROADMAP.md Queue 1 item 7"
-        )
     if flavor not in FLAVORS:
         raise ValueError(f"unknown discriminator flavor {flavor!r}")
 
@@ -164,7 +161,11 @@ class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, flavor: str = "soundstream", periods: Sequence[int] = (2, 3, 5, 7, 11)):
         super().__init__()
         _check_flavor(flavor)
-        self.discriminators = nn.ModuleList(PeriodDiscriminator(p) for p in periods)
+        if flavor == "soundstream":
+            kw = dict(channels=(32, 32, 32, 32, 32), norm="none", activation_slope=0.2)
+        else:
+            kw = dict(channels=(32, 128, 512, 1024, 1024), norm="weight_norm", activation_slope=0.1)
+        self.discriminators = nn.ModuleList(PeriodDiscriminator(p, **kw) for p in periods)
 
     def forward(self, x: torch.Tensor) -> DiscOutput:
         outs = [d(x) for d in self.discriminators]
@@ -181,6 +182,16 @@ SS_SCALE_SPECS = (
     (32, 41, 1, 16, 20),
     (32, 5, 1, 1, 2),
 )
+# the same, hificodec flavor
+HC_SCALE_SPECS = (
+    (128, 15, 1, 1, 7),
+    (128, 41, 2, 4, 20),
+    (256, 41, 2, 16, 20),
+    (512, 41, 4, 16, 20),
+    (1024, 41, 4, 16, 20),
+    (1024, 41, 1, 16, 20),
+    (1024, 5, 1, 1, 2),
+)
 
 
 class ScaleDiscriminator(nn.Module):
@@ -196,32 +207,39 @@ class ScaleDiscriminator(nn.Module):
         self.convs = nn.ModuleList(convs)
         self.conv_post = Conv1d(in_ch, 1, 3, padding=1, norm=norm)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, advance: bool = False):
         z = x[:, None, :]
         fmap = []
         for conv in self.convs:
-            z = F.leaky_relu(conv(z), self.activation_slope)
+            z = F.leaky_relu(conv(z, advance), self.activation_slope)
             fmap.append(z)
-        z = self.conv_post(z)
+        z = self.conv_post(z, advance)
         fmap.append(z)
         return z.reshape(z.shape[0], -1), fmap
 
 
 class MultiScaleDiscriminator(nn.Module):
-    """Scale sub-discriminators on the wav and on it average-pooled x2, x4, ..."""
+    """Scale sub-discriminators on the wav and on it average-pooled x2, x4, ...;
+    in the hificodec flavor the first is spectral-normed, the others weight-normed."""
 
     def __init__(self, flavor: str = "soundstream", num_scales: int = 3):
         super().__init__()
         _check_flavor(flavor)
-        self.discriminators = nn.ModuleList(ScaleDiscriminator() for _ in range(num_scales))
+        if flavor == "soundstream":
+            scales = [ScaleDiscriminator() for _ in range(num_scales)]
+        else:
+            scales = [ScaleDiscriminator(HC_SCALE_SPECS, "spectral_norm" if i == 0 else "weight_norm", 0.1)
+                      for i in range(num_scales)]
+        self.discriminators = nn.ModuleList(scales)
 
-    def forward(self, x: torch.Tensor) -> DiscOutput:
+    def forward(self, x: torch.Tensor, advance: bool = False) -> DiscOutput:
+        """``advance``: step the spectral norm's ``u`` in this call."""
         logits, fmaps = [], []
         z = x
         for i, d in enumerate(self.discriminators):
             if i:  # torch AvgPool1d: the divisor counts the zero padding
                 z = F.avg_pool1d(z[:, None, :], 4, 2, padding=2)[:, 0, :]
-            lg, fm = d(z)
+            lg, fm = d(z, advance)
             logits.append(lg)
             fmaps.append(fm)
         return logits, fmaps

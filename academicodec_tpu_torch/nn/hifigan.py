@@ -15,6 +15,13 @@ plain chain of convs. Each fused stage keeps its packed operands
 (:class:`PackedStage`) and rebuilds them, weight norm included, only when a
 parameter changed.
 
+K3/K4 have no backward. When autograd would record a narrow stage (gradients
+enabled and its input or a parameter of its modules requiring one), the
+stage runs its unfused ``ResBlock1/2`` (+ ``GroupNormTorch``) chain instead,
+as the wider stages do and as the JAX trainer runs every stage; the
+wrappers raise on a CUDA tensor that autograd would record. This is the
+trainer's G phase; its no-grad forwards launch K3/K4.
+
 ``HiFiGANEncoder.forward(x, lengths)`` is the length-masked encode of the
 JAX package (academicodec_tpu/nn/hifigan.py:318-344): ``lengths [B]`` marks
 each row's valid prefix of a zero-padded batch, every conv output is zeroed
@@ -73,6 +80,13 @@ def _lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
 
 def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return x if mask is None else x * mask
+
+
+def _records_grad(x: torch.Tensor, *modules: Optional[nn.Module]) -> bool:
+    """Whether autograd would record a stage over ``x`` with these modules' parameters."""
+    if not torch.is_grad_enabled():
+        return False
+    return x.requires_grad or any(p.requires_grad for m in modules if m is not None for p in m.parameters())
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -248,8 +262,11 @@ class GroupNormTorch(nn.Module):
 class PackedStage:
     """The packed operands of one fused stage (:func:`pack_tower`), rebuilt
     when a parameter of its convs was updated in place, replaced, cast or
-    moved. With gradients enabled nothing is kept: every call packs the
-    current weights, so the plain versions stay differentiable."""
+    moved. Nothing is kept with gradients enabled or for parameters that are
+    not ``nn.Parameter`` leaves (``torch.func.functional_call``'s copies, whose
+    storage a later copy may reuse): every such call packs the current
+    weights. An update that leaves the version counter as it was (torch's
+    fused optimizers) must be followed by :meth:`invalidate`."""
 
     def __init__(self):
         self.key, self.packed = None, None
@@ -266,16 +283,26 @@ class PackedStage:
             return pack_tower(ws, bs, kernel_sizes=kernel_sizes, dilation_sizes=dilation_sizes,
                               resblock=resblock, **kw)
 
-        if torch.is_grad_enabled():
-            return build()
         params = [p for rb in blocks for p in rb.parameters()]
         for m in (post, pre):
             if m is not None:
                 params += list(m.parameters())
+        if torch.is_grad_enabled() or not all(isinstance(p, nn.Parameter) for p in params):
+            return build()
         key = tuple((p._version, p.dtype, p.device, p.data_ptr()) for p in params)
         if key != self.key:
             self.key, self.packed = key, build()
         return self.packed
+
+    def invalidate(self) -> None:
+        self.key, self.packed = None, None
+
+
+def invalidate_packed(module: nn.Module) -> None:
+    """Drop the packed operands of every fused stage under ``module``."""
+    for m in module.modules():
+        for st in getattr(m, "_packed", None) or ():
+            st.invalidate()
 
 
 def _resblock_cls(h: HiFiCodecConfig):
@@ -344,7 +371,7 @@ class HiFiGANEncoder(nn.Module):
             ch = x.shape[1]
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             norms = self.normalize[i * nk:(i + 1) * nk]
-            if ch <= FUSED_MAX_CHANNELS:
+            if ch <= FUSED_MAX_CHANNELS and not _records_grad(x, *blocks, *norms):
                 packed = self._packed[i].get(blocks, self.rks, self.rds, self.config.resblock)
                 x = resblock_tower_gn(
                     x, packed, None,
@@ -420,10 +447,12 @@ class HiFiGANGenerator(nn.Module):
         for i, ups in enumerate(self.ups):
             blocks = self.resblocks[i * nk:(i + 1) * nk]
             cout = h.upsample_initial_channel // 2 ** (i + 1)
-            if cout <= FUSED_MAX_CHANNELS and not h.causal:
+            last = i == n_up - 1
+            if cout <= FUSED_MAX_CHANNELS and not h.causal and not _records_grad(
+                    x, *blocks, ups, self.conv_post if last else None):
                 # conv_post and tanh run inside the last tower; with fused_pre
                 # lrelu and the upsampling convT run in front of it
-                post = self.conv_post if i == n_up - 1 else None
+                post = self.conv_post if last else None
                 pre = ups if self.fused_pre else None
                 if pre is None:
                     x = ups(_lrelu(x))

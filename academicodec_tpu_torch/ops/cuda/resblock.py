@@ -37,8 +37,12 @@ source for both designs). K4's pass 2 is two more kernels,
 
 Wrappers take ``[B, C, T]`` activations and torch ``[O, I, K]`` weights, or
 the operands packed once by :func:`pack_tower`. CPU tensors run the plain
-version; CUDA tensors always launch the kernel or raise. ``TOWER_LAUNCHES``
-and ``GN_TOWER_LAUNCHES`` count kernel launches, one per call of a wrapper.
+version; CUDA tensors always launch the kernel or raise. The kernels have
+no backward: a CUDA call that autograd would record (gradients enabled and
+an input or weight requiring one) raises ``RuntimeError`` rather than return
+a tensor the gradient cannot pass; ``nn/hifigan.py`` runs such stages
+unfused. ``TOWER_LAUNCHES`` and ``GN_TOWER_LAUNCHES`` count kernel launches,
+one per call of a wrapper.
 """
 
 from __future__ import annotations
@@ -674,6 +678,17 @@ def _check_call(x: torch.Tensor, packed: PackedTower, name: str) -> None:
                          f"{packed.dtype} with C_in={packed.C_in}")
 
 
+def _check_no_grad(name: str, packed: PackedTower, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise where autograd would record a kernel call (the kernels have no backward)."""
+    if not torch.is_grad_enabled():
+        return
+    ops = [*tensors, *(t for ch in packed.weights for t in ch), *(t for ch in packed.biases for t in ch),
+           packed.post_weight, packed.post_bias, packed.pre_weight, packed.pre_bias]
+    if any(t is not None and t.requires_grad for t in ops):
+        raise RuntimeError(f"{name}: the kernel has no backward, and autograd would record this call; run "
+                           "the stage's unfused modules under autograd, or call it under torch.no_grad()")
+
+
 def tower_geometry(packed: PackedTower, gn: bool):
     """``(TT, H, Hc, buf, smem)`` of a launch; ``buf`` and ``smem`` are 0 on the
     FMA path, which sizes its own shared memory. ``H`` is the deepest chain's
@@ -728,6 +743,7 @@ def resblock_tower(
             pre_weight=p.pre_weight, pre_bias=p.pre_bias, pre_stride=p.pre_stride, pre_pad=p.pre_pad,
         )
     _check_call(x, p, "resblock_tower")
+    _check_no_grad("resblock_tower", p, x)
     B, C, T_in = x.shape[0], p.C, x.shape[2]
     T = T_in if p.pre_weight is None else T_in * p.pre_stride
     c_out, kp = (C, 1) if p.wp is None else (p.wp.shape[0], p.wp.shape[2])
@@ -843,6 +859,7 @@ def resblock_tower_gn(
             lengths=lengths,
         )
     _check_call(x, p, "resblock_tower_gn")
+    _check_no_grad("resblock_tower_gn", p, x, gn_scales, gn_biases)
     B, C, T = x.shape
     G = len(p.kernel_sizes)
     if tuple(gn_scales.shape) != (G, C) or tuple(gn_biases.shape) != (G, C) or C % num_groups:

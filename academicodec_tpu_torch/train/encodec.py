@@ -29,7 +29,7 @@ given its draws (``draws=``), as the parity tests give it JAX's.
 gradients are summed and divided by their count before one update per
 phase; the codebook EMA sees the microbatches in turn (JAX :318-424).
 ``mixed_precision`` runs both forwards and backwards in bf16 through bf16
-copies of the weights (``train/state.py``); master weights, Adam moments,
+copies of the weights (``train/state.mp_apply``); master weights, Adam moments,
 codebooks and losses stay f32. ``packed_conv`` selects a TPU lowering in
 JAX and is accepted here as a no-op.
 
@@ -62,13 +62,7 @@ from academicodec_tpu_torch.nn.discriminators import (
     reset_parameters,
 )
 from academicodec_tpu_torch.quant.core_vq import sample_rows
-from academicodec_tpu_torch.train.state import (
-    GANTrainState,
-    f32_cast,
-    make_optimizer,
-    mp_params,
-    set_learning_rate,
-)
+from academicodec_tpu_torch.train.state import GANTrainState, make_optimizer, mp_apply, set_learning_rate
 
 FAMILIES = ("stft", "mpd", "msd")
 
@@ -202,14 +196,12 @@ class EncodecTrainer:
         """The generator's training forward, in bf16 under ``mixed_precision`` (outputs upcast to f32)."""
         kw = dict(n_q=n_q, training=True, draws=rows)
         if self.cfg.mixed_precision:
-            g_x, commit, codes = torch.func.functional_call(model, mp_params(model), (x.to(torch.bfloat16),), kw)
-        else:
-            g_x, commit, codes = model(x, **kw)
-        return g_x.float(), commit.float(), codes
+            return mp_apply(model, x, **kw)
+        return model(x, **kw)
 
     def _disc_all(self, discs: nn.Module, x: torch.Tensor):
         if self.cfg.mixed_precision:
-            return f32_cast(torch.func.functional_call(discs, mp_params(discs), (x.to(torch.bfloat16),)))
+            return mp_apply(discs, x)
         return discs(x)
 
     def _g_loss(self, out_real, out_gen, x, g_x, commit, step: int):

@@ -12,11 +12,12 @@ holds one against the other); ``adam`` has no decay. The learning rate is a
 hyperparameter set between steps (:func:`set_learning_rate`), as
 ``optax.inject_hyperparams`` makes it in JAX.
 
-Mixed precision (JAX ``mp_cast``/``f32_cast``): :func:`mp_params` gives bf16
-copies of a module's f32 parameters, cast differentiably, for
-``torch.func.functional_call``, so the gradients land on the f32 master
-weights; buffers (the codebooks' EMA state), the Adam moments and every
-loss reduction stay f32.
+Mixed precision (JAX ``mp_cast``/``f32_cast``): :func:`mp_apply` runs a
+module through ``torch.func.functional_call`` on bf16 copies of its f32
+parameters (:func:`mp_params`, cast differentiably, so the gradients land on
+the f32 master weights) and of its input, and upcasts its outputs; buffers
+(the codebooks' EMA state, the spectral norm's ``u``), the Adam moments and
+every loss reduction stay f32.
 """
 
 from __future__ import annotations
@@ -56,6 +57,13 @@ def mp_params(module: nn.Module) -> Dict[str, torch.Tensor]:
     return {k: (p.to(torch.bfloat16) if p.dtype == torch.float32 else p) for k, p in module.named_parameters()}
 
 
+def mp_apply(module: nn.Module, x: torch.Tensor, **kwargs) -> Any:
+    """``module(x, **kwargs)`` in bf16 (JAX's ``mp_cast`` of params and input):
+    bf16 copies of its f32 parameters (:func:`mp_params`, differentiable) and of
+    ``x``, its own buffers; every bf16 output upcast to f32 (:func:`f32_cast`)."""
+    return f32_cast(torch.func.functional_call(module, mp_params(module), (x.to(torch.bfloat16),), kwargs))
+
+
 def f32_cast(tree: Any) -> Any:
     """Upcast every bf16 tensor of a nested list/tuple/dict so losses reduce in f32."""
     if isinstance(tree, torch.Tensor):
@@ -78,20 +86,27 @@ class GANTrainState:
 
     def state_dict(self) -> Dict[str, Any]:
         """The whole state as tensors and plain containers (``torch.load(weights_only=True)``
-        reads it). The generator's part is its reference-layout state dict under
-        ``soundstream``, as in a reference ``latest.pth``."""
+        reads it). The generator's part is in the reference's layout
+        (:meth:`generator_state_dict`), so that a serving loader takes the file."""
         return {
             "step": self.step,
-            "soundstream": self.generator.state_dict(),
+            **self.generator_state_dict(),
             "discriminators": self.discriminators.state_dict(),
             "optimizer_g": self.g_opt.state_dict(),
             "optimizer_d": self.d_opt.state_dict(),
             "rng": self.rng.get_state(),
         }
 
+    def generator_state_dict(self) -> Dict[str, Any]:
+        """The generator under ``soundstream``, as in a reference ``latest.pth``."""
+        return {"soundstream": self.generator.state_dict()}
+
+    def load_generator_state_dict(self, sd: Dict[str, Any]) -> None:
+        self.generator.load_state_dict(sd["soundstream"])
+
     def load_state_dict(self, sd: Dict[str, Any]) -> None:
         self.step = int(sd["step"])
-        self.generator.load_state_dict(sd["soundstream"])
+        self.load_generator_state_dict(sd)
         self.discriminators.load_state_dict(sd["discriminators"])
         self.g_opt.load_state_dict(sd["optimizer_g"])
         self.d_opt.load_state_dict(sd["optimizer_d"])

@@ -13,10 +13,12 @@ of the SEANet convs (JAX ``norm/scale,bias`` for TimeGroupNorm and
 ``norm/ln/scale,bias`` for ConvLayerNorm -> the reference ``NormConv1d``'s
 ``conv.norm.weight,bias``), SLSTMs of any layer count, the int8 scales of
 JAX's ``'quant'`` collection (:func:`hificodec_quant_from_jax`), the
-token LM (:func:`lm_state_from_jax`), and the Encodec trainer's state
-(:func:`train_state_from_jax`): the codebooks' EMA collection, the
-discriminators (Conv2d HWIO -> OIHW, weight norm's g/v) and the optax AdamW
-states (``count``, ``mu``, ``nu``, ``learning_rate``) as ``torch.optim`` states.
+token LM (:func:`lm_state_from_jax`), and the trainers' states
+(:func:`train_state_from_jax`, :func:`hificodec_train_state_from_jax`,
+:func:`lm_train_state_from_jax`): the codebooks' EMA collection, the
+discriminators (Conv2d HWIO -> OIHW, weight norm's g/v, spectral norm's
+kernel and its ``'spectral'`` ``kernel_u``) and the optax Adam/AdamW states
+(``count``, ``mu``, ``nu``, ``learning_rate``) as ``torch.optim`` states.
 
 Layouts (JAX -> torch): conv ``[K, I, O]`` -> ``[O, I, K]``, conv-transpose
 ``[K, I, O]`` -> ``[I, O, K]``, dense ``[I, O]`` -> ``[O, I]``; LSTM and
@@ -159,28 +161,36 @@ def conv2d_state_from_jax(node: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def discriminators_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The JAX Encodec trainer's discriminator params (``stft_disc``, ``mpd``,
-    ``msd``) -> the port's ``train.encodec.Discriminators`` state dict:
-    ``discriminators_0/convs_1`` becomes ``discriminators.0.convs.1``, 2D kernels
-    HWIO -> OIHW, 1D kernels ``[K, I, O]`` -> ``[O, I, K]``."""
+def discriminators_state_from_jax(params: Mapping[str, Any],
+                                  spectral: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """A JAX trainer's discriminator params (the Encodec trainer's ``stft_disc``,
+    ``mpd``, ``msd``; the HiFi-Codec trainer's ``mpd``, ``msd``, ``mstftd``) -> the
+    port's ``Discriminators`` state dict: ``discriminators_0/convs_1`` becomes
+    ``discriminators.0.convs.1``, 2D kernels HWIO -> OIHW, 1D kernels ``[K, I, O]``
+    -> ``[O, I, K]``. ``spectral``: the ``'spectral'`` collection, whose
+    ``kernel_u`` become the spectral-normed convs' ``weight_u``."""
     sd: Dict[str, torch.Tensor] = {}
 
-    def walk(prefix, node):
-        if "kernel" in node or "kernel_v" in node:
-            ndim = np.asarray(node.get("kernel", node.get("kernel_v"))).ndim
-            conv = conv2d_state_from_jax(node) if ndim == 4 else conv_state_from_jax(node, False)
-            sd.update({f"{prefix}.{k}": v for k, v in conv.items()})
+    def walk(prefix, node, leaf):
+        if any(k in node for k in ("kernel", "kernel_v", "kernel_u")):
+            leaf(prefix, node)
             return
         for name, child in node.items():
             stem, _, idx = name.rpartition("_")
-            walk(f"{prefix}.{stem}.{idx}" if idx.isdigit() else f"{prefix}.{name}", child)
+            walk(f"{prefix}.{stem}.{idx}" if idx.isdigit() else f"{prefix}.{name}", child, leaf)
 
-    for family in ("stft_disc", "mpd", "msd"):
-        walk(family, params[family])
-    unknown = set(params) - {"stft_disc", "mpd", "msd"}
-    if unknown:
-        raise KeyError(f"unconvertible discriminator trees {sorted(unknown)}")
+    def conv(prefix, node):
+        ndim = np.asarray(node.get("kernel", node.get("kernel_v"))).ndim
+        out = conv2d_state_from_jax(node) if ndim == 4 else conv_state_from_jax(node, False)
+        sd.update({f"{prefix}.{k}": v for k, v in out.items()})
+
+    def u(prefix, node):
+        sd[f"{prefix}.weight_u"] = _t(_np32(node["kernel_u"]))
+
+    for family, node in params.items():
+        walk(family, node, conv)
+    for family, node in (spectral or {}).items():
+        walk(family, node, u)
     return sd
 
 
@@ -191,15 +201,19 @@ def adamw_state_from_jax(opt_state: Any, to_port, module: torch.nn.Module) -> Di
     ``to_port`` maps a JAX param tree to the port's names (the function that
     converted the params). Load it with ``optimizer.load_state_dict``, whose
     ``param_groups`` it must match in everything but ``lr`` and the moments."""
-    adam = opt_state.inner_state[0]
+    state = _adam_moments(opt_state.inner_state[0], to_port, module)
+    return {"state": state, "lr": float(np.asarray(opt_state.hyperparams["learning_rate"]))}
+
+
+def _adam_moments(adam: Any, to_port, module: torch.nn.Module) -> Dict[int, Dict[str, torch.Tensor]]:
+    """An optax ``ScaleByAdamState`` -> the ``state`` of a torch Adam state dict."""
     mu, nu = to_port(adam.mu), to_port(adam.nu)
     step = torch.tensor(float(np.asarray(adam.count)))
     names = [name for name, _ in module.named_parameters()]
     missing = set(names) ^ set(mu)
     if missing:
         raise KeyError(f"optimizer moments and parameters differ in {sorted(missing)}")
-    state = {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
-    return {"state": state, "lr": float(np.asarray(opt_state.hyperparams["learning_rate"]))}
+    return {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]} for i, n in enumerate(names)}
 
 
 def train_state_from_jax(jstate: Any, state: Any) -> None:
@@ -211,15 +225,39 @@ def train_state_from_jax(jstate: Any, state: Any) -> None:
     state.generator.load_state_dict(
         soundstream_state_from_jax({"params": jstate.g_params, "codebook": jstate.g_extra["codebook"]}))
     state.discriminators.load_state_dict(discriminators_state_from_jax(jstate.d_params))
-    for opt, jopt, fn, module in ((state.g_opt, jstate.g_opt_state, soundstream_params_from_jax, state.generator),
-                                  (state.d_opt, jstate.d_opt_state, discriminators_state_from_jax,
-                                   state.discriminators)):
-        converted = adamw_state_from_jax(jopt, fn, module)
-        sd = opt.state_dict()
-        for group in sd["param_groups"]:
-            group["lr"] = converted["lr"]
-        sd["state"] = converted["state"]
-        opt.load_state_dict(sd)
+    _load_optimizer(state.g_opt, jstate.g_opt_state, soundstream_params_from_jax, state.generator)
+    _load_optimizer(state.d_opt, jstate.d_opt_state, discriminators_state_from_jax, state.discriminators)
+
+
+def hificodec_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX VQVAE's ``'params'`` -> the port ``VQVAE``'s parameter names
+    (``encoder.conv_pre.weight_v``, ..., ``quantizer.codebooks``)."""
+    sd = {f"encoder.{k}": v for k, v in hifigan_state_from_jax(params["encoder"], transposed_ups=False).items()}
+    sd.update({f"generator.{k}": v for k, v in hifigan_state_from_jax(params["generator"], transposed_ups=True).items()})
+    sd["quantizer.codebooks"] = _t(_np32(params["quantizer"]["codebooks"]))
+    return sd
+
+
+def _load_optimizer(opt: torch.optim.Optimizer, jopt: Any, to_port, module: torch.nn.Module) -> None:
+    converted = adamw_state_from_jax(jopt, to_port, module)
+    sd = opt.state_dict()
+    for group in sd["param_groups"]:
+        group["lr"] = converted["lr"]
+    sd["state"] = converted["state"]
+    opt.load_state_dict(sd)
+
+
+def hificodec_train_state_from_jax(jstate: Any, state: Any) -> None:
+    """Load a JAX ``GANTrainState`` of the HiFi-Codec trainer (``step``, the VQVAE's
+    ``g_params`` with the GRVQ codebooks, ``d_params`` and the ``'spectral'``
+    ``u`` of ``d_extra``, both optax Adam states) into the port's
+    ``HiFiCodecTrainState`` in place."""
+    state.step = int(np.asarray(jstate.step))
+    state.generator.load_reference(hificodec_state_from_jax({"params": jstate.g_params}))
+    state.discriminators.load_state_dict(
+        discriminators_state_from_jax(jstate.d_params, jstate.d_extra.get("spectral")))
+    _load_optimizer(state.g_opt, jstate.g_opt_state, hificodec_params_from_jax, state.generator)
+    _load_optimizer(state.d_opt, jstate.d_opt_state, discriminators_state_from_jax, state.discriminators)
 
 
 def hifigan_state_from_jax(params: Mapping[str, Any], transposed_ups: bool) -> Dict[str, torch.Tensor]:
@@ -326,3 +364,14 @@ def lm_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if unknown:
         raise KeyError(f"unconvertible LM params {sorted(unknown)}")
     return sd
+
+
+def lm_train_state_from_jax(jstate: Any, state: Any) -> None:
+    """Load a JAX ``LMTrainState`` (``step``, ``params``, an ``optax.adam`` state
+    whose first part holds ``count``, ``mu``, ``nu``) into the port's
+    ``LMTrainState`` in place; the learning rate is the trainer's, set each step."""
+    state.step = int(np.asarray(jstate.step))
+    state.lm.load_state_dict(lm_state_from_jax(jstate.params))
+    sd = state.opt.state_dict()
+    sd["state"] = _adam_moments(jstate.opt_state[0], lm_state_from_jax, state.lm)
+    state.opt.load_state_dict(sd)

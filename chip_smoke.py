@@ -31,8 +31,18 @@ f32 and bf16 mixed precision, with K1 in the quantizer's search and k-means
 and K2 in the no-grad regenerate, each also held against its plain version
 at the trainer's shapes; one reduced-width step on the card
 against the CPU; and ``cli.train_encodec`` for 2 epochs, resumed for a third,
-whose checkpoint ``cli.compress`` then serves. Any failed phase exits
-non-zero; without a CUDA device it exits 1 at once.
+whose checkpoint ``cli.compress`` then serves. The HiFi-Codec GAN trainer
+(``train_hifi``) at hificodec_24k_320d's full width with the reference
+discriminators, 10 x 16000 samples, f32 and mixed precision, with K4 and
+K3 x2 in the D phase's no-grad generator forward and none in the G phase
+(its stages run unfused under autograd), K3/K4 held against their plain
+versions at the trainer's shapes, one reduced-width step on the card
+against the CPU with two fault controls, and ``cli.train_hificodec`` whose
+state ``cli.extract_tokens`` serves; the token-LM trainer (``train_lm``) at
+``cli/train_lm.py``'s default width on Encodec_24k_240d's 12 kbps tokens
+(K1 + K2 in the tokenizer), and ``cli.train_lm`` whose LM ``cli.compress
+--lm`` takes. Any failed phase exits non-zero; without a CUDA device it
+exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -56,6 +66,7 @@ import copy
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -400,8 +411,8 @@ def _randn(shape, device, dtype, seed, scale=0.5):
     return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
 
 
-def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0, c_in=0, k_pre=0, u=1):
-    """Bound of one tower call: its convs' operations at the bf16 peak, or
+def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0, c_in=0, k_pre=0, u=1, peak=PEAK_BF16_FLOPS):
+    """Bound of one tower call: its convs' operations at the ``peak`` (bf16's), or
     the input, the output and the weights moved once. With the prologue
     (``c_in`` channels, stride ``u``, ``k_pre`` taps) the input is ``[B, c_in,
     T / u]`` and each output sample of the convT takes ``k_pre / u`` taps."""
@@ -409,7 +420,7 @@ def _tower_bound(B, C, T, ks, dss, itemsize, c_post=0, kp=0, c_in=0, k_pre=0, u=
     flops = 2.0 * B * T * C * C * taps + 2.0 * B * T * C * c_post * kp + 2.0 * B * T * C * c_in * k_pre / u
     x_elems = B * c_in * T // u if c_in else B * C * T
     nbytes = itemsize * (x_elems + B * (c_post or C) * T + C * C * taps + c_post * C * kp + c_in * C * k_pre)
-    return bound(flops, nbytes, PEAK_BF16_FLOPS)
+    return bound(flops, nbytes, peak)
 
 
 def _geometry(packed, gn: bool) -> dict:
@@ -1888,30 +1899,36 @@ def _cross_run(trainer, state, x, draws) -> dict:
                 cb={n: getattr(vq, n).cpu() for n in ("embed", "embed_avg", "cluster_size")})
 
 
-def _cross_compare(card: dict, cpu: dict, limits: dict) -> dict:
-    loss_rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items()}
-    # each leaf against the larger of its own max |g| and a hundredth of its phase's
-    # (generator or discriminator) max |g| (TRAIN_CROSS_LIMITS); against its own
-    # max alone, reported
-    floor = {p: max(g.abs().max().item() for n, g in cpu["grads"].items() if n.startswith(p)) / 100
-             for p in ("g.", "d.")}
-    diff = {n: (card["grads"][n] - g).abs().max().item() for n, g in cpu["grads"].items()}
-    own = {n: g.abs().max().item() for n, g in cpu["grads"].items()}
+def _grad_compare(card: dict, cpu: dict) -> dict:
+    """Gradient leaves ``{'g.name' | 'd.name': grad}`` of the card against the CPU's:
+    each leaf against the larger of its own max |g| and a hundredth of its
+    phase's (generator or discriminator) max |g| (TRAIN_CROSS_LIMITS); against
+    its own max alone, reported."""
+    floor = {p: max(g.abs().max().item() for n, g in cpu.items() if n.startswith(p)) / 100 for p in ("g.", "d.")}
+    diff = {n: (card[n] - g).abs().max().item() for n, g in cpu.items()}
+    own = {n: g.abs().max().item() for n, g in cpu.items()}
     grad_rel = {n: diff[n] / max(own[n], floor[n[:2]], 1e-30) for n in diff}
     grad_rel_own = {n: diff[n] / max(own[n], 1e-30) for n in diff}
     worst = sorted(grad_rel, key=grad_rel.get, reverse=True)[:3]
     worst_own = sorted(grad_rel_own, key=grad_rel_own.get, reverse=True)[:3]
+    return dict(grad_max_rel_diff=grad_rel[worst[0]], grad_worst_leaves={n: grad_rel[n] for n in worst},
+                grad_max_rel_diff_own=grad_rel_own[worst_own[0]],
+                grad_worst_leaves_own={n: (grad_rel_own[n], own[n] / floor[n[:2]] / 100) for n in worst_own},
+                grad_leaves=len(cpu), grad_rel=grad_rel, grad_diff=diff)
+
+
+def _cross_compare(card: dict, cpu: dict, limits: dict) -> dict:
+    loss_rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items()}
+    grads = _grad_compare(card["grads"], cpu["grads"])
+    grads.pop("grad_rel"), grads.pop("grad_diff")
     return dict(
-        loss_max_rel_diff=max(loss_rel.values()), loss_rel_diff=loss_rel, grad_max_rel_diff=grad_rel[worst[0]],
-        grad_worst_leaves={n: grad_rel[n] for n in worst}, grad_max_rel_diff_own=grad_rel_own[worst_own[0]],
-        grad_worst_leaves_own={n: (grad_rel_own[n], own[n] / floor[n[:2]] / 100) for n in worst_own},
+        loss_max_rel_diff=max(loss_rel.values()), loss_rel_diff=loss_rel, **grads,
         codes_differ=int((card["codes"] != cpu["codes"]).sum()),
         codebook_max_abs_diff=max((card["cb"][n] - v).abs().max().item() for n, v in cpu["cb"].items()),
         codes_d_differ=int((card["codes_d"] != cpu["codes_d"]).sum()),
         codebook_close=all(torch.allclose(card["cb"][n], v, atol=limits["codebook_atol"],
                                           rtol=limits["codebook_atol"]) for n, v in cpu["cb"].items()),
         codes_equal=torch.equal(card["codes"], cpu["codes"]), distinct_codes=int(torch.unique(cpu["codes"]).numel()),
-        grad_leaves=len(cpu["grads"]),
     )
 
 
@@ -2189,20 +2206,10 @@ def phase_train(device="cuda", batch=16, seconds=1.0, steps=8, mp_steps=2, profi
             nonlocal state
             state, _m = trainer.train_step(state, x)
 
-        def run():
-            for _ in range(profile_steps):
-                run_one()
-
-        wall_ms, busy_ms, ops, prof = device_busy(run)
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / profile_steps
-        top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
-        f32.update(profiled_steps=profile_steps, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                   device_ops_per_step=ops / profile_steps, top_device_ms_per_step=top,
-                   idle_share=None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms))
-        print("[train] device ms a step by kernel, top 12: " + "; ".join(f"{k[:60]} {v:.2f}" for k, v in top.items()))
+        f32.update(_profile_steps(run_one, profile_steps))
+        wall_ms, busy_ms, ops = f32["profiled_wall_ms"], f32["device_busy_ms"], f32["device_ops_per_step"] * profile_steps
+        print("[train] device ms a step by kernel, top 12: "
+              + "; ".join(f"{k[:60]} {v:.2f}" for k, v in f32["top_device_ms_per_step"].items()))
         # PyTorch's default for cuDNN convs (TF32), which the CLI keeps; the runs above are strict f32
         torch.backends.cudnn.allow_tf32 = True
         try:
@@ -2230,6 +2237,579 @@ def phase_train(device="cuda", batch=16, seconds=1.0, steps=8, mp_steps=2, profi
     result["cli"] = _train_cli(device, n_files=cli_files, batch=cli_batch, segment_seconds=cli_segment_seconds,
                                width=cli_width)
     return result
+
+
+# ---------------------------------------------------------------------------
+# HiFi-Codec training and token-LM training
+
+HIFI_RECIPE_JSON = os.path.join(os.path.dirname(os.path.abspath(__file__)), "recipes", "HiFi-Codec-24k-320d",
+                                "config_24k_320d.json")
+# the reference's discriminators (HiFiCodecTrainConfig's defaults, reference train.py:77-79)
+HIFI_TRAIN_DISCS = dict(stft_filters=32, stft_n_ffts=(1024, 2048, 512, 256, 128), mpd_periods=(2, 3, 5, 7, 11),
+                        msd_scales=3)
+# card against the CPU: the recipe with narrower stages (generator 128 -> 8 and
+# encoder 16 -> 128 channels, so that 4 generator stages take K3 and 3 encoder
+# stages K4), two MS-STFT scales' worth of filters, two periods, two scales
+# (the first spectral-normed); nothing of the step's structure is cut
+HIFI_CROSS_MODEL = dict(upsample_initial_channel=128, encoder_base_channels=8)
+HIFI_CROSS_DISCS = dict(stft_filters=8, stft_n_ffts=(1024,), mpd_periods=(2, 3), msd_scales=2)
+# limits of the card-vs-CPU step: losses rtol, each gradient leaf as TRAIN_CROSS_LIMITS
+# holds it or within noise_factor times its f32 noise, the larger of its own
+# differences between the CPU on two thread counts and between the card with and
+# without cuDNN (a bias summed over every frame, such as the first upsampling's,
+# cancels to about its terms' f32 noise at this width: 1.1e-2 of its scale card
+# against CPU on an H100's machine, 7.4x the CPU's noise), the spectral norm's u atol (a unit vector),
+# each generator forward's wav (the D phase's on K3/K4) within this share of its
+# max |value|; codes equal
+HIFI_CROSS_LIMITS = dict(loss_rtol=1e-4, grad_rel=5e-3, noise_factor=4.0, u_atol=1e-5, wav_rel=1e-4)
+TOWER_LIMITS = {torch.float32: 1e-4, torch.bfloat16: 2e-2}  # K3/K4 vs plain, x max |plain| (phase_resblock's)
+
+
+def hifi_recipe(**overrides):
+    """``(HiFiCodecConfig, raw JSON)`` of hificodec_24k_320d's recipe, with ``overrides``."""
+    import dataclasses
+
+    from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
+
+    with open(HIFI_RECIPE_JSON) as fh:
+        raw = json.load(fh)
+    return dataclasses.replace(HiFiCodecConfig.from_json(raw), **overrides), raw
+
+
+def _profile_steps(run_one, steps: int) -> dict:
+    """The device's busy and idle share over ``steps`` calls of ``run_one``
+    (torch.profiler) and the top device kernels a step."""
+    def run():
+        for _ in range(steps):
+            run_one()
+
+    wall_ms, busy_ms, ops, prof = device_busy(run)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3 / steps
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12])
+    return dict(profiled_steps=steps, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                device_ops_per_step=ops / steps, top_device_ms_per_step=top,
+                idle_share=None if busy_ms is None else max(0.0, 1 - busy_ms / wall_ms))
+
+
+def _watch_gen(trainer, run):
+    """``run()`` with each of ``trainer``'s generator forwards watched, by whether
+    autograd recorded it (``no_grad``: the D phase's, ``grad``: the G phase's):
+    ``(K3/K4 launches summed by phase, wav outputs by phase on the CPU, run's
+    result)``."""
+    names = ("resblock_tower", "resblock_tower_gn")
+    counts = {"no_grad": dict.fromkeys(names, 0), "grad": dict.fromkeys(names, 0)}
+    wavs = {"no_grad": [], "grad": []}
+    gen = trainer._gen
+
+    def watched(model, y):
+        before = read_launches()
+        out = gen(model, y)
+        after = read_launches()
+        phase = "grad" if torch.is_grad_enabled() else "no_grad"
+        for k in names:
+            counts[phase][k] += after[k] - before[k]
+        wavs[phase].append(out[0].detach().float().cpu())
+        return out
+
+    trainer._gen = watched
+    try:
+        out = run()
+    finally:
+        del trainer._gen
+    return counts, wavs, out
+
+
+def _hifi_train_run(tag, trainer, batch, samples, steps, seed=0) -> dict:
+    """A first step, then ``steps`` timed steps on ``batch`` x ``samples`` seeded
+    noise (codebooks spread over its latents), then one ``eval_step``; K3/K4
+    launches of the first step by phase and of the eval, every loss finite."""
+    on_card = trainer.device.type == "cuda"
+    state = trainer.init_state(seed)
+    model = state.generator
+    x = seeded_wav(batch, samples, trainer.device, seed=seed)
+    spread_codebooks(model, latent_frames(model, x), seed=seed)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses = []
+
+    def step():
+        nonlocal state
+        state, metrics = trainer.train_step(state, x)
+        losses.append({k: float(v) for k, v in metrics.items()})
+
+    reset_launches()
+    by_phase, _wavs, first_s = _watch_gen(trainer, lambda: _train_seconds(step, on_card))
+    first_launches = read_launches()
+    times = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        times.append(_train_seconds(step, on_card))
+    wall_s = time.perf_counter() - t0
+    reset_launches()
+    evals = {k: float(v) for k, v in trainer.eval_step(state, x).items()}
+    eval_launches = read_launches()
+    expected = {k: (n if on_card else 0) for k, n in fused_stage_counts(trainer.cfg.model).items()}
+    step_launches = {k: first_launches[k] for k in expected}
+    out = dict(
+        first_step_ms=first_s * 1e3, step_ms_median=statistics.median(times) * 1e3, step_ms_max=max(times) * 1e3,
+        audio_s_per_s=batch * samples / trainer.cfg.model.sampling_rate * steps / wall_s, steps=steps,
+        batch=batch, samples=samples, launches_step=step_launches, launches_by_phase=by_phase,
+        launches_eval={k: eval_launches[k] for k in expected}, expected_step=expected,
+        losses_first_step=losses[0], losses_last_step=losses[-1], eval=evals,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None,
+    )
+    precision = "bf16 mixed precision" if trainer.cfg.mixed_precision else "f32"
+    print(f"[{tag}] {batch} x {samples} samples, {precision}: first step {out['first_step_ms']:.1f} ms, step "
+          f"median {out['step_ms_median']:.1f} ms (max {out['step_ms_max']:.1f}) of {steps}, "
+          f"{out['audio_s_per_s']:.2f} audio s trained per wall s, peak memory "
+          f"{out['peak_mem_gib'] if out['peak_mem_gib'] is None else round(out['peak_mem_gib'], 3)} GiB")
+    print(f"[{tag}] K3/K4 launches: a step {step_launches} (expected {expected}), by phase {by_phase} (the G "
+          f"phase's must be 0), eval_step {out['launches_eval']}; losses {losses[0]} -> {losses[-1]}; eval {evals}")
+    finite = all(math.isfinite(v) for m in losses + [evals] for v in m.values())
+    if not finite:
+        raise AssertionError(f"{tag}: a loss is not finite: {losses} {evals}")
+    if (step_launches != expected or by_phase["no_grad"] != expected or any(by_phase["grad"].values())
+            or out["launches_eval"] != expected):
+        raise AssertionError(f"{tag}: K3/K4 launches {step_launches} {by_phase} eval {out['launches_eval']}, "
+                             f"expected {expected} in the D phase's forward and the eval, 0 in the G phase")
+    out["state"], out["x"] = state, x
+    return out
+
+
+def _tower_calls(model, x) -> list:
+    """Every K3/K4 call of a no-grad forward of ``model`` on ``x``: ``(name, args,
+    kwargs, output)``."""
+    from academicodec_tpu_torch.nn import hifigan
+
+    calls, originals = [], {n: getattr(hifigan, n) for n in ("resblock_tower", "resblock_tower_gn")}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            y = originals[name](*args, **kwargs)
+            calls.append((name, args, kwargs, y))
+            return y
+        return call
+
+    for name in originals:
+        setattr(hifigan, name, recorder(name))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for name, fn in originals.items():
+            setattr(hifigan, name, fn)
+    return calls
+
+
+def _tower_plain(name, args, kwargs) -> torch.Tensor:
+    x, p = args[0], args[1]
+    chain = dict(kernel_sizes=p.kernel_sizes, dilation_sizes=p.dilation_sizes, resblock=p.resblock)
+    if name == "resblock_tower":
+        return resblock_ops.resblock_tower_plain(
+            x, p.weights, p.biases, post_weight=p.post_weight, post_bias=p.post_bias,
+            post_tanh=kwargs.get("post_tanh", False), pre_weight=p.pre_weight, pre_bias=p.pre_bias,
+            pre_stride=p.pre_stride, pre_pad=p.pre_pad, **chain)
+    return resblock_ops.resblock_tower_gn_plain(x, p.weights, p.biases, args[3], args[4], **chain, **kwargs)
+
+
+def _hifi_train_towers(model, x, iters=5) -> dict:
+    """K3/K4 at the trainer's shapes: each call of the D phase's no-grad generator
+    forward of ``x`` held against its plain version on the same inputs, in the
+    model's dtype and in bf16 (mixed precision), and timed against it."""
+    from academicodec_tpu_torch.nn.hifigan import invalidate_packed
+
+    out = {}
+    invalidate_packed(model)  # packed operands hold ctypes arrays, which a deep copy does not take
+    for dtype in (torch.float32, torch.bfloat16):
+        m = model if dtype == torch.float32 else copy.deepcopy(model).to(torch.bfloat16)
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        for i, (name, args, kwargs, y) in enumerate(_tower_calls(m, x.to(dtype))):
+            with torch.no_grad():
+                ref = _tower_plain(name, args, kwargs)
+                err = (y.float() - ref.float()).abs().max().item()
+                limit = TOWER_LIMITS[dtype] * ref.float().abs().max().item()
+                fn = getattr(resblock_ops, name)
+                ms = time_ms(lambda: fn(*args, **kwargs), iters)
+                plain_ms = time_ms(lambda: _tower_plain(name, args, kwargs), 2)
+            p = args[1]
+            B, C, T = args[0].shape
+            post = {} if p.post_weight is None else dict(c_post=p.post_weight.shape[0], kp=p.post_weight.shape[2])
+            bound_ms, bound_by = _tower_bound(B, C, T, p.kernel_sizes, p.dilation_sizes, y.element_size(), **post,
+                                              peak=PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS)
+            key = f"{'k3' if name == 'resblock_tower' else 'k4'}_{i}_{tag}"
+            out[key] = dict(shape=list(args[0].shape), max_abs_err=err, limit=limit, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[train_hifi] {name} at {list(args[0].shape)} {tag}: max abs diff {err:.3g} (limit {limit:.3g}), "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            if not err <= limit:
+                raise AssertionError(f"train_hifi: {name} disagrees with its plain version at {list(args[0].shape)}")
+    return out
+
+
+def _hifi_cross_run(trainer, state, x) -> dict:
+    """One step; its losses, every gradient leaf (G and D), the codes and wavs of
+    both of its generator forwards and the spectral norm's new ``u``, on the CPU."""
+    codes = []
+    hook = state.generator.quantizer.register_forward_hook(lambda m, a, out: codes.append(out[2].detach().cpu()))
+    try:
+        _counts, wavs, (state, metrics) = _watch_gen(trainer, lambda: trainer.train_step(state, x))
+    finally:
+        hook.remove()
+    grads = {f"g.{n}": p.grad.float().cpu() for n, p in state.generator.named_parameters()}
+    grads.update({f"d.{n}": p.grad.float().cpu() for n, p in state.discriminators.named_parameters()})
+    return dict(metrics={k: float(v) for k, v in metrics.items()}, grads=grads, codes=codes, wavs=wavs,
+                u=[u.float().cpu() for u in state.discriminators.spectral_u()])
+
+
+def _hifi_cross_compare(card: dict, cpu: dict, limits: dict, noise: dict) -> tuple:
+    """``(passes, comparison)`` of a card step against the CPU's. A gradient leaf
+    passes within ``grad_rel`` of its scale (TRAIN_CROSS_LIMITS' rule) or within
+    ``noise_factor`` times ``noise``, its difference between two CPU steps of
+    other reduction orders (the f32 noise of a cancelling sum)."""
+    out = _grad_compare(card["grads"], cpu["grads"])
+    grad_rel, diff = out.pop("grad_rel"), out.pop("grad_diff")
+    over = {n: (grad_rel[n], diff[n] / max(noise[n], 1e-30)) for n in grad_rel if grad_rel[n] > limits["grad_rel"]}
+    out["grad_leaves_over_rule"] = over  # leaf: (diff / scale, diff / f32 noise)
+    loss_rel = {k: abs(card["metrics"][k] - v) / max(abs(v), 1e-12) for k, v in cpu["metrics"].items()}
+    out.update(loss_max_rel_diff=max(loss_rel.values()), loss_rel_diff=loss_rel,
+               codes_differ=sum(int((a != b).sum()) for a, b in zip(card["codes"], cpu["codes"])),
+               distinct_codes=int(torch.unique(cpu["codes"][0]).numel()),
+               u_max_abs_diff=max((a - b).abs().max().item() for a, b in zip(card["u"], cpu["u"])),
+               wav_rel_diff={phase: max((a - b).abs().max().item() / b.abs().max().item()
+                                        for a, b in zip(card["wavs"][phase], w)) for phase, w in cpu["wavs"].items()})
+    ok = (out["loss_max_rel_diff"] <= limits["loss_rtol"]
+          and all(by_noise <= limits["noise_factor"] for _rel, by_noise in over.values())
+          and max(out["wav_rel_diff"].values()) <= limits["wav_rel"]
+          and out["codes_differ"] == 0 and out["distinct_codes"] > MIN_DISTINCT_TOKENS
+          and out["u_max_abs_diff"] <= limits["u_atol"])
+    return ok, out
+
+
+def _hifi_train_cross(device, batch=4, samples=6400, model=HIFI_CROSS_MODEL, discs=HIFI_CROSS_DISCS,
+                      limits=HIFI_CROSS_LIMITS) -> dict:
+    """A reduced-width HiFi-Codec trainer on the card and on the CPU, f32 (TF32
+    off), lr 0, from one state (the CPU's, codebooks spread over the batch's
+    latents, the gain of its last conv raised so that its wav has the input's
+    std, as a trained generator's has, where the N(0, 0.01^2) init leaves it
+    far quieter and the D phase's fake pass blind to the generator)
+    loaded by both: one step on each, held to ``limits``: every loss,
+    every gradient leaf of both phases (the scale rule, or 4x its f32 noise:
+    two CPU thread counts, the card with and without cuDNN), the codes and wavs of both generator
+    forwards (the D phase's on K3/K4), the spectral norm's new ``u``. Controls,
+    each of which must fail that check: K3's output off by a relative 1e-2
+    (every launch of the D phase's forward), and a ``u`` that advances twice
+    where it should advance once."""
+    from academicodec_tpu_torch.nn import conv as nn_conv
+    from academicodec_tpu_torch.nn import hifigan as nn_hifigan
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig, HiFiCodecTrainer
+
+    cfg = HiFiCodecTrainConfig(model=hifi_recipe(**model)[0], **discs, learning_rate=0.0)
+    card_tr, cpu_tr = HiFiCodecTrainer(cfg, device=device), HiFiCodecTrainer(cfg, device="cpu")
+    cpu_state = cpu_tr.init_state(7)
+    x = seeded_wav(batch, samples, "cpu", seed=7)
+    vqvae = cpu_state.generator
+    spread_codebooks(vqvae, latent_frames(vqvae, x), seed=7)
+    with torch.no_grad():
+        vqvae.generator.conv_post.weight_g.mul_(x.std() / vqvae(x)[0].std())
+    start = copy.deepcopy(cpu_state.state_dict())
+    card_state = card_tr.init_state(7)
+    card_state.load_state_dict(start)
+    cpu = _hifi_cross_run(cpu_tr, cpu_state, x)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2 if threads != 2 else 1)
+    try:
+        cpu_state.load_state_dict(start)
+        other = _hifi_cross_run(cpu_tr, cpu_state, x)
+    finally:
+        torch.set_num_threads(threads)
+    reset_launches()
+    card = _hifi_cross_run(card_tr, card_state, x)
+    launches = read_launches()
+    card_state.load_state_dict(start)
+    with torch.backends.cudnn.flags(enabled=False):  # PyTorch's own convs: other conv algorithms on the card
+        native = _hifi_cross_run(card_tr, card_state, x)
+    noise = {n: max((other["grads"][n] - g).abs().max().item(), (native["grads"][n] - card["grads"][n]).abs().max().item())
+             for n, g in cpu["grads"].items()}
+    ok, out = _hifi_cross_compare(card, cpu, limits, noise)
+    _, cpu_vs_cpu = _hifi_cross_compare(other, cpu, limits, noise)
+    out["cpu_threads_control"] = {k: cpu_vs_cpu[k] for k in ("loss_max_rel_diff", "grad_max_rel_diff",
+                                                              "grad_worst_leaves", "wav_rel_diff")}
+    out.update(limits=limits, launches=launches, expected=fused_stage_counts(cfg.model))
+    print(f"[train_hifi] card vs CPU at generator {model['upsample_initial_channel']} and encoder "
+          f"{model['encoder_base_channels']} channels, {batch} x {samples} samples, f32, lr 0: losses max rel diff "
+          f"{out['loss_max_rel_diff']:.3g} (limit {limits['loss_rtol']}), {out['grad_leaves']} gradient leaves max "
+          f"diff {out['grad_max_rel_diff']:.3g} of their scale (limit {limits['grad_rel']}; worst "
+          f"{out['grad_worst_leaves']}; of their own max |g| {out['grad_max_rel_diff_own']:.3g}), codes differ "
+          f"{out['codes_differ']} ({out['distinct_codes']} distinct, floor {MIN_DISTINCT_TOKENS}), u max abs diff "
+          f"{out['u_max_abs_diff']:.3g} (limit {limits['u_atol']}), wavs of the D and G phases' forwards "
+          f"{out['wav_rel_diff']} of their max (limit {limits['wav_rel']}); K3/K4 launches {launches}; leaves over "
+          f"the scale rule (diff / scale, diff / f32 noise; limit {limits['noise_factor']} x noise): "
+          f"{out['grad_leaves_over_rule']}; the CPU on {2 if threads != 2 else 1} threads against the CPU: "
+          f"{out['cpu_threads_control']}")
+    on_card = torch.device(device).type == "cuda"
+    if not ok or (on_card and launches != {**{k: 0 for k in launches}, **out["expected"]}):
+        raise AssertionError(f"train_hifi: the card's step disagrees with the CPU's: {out}")
+    tower, normalize = nn_hifigan.resblock_tower, nn_conv.spectral_normalize
+
+    def k3_off(*args, **kwargs):
+        return tower(*args, **kwargs) * (1 + 1e-2)
+
+    def u_twice(w, u, advance):
+        if advance:
+            normalize(w, u, True)
+        return normalize(w, u, advance)
+
+    controls = {}
+    for tag, target, name, fault in (("k3_off_1e-2", nn_hifigan, "resblock_tower", k3_off),
+                                     ("u_advances_twice", nn_conv, "spectral_normalize", u_twice)):
+        card_state.load_state_dict(start)
+        original = getattr(target, name)
+        setattr(target, name, fault)
+        try:
+            bad = _hifi_cross_run(card_tr, card_state, x)
+        finally:
+            setattr(target, name, original)
+        bad_ok, cmp = _hifi_cross_compare(bad, cpu, limits, noise)
+        controls[tag] = dict(caught=not bad_ok, loss_max_rel_diff=cmp["loss_max_rel_diff"],
+                             grad_max_rel_diff=cmp["grad_max_rel_diff"], codes_differ=cmp["codes_differ"],
+                             u_max_abs_diff=cmp["u_max_abs_diff"], wav_rel_diff=cmp["wav_rel_diff"])
+    out["controls"] = controls
+    print(f"[train_hifi] controls of the step: {controls}")
+    if not all(c["caught"] for c in controls.values()):
+        raise AssertionError(f"train_hifi: a fault passed the card-vs-CPU step check: {controls}")
+    return out
+
+
+def _hifi_train_cli(device, n_files=4, file_seconds=1.0, model=HIFI_CROSS_MODEL, batch=2, segment=8000) -> dict:
+    """``cli.train_hificodec`` end to end at a reduced width with the debug-sized
+    discriminators' config: one epoch with a state written every step, a resume
+    for a second epoch, then ``cli.extract_tokens --model_path`` on the newest
+    state, whose tokens must equal the state's ``VQVAE.encode``."""
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import extract_tokens as extract_cli
+    from academicodec_tpu_torch.cli import train_hificodec
+    from academicodec_tpu_torch.data.wavio import write_wav
+    from academicodec_tpu_torch.models.hificodec import VQVAE
+    from academicodec_tpu_torch.utils.checkpoint import checkpoint_step, load_checkpoint, scan_checkpoint
+
+    cfg, raw = hifi_recipe(**model)
+    raw = {**raw, **model, "segment_size": segment}
+    sr = cfg.sampling_rate
+    rng = np.random.default_rng(6)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, out = os.path.join(tmp, "wavs"), os.path.join(tmp, "ckpt")
+        os.makedirs(data)
+        for i in range(n_files):
+            write_wav(os.path.join(data, f"w{i}.wav"), (rng.standard_normal(int(file_seconds * sr)) * 0.1).astype(
+                np.float32), sr)
+        config = os.path.join(tmp, "config.json")
+        with open(config, "w") as fh:
+            json.dump(raw, fh)
+        argv = ["--config", config, "--input_training_file", data, "--input_validation_file", data,
+                "--checkpoint_path", out, "--batch_size", str(batch), "--training_epochs", "1",
+                "--checkpoint_interval", "1", "--validation_interval", "2", "--stdout_interval", "1",
+                "--device", str(device)]
+        t0 = time.perf_counter()
+        train_hificodec.main(argv)
+        first = scan_checkpoint(out, "state")
+        argv[argv.index("--training_epochs") + 1] = "2"
+        train_hificodec.main(argv)
+        wall_s = time.perf_counter() - t0
+        latest = scan_checkpoint(out, "state")
+        log = open(os.path.join(out, "logs", "log.txt")).read()
+        tokens = os.path.join(tmp, "tokens.npz")
+        extract_cli.main(["--config", config, "--model_path", latest, "--input", data, "--outputdir",
+                          os.path.join(tmp, "syn"), "--tokens_out", tokens, "--device", str(device)])
+        got = np.load(tokens)["w0"]
+        codec = VQVAE(cfg, device=device)
+        codec.load_reference(load_checkpoint(latest))
+        from academicodec_tpu_torch.data.wavio import read_wav
+        want = codec.encode(torch.from_numpy(read_wav(os.path.join(data, "w0.wav"))[0][None])).cpu().numpy()
+        steps = n_files // batch
+        result = dict(steps_after_one_epoch=checkpoint_step(first), steps_after_resume=checkpoint_step(latest),
+                      wall_s=wall_s, validated="validation/mel_spec_error" in log, resumed="resumed from" in log,
+                      tokens_shape=list(got.shape), tokens_equal=bool(np.array_equal(got, want)),
+                      config_copied=os.path.exists(os.path.join(out, "config.json")))
+    print(f"[train_hifi] cli: {result}")
+    if not (result["steps_after_one_epoch"] == steps and result["steps_after_resume"] > steps and result["resumed"]
+            and result["validated"] and result["tokens_equal"] and result["config_copied"]):
+        raise AssertionError(f"train_hifi cli: {result}")
+    return result
+
+
+def phase_train_hifi(device="cuda", batch=10, samples=16000, steps=8, mp_steps=3, profile_steps=5, model=None,
+                     discs=HIFI_TRAIN_DISCS, cross_batch=4, cross_samples=6400, cross_model=HIFI_CROSS_MODEL,
+                     cross_discs=HIFI_CROSS_DISCS, cli_model=HIFI_CROSS_MODEL, cli_files=4, cli_segment=8000) -> dict:
+    """The HiFi-Codec GAN trainer through ``train.hificodec.HiFiCodecTrainer``
+    (what ``cli.train_hificodec`` calls), hificodec_24k_320d's recipe at full
+    width (``model`` overrides it) with the reference discriminators, ``batch``
+    x ``samples`` (the reference's batch 80 over its 8 GPUs, 16000-sample
+    segments): f32 (TF32 off) for a first step and ``steps`` timed ones, K3/K4
+    launches by phase (the D phase's no-grad forward: one a fused stage; the G
+    phase: 0) and in ``eval_step``; the idle share over ``profile_steps`` steps;
+    K3/K4 at the trainer's shapes against their plain versions; mixed
+    precision for ``mp_steps``. Then the card against the CPU
+    (:func:`_hifi_train_cross`) and the CLI (:func:`_hifi_train_cli`)."""
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig, HiFiCodecTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    cfg = HiFiCodecTrainConfig(model=hifi_recipe(**(model or {}))[0], **discs)
+    trainer = HiFiCodecTrainer(cfg, device=device)
+    result = {}
+    f32 = _hifi_train_run("train_hifi", trainer, batch, samples, steps)
+    state, x = f32.pop("state"), f32.pop("x")
+    if on_card:
+        def run_one():
+            nonlocal state
+            state, _m = trainer.train_step(state, x)
+
+        if profile_steps:
+            f32.update(_profile_steps(run_one, profile_steps))
+            print("[train_hifi] device ms a step by kernel, top 12: "
+                  + "; ".join(f"{k[:60]} {v:.2f}" for k, v in f32["top_device_ms_per_step"].items()))
+            print(f"[train_hifi] profiled {profile_steps} steps: wall {f32['profiled_wall_ms']:.1f} ms, device busy "
+                  f"{f32['device_busy_ms']} ms, idle share {f32['idle_share']}, "
+                  f"{f32['device_ops_per_step']:.0f} device operations a step ({nvidia_smi()})")
+        result["towers"] = _hifi_train_towers(state.generator, x)
+    del state, x
+    result["f32"] = f32
+    mp = _hifi_train_run("train_hifi_mp", HiFiCodecTrainer(
+        HiFiCodecTrainConfig(model=cfg.model, **discs, mixed_precision=True), device=device), batch, samples, mp_steps)
+    mp.pop("state"), mp.pop("x")
+    result["mixed_precision"] = mp
+    result["cross"] = _hifi_train_cross(device, batch=cross_batch, samples=cross_samples, model=cross_model,
+                                        discs=cross_discs)
+    result["cli"] = _hifi_train_cli(device, n_files=cli_files, model=cli_model, segment=cli_segment)
+    return result
+
+
+def _lm_tokens(device, batch, seconds, preset, **overrides):
+    """The flagship codec (codebooks spread over the first batch's latents) and a
+    tokenizer of ``batch`` x ``seconds`` seeded noise, as ``cli.train_lm`` tokenizes:
+    ``SoundStream.encode`` at the top bandwidth -> codes ``[B, frames, n_q]``."""
+    model = load_codec(preset, device=device, **overrides)
+    wav = seeded_wav(batch, int(round(seconds * model.sample_rate)), "cpu", seed=9)
+    spread_codebooks(model, latent_frames(model, wav))
+    bw = model.target_bandwidths[-1]
+
+    def tokenize(w):
+        return model.encode(w, target_bw=bw).permute(1, 2, 0).long()
+
+    return model, wav, tokenize
+
+
+def _lm_train_cli(device, model, width: dict, n_files=4, seconds=1.0, steps=4, batch=2, lm_width=LM_WIDTH) -> dict:
+    """``cli.train_lm`` for ``steps`` steps on ``model``'s tokens (its weights saved
+    as a ``.pth``), then ``cli.compress --lm`` on one file with the LM it wrote:
+    the blob must decode to the raw blob's tokens; and the written LM codes those
+    tokens (``compress_tokens_with_lm``) and decodes them back exactly."""
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import compress as compress_cli
+    from academicodec_tpu_torch.cli import train_lm
+    from academicodec_tpu_torch.data.wavio import write_wav
+    from academicodec_tpu_torch.models.lm import load_lm
+
+    sr = model.sample_rate
+    flags = ["--sr", str(sr), "--ratios", *map(str, model.ratios),
+             "--target_bandwidths", *map(str, model.target_bandwidths), "--n_filters", str(width["n_filters"]),
+             "--dimension", str(width["dimension"]), "--bins", str(model.bins), "--device", str(device)]
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        data, lm_dir = os.path.join(tmp, "wavs"), os.path.join(tmp, "lm")
+        os.makedirs(data)
+        for i in range(n_files):
+            write_wav(os.path.join(data, f"w{i}.wav"), (rng.standard_normal(int(seconds * sr)) * 0.1).astype(
+                np.float32), sr)
+        ckpt = os.path.join(tmp, "codec.pth")
+        torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+        t0 = time.perf_counter()
+        train_lm.main(["--train_data_path", data, "--resume_path", ckpt, *flags, "--target_bw",
+                       str(model.target_bandwidths[-1]), "--lm_dim", str(lm_width["dim"]), "--lm_heads",
+                       str(lm_width["num_heads"]), "--lm_layers", str(lm_width["num_layers"]), "--steps", str(steps),
+                       "--batch_size", str(batch), "--segment_seconds", str(seconds), "--print_freq", "1",
+                       "--path", lm_dir])
+        wall_s = time.perf_counter() - t0
+        one = os.path.join(tmp, "one")
+        os.makedirs(one)
+        os.link(os.path.join(data, "w0.wav"), os.path.join(one, "w0.wav"))
+        base = ["--input", one, "--resume_path", ckpt, *flags, "--target_bw", str(model.target_bandwidths[-1]),
+                "--ecdc"]
+        compress_cli.main(base + ["--output", os.path.join(tmp, "raw")])
+        compress_cli.main(base + ["--output", os.path.join(tmp, "lmout"), "--lm", lm_dir])
+        raw = open(os.path.join(tmp, "raw", "w0.ecdc"), "rb").read()
+        blob = open(os.path.join(tmp, "lmout", "w0.ecdc"), "rb").read()
+        lm, meta = load_lm(lm_dir, device=device)
+        codes = decompress_tokens(raw)[0]
+        lm_blob = compress_tokens_with_lm(lm, codes)
+        result = dict(steps=steps, wall_s=wall_s, meta=meta, lm_chosen=binary.read_ecdc_header(io.BytesIO(blob)).get("lm", False),
+                      cli_blob_decodes=bool(np.array_equal(decompress_tokens(blob, lm=lm)[0], codes)),
+                      lm_blob_bytes=len(lm_blob), raw_blob_bytes=len(raw),
+                      lm_blob_decodes=bool(np.array_equal(decompress_tokens_with_lm(lm, lm_blob)[0], codes)))
+    print(f"[train_lm] cli: {result}")
+    if not (result["cli_blob_decodes"] and result["lm_blob_decodes"] and meta.get("family") == "encodec"):
+        raise AssertionError(f"train_lm cli: {result}")
+    return result
+
+
+def phase_train_lm(device="cuda", batch=16, seconds=1.0, steps=8, lm_width=LM_WIDTH, preset=FLAGSHIP,
+                   cli_files=4, cli_steps=4, **overrides) -> dict:
+    """The token-LM trainer (``train.lm.LMTrainer``, what ``cli.train_lm`` calls)
+    at ``lm_width`` on Encodec_24k_240d's tokens at its top bandwidth (12 kbps,
+    12 streams), ``batch`` x ``seconds``: each step tokenizes the batch (K1 + K2)
+    and takes one Adam step; the LM step's median ms of ``steps`` (CUDA events),
+    tokens per s, the tokenizer's launches a step. Then the CLI
+    (:func:`_lm_train_cli`)."""
+    from academicodec_tpu_torch.train.lm import LMTrainConfig, LMTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    model, wav, tokenize = _lm_tokens(device, batch, seconds, preset, **overrides)
+    codes = tokenize(wav)
+    trainer = LMTrainer(LMTrainConfig(n_q=codes.shape[2], bins=model.bins, **lm_width), device=device)
+    state = trainer.init_state(0)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+
+    def step():
+        nonlocal state
+        state, metrics = trainer.train_step(state, codes)
+        losses.append({k: float(v) for k, v in metrics.items()})
+
+    reset_launches()
+    with torch.no_grad():
+        codes = tokenize(wav)
+    _train_seconds(step, on_card)
+    launches = {k: read_launches()[k] for k in ("rvq_encode", "lstm2")}
+    for _ in range(steps):
+        times.append(_train_seconds(step, on_card))
+    expected = {"rvq_encode": 1 if on_card else 0, "lstm2": k2_slstms(model.encoder) if on_card else 0}
+    ms = statistics.median(times) * 1e3
+    out = dict(step_ms_median=ms, step_ms_max=max(times) * 1e3, tokens_per_s=codes.numel() / (ms / 1e3),
+               codes_shape=list(codes.shape), launches_step=launches, expected_step=expected,
+               losses_first=losses[0], losses_last=losses[-1],
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30 if on_card else None)
+    print(f"[train_lm] LM {lm_width} on {preset} tokens {list(codes.shape)}: step median {ms:.2f} ms (max "
+          f"{out['step_ms_max']:.2f}) of {steps}, {out['tokens_per_s']:.0f} tokens per s, tokenizer launches a step "
+          f"{launches} (expected {expected}), bits per token {losses[0]['bits_per_token']:.3f} -> "
+          f"{losses[-1]['bits_per_token']:.3f}, peak memory {out['peak_mem_gib']}")
+    if launches != expected or not all(math.isfinite(v) for m in losses for v in m.values()):
+        raise AssertionError(f"train_lm: launches {launches} (expected {expected}), losses {losses}")
+    if not losses[-1]["ce_loss"] < losses[0]["ce_loss"]:
+        raise AssertionError(f"train_lm: the loss did not fall over {steps} steps on one batch: {losses}")
+    from academicodec_tpu_torch.models.presets import SOUNDSTREAM_PRESETS
+
+    width = {**SOUNDSTREAM_PRESETS[preset], **overrides}
+    out["cli"] = _lm_train_cli(device, model, width, n_files=cli_files, steps=cli_steps, lm_width=lm_width)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2413,6 +2993,8 @@ def main() -> int:
     int8 = phase_int8(device)
     layer_opts = phase_layer_opts(device)
     train = phase_train(device)
+    train_hifi = phase_train_hifi(device)
+    train_lm = phase_train_lm(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
@@ -2421,6 +3003,7 @@ def main() -> int:
         k["launches_lm_compress_roundtrip"] = lm["launches"][name]
         k["launches_train_step"] = train["f32"]["launches_step"][name]
         k["launches_train_init_step"] = train["f32"]["launches_init_step"][name]
+        k["launches_train_lm_step"] = train_lm["launches_step"][name]
     k1.update(train["k1_shapes"])
     k2.update(train["k2_shapes"])
     k3["launches"] = hifi["launches"]["resblock_tower"]
@@ -2430,6 +3013,11 @@ def main() -> int:
     k4["launches"] = hifi["launches"]["resblock_tower_gn"]
     k4["launches_extract"] = extract["launches"]["resblock_tower_gn"]
     k4["launches_int8_roundtrip"] = int8["launches"]["resblock_tower_gn"]
+    for k, name in ((k3, "resblock_tower"), (k4, "resblock_tower_gn")):
+        k["launches_train_hifi_step"] = train_hifi["f32"]["launches_step"][name]
+        k["launches_train_hifi_eval"] = train_hifi["f32"]["launches_eval"][name]
+        tag = "k3" if k is k3 else "k4"
+        k["train_hifi_shapes"] = {c: v for c, v in train_hifi["towers"].items() if c.startswith(tag)}
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
     print(f"[main] {json.dumps({'distinct_tokens': main_path['distinct_tokens'], **{k: main_path[k] for k in keys}})}")
     print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
@@ -2444,6 +3032,8 @@ def main() -> int:
     print(f"[int8] {json.dumps(int8)}")
     print(f"[layer_opts] {json.dumps(layer_opts)}")
     print(f"[train] {json.dumps(train)}")
+    print(f"[train_hifi] {json.dumps({k: v for k, v in train_hifi.items() if k != 'towers'})}")
+    print(f"[train_lm] {json.dumps(train_lm)}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

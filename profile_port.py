@@ -35,9 +35,14 @@ chains, and inside the chains the waits for tap tiles and the epilogues).
 ``--train-flops`` counts, with ``torch.utils.flop_counter`` on the CPU (no
 card needed), the forward FLOPs of each module of the Encodec_24k_240d
 trainer (``chip_smoke.TRAIN_RECIPE``) for one 1 s item: the SEANet encoder
-and decoder, the three discriminator families and the mel loss.
+and decoder, the three discriminator families and the mel loss. With
+``--preset hificodec_24k_320d`` it counts the HiFi-Codec trainer's modules
+(``chip_smoke.phase_train_hifi``'s recipe and discriminators) for one
+16000-sample item, and the token LM's at ``cli/train_lm.py``'s width for
+one 1 s item of Encodec_24k_240d's 12 streams, on meta tensors (shapes
+only, nothing computed).
 
-    python3 profile_port.py --train-flops
+    python3 profile_port.py --train-flops [--preset hificodec_24k_320d]
 """
 
 from __future__ import annotations
@@ -110,6 +115,42 @@ def train_flops() -> dict:
     return out
 
 
+def hifi_train_flops() -> dict:
+    """Forward GFLOP of each HiFi-Codec trainer module for one 16000-sample item,
+    and of the token LM for one 1 s item (100 frames x 12 streams), counted on
+    meta tensors (the modules are built on the CPU and moved there)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from academicodec_tpu_torch.losses.mel import hifigan_mel_losses
+    from academicodec_tpu_torch.models.hificodec import VQVAE
+    from academicodec_tpu_torch.models.lm import RVQTokenLM
+    from academicodec_tpu_torch.train.hificodec import Discriminators
+
+    cfg, _ = chip_smoke.hifi_recipe()
+    model = VQVAE(cfg, device="cpu").to("meta")
+    discs = Discriminators(**chip_smoke.HIFI_TRAIN_DISCS).to("meta")
+    lm = RVQTokenLM(n_q=12, bins=1024, **chip_smoke.LM_WIDTH, device="cpu").to("meta")
+    x = torch.zeros((1, cfg.segment_size), device="meta")
+    out = {}
+
+    def count(name, fn):
+        with FlopCounterMode(display=False) as fc:
+            result = fn()
+        out[name] = fc.get_total_flops() / 1e9
+        return result
+
+    c = count("encoder", lambda: model.encoder(x[:, None]))  # parameters on meta need grad: the unfused path
+    q = count("quantizer", lambda: model.quantizer(c.transpose(1, 2))[0])
+    y = count("generator", lambda: model.generator(q.transpose(1, 2)))[:, 0]
+    for family in ("mpd", "msd", "mstftd"):
+        count(family, lambda: getattr(discs, family)(x))
+    mel = dict(n_fft=cfg.n_fft, num_mels=cfg.num_mels, sampling_rate=cfg.sampling_rate, hop_size=cfg.hop_size,
+               win_size=cfg.win_size, fmin=cfg.fmin, fmax_for_loss=cfg.fmax_for_loss)
+    count("mel_loss", lambda: hifigan_mel_losses(x, y, None, **mel))
+    count("lm_1s", lambda: lm(torch.zeros((1, 100, 12), dtype=torch.long, device="meta")))
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", default=chip_smoke.FLAGSHIP,
@@ -122,8 +163,13 @@ def main(argv=None) -> int:
     parser.add_argument("--fused-pre", action="store_true",
                         help="HiFi-Codec: fuse each narrow stage's upsampling convT into K3 (generator.fused_pre)")
     parser.add_argument("--train-flops", action="store_true",
-                        help="count the Encodec trainer's forward FLOPs per 1 s item (on the CPU)")
+                        help="count the Encodec (or with --preset hificodec_24k_320d the HiFi-Codec and LM) "
+                             "trainer's forward FLOPs per item (on the CPU)")
     args = parser.parse_args(argv)
+    if args.train_flops and args.preset == chip_smoke.HIFI:
+        print(f"[train_flops] HiFi-Codec forward GFLOP per 16000-sample item, LM per 1 s item: "
+              f"{json.dumps(hifi_train_flops())}")
+        return 0
     if args.train_flops:
         print(f"[train_flops] forward GFLOP per 1 s item: {json.dumps(train_flops())}")
         return 0

@@ -482,8 +482,9 @@ def test_vqvae_cuda_matches_cpu(cuda):
     with torch.no_grad():
         s = on_cpu.encoder(wav[:, None, :]).std().item()
     cb = torch.from_numpy(np.random.default_rng(6).standard_normal(tuple(on_cpu.quantizer.codebooks.shape)) * s)
-    for m in (on_gpu, on_cpu):
-        m.quantizer.codebooks.copy_(cb.float())
+    with torch.no_grad():  # the codebooks are a parameter (trained by gradient)
+        for m in (on_gpu, on_cpu):
+            m.quantizer.codebooks.copy_(cb.float())
     k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
     codes = on_gpu.encode(wav)
     out = on_gpu.decode(codes)
@@ -890,3 +891,106 @@ def test_masked_groupnorm_of_a_padded_row_equals_its_exact_length(cuda):
         for i, r in enumerate(rows):
             exact = gn(r[None])
             assert torch.equal(padded[i, :, : r.shape[1]], exact[0]), i
+
+
+# ---------------------------------------------------------------- HiFi-Codec trainer
+TRAIN_HIFI = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=64,
+                  resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 2),), encoder_base_channels=8, n_codes=64)
+TRAIN_HIFI_DISCS = dict(stft_filters=4, stft_n_ffts=(256, 128), mpd_periods=(2, 3), msd_scales=2)
+
+
+@pytest.mark.parametrize("gn", [False, True])
+def test_tower_wrappers_raise_under_autograd(cuda, gn):
+    """K3/K4 have no backward: a CUDA call that autograd would record raises
+    instead of returning a tensor the gradient cannot pass; under ``no_grad``
+    the same call launches."""
+    rng = np.random.default_rng(3)
+    weights, biases = _tower(rng, 32, (3,), ((1, 2),), "1", cuda, torch.float32)
+    weights = [[w.requires_grad_(True) for w in ch] for ch in weights]
+    x = _randn(rng, (2, 32, 300), cuda, 0.5)
+    kw = dict(kernel_sizes=(3,), dilation_sizes=((1, 2),))
+    gn_params = (torch.ones((1, 32), device=cuda), torch.zeros((1, 32), device=cuda))
+
+    def call():
+        if gn:
+            return rb_ops.resblock_tower_gn(x, weights, biases, *gn_params, num_groups=2, **kw)
+        return rb_ops.resblock_tower(x, weights, biases, **kw)
+
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():
+        y = call()
+    assert y.shape == x.shape and torch.isfinite(y).all()
+
+
+def _hifi_trainer(device, **kw):
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig, HiFiCodecTrainer
+
+    cfg = HiFiCodecTrainConfig(model=HiFiCodecConfig(**TRAIN_HIFI), **TRAIN_HIFI_DISCS, **kw)
+    return HiFiCodecTrainer(cfg, device=device)
+
+
+def _hifi_batch():
+    return torch.from_numpy((np.random.default_rng(11).standard_normal((4, 1600)) * 0.3).astype(np.float32))
+
+
+def test_hifi_d_phase_forward_on_the_towers_equals_the_plain_chains(cuda):
+    """The trainer's no-grad generator forward (K4 x2, K3 x2 here) against the
+    same model's forward under autograd (every stage unfused), before and after
+    a step (the step drops the packed operands its fused Adam leaves stale):
+    wavs within 1e-4 of their max, codes equal."""
+    trainer = _hifi_trainer(cuda)
+    state = trainer.init_state(0)
+    x = _hifi_batch().to(cuda)
+    for _ in range(2):
+        model = state.generator
+        k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+        with torch.no_grad():
+            y, _, codes = model(x, training=True)
+        torch.cuda.synchronize()
+        assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
+        y_ref, _, codes_ref = model(x, training=True)
+        assert rb_ops.TOWER_LAUNCHES - k3 == 2  # none under autograd
+        assert torch.equal(codes, codes_ref)
+        torch.testing.assert_close(y, y_ref.detach(), atol=1e-4 * y_ref.abs().max().item(), rtol=0)
+        state, _m = trainer.train_step(state, x)
+
+
+def test_hifi_step_launches_the_towers_only_in_the_d_phase(cuda):
+    """K3/K4 launches of one step: one per fused stage in the D phase's forward,
+    none in the G phase's; the same in ``eval_step``."""
+    import chip_smoke
+
+    trainer = _hifi_trainer(cuda)
+    state = trainer.init_state(1)
+    x = _hifi_batch().to(cuda)
+    by_phase, _wavs, _ = chip_smoke._watch_gen(trainer, lambda: trainer.train_step(state, x))
+    expected = chip_smoke.fused_stage_counts(trainer.cfg.model)
+    assert by_phase["no_grad"] == expected == {"resblock_tower": 2, "resblock_tower_gn": 2}
+    assert not any(by_phase["grad"].values())
+    k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+    trainer.eval_step(state, x)
+    assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
+
+
+def test_spectral_u_advances_once_per_step_on_the_card(cuda):
+    """After one step on the card the spectral norm's ``u`` is one power
+    iteration from the old ``u`` with the old weight (computed on the CPU),
+    as on the CPU, within 1e-5."""
+    from academicodec_tpu_torch.nn.conv import _unit
+
+    card, cpu = _hifi_trainer(cuda), _hifi_trainer("cpu")
+    card_state, cpu_state = card.init_state(2), cpu.init_state(2)
+    convs = [m for m in cpu_state.discriminators.modules() if getattr(m, "norm", None) == "spectral_norm"]
+    expected = []
+    for m in convs:
+        w = m.weight.detach().reshape(m.weight.shape[0], -1)
+        expected.append(_unit(w @ _unit(w.t() @ _unit(m.weight_u))))
+    x = _hifi_batch()
+    card.train_step(card_state, x.to(cuda))
+    cpu.train_step(cpu_state, x)
+    got = card_state.discriminators.spectral_u()
+    assert len(got) == len(expected) == 8
+    for g, c, e in zip(got, cpu_state.discriminators.spectral_u(), expected):
+        torch.testing.assert_close(g.cpu(), e, atol=1e-5, rtol=0)
+        torch.testing.assert_close(g.cpu(), c, atol=1e-5, rtol=0)

@@ -71,9 +71,12 @@ def test_discriminator_gradients_reach_weight_norm():
 
 
 def test_hificodec_flavor_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        D.MultiPeriodDiscriminator("hificodec")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        D.MultiScaleDiscriminator("hificodec")
+    """The hificodec flavor builds (its parity with JAX: tests/test_torch_train_hifi.py);
+    an unknown flavor raises."""
+    mpd, msd = D.MultiPeriodDiscriminator("hificodec", periods=(2,)), D.MultiScaleDiscriminator("hificodec", 2)
+    assert [c.weight_v.shape[0] for c in mpd.discriminators[0].convs] == [32, 128, 512, 1024, 1024]
+    assert [d.convs[0].norm for d in msd.discriminators] == ["spectral_norm", "weight_norm"]
     with pytest.raises(ValueError):
         D.MultiScaleDiscriminator("nope")
+    with pytest.raises(ValueError):
+        D.MultiPeriodDiscriminator("nope")

@@ -17,14 +17,15 @@ serving = ["academicodec_tpu_torch." + n for n in ("streaming", "codec.compress"
                                                    "codec.lm_compress", "ops.stft", "losses.gan", "losses.mel",
                                                    "nn.discriminators", "train.state", "train.encodec",
                                                    "data.mt64", "utils.checkpoint", "utils.logging",
-                                                   "utils.profiling", "cli.train_encodec")]
+                                                   "utils.profiling", "cli.train_encodec", "train.hificodec",
+                                                   "train.lm", "cli.train_hificodec", "cli.train_lm")]
 for name in serving + names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "flax", "academicodec_tpu")
 loaded = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in banned)
 print(len(names), loaded)
-sys.exit(1 if loaded or len(names) < 31 or not set(serving) <= set(names) else 0)
+sys.exit(1 if loaded or len(names) < 35 or not set(serving) <= set(names) else 0)
 """
 
 
