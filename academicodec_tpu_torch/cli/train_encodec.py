@@ -12,8 +12,10 @@ continues from the newest ``latest`` at the epoch its metadata records, and
 ``cli/compress.py --resume_path`` serves any of them. A tiny run on the CPU:
 ``--device cpu --n_filters 4 --dimension 32 --bins 64 --debug_tiny_discs``.
 
-Not ported: ``--multihost`` (multi-GPU training, ROADMAP.md Queue 1 item 9)
-and ``--native_loader`` (the C++ crop loader, item 6) exit with an error;
+``--native_loader`` reads the training crops with the C++ loader
+(``data/native_loader.py``): the same batches as the Python pipeline, bit for
+bit; it raises if its library cannot be built. Not ported: ``--multihost``
+(multi-GPU training, ROADMAP.md Queue 1 item 9) exits with an error;
 ``--packed_conv`` selects a TPU lowering in JAX and is accepted as a no-op.
 ``--profile_dir`` records steps 10-20 of the first epoch with torch.profiler.
 """
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from academicodec_tpu_torch.data.dataset import WavCropDataset, batch_iterator
+from academicodec_tpu_torch.data.native_loader import native_batch_iterator
 from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
 from academicodec_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta, save_checkpoint, scan_checkpoint
 from academicodec_tpu_torch.utils.logging import Logger
@@ -71,15 +74,14 @@ def get_args(argv=None):
                         "EMA codebooks and loss reductions")
     p.add_argument("--tensorboard", action="store_true")
     p.add_argument("--multihost", action="store_true", help="not ported yet (multi-GPU training)")
-    p.add_argument("--native_loader", action="store_true", help="not ported yet (the C++ crop loader)")
+    p.add_argument("--native_loader", action="store_true",
+                   help="read training crops with the C++ loader (bit-identical batches)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--device", type=str, default="cuda", help="torch device; the card unless cpu is asked for")
     args = p.parse_args(argv)
     if args.multihost:
         p.error("--multihost: multi-GPU training is not ported yet (ROADMAP.md Queue 1 item 9)")
-    if args.native_loader:
-        p.error("--native_loader: the C++ crop loader is not ported yet (ROADMAP.md Queue 1 item 6)")
     if args.batch_size % args.accum_steps:
         p.error(f"--batch_size {args.batch_size} is not divisible by --accum_steps {args.accum_steps}")
     return args
@@ -131,7 +133,14 @@ def main(argv=None):
     for epoch in range(start_epoch, args.n_epochs + 1):
         trainer.set_epoch_lr(state, epoch)
         t_epoch = time.time()
-        it = batch_iterator(train_ds, args.batch_size, seed=args.seed, epochs=1, start_epoch=epoch)
+        # one seed and start_epoch keying: both loaders reproduce this epoch's order
+        # on resume, and match each other bit for bit
+        if args.native_loader:
+            it = native_batch_iterator(train_ds.files, segment, args.batch_size, sample_rate=args.sr,
+                                       mixture_prob=train_ds.mixture_prob, seed=args.seed, epochs=1,
+                                       start_epoch=epoch, process_index=0, process_count=1)
+        else:
+            it = batch_iterator(train_ds, args.batch_size, seed=args.seed, epochs=1, start_epoch=epoch)
         with contextlib.ExitStack() as profiling:
             for i, batch in enumerate(it):
                 if args.profile_dir and epoch == start_epoch and i == 10:

@@ -16,8 +16,12 @@ Validation (the mel error of every validation batch) runs every
 ``--validation_interval`` steps. ``--fine_tuning --input_mels_dir`` trains
 on mel-aligned crops (``data/dataset.MelNpyCropDataset``).
 
-Not ported: ``--multihost`` (multi-GPU training, ROADMAP.md Queue 1 item 9)
-and ``--native_loader`` (the C++ crop loader, item 6) exit with an error.
+``--native_loader`` reads the training crops with the C++ loader
+(``data/native_loader.py``): the same batches as the Python pipeline, bit for
+bit; it raises if its library cannot be built. ``--fine_tuning`` keeps the
+Python pipeline, which alone yields the paired mels. Not ported:
+``--multihost`` (multi-GPU training, ROADMAP.md Queue 1 item 9) exits with an
+error.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import numpy as np
 import torch
 
 from academicodec_tpu_torch.data.dataset import MelNpyCropDataset, WavCropDataset, batch_iterator
+from academicodec_tpu_torch.data.native_loader import native_batch_iterator
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig, HiFiCodecTrainer
 from academicodec_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta, save_checkpoint, scan_checkpoint
@@ -57,7 +62,8 @@ def get_args(argv=None):
                    help="bf16 forwards/backwards with f32 master weights, optimizer state, spectral-norm u "
                         "and loss reductions")
     p.add_argument("--multihost", action="store_true", help="not ported yet (multi-GPU training)")
-    p.add_argument("--native_loader", action="store_true", help="not ported yet (the C++ crop loader)")
+    p.add_argument("--native_loader", action="store_true",
+                   help="read training crops with the C++ loader (bit-identical batches)")
     p.add_argument("--fine_tuning", action="store_true",
                    help="mel-aligned crops from precomputed mel .npy files (reference meldataset.py:183-206)")
     p.add_argument("--input_mels_dir", type=str, default=None, help="dir of <stem>.npy mels for --fine_tuning")
@@ -65,8 +71,6 @@ def get_args(argv=None):
     args = p.parse_args(argv)
     if args.multihost:
         p.error("--multihost: multi-GPU training is not ported yet (ROADMAP.md Queue 1 item 9)")
-    if args.native_loader:
-        p.error("--native_loader: the C++ crop loader is not ported yet (ROADMAP.md Queue 1 item 6)")
     if args.fine_tuning and not args.input_mels_dir:
         p.error("--fine_tuning requires --input_mels_dir")
     return args
@@ -97,6 +101,9 @@ def main(argv=None):
     seed = raw.get("seed", 1234)
     segment = model_cfg.segment_size
     if args.fine_tuning:
+        if args.native_loader:
+            logger.log_info("--native_loader ignored: --fine_tuning needs paired precomputed "
+                            "mels, which only the Python pipeline yields")
         train_ds = MelNpyCropDataset(args.input_training_file, segment, hop_size=model_cfg.hop_size,
                                      base_mels_path=args.input_mels_dir, sample_rate=model_cfg.sampling_rate,
                                      seed=seed)
@@ -116,7 +123,12 @@ def main(argv=None):
     for epoch in range(start_epoch, args.training_epochs):
         trainer.set_epoch_lr(state, epoch)
         t_epoch = time.time()
-        for batch in batch_iterator(train_ds, batch_size, seed=seed, epochs=1, start_epoch=epoch):
+        if args.native_loader and not args.fine_tuning:
+            it = native_batch_iterator(train_ds.files, segment, batch_size, sample_rate=model_cfg.sampling_rate,
+                                       seed=seed, epochs=1, start_epoch=epoch, process_index=0, process_count=1)
+        else:
+            it = batch_iterator(train_ds, batch_size, seed=seed, epochs=1, start_epoch=epoch)
+        for batch in it:
             if isinstance(batch, tuple):  # fine-tuning: (wav, mel); the loss recomputes mels from the wav
                 batch, _mel = batch
             t0 = time.time()

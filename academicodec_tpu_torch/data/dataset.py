@@ -11,8 +11,8 @@ Every random decision is keyed on ``(seed, epoch, item)`` through the
 ``std::mt19937_64`` streams of ``data/mt64.py``, so for the same arguments
 the batches equal the JAX package's bit for bit, whatever the thread
 schedule. ``MelNpyCropDataset`` is HiFi-Codec fine-tuning's mel-aligned
-crop, paired with its precomputed mel. The native loader is not ported yet
-(ROADMAP.md Queue 1 item 6).
+crop, paired with its precomputed mel. ``data/native_loader.py`` draws the
+same batches with a C++ thread pool.
 """
 
 from __future__ import annotations

@@ -41,8 +41,15 @@ against the CPU with two fault controls, and ``cli.train_hificodec`` whose
 state ``cli.extract_tokens`` serves; the token-LM trainer (``train_lm``) at
 ``cli/train_lm.py``'s default width on Encodec_24k_240d's 12 kbps tokens
 (K1 + K2 in the tokenizer), and ``cli.train_lm`` whose LM ``cli.compress
---lm`` takes. Any failed phase exits non-zero; without a CUDA device it
-exits 1 at once.
+--lm`` takes. Then objective evaluation (``evaluate``): 8 speech-like files
+of 3-10 s through ``cli.compress`` (Encodec_24k_240d, K1 + K2) and
+``cli.extract_tokens`` (hificodec_24k_320d, K3 + K4), each output scored by
+``cli.evaluate`` (SI-SNR, the mel distance on the card, STOI/ESTOI, PESQ
+nb/wb); and the C++ crop loader (``native_loader``): built, an epoch
+bit-identical to the Python pipeline, batches a second against it, and
+``cli.train_encodec`` / ``cli.train_hificodec`` at full width fed by it
+against the Python-fed runs. Any failed phase exits non-zero; without a
+CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -62,6 +69,7 @@ tokenization).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import io
 import json
@@ -102,6 +110,7 @@ from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder,
 # NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 HBM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = "encodec_24k_240d"
@@ -2966,6 +2975,404 @@ def phase_extract_stages(device="cuda", bucket_seconds=10.0, **corpus) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# objective evaluation (cli/evaluate.py) and the native crop loader
+
+# PESQ of an identical pair: raw 4.5 through the P.862.1 (nb) and P.862.2 (wb) mappings
+PESQ_IDENTICAL = {"pesq_nb": 4.549, "pesq_wb": 4.644}
+MEL_CARD_CPU_RTOL = 1e-4
+# first-step losses of a native-fed trainer run against the Python-fed one (the same
+# batches and draws; the card's backward sums may part in their last bits)
+NATIVE_LOSS_RTOL = 1e-5
+
+
+def speech_like(n: int, sr: int, seed: int) -> np.ndarray:
+    """``n`` samples of tests/test_pesq.py's test signal on a seeded pitch and
+    rhythm: a syllabically modulated harmonic tone plus a noise floor, with
+    0.25 s of silence at each end; f32."""
+    rng = np.random.default_rng(seed)
+    pad = sr // 4
+    t = np.arange(n - 2 * pad) / sr
+    f0 = rng.uniform(100.0, 250.0)
+    env = (np.sin(2 * np.pi * rng.uniform(2.0, 4.0) * t) ** 2) * (
+        np.sin(2 * np.pi * rng.uniform(0.2, 0.5) * t + rng.uniform(0, np.pi)) ** 2)
+    x = env * (0.3 * np.sin(2 * np.pi * f0 * t) + 0.2 * np.sin(2 * np.pi * 2 * f0 * t)
+               + 0.1 * np.sin(2 * np.pi * 4 * f0 * t)) + 0.005 * rng.standard_normal(len(t))
+    return np.concatenate([np.zeros(pad), x, np.zeros(pad)]).astype(np.float32)
+
+
+def eval_corpus(directory: str, n_files: int, min_seconds: float, max_seconds: float, sr: int,
+                seed: int = 12) -> np.ndarray:
+    """``n_files`` speech-like wavs of ``min_seconds``-``max_seconds`` written to
+    ``directory`` as ``e<i>.wav``, ``i`` zero-padded so that the names sort in
+    the order they were drawn; their lengths."""
+    from academicodec_tpu_torch.data.wavio import write_wav
+
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(int(min_seconds * sr), int(max_seconds * sr) + 1, n_files)
+    os.makedirs(directory, exist_ok=True)
+    digits = len(str(n_files - 1))
+    for i, n in enumerate(lengths):
+        write_wav(os.path.join(directory, f"e{i:0{digits}d}.wav"), speech_like(int(n), sr, seed + i), sr)
+    return lengths
+
+
+def _check_report(tag: str, report: dict, n_files: int) -> None:
+    """Every metric of every row finite, or null (NaN) and counted in ``skipped``."""
+    rows = report["per_file"]
+    if len(rows) != n_files:
+        raise AssertionError(f"evaluate {tag}: {len(rows)} rows for {n_files} files")
+    for k, skipped in report["skipped"].items():
+        vals = [r.get(k) for r in rows if k in r]
+        nulls = sum(v is None for v in vals)
+        if nulls != skipped or not all(math.isfinite(v) for v in vals if v is not None):
+            raise AssertionError(f"evaluate {tag}: {k} has {nulls} null rows, {skipped} skipped: {vals}")
+
+
+def phase_evaluate(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, bucket_seconds=10.0,
+                   preset=FLAGSHIP, hifi_preset=HIFI, overrides=None, hifi_overrides=None) -> dict:
+    """Objective evaluation of both codecs through the port's CLIs: ``n_files``
+    seeded speech-like wavs of ``min_seconds``-``max_seconds`` at 24 kHz go
+    through ``cli.compress`` (Encodec_24k_240d, ECDC on, one batch of
+    ``n_files``; K1, K2) and ``cli.extract_tokens`` (hificodec_24k_320d,
+    batched with lengths, synthesis on; K3, K4), each model seeded and its
+    codebooks spread over the first file's latent frames, the launch counts
+    read around each CLI; then ``cli.evaluate --estoi --json_out`` scores
+    each output directory against the inputs. Checks: the identical pair's
+    anchors (PESQ nb 4.549 and wb 4.644 within 1e-3, STOI > 0.99), every
+    metric finite or null and counted in ``skipped``, the CLI's mel
+    distances (on the card) within ``MEL_CARD_CPU_RTOL`` of the CPU's, the
+    launches. Prints the CLI's seconds and, from each file's metrics run
+    again one at a time, the host seconds of PESQ and STOI per file and the
+    mel distance's device ms (CUDA events around the call)."""
+    import dataclasses
+    import tempfile
+
+    from academicodec_tpu_torch.cli import compress as compress_cli
+    from academicodec_tpu_torch.cli import evaluate as evaluate_cli
+    from academicodec_tpu_torch.cli import extract_tokens
+    from academicodec_tpu_torch.data.wavio import read_wav
+    from academicodec_tpu_torch.eval import metrics
+    from academicodec_tpu_torch.eval.stoi import stoi_and_estoi
+    from academicodec_tpu_torch.models.presets import SOUNDSTREAM_PRESETS
+
+    on_card = torch.device(device).type == "cuda"
+    width = {**SOUNDSTREAM_PRESETS[preset], **(overrides or {})}
+    sr = width["sample_rate"]
+
+    def launches_of(run):
+        if on_card:
+            torch.cuda.synchronize()
+        reset_launches()
+        run()
+        if on_card:
+            torch.cuda.synchronize()
+        return read_launches()
+
+    result = {"files": n_files}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        wavs = os.path.join(tmp, "wavs")
+        lengths = eval_corpus(wavs, n_files, min_seconds, max_seconds, sr)
+        names = sorted(os.listdir(wavs))  # the CLI's row order
+        first = torch.from_numpy(read_wav(os.path.join(wavs, names[0]))[0][None])
+        result["audio_seconds"] = float(lengths.sum()) / sr
+
+        model = load_codec(preset, device=device, **(overrides or {}))
+        spread_codebooks(model, latent_frames(model, first))
+        pth = os.path.join(tmp, "encodec.pth")
+        torch.save(model.state_dict(), pth)
+        expected = {"encodec": {"rvq_encode": 1, "lstm2": k2_slstms(model), "resblock_tower": 0,
+                                "resblock_tower_gn": 0}}
+        del model
+        outputs = {"encodec": os.path.join(tmp, "encodec_out"), "hificodec": os.path.join(tmp, "hificodec_out")}
+        launches = {"encodec": launches_of(lambda: compress_cli.main([
+            "--input", wavs, "--output", outputs["encodec"], "--resume_path", pth, "--sr", str(sr),
+            "--ratios", *map(str, width["ratios"]), "--target_bandwidths", *map(str, width["target_bandwidths"]),
+            "--target_bw", str(width["target_bandwidths"][-1]), "--n_filters", str(width["n_filters"]),
+            "--dimension", str(width["dimension"]), "--bins", str(width.get("bins", 1024)), "--ecdc",
+            "--bucket_seconds", str(bucket_seconds), "--batch_files", str(n_files), "--device", str(device)]))}
+
+        hifi = load_codec(hifi_preset, device=device, **(hifi_overrides or {}))
+        if hifi.config.sampling_rate != sr:
+            raise ValueError(f"{hifi_preset} runs at {hifi.config.sampling_rate} Hz, the corpus at {sr}")
+        spread_codebooks(hifi, latent_frames(hifi, first))
+        ckpt, config = os.path.join(tmp, "g_00000000"), os.path.join(tmp, "config.json")
+        torch.save({part: getattr(hifi, part).state_dict() for part in ("encoder", "generator", "quantizer")}, ckpt)
+        with open(config, "w") as fh:
+            json.dump(dataclasses.asdict(hifi.config), fh)
+        expected["hificodec"] = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(hifi.config)}
+        del hifi
+        launches["hificodec"] = launches_of(lambda: extract_tokens.main([
+            "--config", config, "--model_path", ckpt, "--input", wavs, "--outputdir", outputs["hificodec"],
+            "--tokens_out", os.path.join(tmp, "tokens.npz"), "--batch_files", str(n_files),
+            "--bucket_seconds", str(bucket_seconds), "--device", str(device)]))
+        if not on_card:
+            expected = {tag: {k: 0 for k in e} for tag, e in expected.items()}
+
+        identical = metrics.evaluate_pair(first[0].numpy(), first[0].numpy(), sr, estoi=True, device=device)
+        result["identical"] = identical
+        for tag, out_dir in outputs.items():
+            json_out = os.path.join(tmp, f"{tag}.json")
+            t0 = time.perf_counter()
+            evaluate_cli.main(["--ref_dir", wavs, "--deg_dir", out_dir, "--sr", str(sr), "--estoi",
+                               "--json_out", json_out, "--device", str(device)])
+            cli_s = time.perf_counter() - t0
+            with open(json_out) as fh:
+                report = json.load(fh)
+            _check_report(tag, report, n_files)
+            # each file's metrics again, one at a time: their host seconds, the mel
+            # distance's device time, and the CLI's mel distance against the CPU's
+            pesq_s, stoi_s, mel_s, mel_err = [], [], [], 0.0
+            for name, row in zip(names, report["per_file"]):
+                ref, deg = (read_wav(os.path.join(d, name), sr=sr)[0] for d in (wavs, out_dir))
+                n = min(len(ref), len(deg))
+                pesq_s.append(_train_seconds(lambda: metrics.pesq_score(deg, ref, sr), False))
+                stoi_s.append(_train_seconds(lambda: stoi_and_estoi(ref[:n], deg[:n], sr), False))
+                mel_s.append(_train_seconds(lambda: metrics.mel_distance(deg, ref, sr, device=device), on_card))
+                cpu = metrics.mel_distance(deg, ref, sr, device="cpu")
+                mel_err = max(mel_err, abs(row["mel_l1"] - cpu) / max(abs(cpu), 1e-12))
+            audio_s = float(lengths.sum()) / sr
+            row = result[tag] = dict(
+                mean=report["mean"], skipped=report["skipped"], launches=launches[tag], expected=expected[tag],
+                cli_s=cli_s, pesq_host_s_per_file=statistics.mean(pesq_s), stoi_host_s_per_file=statistics.mean(stoi_s),
+                pesq_host_s_per_10s_audio=sum(pesq_s) / audio_s * 10, stoi_host_s_per_10s_audio=sum(stoi_s) / audio_s * 10,
+                mel_ms_per_file=statistics.mean(mel_s) * 1e3, mel_card_vs_cpu_rel=mel_err,
+            )
+            print(f"[evaluate] {tag}: launches of the roundtrip {launches[tag]} (expected {expected[tag]}); "
+                  f"means {json.dumps(report['mean'])}, skipped {json.dumps(report['skipped'])}")
+            print(f"[evaluate] {tag}: cli.evaluate {cli_s:.3f} s for {n_files} files ({audio_s:.2f} s of audio): "
+                  f"PESQ nb+wb {row['pesq_host_s_per_file']:.3f} host s a file "
+                  f"({row['pesq_host_s_per_10s_audio']:.3f} per 10 s), STOI+ESTOI {row['stoi_host_s_per_file']:.3f} "
+                  f"({row['stoi_host_s_per_10s_audio']:.3f} per 10 s), mel distance {row['mel_ms_per_file']:.3f} "
+                  f"ms a file ({'CUDA events' if on_card else 'host clock'}), card vs CPU {mel_err:.3g} (limit "
+                  f"{MEL_CARD_CPU_RTOL}){f' ({nvidia_smi()})' if on_card else ''}")
+            if launches[tag] != expected[tag] or mel_err > MEL_CARD_CPU_RTOL:
+                raise AssertionError(f"evaluate {tag}: launches {launches[tag]} (expected {expected[tag]}), "
+                                     f"mel card vs CPU {mel_err:.3g}")
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[evaluate] identical pair ({names[0]}, {first.shape[1] / sr:.2f} s): {json.dumps(identical)}; the phase "
+          f"{result['wall_s']:.1f} s")
+    if not (all(abs(identical[k] - v) <= 1e-3 for k, v in PESQ_IDENTICAL.items()) and identical["stoi"] > 0.99):
+        raise AssertionError(f"evaluate: the identical pair's anchors {identical}")
+    return result
+
+
+@contextlib.contextmanager
+def recorded_steps(trainer_cls):
+    """Within: each ``trainer_cls.train_step`` call recorded, in order, as a dict
+    of its batch (host f32), metrics (floats), kernel launches (the counts set
+    to 0 just before the step and read just after), ``inited`` (for a trainer
+    whose generator has a codebook quantizer, whether every layer was inited
+    before the step; else None), its host seconds (synchronized at both ends)
+    and, after the first, the host seconds since the previous step ended
+    (``wait_s``: the caller's loop, the next batch's load among it)."""
+    steps = []
+    train_step = trainer_cls.train_step
+
+    def recorded(self, state, x, *args, **kwargs):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vq = getattr(state.generator.quantizer, "vq", None)
+        rec = {"batch": x.detach().cpu().numpy() if torch.is_tensor(x) else np.array(x),
+               "inited": all(vq.inited_layers()) if vq is not None else None,
+               "wait_s": t0 - steps[-1]["end"] if steps else None}
+        steps.append(rec)
+        reset_launches()
+        state, metrics = train_step(self, state, x, *args, **kwargs)
+        rec["metrics"] = {k: float(v) for k, v in metrics.items()}
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        rec["launches"] = read_launches()
+        rec["end"] = time.perf_counter()
+        rec["s"] = rec["end"] - t0
+        return state, metrics
+
+    trainer_cls.train_step = recorded
+    try:
+        yield steps
+    finally:
+        trainer_cls.train_step = train_step
+
+
+NATIVE_PAIR_ORDER = ("python", "native", "native", "python")
+
+
+def _native_pair(tag, trainer_cls, run, steady: dict) -> dict:
+    """``run(native)`` fed as ``NATIVE_PAIR_ORDER`` says, each step recorded:
+    every run's batches bit-identical to the first run's and its launches
+    equal to the first run's step for step, every loss finite, each run's
+    first-step losses within ``NATIVE_LOSS_RTOL`` of the first run's. A
+    steady step (one before which every codebook layer is inited, or any
+    step of a trainer without codebook init) must launch ``steady``, and at
+    least one must occur. The steady steps after each run's first are timed,
+    by feed."""
+    runs = []
+    for feed in NATIVE_PAIR_ORDER:
+        with recorded_steps(trainer_cls) as steps:
+            run(feed == "native")
+        runs.append(steps)
+    ref = runs[0]
+    first = ref[0]["metrics"]
+    rel = max(abs(r[0]["metrics"][k] - v) / max(abs(v), 1e-12) for r in runs[1:] for k, v in first.items())
+    steady_at = [i for i, s in enumerate(ref) if s["inited"] is not False]
+    out = dict(
+        steps=len(ref), order=NATIVE_PAIR_ORDER,
+        batches_equal=all(len(r) == len(ref) and all(np.array_equal(a["batch"], b["batch"]) for a, b in zip(ref, r))
+                          for r in runs[1:]),
+        finite=all(math.isfinite(v) for r in runs for s in r for v in s["metrics"].values()),
+        first_step_loss_rel=rel,
+        launches_steps=[s["launches"] for s in ref],
+        launches_equal=all([s["launches"] for s in r] == [s["launches"] for s in ref] for r in runs[1:]),
+        steady_steps=steady_at, steady_launches=steady,
+        steady_launches_equal=bool(steady_at) and all(
+            {k: ref[i]["launches"][k] for k in steady} == steady for i in steady_at),
+        losses_first_step=runs[1][0]["metrics"])
+    for feed in ("python", "native"):
+        mine = [r for r, f in zip(runs, NATIVE_PAIR_ORDER) if f == feed]
+        out[f"steady_step_ms_{feed}"] = [r[i]["s"] * 1e3 for r in mine for i in steady_at if i > 0]
+        out[f"wait_ms_{feed}"] = [s["wait_s"] * 1e3 for r in mine for s in r[1:]]
+    ms = ", ".join(f"{k} " + " ".join(f"{v:.1f}" for v in out[k])
+                   for k in ("steady_step_ms_python", "steady_step_ms_native", "wait_ms_python", "wait_ms_native"))
+    print(f"[native_loader] {tag}: {out['steps']} steps a run, fed {' '.join(NATIVE_PAIR_ORDER)}: batches "
+          f"bit-identical {out['batches_equal']}, launches equal {out['launches_equal']}, losses finite "
+          f"{out['finite']}, first-step losses {rel:.3g} apart (limit {NATIVE_LOSS_RTOL}); launches a step "
+          f"{out['launches_steps']}, steady steps {steady_at} launch {steady}: {out['steady_launches_equal']}; "
+          f"host ms: {ms}")
+    if not (out["steps"] >= 2 and out["batches_equal"] and out["launches_equal"] and out["finite"]
+            and rel <= NATIVE_LOSS_RTOL and out["steady_launches_equal"] and out["steady_step_ms_native"]):
+        raise AssertionError(f"native loader {tag}: {out}")
+    return out
+
+
+def phase_native_loader(steady: dict, device="cuda", n_files=32, file_seconds=3.0, workers=8, rate_batches=300,
+                        width=TRAIN_RECIPE, batch=8, segment_seconds=1.0, hifi_model=None, hifi_batch=8,
+                        hifi_segment=16000) -> dict:
+    """The C++ crop loader (``data/native_loader.py``): the library built from
+    ``native/wavloader.cpp``; on ``n_files`` seeded wavs of ``file_seconds`` at
+    24 kHz one epoch bit-identical to ``batch_iterator`` (without and with p=0.3
+    mixtures); batches a second at ``workers`` threads against the Python
+    pipeline at the segment and batch of ``phase_train`` and of
+    ``phase_train_hifi``: ``rate_batches`` batches after each iterator's set-up
+    and first batch, fed native, Python, Python, native; then
+    ``cli.train_encodec`` (``width``, the debug discriminators, ``batch`` x
+    ``segment_seconds``) and ``cli.train_hificodec`` (hificodec_24k_320d's
+    recipe with ``hifi_model`` overrides, the reference discriminators,
+    ``hifi_batch`` x ``hifi_segment``) for one epoch each with
+    ``--native_loader`` and without (:func:`_native_pair`), their steady steps
+    held to ``steady[tag]``, the launches of a later step of ``phase_train`` and
+    ``phase_train_hifi``. At the defaults the Encodec run inits its 12 layers
+    in its first two steps and its last two are steady."""
+    import tempfile
+
+    from academicodec_tpu_torch.cli import train_encodec, train_hificodec
+    from academicodec_tpu_torch.data.dataset import WavCropDataset, batch_iterator
+    from academicodec_tpu_torch.data.native_loader import native_batch_iterator
+    from academicodec_tpu_torch.data.wavio import write_wav
+    from academicodec_tpu_torch.native.build import WAVLOADER_SRC, get_wavloader_lib, library_path
+    from academicodec_tpu_torch.train.encodec import EncodecTrainer
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainer
+
+    on_card = torch.device(device).type == "cuda"
+    t0 = t_phase = time.perf_counter()
+    get_wavloader_lib()
+    result = {"library": library_path(WAVLOADER_SRC).name, "load_or_build_s": time.perf_counter() - t0}
+    sr = width["sr"]
+    cfg, raw = hifi_recipe(**(hifi_model or {}))
+    if cfg.sampling_rate != sr:
+        raise ValueError(f"the HiFi-Codec recipe runs at {cfg.sampling_rate} Hz, the Encodec width at {sr}")
+    rng = np.random.default_rng(7)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "wavs")
+        os.makedirs(data)
+        for i in range(n_files):
+            write_wav(os.path.join(data, f"n{i:02d}.wav"),
+                      (rng.standard_normal(int(file_seconds * sr)) * 0.1).astype(np.float32), sr)
+        segment = int(segment_seconds * sr)
+        equal = {}
+        for mixture in (0.0, 0.3):
+            ds = WavCropDataset(data, segment, sample_rate=sr, mixture_prob=mixture, seed=3)
+            py = list(batch_iterator(ds, batch, seed=3, epochs=1, num_workers=workers))
+            nat = list(native_batch_iterator(ds.files, segment, batch, sample_rate=sr, mixture_prob=mixture,
+                                             seed=3, epochs=1, num_workers=workers))
+            equal[mixture] = len(py) == len(nat) > 0 and all(np.array_equal(a, b) for a, b in zip(py, nat))
+        result["epoch_bit_identical"] = equal
+        rates = {}
+        for tag, (seg, bs) in (("train_encodec", (segment, 16)), ("train_hificodec", (hifi_segment, 10))):
+            ds = WavCropDataset(data, seg, sample_rate=sr, seed=4)
+            row = {"native_batches_per_s": [], "python_batches_per_s": []}
+            for feed in ("native", "python", "python", "native"):
+                it = (native_batch_iterator(ds.files, seg, bs, sample_rate=sr, seed=4, num_workers=workers)
+                      if feed == "native" else batch_iterator(ds, bs, seed=4, num_workers=workers))
+                next(it)  # the set-up and the first batch, outside the window
+                t0 = time.perf_counter()
+                for _ in range(rate_batches):
+                    next(it)
+                row[f"{feed}_batches_per_s"].append(rate_batches / (time.perf_counter() - t0))
+                it.close()
+            row.update(segment=seg, batch=bs, batches=rate_batches, workers=workers)
+            rates[tag] = row
+        result["batches_per_s"] = rates
+        print(f"[native_loader] {result['library']} ready in {result['load_or_build_s']:.2f} s; one epoch "
+              f"bit-identical to batch_iterator (mixture 0, 0.3): {equal}; batches a second over {rate_batches} "
+              f"after the first, {workers} threads, fed native, Python, Python, native: "
+              + "; ".join(f"{t} ({r['batch']} x {r['segment']}) native "
+                          + " ".join(f"{v:.1f}" for v in r["native_batches_per_s"]) + ", Python "
+                          + " ".join(f"{v:.1f}" for v in r["python_batches_per_s"]) for t, r in rates.items())
+              + f" ({n_files} files of {file_seconds} s; host clock)")
+        if not all(equal.values()):
+            raise AssertionError(f"native loader: an epoch differs from batch_iterator: {equal}")
+
+        enc_flags = ["--sr", str(sr), "--ratios", *map(str, width["ratios"]),
+                     "--target_bandwidths", *map(str, width["target_bandwidths"]),
+                     "--n_filters", str(width["n_filters"]), "--dimension", str(width["dimension"]),
+                     "--bins", str(width["bins"]), "--device", str(device), "--train_data_path", data,
+                     "--valid_data_path", data, "--batch_size", str(batch), "--segment_seconds", str(segment_seconds),
+                     "--n_epochs", "0", "--discriminator_iter_start", "1", "--debug_tiny_discs"]
+
+        def run_encodec(native):
+            train_encodec.main(enc_flags + ["--path", os.path.join(tmp, f"enc_{native}")]
+                               + (["--native_loader"] if native else []))
+
+        if not on_card:  # the plain versions launch nothing
+            steady = {tag: {k: 0 for k in launches} for tag, launches in steady.items()}
+        result["train_encodec"] = _native_pair("train_encodec", EncodecTrainer, run_encodec, steady["train_encodec"])
+
+        config = os.path.join(tmp, "hifi.json")
+        with open(config, "w") as fh:
+            json.dump({**raw, **(hifi_model or {}), "segment_size": hifi_segment}, fh)
+
+        def run_hifi(native):
+            train_hificodec.main(["--config", config, "--input_training_file", data, "--input_validation_file",
+                                  data, "--checkpoint_path", os.path.join(tmp, f"hifi_{native}"), "--batch_size",
+                                  str(hifi_batch), "--training_epochs", "1", "--stdout_interval", "1",
+                                  "--device", str(device)] + (["--native_loader"] if native else []))
+
+        result["train_hificodec"] = _native_pair("train_hificodec", HiFiCodecTrainer, run_hifi,
+                                                 steady["train_hificodec"])
+    result["wall_s"] = time.perf_counter() - t_phase
+    print(f"[native_loader] the phase {result['wall_s']:.1f} s")
+    return result
+
+
+def probe_bounds() -> list:
+    """The bounds of ``benchmarks/pallas_int8_probe.py``'s two Pallas kernels (on
+    no path of the package, not ported) at its four cases: 6 convs of k 7 over
+    one ``[C, TT]`` tile, 2 * 6 * C * 7C * TT operations at the bf16 peak (P1)
+    and the int8 peak (P2), against the bytes of the bf16 input and output, the
+    weights (P1 f32; P2 int8 with f32 scales) and the f32 biases."""
+    rows = []
+    for C, TT in ((32, 8192), (64, 8192), (32, 4096), (64, 4096)):
+        ops, io = 2 * 6 * C * 7 * C * TT, 2 * C * TT * 2
+        for name, peak, nbytes in (("P1", PEAK_BF16_FLOPS, io + 6 * C * 7 * C * 4 + 6 * C * 4),
+                                   ("P2", PEAK_INT8_OPS, io + 6 * C * 7 * C + 6 * C * 4 * 2 + 6 * 4)):
+            ms, by = bound(ops, nbytes, peak)
+            rows.append({"kernel": name, "C": C, "TT": TT, "ops": ops, "bytes": nbytes, "bound_ms": ms,
+                         "bound_by": by})
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2995,6 +3402,9 @@ def main() -> int:
     train = phase_train(device)
     train_hifi = phase_train_hifi(device)
     train_lm = phase_train_lm(device)
+    evaluate = phase_evaluate(device)
+    native = phase_native_loader({"train_encodec": train["f32"]["launches_step"],
+                                  "train_hificodec": train_hifi["f32"]["launches_step"]}, device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
@@ -3004,6 +3414,8 @@ def main() -> int:
         k["launches_train_step"] = train["f32"]["launches_step"][name]
         k["launches_train_init_step"] = train["f32"]["launches_init_step"][name]
         k["launches_train_lm_step"] = train_lm["launches_step"][name]
+        k["launches_evaluate_compress"] = evaluate["encodec"]["launches"][name]
+        k["launches_native_loader_train_steps"] = [s[name] for s in native["train_encodec"]["launches_steps"]]
     k1.update(train["k1_shapes"])
     k2.update(train["k2_shapes"])
     k3["launches"] = hifi["launches"]["resblock_tower"]
@@ -3016,6 +3428,9 @@ def main() -> int:
     for k, name in ((k3, "resblock_tower"), (k4, "resblock_tower_gn")):
         k["launches_train_hifi_step"] = train_hifi["f32"]["launches_step"][name]
         k["launches_train_hifi_eval"] = train_hifi["f32"]["launches_eval"][name]
+        k["launches_evaluate_extract"] = evaluate["hificodec"]["launches"][name]
+        k["launches_native_loader_train_hifi_steps"] = [
+            s[name] for s in native["train_hificodec"]["launches_steps"]]
         tag = "k3" if k is k3 else "k4"
         k["train_hifi_shapes"] = {c: v for c, v in train_hifi["towers"].items() if c.startswith(tag)}
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
@@ -3034,6 +3449,9 @@ def main() -> int:
     print(f"[train] {json.dumps(train)}")
     print(f"[train_hifi] {json.dumps({k: v for k, v in train_hifi.items() if k != 'towers'})}")
     print(f"[train_lm] {json.dumps(train_lm)}")
+    print(f"[evaluate] {json.dumps(evaluate)}")
+    print(f"[native_loader] {json.dumps(native)}")
+    print(f"[probe_bounds] {json.dumps(probe_bounds())}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

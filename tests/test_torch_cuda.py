@@ -994,3 +994,65 @@ def test_spectral_u_advances_once_per_step_on_the_card(cuda):
     for g, c, e in zip(got, cpu_state.discriminators.spectral_u(), expected):
         torch.testing.assert_close(g.cpu(), e, atol=1e-5, rtol=0)
         torch.testing.assert_close(g.cpu(), c, atol=1e-5, rtol=0)
+
+
+def test_mel_distance_on_the_card_matches_the_cpu(cuda):
+    """``eval.metrics.mel_distance``'s six scales on the card against the CPU,
+    within 1e-4 relative (``chip_smoke.MEL_CARD_CPU_RTOL``)."""
+    import chip_smoke
+    from academicodec_tpu_torch.eval import metrics
+
+    ref = chip_smoke.speech_like(48000, 24000, seed=1)
+    deg = ref + 0.05 * np.random.default_rng(2).standard_normal(ref.shape).astype(np.float32)
+    card = metrics.mel_distance(deg, ref, 24000, device=cuda)
+    cpu = metrics.mel_distance(deg, ref, 24000, device="cpu")
+    assert abs(card - cpu) <= chip_smoke.MEL_CARD_CPU_RTOL * abs(cpu), (card, cpu)
+    assert metrics.mel_distance(ref, ref, 24000) == 0.0  # the default device is the card
+
+
+@pytest.mark.parametrize("family", ["encodec", "hificodec"])
+def test_native_loader_trainer_steps_on_the_card(cuda, family, tmp_path):
+    """One tiny epoch of each trainer CLI on the card fed by ``--native_loader``
+    and by the Python pipeline: the same batches, the first step's losses within
+    1e-5 relative, the same launches step for step, and each steady step's
+    launches (Encodec, once its layers are inited: K1 x2, K2 x2; HiFi-Codec:
+    K3/K4 once per fused stage)."""
+    import json
+
+    import chip_smoke
+    from academicodec_tpu_torch.cli import train_encodec, train_hificodec
+    from academicodec_tpu_torch.data.wavio import write_wav
+    from academicodec_tpu_torch.train.encodec import EncodecTrainer
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainer
+
+    rng = np.random.default_rng(4)
+    data = tmp_path / "wavs"
+    data.mkdir()
+    for i in range(8):
+        write_wav(str(data / f"w{i}.wav"), (rng.standard_normal(5000) * 0.1).astype(np.float32), 16000)
+    if family == "encodec":
+        trainer_cls = EncodecTrainer
+
+        def run(native):
+            train_encodec.main(["--train_data_path", str(data), "--valid_data_path", str(data), "--path",
+                                str(tmp_path / f"ckpt_{native}"), "--sr", "16000", "--ratios", "8", "5", "4", "2",
+                                "--target_bandwidths", "1", "2", "4", "--n_filters", "4", "--dimension", "32",
+                                "--bins", "64", "--batch_size", "4", "--segment_seconds", "0.2", "--n_epochs", "0",
+                                "--discriminator_iter_start", "1", "--debug_tiny_discs"]
+                               + (["--native_loader"] if native else []))
+
+        steady = {"rvq_encode": 2, "lstm2": 2, "resblock_tower": 0, "resblock_tower_gn": 0}
+    else:
+        trainer_cls = HiFiCodecTrainer
+        config = tmp_path / "config.json"
+        config.write_text(json.dumps(dict(TRAIN_HIFI, sampling_rate=16000, segment_size=2400, seed=5)))
+        steady = {"rvq_encode": 0, "lstm2": 0, **chip_smoke.fused_stage_counts(HiFiCodecConfig(**TRAIN_HIFI))}
+
+        def run(native):
+            train_hificodec.main(["--config", str(config), "--input_training_file", str(data),
+                                  "--input_validation_file", str(data), "--checkpoint_path",
+                                  str(tmp_path / f"ckpt_{native}"), "--batch_size", "4", "--training_epochs", "1"]
+                                 + (["--native_loader"] if native else []))
+    out = chip_smoke._native_pair(family, trainer_cls, run, steady)
+    assert out["steps"] == 2 and out["batches_equal"] and out["first_step_loss_rel"] <= chip_smoke.NATIVE_LOSS_RTOL
+    assert out["steady_steps"] == ([1] if family == "encodec" else [0, 1])

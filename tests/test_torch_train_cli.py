@@ -139,9 +139,9 @@ def test_train_cli_one_epoch_resume_and_serve(tmp_path):
 
 def test_train_cli_refuses_what_is_not_ported():
     base = ["--train_data_path", ".", "--valid_data_path", "."]
-    for flag in ("--multihost", "--native_loader"):
-        with pytest.raises(SystemExit):
-            train_encodec.get_args(base + [flag])
+    with pytest.raises(SystemExit):
+        train_encodec.get_args(base + ["--multihost"])
+    assert train_encodec.get_args(base + ["--native_loader"]).native_loader
     with pytest.raises(SystemExit):
         train_encodec.get_args(base + ["--batch_size", "6", "--accum_steps", "4"])
     args = train_encodec.get_args(base)
@@ -149,6 +149,28 @@ def test_train_cli_refuses_what_is_not_ported():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             EncodecTrainer(EncodecTrainConfig(**TINY))
+
+
+def test_native_loader_epoch_gives_the_python_fed_losses(tmp_path):
+    """One tiny-width epoch with ``--native_loader`` (the C++ loader, p=0.3
+    mixtures of ``--soundstream``) trains on the Python pipeline's batches bit
+    for bit and gives its losses at every step."""
+    import chip_smoke
+
+    data = str(tmp_path / "wavs")
+    _write_tones(data)
+    runs = {}
+    for name, extra in (("python", []), ("native", ["--native_loader"])):
+        with chip_smoke.recorded_steps(EncodecTrainer) as runs[name]:
+            train_encodec.main(["--train_data_path", data, "--valid_data_path", data, "--path", str(tmp_path / name),
+                                *TINY_FLAGS, "--batch_size", "8", "--segment_seconds", "0.2", "--n_epochs", "0",
+                                "--discriminator_iter_start", "1", "--debug_tiny_discs", "--soundstream",
+                                "--device", "cpu", *extra])
+    assert len(runs["native"]) == len(runs["python"]) == 2
+    for a, b in zip(runs["native"], runs["python"]):
+        np.testing.assert_array_equal(a["batch"], b["batch"])
+        assert a["metrics"] == b["metrics"] and all(np.isfinite(v) for v in a["metrics"].values())
+        assert a["inited"] == b["inited"]
 
 
 def test_train_step_rejects_segments_off_the_hop():

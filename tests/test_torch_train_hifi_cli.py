@@ -58,15 +58,21 @@ def _argv(root, out, epochs, *extra):
 
 @pytest.fixture(scope="module")
 def trained(corpus):
+    """The CLI's checkpoints of one epoch and of a resume; the first epoch's
+    steps (batch, metrics) are recorded."""
+    import chip_smoke
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainer
+
     out = corpus / "ckpt"
-    train_hificodec.main(_argv(corpus, out, 1))
+    with chip_smoke.recorded_steps(HiFiCodecTrainer) as steps:
+        train_hificodec.main(_argv(corpus, out, 1))
     first = scan_checkpoint(str(out), "state")
     train_hificodec.main(_argv(corpus, out, 2))
-    return out, first, scan_checkpoint(str(out), "state")
+    return out, first, scan_checkpoint(str(out), "state"), steps
 
 
 def test_one_epoch_then_resume(trained):
-    out, first, latest = trained
+    out, first, latest, _steps = trained
     log = open(out / "logs" / "log.txt").read()
     assert checkpoint_step(first) == 1 and load_checkpoint_meta(first) == {"epoch": 0}
     # the resume restarts the epoch its state records, as the JAX CLI does: epochs 0 and 1
@@ -78,7 +84,7 @@ def test_one_epoch_then_resume(trained):
 
 
 def test_state_is_served_by_extract_tokens_and_load_codec(trained, corpus, tmp_path):
-    _out, _first, latest = trained
+    _out, _first, latest, _steps = trained
     extract_cli.main(["--config", str(corpus / "config.json"), "--model_path", latest, "--input",
                       str(corpus / "wavs"), "--outputdir", str(tmp_path / "syn"), "--tokens_out",
                       str(tmp_path / "t.npz"), "--sample_rate", "16000", "--device", "cpu"])
@@ -93,26 +99,46 @@ def test_state_is_served_by_extract_tokens_and_load_codec(trained, corpus, tmp_p
 
 
 def test_fine_tuning_on_mel_crops(corpus):
+    """``--native_loader`` beside ``--fine_tuning`` is ignored with the JAX CLI's
+    line: only the Python pipeline yields the paired mels."""
     out = corpus / "ft"
-    train_hificodec.main(_argv(corpus, out, 1, "--fine_tuning", "--input_mels_dir", str(corpus / "mels")))
+    train_hificodec.main(_argv(corpus, out, 1, "--fine_tuning", "--input_mels_dir", str(corpus / "mels"),
+                               "--native_loader"))
     assert checkpoint_step(scan_checkpoint(str(out), "state")) == 1
+    assert "--native_loader ignored: --fine_tuning needs paired precomputed mels" in \
+        open(out / "logs" / "log.txt").read()
 
 
 def test_unported_flags_refuse():
-    for flag, item in (("--multihost", "item 9"), ("--native_loader", "item 6")):
-        with pytest.raises(SystemExit):
-            train_hificodec.get_args(["--config", "c", "--input_training_file", "a", "--input_validation_file",
-                                      "b", flag])
+    base = ["--config", "c", "--input_training_file", "a", "--input_validation_file", "b"]
+    with pytest.raises(SystemExit):
+        train_hificodec.get_args(base + ["--multihost"])
+    assert train_hificodec.get_args(base + ["--native_loader"]).native_loader
     with pytest.raises(SystemExit):
         train_hificodec.get_args(["--config", "c", "--input_training_file", "a", "--input_validation_file", "b",
                                   "--fine_tuning"])
+
+
+def test_native_loader_epoch_gives_the_python_fed_losses(trained, corpus, tmp_path):
+    """One epoch with ``--native_loader`` trains on the Python-fed epoch's batch
+    (the ``trained`` fixture's) bit for bit and gives its first step's losses."""
+    import chip_smoke
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainer
+
+    *_ckpts, python_fed = trained
+    with chip_smoke.recorded_steps(HiFiCodecTrainer) as native:
+        train_hificodec.main(_argv(corpus, tmp_path / "native", 1, "--native_loader"))
+    assert len(native) == len(python_fed) == 1
+    a, b = native[0], python_fed[0]
+    np.testing.assert_array_equal(a["batch"], b["batch"])
+    assert a["metrics"] == b["metrics"] and all(np.isfinite(v) for v in a["metrics"].values())
 
 
 def test_train_lm_on_the_state_then_extract_tokens_with_the_lm(trained, corpus, tmp_path):
     """``cli.train_lm --family hificodec`` tokenizes with the trainer's state (the
     4 GRVQ streams), and ``cli.extract_tokens --tokens_ecdc --lm`` codes with
     its LM: every blob decodes to the ``.npz`` tokens."""
-    _out, _first, latest = trained
+    _out, _first, latest, _steps = trained
     train_lm.main(["--train_data_path", str(corpus / "wavs"), "--resume_path", latest, "--family", "hificodec",
                    "--hifi_config", str(corpus / "config.json"), "--lm_dim", "16", "--lm_heads", "2",
                    "--lm_layers", "1", "--steps", "2", "--batch_size", "2", "--segment_seconds", "0.15",

@@ -5,6 +5,7 @@ training step) is held against the trainer's own calls of the kernels'
 wrappers, and ``chip_smoke.phase_train`` is rehearsed end to end.
 """
 
+import pytest
 import torch
 
 from tests.test_torch_train import TINY, one_torch_thread, seeded_batch  # noqa: F401 (an autouse fixture)
@@ -80,3 +81,34 @@ def test_near_ties_reports_the_first_parting_layer_with_the_cpu_margin():
     # layer 1 sees residual 0: distances 0.01 and 0.04
     assert (item, frame, layer) == (5, 0, 1)
     assert abs(margin - 3.0) < 1e-5 and cond == 0.0
+
+
+@pytest.mark.parametrize("case", ["agree", "no_steady_step", "batches_differ"])
+def test_native_pair_holds_the_runs_and_their_steady_steps(case):
+    """``chip_smoke._native_pair`` over a stub trainer of three steps whose
+    quantizer is inited after the first: four runs whose batches, losses and
+    launches agree pass, with the last two steps steady and timed; a run in
+    which no step is steady, or whose native-fed batches differ, raises."""
+    import types
+
+    import chip_smoke
+
+    class Stub:
+        def train_step(self, state, x):
+            state.steps += 1
+            return state, {"loss": float(x.sum())}
+
+    def run(native):
+        state = types.SimpleNamespace(steps=0)
+        vq = types.SimpleNamespace(inited_layers=lambda: [state.steps > 0 and case != "no_steady_step"])
+        state.generator = types.SimpleNamespace(quantizer=types.SimpleNamespace(vq=vq))
+        for i in range(3):
+            state, _ = Stub().train_step(state, torch.full((2, 4), float(i + (native and case == "batches_differ"))))
+
+    if case == "agree":
+        out = chip_smoke._native_pair("stub", Stub, run, {"rvq_encode": 0})
+        assert out["steady_steps"] == [1, 2] and len(out["steady_step_ms_native"]) == 4
+        assert out["batches_equal"] and out["launches_equal"] and out["first_step_loss_rel"] == 0.0
+    else:
+        with pytest.raises(AssertionError, match="native loader stub"):
+            chip_smoke._native_pair("stub", Stub, run, {"rvq_encode": 0})
