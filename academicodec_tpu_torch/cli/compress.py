@@ -18,9 +18,16 @@ the port's ``cli/train_encodec.py`` (``latest_<step>.pt``, ``best_<step>.pt``).
 ``encodec`` and whose streams are those of ``--target_bw``; each file is
 then LM-entropy-coded where that is smaller than raw packing.
 
+``--data_parallel`` serves each batch over several devices, one model
+replica a device (``SoundStreamCompressor(devices=)``): every visible card
+for ``--device cuda``, or the comma-separated list ``--device`` gives
+(``cuda:0,cuda:1``; ``cpu,cpu`` runs two replicas on the CPU). Blobs are
+byte-identical to one device's. ``--batch_files`` must be a multiple of the
+device count, as in the JAX CLI.
+
 Not ported: the JAX trainer's orbax checkpoint directories (the port's
-trainer writes ``.pt`` files instead), ``--data_parallel`` and
-``--sequence_parallel`` (multi-GPU serving, ROADMAP.md Queue 1 item 9).
+trainer writes ``.pt`` files instead) and ``--sequence_parallel``
+(time-sharded serving, ROADMAP.md Queue 1 item 9d), which is refused.
 ``--packed_conv`` selects a TPU lowering; the port accepts it and runs its
 one path.
 """
@@ -41,6 +48,7 @@ from academicodec_tpu_torch.codec.compress import SoundStreamCompressor
 from academicodec_tpu_torch.data.wavio import read_wav, write_wav
 from academicodec_tpu_torch.models.lm import load_lm
 from academicodec_tpu_torch.models.soundstream import SoundStream
+from academicodec_tpu_torch.parallel.mesh import serving_devices
 
 
 def get_args(argv=None):
@@ -73,14 +81,28 @@ def get_args(argv=None):
                    help="encode/decode this many files per device call (requires "
                         "--bucket_seconds); files are grouped by bucket count and partial "
                         "groups batch-padded. Output order follows group completion")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
-    p.add_argument("--sequence_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard each serving batch over the devices of --device (every visible card for "
+                        "cuda), one model replica a device; --batch_files must be a multiple of the device "
+                        "count. Blobs stay byte-identical to one device's")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="time-sharded serving: not ported yet (ROADMAP.md Queue 1 item 9d)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; the card unless cpu is asked for")
+                   help="torch device; the card unless cpu is asked for. With --data_parallel, a "
+                        "comma-separated device list, or cuda for every visible card")
     args = p.parse_args(argv)
-    if args.data_parallel or args.sequence_parallel:
-        p.error("--data_parallel/--sequence_parallel: multi-GPU serving is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)")
+    # the JAX CLI's checks (academicodec_tpu/cli/compress.py:84-94)
+    if args.sequence_parallel and args.data_parallel:
+        p.error("--sequence_parallel and --data_parallel are mutually exclusive (shard time for few long "
+                "files, batch for many short ones)")
+    if args.sequence_parallel and args.packed_conv:
+        p.error("--sequence_parallel needs the plain lowering: drop --packed_conv")
+    if args.data_parallel and args.batch_files < 2:
+        p.error("--data_parallel needs --batch_files >= the device count (one batch row per device at minimum)")
+    if args.sequence_parallel:
+        p.error("--sequence_parallel: time-sharded serving is not ported yet (ROADMAP.md Queue 1 item 9d)")
+    if "," in args.device and not args.data_parallel:
+        p.error("--device lists several devices only with --data_parallel")
     if args.lm and not os.path.exists(args.lm):
         p.error(f"--lm: no LM checkpoint at {args.lm}")
     if args.batch_files > 1 and not args.bucket_seconds:
@@ -153,11 +175,11 @@ def pipelined_groups(items, group_key, group_size, submit, complete):
         complete(inflight)
 
 
-def build_model(args) -> SoundStream:
+def build_model(args, device=None) -> SoundStream:
     model = SoundStream(
         n_filters=args.n_filters, dimension=args.dimension, ratios=tuple(args.ratios),
         sample_rate=args.sr, target_bandwidths=tuple(args.target_bandwidths), bins=args.bins,
-        device=args.device, dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
+        device=device or args.device, dtype=torch.bfloat16 if args.dtype == "bf16" else torch.float32,
     )
     ckpt = torch.load(args.resume_path, map_location="cpu", weights_only=True)
     model.load_state_dict(reference_state_dict(ckpt))
@@ -166,16 +188,22 @@ def build_model(args) -> SoundStream:
 
 def main(argv=None):
     args = get_args(argv)
-    model = build_model(args)
+    devices = serving_devices(args.device) if args.data_parallel else None
+    if devices and args.batch_files % len(devices):
+        sys.exit(f"--batch_files {args.batch_files} must be a multiple of the device count ({len(devices)}) "
+                 "for --data_parallel")
+    device = devices[0] if devices else args.device
+    model = build_model(args, device)
     lm = lm_trained_frames = None
     if args.lm:
         try:
             lm, lm_meta = load_lm(args.lm, expect_family="encodec", expect_nq=model.n_q_for_bandwidth(args.target_bw),
-                                  expect_bins=model.bins, device=args.device)
+                                  expect_bins=model.bins, device=device)
         except (ValueError, FileNotFoundError) as e:
             sys.exit(f"--lm: {e}")
         lm_trained_frames = lm_meta.get("trained_frames")
-    compressor = SoundStreamCompressor(model, target_bw=args.target_bw, bucket_seconds=args.bucket_seconds, lm=lm)
+    compressor = SoundStreamCompressor(model, target_bw=args.target_bw, bucket_seconds=args.bucket_seconds, lm=lm,
+                                       devices=devices)
     os.makedirs(args.output, exist_ok=True)
     names = sorted(f for f in os.listdir(args.input) if f.endswith(".wav"))
     warned_lm_len = False

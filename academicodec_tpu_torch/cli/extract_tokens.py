@@ -27,8 +27,17 @@ with ``--normalize``): the JAX CLI's ``--fused_resblock --int8_min_channels
 N``. ``--lm`` takes a token-LM checkpoint directory of the port
 (``models/lm.py``) of family ``hificodec``, with ``--tokens_ecdc``.
 
-Not ported yet: ``--data_parallel`` and ``--sequence_parallel`` (multi-GPU
-serving, ROADMAP.md Queue 1 item 9) and orbax checkpoint directories. The
+``--data_parallel`` runs each batched group's encode and synthesis over
+several devices, one model replica a device, each taking an equal
+contiguous block of the group (JAX ``run_batched(mesh=)``,
+cli/extract_tokens.py:134-159, 332-341): every visible card for ``--device
+cuda``, or the comma-separated list ``--device`` gives (``cpu,cpu`` runs two
+replicas on the CPU). The masked encode is pointwise over the batch, so the
+tokens equal one device's. ``--batch_files`` must be a multiple of the
+device count.
+
+Not ported yet: ``--sequence_parallel`` (time-sharded serving, ROADMAP.md
+Queue 1 item 9d), which is refused, and orbax checkpoint directories. The
 JAX CLI's ``--packed_conv`` and ``--fused_resblock`` choose TPU lowerings;
 the port accepts them and runs its one path, in which the narrow stages
 always take the fused towers.
@@ -54,6 +63,7 @@ from academicodec_tpu_torch.data.wavio import read_wav, write_wav
 from academicodec_tpu_torch.models.hificodec import VQVAE, calibrate_quant
 from academicodec_tpu_torch.models.lm import load_lm
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
+from academicodec_tpu_torch.parallel.mesh import module_replicas, serving_devices, split_rows
 from academicodec_tpu_torch.utils.fold import fold_vqvae
 
 
@@ -92,17 +102,31 @@ def get_args(argv=None):
     p.add_argument("--batch_files", type=int, default=1,
                    help="encode (and synthesize) this many same-bucket files per call (requires "
                         "--bucket_seconds); partial groups are batch-padded")
-    p.add_argument("--data_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
-    p.add_argument("--sequence_parallel", action="store_true", help="not ported yet (multi-GPU serving)")
-    p.add_argument("--device", type=str, default="cuda", help="torch device; the card unless cpu is asked for")
+    p.add_argument("--data_parallel", action="store_true",
+                   help="shard each batched group over the devices of --device (every visible card for cuda), "
+                        "one model replica a device; --batch_files must be a multiple of the device count. "
+                        "Tokens stay equal to one device's")
+    p.add_argument("--sequence_parallel", action="store_true",
+                   help="time-sharded serving: not ported yet (ROADMAP.md Queue 1 item 9d)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; the card unless cpu is asked for. With --data_parallel, a "
+                        "comma-separated device list, or cuda for every visible card")
     args = p.parse_args(argv)
     if args.lm and not args.tokens_ecdc:
         p.error("--lm entropy-codes --tokens_ecdc blobs: pass --tokens_ecdc")
     if args.lm and not os.path.exists(args.lm):
         p.error(f"--lm: no LM checkpoint at {args.lm}")
-    if args.data_parallel or args.sequence_parallel:
-        p.error("--data_parallel/--sequence_parallel: multi-GPU serving is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)")
+    # the JAX CLI's checks (academicodec_tpu/cli/extract_tokens.py:100-115)
+    if args.data_parallel and args.batch_files < 2:
+        p.error("--data_parallel needs --batch_files >= the device count")
+    if args.sequence_parallel and (args.data_parallel or args.batch_files > 1):
+        p.error("--sequence_parallel shards time, not batch: drop --batch_files/--data_parallel")
+    if args.sequence_parallel and (args.packed_conv or args.fused_resblock):
+        p.error("--sequence_parallel needs the plain lowering: drop --packed_conv/--fused_resblock")
+    if args.sequence_parallel:
+        p.error("--sequence_parallel: time-sharded serving is not ported yet (ROADMAP.md Queue 1 item 9d)")
+    if "," in args.device and not args.data_parallel:
+        p.error("--device lists several devices only with --data_parallel")
     if args.batch_files > 1 and not args.bucket_seconds:
         p.error("--batch_files needs --bucket_seconds (uniform padded lengths per device batch)")
     if not os.path.isfile(args.model_path):
@@ -116,8 +140,8 @@ def read_config(args) -> HiFiCodecConfig:
         return HiFiCodecConfig.from_json(json.load(fh))
 
 
-def build_model(args, cfg: HiFiCodecConfig) -> VQVAE:
-    model = VQVAE(cfg, device=args.device, int8_min_channels=args.int8_min_channels)
+def build_model(args, cfg: HiFiCodecConfig, device=None) -> VQVAE:
+    model = VQVAE(cfg, device=device or args.device, int8_min_channels=args.int8_min_channels)
     model.load_reference(torch.load(args.model_path, map_location="cpu", weights_only=True))
     return fold_vqvae(model) if args.fold_weight_norm else model
 
@@ -135,12 +159,23 @@ def _edge_padded(codes: np.ndarray, frames: int) -> np.ndarray:
     return np.concatenate([codes, np.repeat(codes[-1:], frames - n, axis=0)]) if frames > n else codes
 
 
-def run_batched(args, model: VQVAE, files, bucket: int, tokens: dict) -> None:
+def run_batched(args, model: VQVAE, files, bucket: int, tokens: dict, devices=None) -> None:
     """One encode (and one decode) per group of ``batch_files`` same-bucket
     files, each row encoded with its length and trimmed to its exact frame
     count; the next group's encode is enqueued before this group's host half
-    (JAX cli/extract_tokens.py:134-225)."""
+    (JAX cli/extract_tokens.py:134-225). ``devices``: one model replica a
+    device, each taking an equal contiguous block of every group."""
     hop, bf = model.hop_length, bucket // model.hop_length
+    replicas = module_replicas(model, devices) if devices else [model]
+
+    def enqueue(fn, *batch):
+        """``fn(replica, *block)`` on each device's block of the rows, enqueued on
+        every device before any result is fetched."""
+        blocks = split_rows(len(batch[0]), len(replicas))
+        return [fn(m, *(b[blk] for b in batch)) for m, blk in zip(replicas, blocks)]
+
+    def gathered(outs):
+        return torch.cat([o.cpu() for o in outs]).numpy()
 
     def submit(group):
         fids, wavs = zip(*group)
@@ -151,11 +186,12 @@ def run_batched(args, model: VQVAE, files, bucket: int, tokens: dict) -> None:
         while len(rows) < args.batch_files:  # batch-pad partial groups
             rows.append(np.zeros(Tpad, np.float32))
             lens.append(Tpad)
-        return fids, Ts, model.encode(torch.from_numpy(np.stack(rows)), lengths=torch.tensor(lens))
+        return fids, Ts, enqueue(lambda m, w, n: m.encode(w, lengths=n), torch.from_numpy(np.stack(rows)),
+                                 torch.tensor(lens))
 
     def complete(submitted):
         fids, Ts, codes_dev = submitted
-        codes_b = codes_dev.cpu().numpy()
+        codes_b = gathered(codes_dev)
         items = []
         for i, (fid, T) in enumerate(zip(fids, Ts)):
             codes = codes_b[i:i + 1, :model.frames_for(T), :]
@@ -165,7 +201,7 @@ def run_batched(args, model: VQVAE, files, bucket: int, tokens: dict) -> None:
             nb = math.ceil(max(c.shape[1] for _, c in items) / bf) * bf
             rows = [_edge_padded(c[0], nb) for _, c in items]
             rows += [rows[0]] * (args.batch_files - len(rows))
-            outs = model.decode(torch.from_numpy(np.stack(rows))).cpu().numpy()
+            outs = gathered(enqueue(lambda m, c: m.decode(c), torch.from_numpy(np.stack(rows))))
             for i, (fid, c) in enumerate(items):
                 write_wav(os.path.join(args.outputdir, fid + ".wav"), outs[i, :c.shape[1] * hop], args.sample_rate)
         for fid, c in items:
@@ -228,14 +264,19 @@ def main(argv=None) -> dict:
     """Runs the CLI; returns the tokens ``{fid: [1, frames, 4]}``."""
     args = get_args(argv)
     cfg = read_config(args)
+    devices = serving_devices(args.device) if args.data_parallel else None
+    if devices and args.batch_files % len(devices):
+        sys.exit(f"--batch_files {args.batch_files} must be a multiple of the device count ({len(devices)}) for "
+                 "--data_parallel")
+    device = devices[0] if devices else args.device
     lm = None
     if args.lm:  # checked before the model loads
         try:
             lm, _ = load_lm(args.lm, expect_family="hificodec", expect_nq=2 * cfg.n_code_groups,
-                            expect_bins=cfg.n_codes, device=args.device)
+                            expect_bins=cfg.n_codes, device=device)
         except (ValueError, FileNotFoundError) as e:
             sys.exit(f"--lm: {e}")
-    model = build_model(args, cfg)
+    model = build_model(args, cfg, device)
     files = list_audio_files(args.input)
     if args.int8_min_channels:
         wav0, _ = read_wav(files[0], sr=args.sample_rate)
@@ -248,7 +289,7 @@ def main(argv=None) -> dict:
     os.makedirs(args.outputdir, exist_ok=True)
     tokens: dict = {}
     if args.batch_files > 1:
-        run_batched(args, model, files, bucket, tokens)
+        run_batched(args, model, files, bucket, tokens, devices)
     else:
         run_sequential(args, model, files, bucket, tokens)
     if args.tokens_out:

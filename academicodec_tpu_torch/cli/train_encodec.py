@@ -14,10 +14,24 @@ continues from the newest ``latest`` at the epoch its metadata records, and
 
 ``--native_loader`` reads the training crops with the C++ loader
 (``data/native_loader.py``): the same batches as the Python pipeline, bit for
-bit; it raises if its library cannot be built. Not ported: ``--multihost``
-(multi-GPU training, ROADMAP.md Queue 1 item 9) exits with an error;
-``--packed_conv`` selects a TPU lowering in JAX and is accepted as a no-op.
-``--profile_dir`` records steps 10-20 of the first epoch with torch.profiler.
+bit; it raises if its library cannot be built. ``--packed_conv`` selects a
+TPU lowering in JAX and is accepted as a no-op. ``--profile_dir`` records
+steps 10-20 of the first epoch with torch.profiler.
+
+``--multihost`` trains data-parallel, one process per card, as ``torchrun``
+starts them (``parallel.init_from_env``; NCCL on the cards, gloo with
+``--device cpu``):
+
+    torchrun --nproc_per_node 8 -m academicodec_tpu_torch.cli.train_encodec --multihost \\
+        --train_data_path /data/train --valid_data_path /data/valid --batch_size 128 ...
+
+``--batch_size`` stays the global batch (JAX cli/train_encodec.py:133-139):
+each rank loads its shard of every epoch (``process_index``/``process_count``
+of the loaders) and steps on ``batch_size / N`` rows, and the step is the
+global batch's (``train/encodec.py``). ``--device`` names the local card
+(``cuda`` is ``cuda:LOCAL_RANK``). Rank 0 writes the log and the
+checkpoints; every rank prints its losses, which are global-batch means and
+so the same on every rank, and every rank resumes from the same file.
 """
 
 from __future__ import annotations
@@ -28,9 +42,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from academicodec_tpu_torch.data.dataset import WavCropDataset, batch_iterator
 from academicodec_tpu_torch.data.native_loader import native_batch_iterator
+from academicodec_tpu_torch.parallel.mesh import init_from_env, missing_torchrun_env, rank, replicate, world_size
 from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
 from academicodec_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta, save_checkpoint, scan_checkpoint
 from academicodec_tpu_torch.utils.logging import Logger
@@ -73,15 +89,17 @@ def get_args(argv=None):
                    help="bf16 forwards/backwards with f32 master weights, optimizer state, "
                         "EMA codebooks and loss reductions")
     p.add_argument("--tensorboard", action="store_true")
-    p.add_argument("--multihost", action="store_true", help="not ported yet (multi-GPU training)")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel training over the processes torchrun starts, one per card")
     p.add_argument("--native_loader", action="store_true",
                    help="read training crops with the C++ loader (bit-identical batches)")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler trace of steps 10-20 here")
     p.add_argument("--device", type=str, default="cuda", help="torch device; the card unless cpu is asked for")
     args = p.parse_args(argv)
-    if args.multihost:
-        p.error("--multihost: multi-GPU training is not ported yet (ROADMAP.md Queue 1 item 9)")
+    if args.multihost and missing_torchrun_env():
+        p.error(f"--multihost needs the torchrun environment ({', '.join(missing_torchrun_env())} unset): "
+                "torchrun --nproc_per_node N -m academicodec_tpu_torch.cli.train_encodec --multihost ...")
     if args.batch_size % args.accum_steps:
         p.error(f"--batch_size {args.batch_size} is not divisible by --accum_steps {args.accum_steps}")
     return args
@@ -106,10 +124,18 @@ def make_config(args) -> EncodecTrainConfig:
 
 def main(argv=None):
     args = get_args(argv)
-    trainer = EncodecTrainer(make_config(args), device=args.device)
+    group, device = init_from_env(args.device) if args.multihost else (None, args.device)
+    # each rank steps on its share of the global batch (JAX cli/train_encodec.py:133-139)
+    pidx, pcount = rank(group), world_size(group)
+    if args.batch_size % pcount or (args.batch_size // args.accum_steps) % pcount:
+        raise SystemExit(f"--batch_size {args.batch_size} with --accum_steps {args.accum_steps} does not split "
+                         f"over {pcount} processes")
+    local_bs = args.batch_size // pcount
+    trainer = EncodecTrainer(make_config(args), device=device, group=group)
     logger = Logger(args.path, tensorboard=args.tensorboard, args=vars(args))
     device = trainer.device
-    logger.log_info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+    logger.log_info(f"device: {torch.cuda.get_device_name(device) if device.type == 'cuda' else device}; "
+                    f"process {pidx} of {pcount}", check_primary=False)
 
     segment = int(args.segment_seconds * args.sr)
     train_ds = WavCropDataset(args.train_data_path, segment, sample_rate=args.sr,
@@ -125,6 +151,8 @@ def main(argv=None):
             meta = load_checkpoint_meta(latest)
             start_epoch = int(meta.get("epoch", state.step // max(1, len(train_ds) // args.batch_size)))
             logger.log_info(f"resumed from {latest} at step {state.step}, epoch {start_epoch}")
+    replicate(state.generator, group)
+    replicate(state.discriminators, group)
     logger.log_info(f"generator params: {param_count(state.generator):,}; "
                     f"discriminator params: {param_count(state.discriminators):,}")
 
@@ -136,11 +164,12 @@ def main(argv=None):
         # one seed and start_epoch keying: both loaders reproduce this epoch's order
         # on resume, and match each other bit for bit
         if args.native_loader:
-            it = native_batch_iterator(train_ds.files, segment, args.batch_size, sample_rate=args.sr,
+            it = native_batch_iterator(train_ds.files, segment, local_bs, sample_rate=args.sr,
                                        mixture_prob=train_ds.mixture_prob, seed=args.seed, epochs=1,
-                                       start_epoch=epoch, process_index=0, process_count=1)
+                                       start_epoch=epoch, process_index=pidx, process_count=pcount)
         else:
-            it = batch_iterator(train_ds, args.batch_size, seed=args.seed, epochs=1, start_epoch=epoch)
+            it = batch_iterator(train_ds, local_bs, seed=args.seed, epochs=1, start_epoch=epoch,
+                                process_index=pidx, process_count=pcount)
         with contextlib.ExitStack() as profiling:
             for i, batch in enumerate(it):
                 if args.profile_dir and epoch == start_epoch and i == 10:
@@ -151,7 +180,7 @@ def main(argv=None):
                     sps = timer.tick()
                     rate = f" s/b={sps:.3f}" if sps else ""
                     logger.log_info(f"epoch {epoch} step {state.step} "
-                                    + " ".join(f"{k}={v:.4f}" for k, v in m.items()) + rate)
+                                    + " ".join(f"{k}={v:.4f}" for k, v in m.items()) + rate, check_primary=False)
                     for k, v in m.items():
                         logger.add_scalar(f"train/{k}", v, state.step)
                 if args.profile_dir and epoch == start_epoch and i == 20:
@@ -161,10 +190,12 @@ def main(argv=None):
                     save_checkpoint(args.path, "latest", state.step, state.state_dict(), meta={"epoch": epoch})
         # validation sweep (reference main_launch.py:365-429)
         vals = [trainer.eval_step(state, batch)
-                for batch in batch_iterator(valid_ds, args.batch_size, shuffle=False, epochs=1)]
+                for batch in batch_iterator(valid_ds, local_bs, shuffle=False, epochs=1, process_index=pidx,
+                                            process_count=pcount)]
         if vals:
             mean = {k: float(np.mean([float(v[k]) for v in vals])) for k in vals[0]}
-            logger.log_info(f"epoch {epoch} valid " + " ".join(f"{k}={v:.4f}" for k, v in mean.items()))
+            logger.log_info(f"epoch {epoch} valid " + " ".join(f"{k}={v:.4f}" for k, v in mean.items()),
+                            check_primary=False)
             for k, v in mean.items():
                 logger.add_scalar(f"valid/{k}", v, state.step)
             if mean["valid_loss_g"] < best_valid:  # reference main_launch.py:430-443
@@ -175,6 +206,8 @@ def main(argv=None):
         save_checkpoint(args.path, "latest", state.step, state.state_dict(), meta={"epoch": epoch + 1})
         logger.log_info(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s")
     logger.close()
+    if group is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,7 +13,13 @@ weights and wav. With a token LM (``models/lm.py``), a file is also
 LM-entropy-coded (``codec/lm_compress.py``) and whichever blob is smaller is
 kept; the header's ``lm`` flag tells the decoder which it got.
 
-Not ported yet: mesh sharding of the batch or time axis.
+``devices`` serves data-parallel: one replica of the model per device, each
+batch cut into one equal contiguous block per device, every block enqueued
+on its own device before any is fetched, and the codes gathered to the host
+in order (JAX ``SoundStreamCompressor(mesh=)``, codec/compress.py:116-149,
+``_shard`` :252-271). The graph is pointwise over the batch, so blobs are
+byte-identical to one device's. Time sharding (JAX ``shard_axis="time"``)
+is not ported yet.
 
 Behavioral parity target: academicodec_tpu/codec/compress.py:31-350.
 """
@@ -34,6 +40,7 @@ from academicodec_tpu_torch.codec.binary import (
     write_ecdc_header,
 )
 from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, decompress_tokens_with_lm
+from academicodec_tpu_torch.parallel.mesh import module_replicas, split_rows
 
 
 def compress_codes(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
@@ -95,11 +102,15 @@ class SoundStreamCompressor:
 
     ``lm``: a token LM of the model's streams at ``target_bw``; each blob is
     then LM-coded where that is smaller (:func:`compress_tokens_guarded`).
+
+    ``devices``: serve data-parallel over these devices (module docstring);
+    a batch must then divide by their count.
     """
 
     def __init__(self, model, target_bw: Optional[float] = None, bucket_seconds: Optional[float] = None,
-                 lm=None):
+                 lm=None, devices: Optional[Sequence] = None):
         self.model = model
+        self.replicas = module_replicas(model, devices) if devices else [model]
         self.lm = lm
         self.target_bw = target_bw if target_bw is not None else model.target_bandwidths[-1]
         self.bucket = None
@@ -135,10 +146,11 @@ class SoundStreamCompressor:
         return self.pack_submitted(self.submit_encode(wavs, pad_to_batch=pad_to_batch),
                                    [int(w.shape[-1]) for w in wavs])
 
-    def submit_encode(self, wavs: Sequence[np.ndarray], pad_to_batch: Optional[int] = None) -> torch.Tensor:
+    def submit_encode(self, wavs: Sequence[np.ndarray], pad_to_batch: Optional[int] = None) -> List[torch.Tensor]:
         """Device half of :meth:`compress_batch`: pad and stack the batch and
-        enqueue the encode; returns the codes ``[n_q, B, frames]`` on the model's
-        device without waiting for them. Pair with :meth:`pack_submitted`."""
+        enqueue the encode; returns the codes ``[n_q, B, frames]`` as one block
+        a device, on that device, without waiting for them. Pair with
+        :meth:`pack_submitted`."""
         Ts = [int(w.shape[-1]) for w in wavs]
         Tmax = max(Ts)
         if self.bucket:
@@ -150,12 +162,14 @@ class SoundStreamCompressor:
         rows = [np.pad(np.asarray(w, np.float32), (0, Tpad - t)) for w, t in zip(wavs, Ts)]
         if pad_to_batch and len(rows) < pad_to_batch:
             rows += [np.zeros(Tpad, np.float32)] * (pad_to_batch - len(rows))
-        return self.model.encode(torch.from_numpy(np.stack(rows)), target_bw=self.target_bw)
+        batch = torch.from_numpy(np.stack(rows))
+        return [m.encode(batch[blk], target_bw=self.target_bw)
+                for m, blk in zip(self.replicas, split_rows(len(batch), len(self.replicas)))]
 
-    def pack_submitted(self, codes_dev: torch.Tensor, lengths: Sequence[int]) -> List[bytes]:
+    def pack_submitted(self, codes_dev: Sequence[torch.Tensor], lengths: Sequence[int]) -> List[bytes]:
         """Host half of :meth:`compress_batch`: fetch the codes of
-        :meth:`submit_encode` and pack one ECDC blob per item."""
-        codes = codes_dev.cpu().numpy()
+        :meth:`submit_encode` (in device order) and pack one ECDC blob per item."""
+        codes = torch.cat([c.cpu() for c in codes_dev], dim=1).numpy()
         return [
             compress_tokens_guarded(
                 codes[:, i, : self._exact_frames(int(T))],
@@ -190,7 +204,9 @@ class SoundStreamCompressor:
             rows.append(codes)
         if pad_to_batch and len(rows) < pad_to_batch:
             rows += [rows[0]] * (pad_to_batch - len(rows))
-        wavs = self.model.decode(torch.from_numpy(np.stack(rows, axis=1))).float().cpu().numpy()
+        codes = torch.from_numpy(np.stack(rows, axis=1))
+        blocks = [m.decode(codes[:, blk]) for m, blk in zip(self.replicas, split_rows(codes.shape[1], len(self.replicas)))]
+        wavs = torch.cat([w.float().cpu() for w in blocks]).numpy()
         out = []
         for i, (_, meta) in enumerate(items):
             wav = wavs[i]

@@ -16,6 +16,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from academicodec_tpu_torch.parallel.mesh import all_reduce_sum_, world_size
+
 Maps = Sequence[Sequence[torch.Tensor]]
 
 
@@ -30,11 +32,24 @@ def hinge_discriminator_loss(logits_real: Sequence[torch.Tensor], logits_gen: Se
     return loss / len(logits_real)
 
 
-def relative_feature_loss(fmap_real: Maps, fmap_gen: Maps) -> torch.Tensor:
-    """Mean over (i, j) of ``mean(|r - g| / mean|r|)``."""
-    loss = sum(
-        ((r - g).abs() / r.abs().mean()).mean() for fr, fg in zip(fmap_real, fmap_gen) for r, g in zip(fr, fg)
-    )
+def relative_feature_loss(fmap_real: Maps, fmap_gen: Maps, group=None) -> torch.Tensor:
+    """Mean over (i, j) of ``mean(|r - g| / mean|r|)`` (JAX losses/gan.py:37-46).
+
+    ``mean|r|`` normalises by the whole batch, which under data parallelism
+    spans the ranks: a mean over each rank's rows followed by a gradient
+    average is not the global batch's gradient. So each map's ``sum|r|`` is
+    summed over ``group``'s ranks (``parallel.all_reduce_sum_``, one
+    all-reduce) and divided by its count, the local count times the world
+    size (every rank holds an equal share of the batch); without a group the
+    same sum and division run on the local batch. The real maps carry no
+    gradient (the trainers compute them without one), so neither does the
+    normaliser."""
+    pairs = [(r, g) for fr, fg in zip(fmap_real, fmap_gen) for r, g in zip(fr, fg)]
+    world = world_size(group)
+    with torch.no_grad():
+        sums = torch.stack([r.abs().sum() for r, _ in pairs])
+        all_reduce_sum_([sums], group)
+    loss = sum(((r - g).abs() / (sums[i] / (r.numel() * world))).mean() for i, (r, g) in enumerate(pairs))
     return loss / (len(fmap_real) * len(fmap_real[0]))
 
 

@@ -120,16 +120,18 @@ class SoundStream(nn.Module):
         return choices[int(torch.randint(len(choices), (), generator=generator))]
 
     def forward(self, x: torch.Tensor, n_q: Optional[int] = None, training: bool = False,
-                draws: Optional[torch.Tensor] = None):
+                draws: Optional[torch.Tensor] = None, group=None):
         """Training/eval forward, wav ``[B, T]`` on the model's device, in any float
         dtype the weights take -> ``(recon [B, T], commit loss, codes [n_q, B,
         frames])`` (JAX models/soundstream.py:99-111). ``training`` updates the
         codebooks' EMA state and needs ``draws`` (``quant/core_vq.py``). The 2-layer
-        SLSTMs run K2 when autograd does not record the call, else the library LSTM."""
+        SLSTMs run K2 when autograd does not record the call, else the library LSTM.
+        ``group``: the data-parallel process group of the codebooks' statistics
+        (``quant/core_vq.py``); ``x`` is then this rank's rows."""
         e = self.encoder(x[:, None, :])
         quantized, codes, _bw, commit = self.quantizer(
             e.transpose(1, 2), self.frame_rate, n_q=n_q if n_q is not None else self.n_q,
-            training=training, draws=draws,
+            training=training, draws=draws, group=group,
         )
         return self.decoder(quantized.transpose(1, 2))[:, 0, :], commit, codes
 

@@ -22,6 +22,19 @@ forward of the JAX package (academicodec_tpu/quant/core_vq.py:144-290):
 * the straight-through quantize, the commitment loss, and layers past
   ``n_q`` masked out (not computed; their codebooks are left as they are).
 
+Under data parallelism (``group``, a ``torch.distributed`` process group;
+``parallel/mesh.py``) each rank quantizes its own rows of the microbatch,
+and the codebooks follow the global batch, as GSPMD makes them follow it in
+JAX (academicodec_tpu/quant/core_vq.py:203-208, "all replicas apply the same
+update"): the EMA sums ``onehot_sum`` and ``embed_sum`` and the dead-code
+samples are summed over the ranks before the update, and k-means runs on
+the rank-major gather of every rank's residuals. K-means runs on rank 0 and
+its result is broadcast: ``index_add_`` on the card sums with atomics, so
+two ranks running it on the same rows could part in the last bit and their
+codebooks drift. Every rank so holds bitwise the same codebooks after every
+step. Without a group the same code runs on the local batch and issues no
+collective.
+
 The gradient path (STE, commit, EMA sums) is plain torch on the chosen rows.
 It carries the residual as JAX does, ``r - (r + sg(q - r))``, which can
 differ from K1's ``r - q`` by an ulp, so the codes of JAX and the port can
@@ -31,7 +44,8 @@ part only at exact near-ties (the tests assert them equal).
 ``B * T`` latent frames, one row of draws per layer, which seed that
 layer's k-means and replace its dead codes (JAX draws both from one key per
 layer). :func:`sample_rows` draws them from a CPU ``torch.Generator``, so the
-card and the CPU see the same draws; a parity test passes JAX's.
+card and the CPU see the same draws; a parity test passes JAX's. Under data
+parallelism the rows index the global microbatch's frames, rank-major.
 
 ``inited`` has a host mirror, so a training step reads no device flag;
 loading a state dict refreshes it.
@@ -52,6 +66,7 @@ import torch
 import torch.nn as nn
 
 from academicodec_tpu_torch.ops.cuda.rvq import l2_distance_argmin, rvq_encode
+from academicodec_tpu_torch.parallel.mesh import all_gather_rows, all_reduce_sum_, rank, replicate
 
 __all__ = ["ResidualVQ", "kmeans", "l2_distance_argmin", "sample_rows"]
 
@@ -160,11 +175,13 @@ class ResidualVQ(nn.Module):
         n_q: Optional[int] = None,
         training: bool = False,
         draws: Optional[torch.Tensor] = None,
+        group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Quantize ``x [B, T, D]`` with the first ``n_q`` layers -> ``(quantized
         [B, T, D] in x's dtype, codes [n_q, B, T] int32, commit losses [n_q] f32)``.
         ``training`` updates the EMA state and needs ``draws`` (module docstring);
-        the codebook dtype rules the arithmetic (bf16 activations are upcast)."""
+        the codebook dtype rules the arithmetic (bf16 activations are upcast).
+        ``group``: the data-parallel process group; ``x`` is then this rank's rows."""
         n_q = self.num_quantizers if n_q is None else int(n_q)
         if not 1 <= n_q <= self.num_quantizers:
             raise ValueError(f"n_q {n_q} outside 1..{self.num_quantizers}")
@@ -184,7 +201,7 @@ class ResidualVQ(nn.Module):
             r = residual.detach()
             if codes_all is None:
                 if not inited[i]:
-                    self._kmeans_init_layer(i, r, rows[i])
+                    self._kmeans_init_layer(i, r, rows[i], group)
                 idx = rvq_encode(r, self.embed[i : i + 1])[0]
             else:
                 idx = codes_all[i]
@@ -200,7 +217,7 @@ class ResidualVQ(nn.Module):
             quantized = q_st if quantized is None else quantized + q_st
             residual = residual - q_st
         if training:
-            self._ema_update(torch.stack(residuals), torch.stack(codes).long(), rows)
+            self._ema_update(torch.stack(residuals), torch.stack(codes).long(), rows, group)
         return (
             quantized.reshape(B, T, D).to(out_dtype),
             torch.stack(codes).to(torch.int32).reshape(n_q, B, T),
@@ -208,8 +225,14 @@ class ResidualVQ(nn.Module):
         )
 
     @torch.no_grad()
-    def _kmeans_init_layer(self, i: int, samples: torch.Tensor, rows: torch.Tensor) -> None:
-        means, bins = kmeans(samples, rows, KMEANS_ITERS)
+    def _kmeans_init_layer(self, i: int, samples: torch.Tensor, rows: torch.Tensor, group=None) -> None:
+        """K-means of layer ``i`` on the global batch's residuals, on rank 0, broadcast."""
+        samples = all_gather_rows(samples, group)
+        if rank(group) == 0:
+            means, bins = kmeans(samples, rows, KMEANS_ITERS)
+        else:
+            means, bins = samples.new_empty(self.codebook_size, self.dim), samples.new_empty(self.codebook_size)
+        replicate([means, bins], group)
         self.embed[i] = means
         self.embed_avg[i] = means
         self.cluster_size[i] = bins
@@ -217,14 +240,22 @@ class ResidualVQ(nn.Module):
         self.inited_layers()[i] = True
 
     @torch.no_grad()
-    def _ema_update(self, residuals: torch.Tensor, codes: torch.Tensor, rows: torch.Tensor) -> None:
+    def _ema_update(self, residuals: torch.Tensor, codes: torch.Tensor, rows: torch.Tensor, group=None) -> None:
         """The EMA step of the active layers at once: ``residuals [n_q, N, D]`` are
-        the inputs each layer quantized, ``codes [n_q, N]`` its choices."""
-        n_q, _, D = residuals.shape
+        the inputs each layer quantized, ``codes [n_q, N]`` its choices (this
+        rank's rows under ``group``)."""
+        n_q, N, D = residuals.shape
         K = self.codebook_size
         offsets = (codes + torch.arange(n_q, device=codes.device)[:, None] * K).reshape(-1)
         onehot_sum = _counts(offsets, n_q * K).to(residuals.dtype).reshape(n_q, K)
         embed_sum = residuals.new_zeros(n_q * K, D).index_add_(0, offsets, residuals.reshape(-1, D))
+        # the dead-code samples: the rows draw from the global batch; this rank
+        # fills the ones it holds and the sum over the ranks fills the rest
+        layer = torch.arange(n_q, device=residuals.device)[:, None]
+        local = rows[:n_q] - rank(group) * N
+        held = (local >= 0) & (local < N)
+        samples = torch.where(held[..., None], residuals[layer, local.clamp(0, N - 1)], 0.0)  # [n_q, K, D]
+        all_reduce_sum_([onehot_sum, embed_sum, samples], group)  # one all-reduce
         cluster_size, embed_avg = self.cluster_size[:n_q], self.embed_avg[:n_q]
         expired = cluster_size < THRESHOLD_EMA_DEAD_CODE  # decided on the statistics before the step
         new_cluster = cluster_size * DECAY + onehot_sum * (1 - DECAY)
@@ -233,8 +264,6 @@ class ResidualVQ(nn.Module):
         smoothed = (new_cluster + EPSILON) / (csum + K * EPSILON) * csum
         new_embed = new_embed_avg / smoothed[..., None]
         # dead-code expiry, applied after the EMA step so that it survives
-        layer = torch.arange(n_q, device=residuals.device)[:, None]
-        samples = residuals[layer, rows[:n_q]]  # [n_q, K, D]
         dead = expired[..., None]
         new_embed = torch.where(dead, samples, new_embed)
         new_embed_avg = torch.where(dead, samples * THRESHOLD_EMA_DEAD_CODE, new_embed_avg)

@@ -44,13 +44,15 @@ class ResidualVectorQuantizer(nn.Module):
         n_q: Optional[int] = None,
         training: bool = False,
         draws: Optional[torch.Tensor] = None,
+        group=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, float, torch.Tensor]:
         """Training/eval forward on ``[B, T, D]`` with ``n_q`` layers (from
         ``bandwidth`` when None) -> ``(quantized, codes [n_q, B, T], kb/s, commit
-        loss)``; the commit loss is the mean over the active layers."""
+        loss)``; the commit loss is the mean over the active layers. ``group``: the
+        data-parallel process group (``ResidualVQ.forward``)."""
         if n_q is None:
             n_q = self.get_num_quantizers_for_bandwidth(frame_rate, bandwidth)
-        quantized, codes, losses = self.vq(x, n_q=n_q, training=training, draws=draws)
+        quantized, codes, losses = self.vq(x, n_q=n_q, training=training, draws=draws, group=group)
         bw = n_q * self.get_bandwidth_per_quantizer(frame_rate)
         return quantized, codes, bw, losses.sum() / max(n_q, 1)
 

@@ -28,10 +28,27 @@ given its draws (``draws=``), as the parity tests give it JAX's.
 ``accum_steps`` splits the batch into sequential microbatches whose
 gradients are summed and divided by their count before one update per
 phase; the codebook EMA sees the microbatches in turn (JAX :318-424).
+
 ``mixed_precision`` runs both forwards and backwards in bf16 through bf16
 copies of the weights (``train/state.mp_apply``); master weights, Adam moments,
 codebooks and losses stay f32. ``packed_conv`` selects a TPU lowering in
 JAX and is accepted here as a no-op.
+
+Data parallelism (``group``, a ``torch.distributed`` process group, one
+rank per card; ``parallel/mesh.py``) keeps the JAX trainer's global-batch
+step, which GSPMD gives it: ``train_step`` takes this rank's rows, the
+rank-major block of the global batch; each microbatch is JAX's (global rows
+``[i B/k, (i+1) B/k)``, ``parallel.microbatches``); the draws are made for the
+global microbatch, identically on every rank from the same ``state.rng``;
+each phase's gradients are averaged over the ranks once, in one flat
+all-reduce, after the microbatch mean; the codebooks' EMA sums, dead-code
+samples and k-means follow the global batch (``quant/core_vq.py``), and so
+does the feature loss's ``mean|r|`` (``losses/gan.py``); the metrics are
+global-batch means. Every rank so makes the same update and holds bitwise
+the same state. ``DistributedDataParallel`` is not used: its buffer
+broadcast would overwrite the ranks' codebooks with rank 0's on every
+forward, hiding a drift, and its hooks do not follow the phases'
+``requires_grad_`` switches or the no-grad regenerate.
 
 The state is updated in place and returned, so a caller writes
 ``state, metrics = trainer.train_step(state, x)`` as with JAX.
@@ -60,6 +77,12 @@ from academicodec_tpu_torch.nn.discriminators import (
     MultiScaleDiscriminator,
     MultiScaleSTFTDiscriminator,
     reset_parameters,
+)
+from academicodec_tpu_torch.parallel.mesh import (
+    all_reduce_mean_grads,
+    all_reduce_mean_metrics,
+    microbatches,
+    world_size,
 )
 from academicodec_tpu_torch.quant.core_vq import sample_rows
 from academicodec_tpu_torch.train.state import GANTrainState, make_optimizer, mp_apply, set_learning_rate
@@ -138,11 +161,14 @@ def _hinge_g(out_gen) -> torch.Tensor:
 
 class EncodecTrainer:
     """Builds the generator and discriminators on one device and runs train/eval steps
-    on batches ``[B, T]`` (``cuda`` unless the caller asks for the CPU)."""
+    on batches ``[B, T]`` (``cuda`` unless the caller asks for the CPU). ``group``:
+    the data-parallel process group (module docstring); the batches are then
+    this rank's rows."""
 
-    def __init__(self, config: EncodecTrainConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, config: EncodecTrainConfig, device: Union[str, torch.device] = "cuda", group=None):
         self.cfg = config
         self.device = resolve_device(device)
+        self.group = group
 
     # ------------------------------------------------------------------
     def init_state(self, seed: int = 0) -> GANTrainState:
@@ -179,8 +205,9 @@ class EncodecTrainer:
 
     # ------------------------------------------------------------------
     def draw(self, state: GANTrainState, x_shape: Tuple[int, int]) -> StepDraws:
-        """The step's draws from ``state.rng`` for a batch of ``x_shape``: the G
-        phase's ``n_q``, the D phase's, then each phase's row draws per microbatch."""
+        """The step's draws from ``state.rng`` for a global batch of ``x_shape``: the
+        G phase's ``n_q``, the D phase's, then each phase's row draws per
+        microbatch, into the global microbatch's latent frames."""
         model, k = state.generator, self.cfg.accum_steps
         n = (x_shape[0] // k) * math.ceil(x_shape[1] / model.hop_length)  # latent frames of a microbatch
         vq = model.quantizer.vq
@@ -194,7 +221,7 @@ class EncodecTrainer:
 
     def _gen_forward(self, model: SoundStream, x: torch.Tensor, n_q: int, rows: Optional[torch.Tensor]):
         """The generator's training forward, in bf16 under ``mixed_precision`` (outputs upcast to f32)."""
-        kw = dict(n_q=n_q, training=True, draws=rows)
+        kw = dict(n_q=n_q, training=True, draws=rows, group=self.group)
         if self.cfg.mixed_precision:
             return mp_apply(model, x, **kw)
         return model(x, **kw)
@@ -209,7 +236,7 @@ class EncodecTrainer:
         adv = _hinge_g(out_gen)
         feat_terms = []
         for k in FAMILIES:
-            t = relative_feature_loss(out_real[k][1], out_gen[k][1])
+            t = relative_feature_loss(out_real[k][1], out_gen[k][1], self.group)
             if cfg.feat_include_sim:
                 t = t + sim_loss(out_real[k][0], out_gen[k][0])
             feat_terms.append(t)
@@ -223,22 +250,21 @@ class EncodecTrainer:
     # ------------------------------------------------------------------
     def train_step(self, state: GANTrainState, x: torch.Tensor, draws: Optional[StepDraws] = None,
                    return_codes: bool = False):
-        """One G update and one D update on ``x [B, T]`` -> ``(state, metrics)`` (with
-        ``return_codes``, also ``{"g": [...], "d": [...]}``, each phase's codes of each
-        microbatch). Metrics are 0-dim f32 tensors on the device, read by the
-        caller when it logs."""
+        """One G update and one D update on ``x [B, T]`` (this rank's rows under a
+        group) -> ``(state, metrics)`` (with ``return_codes``, also ``{"g": [...],
+        "d": [...]}``, each phase's codes of each microbatch, this rank's rows).
+        Metrics are 0-dim f32 tensors on the device, global-batch means, read by
+        the caller when it logs."""
         cfg = self.cfg
         k = cfg.accum_steps
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
-        B, T = x.shape
-        if B % k:
-            raise ValueError(f"batch {B} not divisible by accum_steps {k}")
+        T = x.shape[1]
         if T % state.generator.hop_length:
             raise ValueError(f"segments of {T} samples are not a multiple of the hop length "
                              f"{state.generator.hop_length}: the output would not match the input's length")
+        xm = microbatches(x, k, self.group)
         if draws is None:
-            draws = self.draw(state, (B, T))
-        xm = x.reshape(k, B // k, T)
+            draws = self.draw(state, (x.shape[0] * world_size(self.group), T))
         model, discs = state.generator, state.discriminators
         disc_factor = adopt_weight(cfg.lambda_adv, state.step, cfg.discriminator_iter_start)
 
@@ -259,6 +285,7 @@ class EncodecTrainer:
         finally:
             discs.requires_grad_(True)
         self._mean_grads(model, k)
+        all_reduce_mean_grads(model, self.group)
         state.g_opt.step()
 
         # ---- discriminator phase, on a fresh no-grad generator forward ----
@@ -272,11 +299,13 @@ class EncodecTrainer:
             loss_d.backward()
             d_losses.append(loss_d.detach())
         self._mean_grads(discs, k)
+        all_reduce_mean_grads(discs, self.group)
         state.d_opt.step()
 
         state.step += 1
         metrics = {n: torch.stack([m[n] for m in metrics_k]).mean() for n in metrics_k[0]}
         metrics["loss_d"] = torch.stack(d_losses).mean()
+        metrics = all_reduce_mean_metrics(metrics, self.group)
         return (state, metrics, codes_k) if return_codes else (state, metrics)
 
     @staticmethod
@@ -290,7 +319,8 @@ class EncodecTrainer:
     @torch.no_grad()
     def eval_step(self, state: GANTrainState, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The validation criterion (reference main_launch.py:365-429): every layer,
-        no EMA update, ``lambda_rec``-weighted reconstruction and sim losses."""
+        no EMA update, ``lambda_rec``-weighted reconstruction and sim losses;
+        global-batch means under a group."""
         cfg = self.cfg
         x = torch.as_tensor(x).to(device=self.device, dtype=torch.float32)
         model, discs = state.generator, state.discriminators
@@ -298,10 +328,11 @@ class EncodecTrainer:
         out_real, out_gen = discs(x), discs(g_x)
         adv = _hinge_g(out_gen)
         feat = sum(
-            relative_feature_loss(out_real[k][1], out_gen[k][1]) + sim_loss(out_real[k][0], out_gen[k][0])
+            relative_feature_loss(out_real[k][1], out_gen[k][1], self.group) + sim_loss(out_real[k][0], out_gen[k][0])
             for k in FAMILIES
         ) / 3.0
         rec = mel_reconstruction_loss(x, g_x, cfg.sr, scale_powers=cfg.mel_scale_powers, lambda_wav=cfg.lambda_wav)
         total = cfg.lambda_com * commit + cfg.lambda_adv * adv + cfg.lambda_feat * feat + cfg.lambda_rec * rec
-        return dict(valid_loss_g=total, valid_loss_d=_hinge_d(out_real, out_gen), rec_loss=rec,
-                    adv_g_loss=adv, feat_loss=feat, commit_loss=commit)
+        return all_reduce_mean_metrics(dict(
+            valid_loss_g=total, valid_loss_d=_hinge_d(out_real, out_gen), rec_loss=rec, adv_g_loss=adv,
+            feat_loss=feat, commit_loss=commit), self.group)

@@ -31,6 +31,16 @@ forwards and backwards in bf16 through bf16 copies of the weights
 (``train/state.mp_apply``); master weights, Adam moments, ``u`` and every
 loss reduction stay f32.
 
+Data parallelism (``group``, a ``torch.distributed`` process group, one
+rank per card; ``parallel/mesh.py``) keeps the JAX trainer's global-batch
+step: ``train_step`` takes this rank's rows of the global batch, each
+microbatch is JAX's (``parallel.microbatches``), each phase's gradients are
+averaged over the ranks once, after the microbatch mean, and the metrics are
+global-batch means. Every loss of the step is a plain mean over the batch,
+so nothing else crosses ranks: the GRVQ codebooks are learned parameters
+(no EMA), and the spectral norm's ``u`` steps as a function of the weights
+alone, which every rank holds alike.
+
 The state is updated in place and returned, so a caller writes
 ``state, metrics = trainer.train_step(state, y)`` as with JAX.
 """
@@ -55,6 +65,7 @@ from academicodec_tpu_torch.nn.discriminators import (
     reset_parameters,
 )
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, invalidate_packed
+from academicodec_tpu_torch.parallel.mesh import all_reduce_mean_grads, all_reduce_mean_metrics, microbatches
 from academicodec_tpu_torch.train.state import GANTrainState, make_optimizer, mp_apply, set_learning_rate
 
 # the order of the JAX trainer's loss sums
@@ -116,11 +127,14 @@ class HiFiCodecTrainState(GANTrainState):
 
 class HiFiCodecTrainer:
     """Builds the VQVAE and the discriminators on one device and runs train/eval
-    steps on batches ``[B, T]`` (``cuda`` unless the caller asks for the CPU)."""
+    steps on batches ``[B, T]`` (``cuda`` unless the caller asks for the CPU).
+    ``group``: the data-parallel process group (module docstring); the batches
+    are then this rank's rows."""
 
-    def __init__(self, config: HiFiCodecTrainConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, config: HiFiCodecTrainConfig, device: Union[str, torch.device] = "cuda", group=None):
         self.cfg = config
         self.device = resolve_device(device)
+        self.group = group
 
     def init_state(self, seed: int = 0) -> HiFiCodecTrainState:
         """Seeded weights (drawn on the CPU, identical on every device), fresh
@@ -168,19 +182,18 @@ class HiFiCodecTrainer:
 
     # ------------------------------------------------------------------
     def train_step(self, state: HiFiCodecTrainState, y: torch.Tensor):
-        """One D update, then one G update, on ``y [B, T]`` -> ``(state, metrics)``:
-        ``loss_gen_all``, ``loss_disc_all``, ``loss_q``, ``mel_error``, 0-dim f32
-        tensors on the device (means over the microbatches)."""
+        """One D update, then one G update, on ``y [B, T]`` (this rank's rows under a
+        group) -> ``(state, metrics)``: ``loss_gen_all``, ``loss_disc_all``,
+        ``loss_q``, ``mel_error``, 0-dim f32 tensors on the device (means over the
+        microbatches and the ranks)."""
         k = self.cfg.accum_steps
         y = torch.as_tensor(y).to(device=self.device, dtype=torch.float32)
-        B, T = y.shape
-        if B % k:
-            raise ValueError(f"batch {B} not divisible by accum_steps {k}")
+        T = y.shape[1]
         model, discs = state.generator, state.discriminators
         if T % model.hop_length:
             raise ValueError(f"segments of {T} samples are not a multiple of the hop length {model.hop_length}: "
                              "the output would not match the input's length")
-        ym = y.reshape(k, B // k, T)
+        ym = microbatches(y, k, self.group)
 
         # ---- discriminator phase, on a no-grad generator forward ----
         state.d_opt.zero_grad(set_to_none=True)
@@ -200,6 +213,7 @@ class HiFiCodecTrainer:
             loss_d.backward()
             d_losses.append(loss_d.detach())
         _mean_grads(discs, k)
+        all_reduce_mean_grads(discs, self.group)
         state.d_opt.step()
 
         # ---- generator phase, against the updated discriminators and the new u ----
@@ -222,21 +236,24 @@ class HiFiCodecTrainer:
         finally:
             discs.requires_grad_(True)
         _mean_grads(model, k)
+        all_reduce_mean_grads(model, self.group)
         state.g_opt.step()
         invalidate_packed(model)  # the fused optimizer leaves the version counters as they were
 
         state.step += 1
         loss_g, loss_q, mel_error = (torch.stack(c).mean() for c in zip(*g_metrics))
-        return state, dict(loss_gen_all=loss_g, loss_disc_all=torch.stack(d_losses).mean(), loss_q=loss_q,
-                           mel_error=mel_error)
+        return state, all_reduce_mean_metrics(dict(
+            loss_gen_all=loss_g, loss_disc_all=torch.stack(d_losses).mean(), loss_q=loss_q, mel_error=mel_error),
+            self.group)
 
     @torch.no_grad()
     def eval_step(self, state: HiFiCodecTrainState, y: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Validation mel error and GRVQ loss (reference train.py:340-386), f32."""
+        """Validation mel error and GRVQ loss (reference train.py:340-386), f32;
+        global-batch means under a group."""
         y = torch.as_tensor(y).to(device=self.device, dtype=torch.float32)
         y_hat, loss_q, _ = state.generator(y, training=False)
         _, mel_error = hifigan_mel_losses(y, y_hat, None, **self._mel_cfg())
-        return dict(val_mel_error=mel_error, loss_q=loss_q)
+        return all_reduce_mean_metrics(dict(val_mel_error=mel_error, loss_q=loss_q), self.group)
 
 
 def _mean_grads(module: nn.Module, k: int) -> None:

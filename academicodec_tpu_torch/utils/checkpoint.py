@@ -9,6 +9,9 @@ checkpoint as they take a reference ``latest.pth``.
 
 The port's counterpart of academicodec_tpu/utils/checkpoint.py, which
 writes orbax directories; the names, rotation and metadata are the same.
+Under data parallelism only rank 0 writes (``utils/logging.is_primary``);
+every rank holds the same state, and every rank loads the same file on
+resume.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from academicodec_tpu_torch.utils.logging import is_primary
+
 SUFFIX = ".pt"
 
 
@@ -28,9 +33,12 @@ def save_checkpoint(directory: str, prefix: str, step: int, state: Dict[str, Any
                     meta: Optional[Dict[str, Any]] = None) -> str:
     """Write ``state`` (a state dict) to ``directory/<prefix>_<step:08d>.pt`` and
     keep the newest ``num_ckpt_keep`` of that prefix. The file is written under
-    a temporary name and renamed, so a reader never sees half of it."""
-    os.makedirs(directory, exist_ok=True)
+    a temporary name and renamed, so a reader never sees half of it. On a rank
+    other than 0 nothing is written and the path is returned."""
     path = os.path.join(directory, f"{prefix}_{step:08d}{SUFFIX}")
+    if not is_primary():
+        return path
+    os.makedirs(directory, exist_ok=True)
     torch.save(state, path + ".tmp")
     os.replace(path + ".tmp", path)
     if meta is not None:

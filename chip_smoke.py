@@ -104,7 +104,7 @@ from academicodec_tpu_torch.ops.cuda import build as kernel_build
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
-from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS
+from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS, THRESHOLD_EMA_DEAD_CODE
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
 
 # NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
@@ -1621,7 +1621,7 @@ def phase_compress(device="cuda", dtype=torch.bfloat16, n_files=8, seconds=10.0,
         submit_encode_ms=host_ms(lambda: comp.submit_encode(wavs)),
         pack_ms=host_ms(lambda: comp.pack_submitted(codes_dev, [len(w) for w in wavs])),
         encode_ms=host_ms(lambda: model.encode(x)),
-        decode_ms=host_ms(lambda: model.decode(codes_dev)),
+        decode_ms=host_ms(lambda: model.decode(codes_dev[0])),
         native_packer=get_bitpack_lib() is not None,
     )
     # the host bit packers on the 8 files' tokens: native (when it builds) and numpy
@@ -3356,6 +3356,700 @@ def phase_native_loader(steady: dict, device="cuda", n_files=32, file_seconds=3.
     return result
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (phase_parallel)
+
+# JAX's contract of a data-parallel step (tests/test_train.py:253-296): an N-rank
+# step equals the 1-rank step on the same global batch, the rank-major
+# concatenation of the ranks' batches: the losses rtol, the codebooks
+# (Encodec's embed) and the parameters within atol + rtol |value|, codes equal.
+# Adam amplifies the f32 noise of a reordered gradient sum where the noise is
+# not small against the gradient itself: its sign, or its size against Adam's
+# eps, and so Adam's step of up to lr, is then not resolved (JAX's test holds
+# only the first leaf, :293-296, and notes this at :188-193). Such an element
+# (in some step the runs' gradients differ by unresolved_rel of the 1-rank
+# run's own or more) is held to Adam's bound, 2 lr a step, instead; every
+# gradient is held within grad_rel of the larger of its leaf's max and a
+# hundredth of its phase's (TRAIN_CROSS_LIMITS' gradient limit). The codebook
+# entries that a code parted at a near-tie moved (dp_compare) are left out of
+# the codebook limit, up to moved_share of the entries: one frame parting at
+# layer 0 of 12 moves at most 24 of a 768-entry codebook, 3%
+DP_LIMITS = dict(loss_rtol=1e-4, embed_atol=1e-5, embed_rtol=1e-4, param_atol=1e-5, param_rtol=1e-4, grad_rel=5e-3,
+                 unresolved_rel=1e-2, moved_share=0.05)
+# the losses held (loss_rtol): the generator's and discriminators' totals, and
+# the Encodec feature loss, whose mean|r| normaliser spans the ranks
+DP_LOSSES = {"encodec": ("loss_g", "feat_loss", "loss_d"), "hifi": ("loss_gen_all", "loss_disc_all")}
+DP_F32_TIE = 2.0**-20  # 16 ulps of f32
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels where torch has them (``index_add_``'s sums without
+    atomics, cuDNN's deterministic convs); ops without one warn and run as
+    they are. Restored after."""
+    saved = (torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*does not have a deterministic implementation.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[2], saved[3]
+
+
+@contextlib.contextmanager
+def world_of_one(device, backend=None):
+    """A process group of this process alone, joined through
+    ``parallel.init_from_env`` from the environment torchrun would give it
+    (world 1, a TCP store on localhost) -> ``(group, device)``; destroyed after."""
+    import torch.distributed as dist
+
+    from academicodec_tpu_torch.parallel import init_from_env
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        group, dev = init_from_env(device, backend)
+        try:
+            yield group, dev
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_trainer(family: str, cfg, device, group=None):
+    """The Encodec (``family`` "encodec") or HiFi-Codec ("hifi") trainer of ``cfg``."""
+    if family == "encodec":
+        from academicodec_tpu_torch.train.encodec import EncodecTrainer
+
+        return EncodecTrainer(cfg, device=device, group=group)
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainer
+
+    return HiFiCodecTrainer(cfg, device=device, group=group)
+
+
+# what a comparison holds (dp_compare). Everything (DP_HELD_ALL) on the CPU,
+# where the 1-rank run's latents are the ranks' bit for bit (dp_run's
+# ``blocks``) and no code parts, and at world 1. On the card a search after
+# an EMA update may part at the f32 near-ties of codebooks whose sums were
+# reordered, and a parted code moves its entries' EMA by 1 - decay, so that a
+# later search parts at wider margins: there an update run at the trainer's
+# learning rate holds the losses and the parameters, and the first step's
+# gradients and the first search's codes (later ones follow a generator that
+# Adam's noise has moved) (DP_HELD_UPDATE); a run at learning rate 0 keeps
+# the parameters where they are and holds everything, its searches' codes
+# with the card's near-tie allowance
+DP_HELD_UPDATE = ("loss", "grads0", "params", "codes0")
+DP_HELD_ALL = ("loss", "grads", "params", "codes", "embed")
+
+
+def dp_case(family: str, cfg, x: torch.Tensor, steps: int, seed: int = 0, fault=None, ref=None,
+            held=DP_HELD_ALL, inited: bool = False) -> dict:
+    """One data-parallel comparison: the trainer config, the global batch ``x``
+    (on the device the start state is made on), the step count and the start
+    state as a CPU state dict: the seeded state (HiFi-Codec's GRVQ codebooks
+    spread over ``x``'s latents), with ``inited`` after one plain step that
+    k-means-inits every Encodec layer on ``x``, its codebooks then spread over
+    ``x``'s latents (:func:`spread_training_codebooks`: k-means codebooks on
+    a random encoder's latents leave distances ill conditioned, and a search
+    after a reordered EMA sum parts there) and the last entry of each layer
+    dead (cluster size 1), so that the step's first update replaces it from a
+    drawn row of the global batch. ``fault``: a :func:`dp_fault` control;
+    ``ref``: the case whose 1-rank run this one is held against; ``held``:
+    what :func:`dp_compare` holds."""
+    from academicodec_tpu_torch.train.encodec import ForwardDraws, StepDraws
+
+    trainer = dp_trainer(family, cfg, x.device)
+    state = trainer.init_state(seed)
+    if family == "hifi":
+        spread_codebooks(state.generator, latent_frames(state.generator, x), seed=seed)
+    if inited:
+        vq = state.generator.quantizer.vq
+        drawn = trainer.draw(state, tuple(x.shape))
+        trainer.train_step(state, x, draws=StepDraws(ForwardDraws(vq.num_quantizers, drawn.g.rows),
+                                                     ForwardDraws(vq.num_quantizers, drawn.d.rows)))
+        spread_training_codebooks(state.generator, x, seed=seed)
+        with torch.no_grad():
+            vq.cluster_size[:, -1] = THRESHOLD_EMA_DEAD_CODE / 2
+            vq.embed_avg[:, -1] = vq.embed[:, -1] * vq.cluster_size[:, -1:]
+    return dict(family=family, cfg=cfg, x=x.cpu(), steps=steps, seed=seed, start=copy.deepcopy(state.state_dict()),
+                fault=fault, ref=ref, held=held)
+
+
+def dp_state_tensors(state) -> dict:
+    """Every tensor of a training state by name, on the CPU: both modules'
+    parameters and buffers (the codebooks' EMA state, the spectral norm's ``u``)
+    and both optimizers' moments."""
+    out = {}
+    for tag, module, opt in (("g", state.generator, state.g_opt), ("d", state.discriminators, state.d_opt)):
+        names = {p: n for n, p in module.named_parameters()}
+        out.update({f"{tag}.param.{n}": t.detach().cpu().clone() for n, t in module.named_parameters()})
+        out.update({f"{tag}.buffer.{n}": t.detach().cpu().clone() for n, t in module.named_buffers()})
+        for p, st in opt.state.items():
+            for k in ("exp_avg", "exp_avg_sq"):
+                out[f"{tag}.{k}.{names[p]}"] = st[k].detach().cpu().clone()
+    return out
+
+
+def dp_run(trainer, case: dict, record: bool = False, blocks: int = 1) -> dict:
+    """``case``'s steps from its start state on its global batch, this rank's
+    block of it when the trainer has a group. An Encodec run's first step from
+    un-inited codebooks draws every layer in both phases, so that every layer's
+    k-means runs in it. ``blocks`` (a run without a group): the encoder, which
+    maps each item alone, runs on ``blocks`` equal row blocks of each
+    microbatch, the rows each of that many ranks holds, so that the latents
+    are the ranks' bit for bit (a library LSTM's and a conv's sums depend on
+    the batch size) ->
+    the end state's tensors, and each step's metrics, launches, ms (CUDA events
+    on the card), (Encodec) each phase's codes of each microbatch, and with
+    ``record`` the gradients each update took and (Encodec) each search's
+    latents, codebooks, whether every layer was inited, cluster sizes and
+    drawn rows as it began (:func:`_near_ties`, :func:`_moved_entries`)."""
+    from academicodec_tpu_torch.parallel import rank, shard_batch, world_size
+    from academicodec_tpu_torch.train.encodec import EncodecTrainer, ForwardDraws, StepDraws
+
+    group, encodec = trainer.group, isinstance(trainer, EncodecTrainer)
+    state = trainer.init_state(case["seed"])
+    state.load_state_dict(copy.deepcopy(case["start"]))  # the optimizers would step the start's moments
+    x = case["x"]
+    local = shard_batch(x, rank(group), world_size(group)).to(trainer.device)
+    on_card = trainer.device.type == "cuda"
+    out = dict(metrics=[], codes=[], launches=[], ms=[], grads=[], searches=[])
+    if encodec and blocks > 1:
+        encoder = state.generator.encoder
+        whole = encoder.forward
+        encoder.forward = lambda wav: torch.cat([whole(part) for part in wav.chunk(blocks)])
+    seen = []
+    if record and encodec:
+        def searched(mod, args, kwargs):
+            rows = kwargs.get("draws")
+            seen.append((args[0].detach().float().cpu().clone(), mod.embed.detach().cpu().clone(),
+                         all(mod.inited_layers()), mod.cluster_size.detach().cpu().clone(),
+                         None if rows is None else rows.detach().cpu().clone(), list(mod.inited_layers())))
+
+        state.generator.quantizer.vq.register_forward_pre_hook(searched, with_kwargs=True)
+    for i in range(case["steps"]):
+        kw = {}
+        if encodec:
+            kw["return_codes"] = True
+            if i == 0 and not all(state.generator.quantizer.vq.inited_layers()):
+                n_q = state.generator.quantizer.vq.num_quantizers
+                drawn = trainer.draw(state, tuple(x.shape))
+                kw["draws"] = StepDraws(ForwardDraws(n_q, drawn.g.rows), ForwardDraws(n_q, drawn.d.rows))
+        res = []
+        reset_launches()
+        out["ms"].append(_train_seconds(lambda: res.append(trainer.train_step(state, local, **kw)), on_card) * 1e3)
+        out["launches"].append(read_launches())
+        state, metrics = res[0][:2]
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        if encodec:
+            out["codes"].append({ph: [c.cpu() for c in cs] for ph, cs in res[0][2].items()})
+        out["searches"].append(seen[:])
+        seen.clear()
+        if record:
+            out["grads"].append({
+                f"{tag}.{n}": p.grad.detach().cpu().clone()
+                for tag, module in (("g", state.generator), ("d", state.discriminators))
+                for n, p in module.named_parameters() if p.grad is not None})
+    out["state"] = dp_state_tensors(state)
+    return out
+
+
+@contextlib.contextmanager
+def dp_fault(name=None):
+    """Controls that a data-parallel comparison must catch: ``no_ema`` drops the
+    codebooks' sums over the ranks (each rank's own EMA, as a plain DDP wrap
+    keeps it), ``local_norm`` the feature loss's (``mean|r|`` of this rank's
+    rows), ``local_split`` takes each microbatch from this rank's rows in their
+    own order instead of JAX's global one."""
+    from academicodec_tpu_torch.losses import gan
+    from academicodec_tpu_torch.quant import core_vq
+    from academicodec_tpu_torch.train import encodec
+
+    def no_sum(tensors, group=None):
+        return None
+
+    patches = {None: [], "no_ema": [(core_vq, "all_reduce_sum_", no_sum)],
+               "local_norm": [(gan, "all_reduce_sum_", no_sum), (gan, "world_size", lambda group=None: 1)],
+               "local_split": [(encodec, "microbatches", lambda x, k, group=None: x.reshape(k, -1, *x.shape[1:]))]}
+    saved = [(m, a, getattr(m, a)) for m, a, _ in patches[name]]
+    for m, a, f in patches[name]:
+        setattr(m, a, f)
+    try:
+        yield
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+def dp_child(spec_path: str) -> None:
+    """One rank of :func:`dp_launch`: join the gloo group from the torchrun
+    environment, run every case of the spec and save the results."""
+    import torch.distributed as dist
+
+    from academicodec_tpu_torch.parallel import init_from_env, rank
+
+    import faulthandler
+
+    spec = torch.load(spec_path, weights_only=False)
+    faulthandler.dump_traceback_later(spec["timeout"], exit=True)  # a stuck rank shows where in its log
+    group, device = init_from_env(spec["device"], backend="gloo")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    results = {}
+    with deterministic():
+        for name, case in spec["cases"].items():
+            with dp_fault(case["fault"]):
+                results[name] = dp_run(dp_trainer(case["family"], case["cfg"], device, group), case, record=True)
+    torch.save(results, spec["out"].format(rank=rank(group)))
+    dist.destroy_process_group()
+
+
+def dp_launch(cases: dict, device, world: int, workdir: str, timeout: float = 900.0, meanwhile=None) -> list:
+    """Run ``cases`` in ``world`` processes joined with gloo, each started with
+    the environment torchrun gives a rank (``RANK``, ``WORLD_SIZE``,
+    ``LOCAL_RANK``, ``MASTER_ADDR``/``MASTER_PORT``) -> each rank's results;
+    on a card every rank runs on ``device`` (``cuda`` is ``cuda:0``), and
+    ``meanwhile()`` runs here while they do. A process that fails stops the
+    others and fails the call; every process is stopped before it returns."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    os.makedirs(workdir, exist_ok=True)
+    spec_path = os.path.join(workdir, "spec.pt")
+    torch.save(dict(cases=cases, device=str(device), out=os.path.join(workdir, "rank{rank}.pt"),
+                    timeout=max(1.0, timeout - 30)), spec_path)
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r), MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=str(port))
+            logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w"))
+            procs.append(subprocess.Popen([sys.executable, "-c", f"import chip_smoke; chip_smoke.dp_child({spec_path!r})"],
+                                          cwd=root, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        if meanwhile is not None:
+            meanwhile()
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a rank failed: the others would wait for it
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for fh in logs:
+            fh.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = []
+        for r in failed:
+            with open(os.path.join(workdir, f"rank{r}.log")) as fh:
+                tails.append(f"rank {r} of {world} exited {procs[r].returncode}:\n{fh.read()[-3000:]}")
+        raise AssertionError("\n".join(tails))
+    out = [torch.load(os.path.join(workdir, f"rank{r}.pt"), weights_only=False) for r in range(world)]
+    for r in range(world):
+        os.remove(os.path.join(workdir, f"rank{r}.pt"))
+    os.remove(spec_path)
+    return out
+
+
+def dp_lr(cfg) -> float:
+    return cfg.lr if hasattr(cfg, "lr") else cfg.learning_rate
+
+
+def state_distance(a: dict, b: dict) -> float:
+    """The largest |difference| over two runs' end-state tensors."""
+    return max(float((a["state"][k].double() - b["state"][k].double()).abs().max()) if a["state"][k].numel() else 0.0
+               for k in a["state"])
+
+
+def _moved_entries(one: dict, ranks: list) -> set:
+    """The codebook entries ``(layer, entry)`` that a parted code moved, from
+    the searches of ``one`` (a recorded 1-rank run) against the ranks'. A frame
+    whose codes part first at layer ``l`` has other residuals from ``l + 1``
+    on: the entries it chose at ``l`` and later, in either run, take other EMA
+    sums; an entry that a search replaced as a dead code (cluster size below
+    the threshold as it began) takes the drawn row's residual, which moved
+    where that row parted before the entry's layer; a layer that a search
+    k-means-inits is moved whole when any frame parted before it."""
+    moved = set()
+    for s, codes in enumerate(one["codes"]):
+        for ph, mbs in codes.items():
+            for i, want in enumerate(mbs):
+                n_q = want.shape[0]
+                want = want.reshape(n_q, -1).long()
+                got = torch.cat([r["codes"][s][ph][i] for r in ranks], dim=1).reshape(n_q, -1).long()
+                differ = want != got
+                if not differ.any():
+                    continue
+                layer = torch.arange(n_q)[:, None]
+                first = torch.where(differ.any(0), differ.int().argmax(0), n_q)  # each frame's first parted layer
+                after = (layer >= first).expand_as(want)
+                for c in (want, got):
+                    moved |= set(zip(layer.expand_as(c)[after].tolist(), c[after].tolist()))
+                search = one["searches"][s][i + (len(mbs) if ph == "d" else 0)] if one["searches"][s] else None
+                if search is None:  # not recorded: the codes' own check fails
+                    continue
+                cluster, rows, inited = search[3][:n_q], search[4][:n_q].long(), search[5][:n_q]
+                dead = (cluster < THRESHOLD_EMA_DEAD_CODE) & (first[rows] < layer)
+                moved |= {(l, k) for l, k in dead.nonzero().tolist()}
+                for l in range(n_q):
+                    if not inited[l] and bool((first < l).any()):
+                        moved |= {(l, k) for k in range(cluster.shape[1])}
+    return moved
+
+
+def dp_compare(one: dict, ranks: list, family: str, lr: float, held=DP_HELD_ALL, limits=DP_LIMITS,
+               ties: bool = False) -> dict:
+    """``ranks`` (each rank's run, one global batch) against ``one`` (the 1-rank
+    run, made at learning rate ``lr``) under :data:`DP_LIMITS`, in what ``held``
+    names, and the ranks against each other bitwise -> ``{"failures": [...],
+    "loss_rel", "max_embed_diff", "max_param_diff", "unresolved", "near_ties",
+    "moved_entries", "moved_share"}`` (``unresolved``: the parameter elements
+    held to Adam's bound). Codes must be equal; with ``ties`` (the card) a
+    held search may part at a near-tie of the 1-rank search. The codebook
+    entries a parted code moved (:func:`_moved_entries`) are left out of the
+    codebook limit and of ``max_embed_diff``, and may be at most
+    ``moved_share`` of the entries."""
+    failures = []
+    r0 = ranks[0]
+    for j, r in enumerate(ranks[1:], 1):
+        unequal = [k for k, v in r0["state"].items() if not torch.equal(v, r["state"][k])]
+        if unequal:
+            failures.append(f"rank {j}'s state differs from rank 0's in {len(unequal)} tensors, e.g. {unequal[:3]}")
+        if r["metrics"] != r0["metrics"]:
+            failures.append(f"rank {j}'s metrics differ from rank 0's")
+    loss_rel = 0.0
+    for loss in DP_LOSSES[family]:
+        rel = max(abs(a[loss] - b[loss]) / abs(b[loss]) if b[loss] else (0.0 if a[loss] == b[loss] else math.inf)
+                  for a, b in zip(r0["metrics"], one["metrics"]))
+        loss_rel = max(loss_rel, rel)
+        if "loss" in held and not rel <= limits["loss_rtol"]:
+            failures.append(f"{loss} {[m[loss] for m in r0['metrics']]} vs {[m[loss] for m in one['metrics']]}")
+    diffs = {"embed": 0.0, "param": 0.0}
+    steps = len(one["metrics"])
+    # the gradients of each step (recorded), else the end state's first moments
+    if one.get("grads") and r0.get("grads"):
+        grads = list(zip(one["grads"], r0["grads"]))
+    else:
+        grads = [tuple({k.replace(".exp_avg.", ".", 1): v for k, v in run["state"].items() if ".exp_avg." in k}
+                       for run in (one, r0))]
+    for t, (want, got) in enumerate(grads):
+        if "grads" in held or "grads0" in held and t == 0:
+            rel = _grad_compare(got, want)["grad_rel"]
+            failures += [f"step {t} gradient of {n}: max |diff| {v:.3g} of its scale" for n, v in rel.items()
+                         if v > limits["grad_rel"]]
+    moved = _moved_entries(one, ranks) if family == "encodec" else set()
+    entries = one["state"].get("g.buffer.quantizer.vq.embed", torch.zeros(1, 1)).shape[:2].numel()
+    moved_share, unresolved = len(moved) / entries, 0
+    for k, want in one["state"].items():
+        kind = "param" if ".param." in k else "embed" if k.endswith("quantizer.vq.embed") else None
+        if kind is None or (kind + "s" if kind == "param" else kind) not in held:
+            continue
+        got = r0["state"][k]
+        d = (got - want).abs()
+        outside = d > limits[f"{kind}_atol"] + limits[f"{kind}_rtol"] * want.abs()
+        if kind == "param":
+            tag, name = k.split(".param.")
+            loose = torch.zeros_like(outside)
+            for g_want, g_got in grads:
+                if f"{tag}.{name}" in g_want:  # Adam's step is not resolved where the gradients part by this
+                    loose |= (g_got[f"{tag}.{name}"] - g_want[f"{tag}.{name}"]).abs() >= (
+                        limits["unresolved_rel"] * g_want[f"{tag}.{name}"].abs())
+            unresolved += int((outside & loose).sum())
+            outside = outside & ~(loose & (d <= 2 * lr * steps))
+        else:
+            if moved:
+                layer, entry = torch.tensor(sorted(moved)).T
+                outside[layer, entry], d[layer, entry] = False, 0.0
+            if moved_share > limits["moved_share"]:
+                failures.append(f"{len(moved)} codebook entries moved by parted codes, {moved_share:.3g} of them "
+                                f"(limit {limits['moved_share']})")
+        diffs[kind] = max(diffs[kind], float(d.max()))
+        if outside.any():
+            failures.append(f"{k}: max |diff| {float(d.max()):.3g} ({int(outside.sum())} of {d.numel()} outside "
+                            "the limit)")
+    # codes: equal, but with ``ties`` where a search after the init step parts
+    # at a near-tie of the 1-rank run's own search (the codebooks then differ
+    # by the EMA sums' reordering, as the card's from the CPU's in
+    # phase_train's check): a margin below NEAR_TIE_MARGIN, or below the f32
+    # resolution of the expanded distance |r|^2 - 2 r.e + |e|^2, DP_F32_TIE x
+    # its conditioning
+    near = []
+    for s, codes in enumerate(one["codes"]):
+        for ph, mbs in codes.items():
+            for i, want in enumerate(mbs):
+                if "codes" not in held and not ("codes0" in held and (s, ph, i) == (0, "g", 0)):
+                    continue
+                got = torch.cat([r["codes"][s][ph][i] for r in ranks], dim=1)
+                if torch.equal(got, want):
+                    continue
+                search = one["searches"][s][i + (len(mbs) if ph == "d" else 0)] if one["searches"] else None
+                # a k-means init search is held exactly: its codebooks are made in the search
+                split = _near_ties(search[:2], got, want) if ties and search is not None and search[2] else []
+                if split and all(margin < max(NEAR_TIE_MARGIN, DP_F32_TIE * cond) for *_, margin, cond in split):
+                    near += split
+                else:
+                    failures.append(f"step {s} phase {ph} microbatch {i}: {int((got != want).sum())} codes differ "
+                                    f"(margin, conditioning {[(round(m, 6), round(cd, 1)) for *_, m, cd in split][:4]})")
+    return dict(failures=failures, loss_rel=loss_rel, max_embed_diff=diffs["embed"], max_param_diff=diffs["param"],
+                unresolved=unresolved, near_ties=len(near), moved_entries=len(moved), moved_share=moved_share)
+
+
+def _parallel_world1(device, backend=None, cases=None) -> dict:
+    """Phase (a): each case's steps through the data-parallel code in a process
+    group of this process alone (NCCL on the card) and through the plain code,
+    from one state with the same draws, in turns (plain, parallel, parallel,
+    plain), with deterministic kernels where torch has them. Each must meet
+    :data:`DP_LIMITS` against the plain run, be no farther from it than the
+    plain run's repeat, and launch K1-K4 as often a step."""
+    out = {}
+    with deterministic(), world_of_one(device, backend) as (group, dev):
+        for name, case in cases.items():
+            runs = [dp_run(dp_trainer(case["family"], case["cfg"], dev, g), case)
+                    for g in (None, group, group, None)]
+            plain, par = runs[0], runs[1]
+            cmp = dp_compare(plain, [par], case["family"], dp_lr(case["cfg"]))
+            d_par, d_repeat = state_distance(par, plain), state_distance(runs[3], plain)
+            steady = slice(1, None) if case["steps"] > 1 else slice(None)
+            r = dict(steps=case["steps"], batch=int(case["x"].shape[0]), samples=int(case["x"].shape[1]),
+                     distance_parallel_vs_plain=d_par, distance_plain_repeat=d_repeat,
+                     distance_parallel_repeat=state_distance(runs[2], par),
+                     launches_parallel=par["launches"], launches_plain=plain["launches"],
+                     step_ms_parallel=statistics.median(runs[1]["ms"][steady] + runs[2]["ms"][steady]),
+                     step_ms_plain=statistics.median(runs[0]["ms"][steady] + runs[3]["ms"][steady]),
+                     first_step_ms_parallel=par["ms"][0], first_step_ms_plain=plain["ms"][0],
+                     loss_rel=cmp["loss_rel"], max_param_diff=cmp["max_param_diff"],
+                     max_embed_diff=cmp["max_embed_diff"], failures=cmp["failures"])
+            if d_par > d_repeat:
+                r["failures"].append(f"parallel vs plain {d_par:.3g} > plain vs plain {d_repeat:.3g}")
+            if any(a != b for run in runs[1:] for a, b in zip(run["launches"], plain["launches"])):
+                r["failures"].append(f"launches differ: parallel {par['launches']}, plain {plain['launches']}")
+            print(f"[parallel] (a) {name}, world 1 ({torch.distributed.get_backend(group)}): {r['steps']} "
+                  f"steps of {r['batch']} x {r['samples']}; step median {r['step_ms_parallel']:.2f} ms parallel vs "
+                  f"{r['step_ms_plain']:.2f} ms plain (first step {r['first_step_ms_parallel']:.1f} / "
+                  f"{r['first_step_ms_plain']:.1f}); distances parallel-plain {d_par:.3g}, plain-plain {d_repeat:.3g}; "
+                  f"loss rel {r['loss_rel']:.3g}, params {r['max_param_diff']:.3g}, embed {r['max_embed_diff']:.3g}; "
+                  f"launches a step {par['launches'][-1]}; failures {r['failures']}")
+            out[name] = r
+    return out
+
+
+def _parallel_ranks(device, cases: dict, world: int = 2, workdir=None, timeout: float = 600.0) -> dict:
+    """Phase (b): ``cases`` in ``world`` gloo processes (on one card, when
+    ``device`` is one), each held against its 1-rank run in this process
+    (:func:`dp_compare`) -> each case's comparison."""
+    import tempfile
+
+    refs, out = {}, {}
+
+    def one_rank_runs():
+        with deterministic():
+            for base in sorted({case["ref"] or name for name, case in cases.items()}):
+                refs[base] = dp_run(dp_trainer(cases[base]["family"], cases[base]["cfg"], device), cases[base],
+                                    record=True, blocks=world)
+
+    with contextlib.ExitStack() as stack:
+        if workdir is None:
+            workdir = stack.enter_context(tempfile.TemporaryDirectory())
+        print(f"[parallel] (b) {len(cases)} cases in {world} gloo processes on {device} (their logs: {workdir})",
+              flush=True)
+        ranks = dp_launch(cases, device, world, workdir, timeout=timeout, meanwhile=one_rank_runs)
+    for name, case in cases.items():
+        cmp = dp_compare(refs[case["ref"] or name], [r[name] for r in ranks], case["family"], dp_lr(case["cfg"]),
+                         case["held"], ties=torch.device(device).type == "cuda")
+        cmp["launches_rank0"] = ranks[0][name]["launches"]
+        print(f"[parallel] (b) {name}: {world} gloo ranks against 1 rank, {case['steps']} steps of "
+              f"{tuple(case['x'].shape)} (accum {case['cfg'].accum_steps}, fault {case['fault']}): loss rel "
+              f"{cmp['loss_rel']:.3g}, params {cmp['max_param_diff']:.3g} ({cmp['unresolved']} elements held to "
+              f"Adam's bound), embed {cmp['max_embed_diff']:.3g} over the entries no parted code moved (moved: "
+              f"{cmp['moved_entries']}, {cmp['moved_share']:.3g} of them, limit {DP_LIMITS['moved_share']}), "
+              f"near-ties {cmp['near_ties']}; failures {cmp['failures'][:4]}")
+        out[name] = cmp
+    return out
+
+
+def _parallel_serving(device, dtype=torch.bfloat16, n_files=8, seconds=10.0, extract_files=4,
+                      extract_seconds=(1.0, 3.0), preset=FLAGSHIP, hifi_preset=HIFI, hifi_overrides=None,
+                      **overrides) -> dict:
+    """Phase (c): ``compress_batch`` over ``devices=[device]`` against the plain
+    compressor (blobs byte-identical, the same launches), and ``cli.extract_tokens
+    --data_parallel`` against the plain batched run (tokens identical)."""
+    import dataclasses
+    import tempfile
+
+    from academicodec_tpu_torch.cli import extract_tokens
+    from academicodec_tpu_torch.data.wavio import write_wav
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    batch = seeded_wav(n_files, int(round(seconds * model.sample_rate)), "cpu", seed=4)
+    wavs = [row.numpy() for row in batch]
+    spread_codebooks(model, latent_frames(model, batch[:2]))
+    out = {}
+    for tag, comp in (("plain", SoundStreamCompressor(model)), ("parallel", SoundStreamCompressor(model, devices=[device]))):
+        comp.compress_batch(wavs)  # warm-up
+        if on_card:
+            torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        blobs = comp.compress_batch(wavs)
+        out[f"compress_{tag}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"compress_{tag}_launches"] = read_launches()
+        out[f"compress_{tag}_blobs"] = blobs
+    same = out.pop("compress_plain_blobs") == out.pop("compress_parallel_blobs")
+    out["compress_blobs_identical"] = same
+    del model
+    model, ewavs, _lengths = extract_corpus(device, extract_files, *extract_seconds, hifi_preset, **(hifi_overrides or {}))
+    sr = model.config.sampling_rate
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "wavs"))
+        for i, w in enumerate(ewavs):
+            write_wav(os.path.join(tmp, "wavs", f"f{i}.wav"), w, sr)
+        ckpt, config = os.path.join(tmp, "g_00000000"), os.path.join(tmp, "config.json")
+        torch.save({part: getattr(model, part).state_dict() for part in ("encoder", "generator", "quantizer")}, ckpt)
+        with open(config, "w") as fh:
+            json.dump(dataclasses.asdict(model.config), fh)
+        del model
+        flags = ["--config", config, "--model_path", ckpt, "--input", os.path.join(tmp, "wavs"), "--batch_files",
+                 str(extract_files), "--bucket_seconds", str(extract_seconds[1]), "--device", str(device)]
+        tokens = {}
+        for tag, extra in (("plain", []), ("parallel", ["--data_parallel"])):
+            reset_launches()
+            t0 = time.perf_counter()
+            tokens[tag] = extract_tokens.main(flags + ["--outputdir", os.path.join(tmp, tag), *extra])
+            out[f"extract_{tag}_s"] = time.perf_counter() - t0
+            out[f"extract_{tag}_launches"] = read_launches()
+    out["extract_tokens_identical"] = tokens["plain"].keys() == tokens["parallel"].keys() and all(
+        np.array_equal(tokens["plain"][k], tokens["parallel"][k]) for k in tokens["plain"])
+    print(f"[parallel] (c) compress_batch {n_files} x {seconds} s {preset} {dtype}: devices=[{device}] "
+          f"{out['compress_parallel_ms']:.2f} ms vs plain {out['compress_plain_ms']:.2f} ms (host clock), blobs "
+          f"identical {same}, launches {out['compress_parallel_launches']} / {out['compress_plain_launches']}; "
+          f"extract_tokens --data_parallel {extract_files} files: tokens identical {out['extract_tokens_identical']}, "
+          f"launches {out['extract_parallel_launches']} / {out['extract_plain_launches']}, "
+          f"{out['extract_parallel_s']:.2f} s vs {out['extract_plain_s']:.2f} s")
+    if not (same and out["extract_tokens_identical"]
+            and out["compress_parallel_launches"] == out["compress_plain_launches"]
+            and out["extract_parallel_launches"] == out["extract_plain_launches"]):
+        raise AssertionError(f"parallel (c): {out}")
+    return out
+
+
+def parallel_cases_world1(device, encodec=TRAIN_RECIPE, enc_batch=16, enc_seconds=1.0, enc_steps=4, hifi_model=None,
+                          hifi_discs=HIFI_TRAIN_DISCS, hifi_batch=10, hifi_samples=16000, hifi_steps=3) -> dict:
+    """Phase (a)'s cases: the Encodec trainer at ``encodec``'s width (an init step,
+    then ``enc_steps - 1``), the HiFi-Codec trainer at ``hifi_model``'s (the
+    recipe's by default, or overrides of it, or a ``HiFiCodecConfig``), f32."""
+    from academicodec_tpu_torch.train.encodec import EncodecTrainConfig
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig
+
+    enc_cfg = EncodecTrainConfig(**encodec)
+    x = seeded_wav(enc_batch, int(round(enc_seconds * enc_cfg.sr)), device, seed=5)
+    model = hifi_recipe(**(hifi_model or {}))[0] if isinstance(hifi_model, (dict, type(None))) else hifi_model
+    hifi_cfg = HiFiCodecTrainConfig(model=model, **hifi_discs)
+    y = seeded_wav(hifi_batch, hifi_samples, device, seed=6)
+    return {"encodec": dp_case("encodec", enc_cfg, x, enc_steps), "hifi": dp_case("hifi", hifi_cfg, y, hifi_steps)}
+
+
+def dp_batch(batch: int, samples: int, device, seed: int) -> torch.Tensor:
+    """Seeded noise whose rows fall from 0.1 to 0.01 in level, as loud and quiet
+    files share a corpus: each rank's rows then have their own ``mean|r|``, which a
+    rank-local feature-loss normaliser would show."""
+    gains = torch.logspace(0, -1, batch)[:, None]
+    return (seeded_wav(batch, samples, "cpu", seed=seed) * gains).to(device)
+
+
+def parallel_cases_ranks(device, encodec=TRAIN_CROSS, enc_batch=16, enc_seconds=0.5, enc_steps=2,
+                         hifi_model=HIFI_CROSS_MODEL, hifi_discs=HIFI_CROSS_DISCS, hifi_batch=4, hifi_samples=6400,
+                         hifi_steps=2, accum=(2,), faults=(), held=None) -> dict:
+    """Phase (b)'s cases, the first two for each ``accum_steps`` of ``accum``,
+    the others for the last:
+
+    * ``encodec_init_k*``: the Encodec trainer's k-means init step
+      (:data:`DP_HELD_UPDATE`);
+    * ``encodec_k*``: two steps from the state after a plain init step, its
+      codebooks spread and a dead entry a layer (:func:`dp_case`), at the
+      trainer's learning rate (:data:`DP_HELD_UPDATE`);
+    * ``encodec_k*_lr0``: one such step at learning rate 0 (:data:`DP_HELD_ALL`:
+      every search's codes and the codebooks' EMA state too);
+    * ``hifi_k*``: the HiFi-Codec trainer, two steps (:data:`DP_HELD_UPDATE`).
+
+    ``held`` (the CPU: :data:`DP_HELD_ALL`) replaces what each holds. Then the
+    Encodec trainer again under each fault of ``faults``, held as the case of
+    the last ``accum`` that shows it (``local_norm`` the update's loss,
+    ``no_ema`` and ``local_split`` the codebooks at learning rate 0).
+    An Encodec microbatch keeps several frames a codebook entry, else k-means
+    leaves entries that tie exactly. The rows fall in level
+    (:func:`dp_batch`), so that each rank's ``mean|r|`` differs."""
+    import dataclasses
+
+    from academicodec_tpu_torch.train.encodec import EncodecTrainConfig
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig
+
+    enc_cfg = EncodecTrainConfig(**encodec)
+    x = dp_batch(enc_batch, int(round(enc_seconds * enc_cfg.sr)), device, seed=7)
+    hifi_cfg = HiFiCodecTrainConfig(model=hifi_recipe(**hifi_model)[0] if isinstance(hifi_model, dict) else hifi_model,
+                                    **hifi_discs)
+    y = dp_batch(hifi_batch, hifi_samples, device, seed=8)
+    cases = {}
+    for k in accum:
+        enc_k = dataclasses.replace(enc_cfg, accum_steps=k)
+        cases[f"encodec_init_k{k}"] = dp_case("encodec", enc_k, x, 1, held=held or DP_HELD_UPDATE)
+        cases[f"encodec_k{k}"] = dp_case("encodec", enc_k, x, enc_steps, held=held or DP_HELD_UPDATE, inited=True)
+    cases[f"encodec_k{k}_lr0"] = dp_case("encodec", dataclasses.replace(enc_k, lr=0.0), x, 1, inited=True,
+                                         held=held or DP_HELD_ALL)
+    cases[f"hifi_k{k}"] = dp_case("hifi", dataclasses.replace(hifi_cfg, accum_steps=k), y, hifi_steps,
+                                  held=held or DP_HELD_UPDATE)
+    for fault in faults:
+        base = f"encodec_k{accum[-1]}" + ("" if fault == "local_norm" else "_lr0")
+        cases[f"encodec_{fault}"] = dict(cases[base], fault=fault, ref=base)
+    return cases
+
+
+def phase_parallel(device="cuda", world1=None, ranks=None, serving=None) -> dict:
+    """Data parallelism of the port (``parallel/``, ``--multihost``,
+    ``--data_parallel``) on one card: (a) both GAN trainers at full width
+    through the data-parallel code in an NCCL group of world 1 against the
+    plain code (:func:`_parallel_world1`); (b) two gloo processes on the card at
+    the cross-check's width with ``accum_steps`` 2, against one rank
+    (:func:`_parallel_ranks`); (c) data-parallel serving (:func:`_parallel_serving`).
+    ``world1``, ``ranks``, ``serving``: overrides of each part's cases or
+    arguments."""
+    t0 = time.perf_counter()
+    result = dict(world1=_parallel_world1(device, cases=parallel_cases_world1(device, **(world1 or {}))))
+    result["ranks"] = _parallel_ranks(device, parallel_cases_ranks(device, **(ranks or {})))
+    result["serving"] = _parallel_serving(device, **(serving or {}))
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"[parallel] the phase {result['wall_s']:.1f} s ({nvidia_smi() if torch.device(device).type == 'cuda' else 'cpu'})")
+    failed = {f"{part} {k}": v["failures"] for part in ("world1", "ranks") for k, v in result[part].items()
+              if v["failures"]}
+    if failed:
+        raise AssertionError(f"parallel: {failed}")
+    return result
+
+
 def probe_bounds() -> list:
     """The bounds of ``benchmarks/pallas_int8_probe.py``'s two Pallas kernels (on
     no path of the package, not ported) at its four cases: 6 convs of k 7 over
@@ -3405,6 +4099,7 @@ def main() -> int:
     evaluate = phase_evaluate(device)
     native = phase_native_loader({"train_encodec": train["f32"]["launches_step"],
                                   "train_hificodec": train_hifi["f32"]["launches_step"]}, device)
+    parallel = phase_parallel(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
@@ -3416,6 +4111,9 @@ def main() -> int:
         k["launches_train_lm_step"] = train_lm["launches_step"][name]
         k["launches_evaluate_compress"] = evaluate["encodec"]["launches"][name]
         k["launches_native_loader_train_steps"] = [s[name] for s in native["train_encodec"]["launches_steps"]]
+        k["launches_train_dp_init_step"] = parallel["world1"]["encodec"]["launches_parallel"][0][name]
+        k["launches_train_dp_step"] = parallel["world1"]["encodec"]["launches_parallel"][-1][name]
+        k["launches_dp_compress"] = parallel["serving"]["compress_parallel_launches"][name]
     k1.update(train["k1_shapes"])
     k2.update(train["k2_shapes"])
     k3["launches"] = hifi["launches"]["resblock_tower"]
@@ -3431,6 +4129,8 @@ def main() -> int:
         k["launches_evaluate_extract"] = evaluate["hificodec"]["launches"][name]
         k["launches_native_loader_train_hifi_steps"] = [
             s[name] for s in native["train_hificodec"]["launches_steps"]]
+        k["launches_train_hifi_dp_step"] = parallel["world1"]["hifi"]["launches_parallel"][-1][name]
+        k["launches_dp_extract"] = parallel["serving"]["extract_parallel_launches"][name]
         tag = "k3" if k is k3 else "k4"
         k["train_hifi_shapes"] = {c: v for c, v in train_hifi["towers"].items() if c.startswith(tag)}
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
@@ -3451,6 +4151,7 @@ def main() -> int:
     print(f"[train_lm] {json.dumps(train_lm)}")
     print(f"[evaluate] {json.dumps(evaluate)}")
     print(f"[native_loader] {json.dumps(native)}")
+    print(f"[parallel] {json.dumps(parallel)}")
     print(f"[probe_bounds] {json.dumps(probe_bounds())}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)

@@ -1056,3 +1056,46 @@ def test_native_loader_trainer_steps_on_the_card(cuda, family, tmp_path):
     out = chip_smoke._native_pair(family, trainer_cls, run, steady)
     assert out["steps"] == 2 and out["batches_equal"] and out["first_step_loss_rel"] <= chip_smoke.NATIVE_LOSS_RTOL
     assert out["steady_steps"] == ([1] if family == "encodec" else [0, 1])
+
+
+@pytest.mark.parametrize("family", ["encodec", "hifi"])
+def test_data_parallel_step_in_an_nccl_group_of_one(cuda, family):
+    """The trainers' data-parallel code in an NCCL group of this process alone,
+    at a tiny width, against the plain code from one state with the same draws
+    (chip_smoke phase ``parallel`` (a)): JAX's contract, no farther from the
+    plain run than a repeat of it, equal K1-K4 launches a step."""
+    import chip_smoke
+    from academicodec_tpu_torch.train.hificodec import HiFiCodecTrainConfig  # noqa: F401 (the cases build it)
+
+    cases = chip_smoke.parallel_cases_world1(
+        cuda, encodec=dict(sr=16000, ratios=(8, 5, 4, 2), target_bandwidths=(1, 2), n_filters=4, dimension=32,
+                           bins=16, mel_scale_powers=(6, 7), stft_filters=8, stft_n_ffts=(256,), mpd_periods=(2, 3),
+                           msd_scales=1),
+        enc_batch=4, enc_seconds=0.4, enc_steps=2,
+        hifi_model=dict(upsample_initial_channel=128, encoder_base_channels=8), hifi_discs=chip_smoke.HIFI_CROSS_DISCS,
+        hifi_batch=2, hifi_samples=6400, hifi_steps=2)
+    out = chip_smoke._parallel_world1(cuda, cases={family: cases[family]})[family]
+    assert out["failures"] == [], out["failures"]
+    assert out["distance_parallel_vs_plain"] <= out["distance_plain_repeat"]
+    assert out["launches_parallel"] == out["launches_plain"] and any(out["launches_parallel"][-1].values())
+    assert not torch.distributed.is_initialized()
+
+
+def test_data_parallel_compressor_on_the_card_gives_the_plain_blobs(cuda):
+    """``SoundStreamCompressor(devices=[cuda:0])`` against the plain compressor,
+    a tiny SoundStream in bf16: blobs byte-identical, K1 and K2 launched as often
+    (once each: the encoder's search and SLSTM)."""
+    import chip_smoke
+    from academicodec_tpu_torch.codec.compress import SoundStreamCompressor
+
+    model = SoundStream(n_filters=8, dimension=64, ratios=(8, 5, 4, 2), sample_rate=16000,
+                        target_bandwidths=(1, 2, 4), device=cuda, dtype=torch.bfloat16, seed=1)
+    batch = chip_smoke.seeded_wav(4, 16000, "cpu", seed=2)
+    chip_smoke.spread_codebooks(model, chip_smoke.latent_frames(model, batch))
+    wavs = [row.numpy() for row in batch]
+    blobs = []
+    for comp in (SoundStreamCompressor(model), SoundStreamCompressor(model, devices=[torch.device("cuda", 0)])):
+        before = (rvq_ops.LAUNCHES, lstm_ops.LAUNCHES)
+        blobs.append(comp.compress_batch(wavs))
+        assert (rvq_ops.LAUNCHES - before[0], lstm_ops.LAUNCHES - before[1]) == (1, 1)
+    assert blobs[0] == blobs[1]

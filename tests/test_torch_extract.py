@@ -41,6 +41,7 @@ from academicodec_tpu_torch.utils.convert import hificodec_state_from_jax
 from academicodec_tpu_torch.utils.fold import fold_soundstream, fold_vqvae
 from test_torch_hificodec import _spread_codebooks
 from test_torch_soundstream import OPERATING_POINTS, _jax_model, _port_model, _test_wav
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # encoder stages of 32 and 64 channels (K4, with lengths) and 128 (the
 # unfused masked stage); generator stages of 64 and 32 channels (K3)
@@ -195,7 +196,7 @@ def test_extract_tokens_cli_matches_jax_batched_and_sequential(corpus, tmp_path,
 @pytest.mark.parametrize("extra,message", [
     (["--lm", "lm_dir"], "pass --tokens_ecdc"),
     (["--lm", "no_such_lm_dir", "--tokens_ecdc", "x"], "no LM checkpoint"),
-    (["--data_parallel", "--batch_files", "2", "--bucket_seconds", "1"], "Queue 1 item 9"),
+    (["--sequence_parallel", "--bucket_seconds", "1"], "Queue 1 item 9"),  # 9d; --data_parallel is ported
     (["--sequence_parallel"], "Queue 1 item 9"),
     (["--batch_files", "2"], "needs --bucket_seconds"),
 ])

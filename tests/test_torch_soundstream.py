@@ -29,6 +29,7 @@ from academicodec_tpu_torch import api
 from academicodec_tpu_torch.models import presets
 from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.utils.convert import soundstream_state_from_jax
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def with_spread_codebooks(model, variables, wav, seed: int = 0) -> dict:

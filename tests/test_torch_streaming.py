@@ -32,6 +32,7 @@ from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
 from academicodec_tpu_torch.utils.convert import hificodec_state_from_jax, soundstream_state_from_jax
 from test_torch_soundstream import assert_tokens_follow_the_wav, with_spread_codebooks
+from tests.test_torch_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 SS_KW = dict(n_filters=4, dimension=32, ratios=(8, 5, 4, 2), sample_rate=16000,
              target_bandwidths=(1, 2, 4), causal=True, pad_mode="zero")

@@ -137,10 +137,20 @@ def test_train_cli_one_epoch_resume_and_serve(tmp_path):
     assert all(model.quantizer.vq.inited_layers()[:1])
 
 
-def test_train_cli_refuses_what_is_not_ported():
+def test_train_cli_refuses_what_is_not_ported(monkeypatch):
+    """``--multihost`` is refused without a torchrun environment (it is ported:
+    tests/test_torch_parallel_cli.py runs it under torch.distributed.run)."""
     base = ["--train_data_path", ".", "--valid_data_path", "."]
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit):
         train_encodec.get_args(base + ["--multihost"])
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(SystemExit):  # a partial environment is refused too
+        train_encodec.get_args(base + ["--multihost"])
+    for k, v in (("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    assert train_encodec.get_args(base + ["--multihost"]).multihost
     assert train_encodec.get_args(base + ["--native_loader"]).native_loader
     with pytest.raises(SystemExit):
         train_encodec.get_args(base + ["--batch_size", "6", "--accum_steps", "4"])

@@ -109,10 +109,18 @@ def test_fine_tuning_on_mel_crops(corpus):
         open(out / "logs" / "log.txt").read()
 
 
-def test_unported_flags_refuse():
+def test_unported_flags_refuse(monkeypatch):
+    """``--multihost`` is refused without a torchrun environment (it is ported:
+    tests/test_torch_parallel_cli.py runs it under torch.distributed.run)."""
     base = ["--config", "c", "--input_training_file", "a", "--input_validation_file", "b"]
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     with pytest.raises(SystemExit):
         train_hificodec.get_args(base + ["--multihost"])
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"), ("MASTER_ADDR", "127.0.0.1"),
+                 ("MASTER_PORT", "1")):
+        monkeypatch.setenv(k, v)
+    assert train_hificodec.get_args(base + ["--multihost"]).multihost
     assert train_hificodec.get_args(base + ["--native_loader"]).native_loader
     with pytest.raises(SystemExit):
         train_hificodec.get_args(["--config", "c", "--input_training_file", "a", "--input_validation_file", "b",
