@@ -25,11 +25,16 @@ for ``--device cuda``, or the comma-separated list ``--device`` gives
 byte-identical to one device's. ``--batch_files`` must be a multiple of the
 device count, as in the JAX CLI.
 
+``--sequence_parallel`` instead cuts each file's time axis into one block a
+device (``SoundStreamCompressor(devices=, shard_axis="time")``,
+``parallel/sequence.py``), for few long files; ``--device`` lists the devices
+the same way, and may name one several times. Blobs are byte-identical to
+one device's.
+
 Not ported: the JAX trainer's orbax checkpoint directories (the port's
-trainer writes ``.pt`` files instead) and ``--sequence_parallel``
-(time-sharded serving, ROADMAP.md Queue 1 item 9d), which is refused.
-``--packed_conv`` selects a TPU lowering; the port accepts it and runs its
-one path.
+trainer writes ``.pt`` files instead). ``--packed_conv`` selects a TPU
+lowering; the port accepts it and runs its one path (and, as the JAX CLI,
+refuses it with ``--sequence_parallel``).
 """
 
 from __future__ import annotations
@@ -86,10 +91,12 @@ def get_args(argv=None):
                         "cuda), one model replica a device; --batch_files must be a multiple of the device "
                         "count. Blobs stay byte-identical to one device's")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="time-sharded serving: not ported yet (ROADMAP.md Queue 1 item 9d)")
+                   help="cut each file's time axis into one block per device of --device (every visible card "
+                        "for cuda), with halo exchanges between neighbours: the mode for few long files. "
+                        "Blobs stay byte-identical to one device's. Excludes --data_parallel")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; the card unless cpu is asked for. With --data_parallel, a "
-                        "comma-separated device list, or cuda for every visible card")
+                   help="torch device; the card unless cpu is asked for. With --data_parallel or "
+                        "--sequence_parallel, a comma-separated device list, or cuda for every visible card")
     args = p.parse_args(argv)
     # the JAX CLI's checks (academicodec_tpu/cli/compress.py:84-94)
     if args.sequence_parallel and args.data_parallel:
@@ -99,10 +106,8 @@ def get_args(argv=None):
         p.error("--sequence_parallel needs the plain lowering: drop --packed_conv")
     if args.data_parallel and args.batch_files < 2:
         p.error("--data_parallel needs --batch_files >= the device count (one batch row per device at minimum)")
-    if args.sequence_parallel:
-        p.error("--sequence_parallel: time-sharded serving is not ported yet (ROADMAP.md Queue 1 item 9d)")
-    if "," in args.device and not args.data_parallel:
-        p.error("--device lists several devices only with --data_parallel")
+    if "," in args.device and not (args.data_parallel or args.sequence_parallel):
+        p.error("--device lists several devices only with --data_parallel or --sequence_parallel")
     if args.lm and not os.path.exists(args.lm):
         p.error(f"--lm: no LM checkpoint at {args.lm}")
     if args.batch_files > 1 and not args.bucket_seconds:
@@ -188,8 +193,8 @@ def build_model(args, device=None) -> SoundStream:
 
 def main(argv=None):
     args = get_args(argv)
-    devices = serving_devices(args.device) if args.data_parallel else None
-    if devices and args.batch_files % len(devices):
+    devices = serving_devices(args.device) if args.data_parallel or args.sequence_parallel else None
+    if args.data_parallel and args.batch_files % len(devices):
         sys.exit(f"--batch_files {args.batch_files} must be a multiple of the device count ({len(devices)}) "
                  "for --data_parallel")
     device = devices[0] if devices else args.device
@@ -203,7 +208,7 @@ def main(argv=None):
             sys.exit(f"--lm: {e}")
         lm_trained_frames = lm_meta.get("trained_frames")
     compressor = SoundStreamCompressor(model, target_bw=args.target_bw, bucket_seconds=args.bucket_seconds, lm=lm,
-                                       devices=devices)
+                                       devices=devices, shard_axis="time" if args.sequence_parallel else "batch")
     os.makedirs(args.output, exist_ok=True)
     names = sorted(f for f in os.listdir(args.input) if f.endswith(".wav"))
     warned_lm_len = False

@@ -36,11 +36,17 @@ replicas on the CPU). The masked encode is pointwise over the batch, so the
 tokens equal one device's. ``--batch_files`` must be a multiple of the
 device count.
 
-Not ported yet: ``--sequence_parallel`` (time-sharded serving, ROADMAP.md
-Queue 1 item 9d), which is refused, and orbax checkpoint directories. The
-JAX CLI's ``--packed_conv`` and ``--fused_resblock`` choose TPU lowerings;
-the port accepts them and runs its one path, in which the narrow stages
-always take the fused towers.
+``--sequence_parallel`` serves one file a call with its time axis cut into
+one block a device (``parallel/sequence.TimeShardedVQVAE``), for few long
+files: the encoder's GroupNorm statistics are summed over the blocks, the
+rest moves data only. ``--device`` lists the devices as with
+``--data_parallel`` and may name one several times; with
+``--bucket_seconds`` each file is encoded with its length, as above.
+
+Not ported: orbax checkpoint directories. The JAX CLI's ``--packed_conv``
+and ``--fused_resblock`` choose TPU lowerings; the port accepts them and
+runs its one path, in which the narrow stages always take the fused towers
+(and, as the JAX CLI, refuses them with ``--sequence_parallel``).
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from academicodec_tpu_torch.models.hificodec import VQVAE, calibrate_quant
 from academicodec_tpu_torch.models.lm import load_lm
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.parallel.mesh import module_replicas, serving_devices, split_rows
+from academicodec_tpu_torch.parallel.sequence import TimeShardedVQVAE
 from academicodec_tpu_torch.utils.fold import fold_vqvae
 
 
@@ -107,10 +114,13 @@ def get_args(argv=None):
                         "one model replica a device; --batch_files must be a multiple of the device count. "
                         "Tokens stay equal to one device's")
     p.add_argument("--sequence_parallel", action="store_true",
-                   help="time-sharded serving: not ported yet (ROADMAP.md Queue 1 item 9d)")
+                   help="cut each file's time axis into one block per device of --device (every visible card "
+                        "for cuda), with halo exchanges between neighbours and the encoder's GroupNorm "
+                        "statistics summed over the blocks: the mode for few long files. One file a call "
+                        "(no --batch_files)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; the card unless cpu is asked for. With --data_parallel, a "
-                        "comma-separated device list, or cuda for every visible card")
+                   help="torch device; the card unless cpu is asked for. With --data_parallel or "
+                        "--sequence_parallel, a comma-separated device list, or cuda for every visible card")
     args = p.parse_args(argv)
     if args.lm and not args.tokens_ecdc:
         p.error("--lm entropy-codes --tokens_ecdc blobs: pass --tokens_ecdc")
@@ -123,10 +133,8 @@ def get_args(argv=None):
         p.error("--sequence_parallel shards time, not batch: drop --batch_files/--data_parallel")
     if args.sequence_parallel and (args.packed_conv or args.fused_resblock):
         p.error("--sequence_parallel needs the plain lowering: drop --packed_conv/--fused_resblock")
-    if args.sequence_parallel:
-        p.error("--sequence_parallel: time-sharded serving is not ported yet (ROADMAP.md Queue 1 item 9d)")
-    if "," in args.device and not args.data_parallel:
-        p.error("--device lists several devices only with --data_parallel")
+    if "," in args.device and not (args.data_parallel or args.sequence_parallel):
+        p.error("--device lists several devices only with --data_parallel or --sequence_parallel")
     if args.batch_files > 1 and not args.bucket_seconds:
         p.error("--batch_files needs --bucket_seconds (uniform padded lengths per device batch)")
     if not os.path.isfile(args.model_path):
@@ -214,9 +222,21 @@ def run_batched(args, model: VQVAE, files, bucket: int, tokens: dict, devices=No
     pipelined_groups(tagged_reads(), lambda wav: -(-len(wav) // bucket), args.batch_files, submit, complete)
 
 
-def run_sequential(args, model: VQVAE, files, bucket, tokens: dict) -> None:
-    """One file a call; with a bucket, padded to whole buckets and encoded with its length."""
+def run_sequential(args, model: VQVAE, files, bucket, tokens: dict, devices=None) -> None:
+    """One file a call; with a bucket, padded to whole buckets and encoded with its length.
+    ``devices``: each file's time axis cut into one block a device (JAX
+    cli/extract_tokens.py:353-411)."""
     hop = model.hop_length
+    if devices:
+        sharded = TimeShardedVQVAE(model, devices)
+
+        def encode(w, lengths=None):
+            return sharded.encode(w, lengths).gather()
+
+        def decode(c):
+            return sharded.decode(c).gather()
+    else:
+        encode, decode = model.encode, model.decode
     for path in files:
         fid = os.path.splitext(os.path.basename(path))[0]
         wav, sr = read_wav(path, sr=args.sample_rate)
@@ -224,18 +244,18 @@ def run_sequential(args, model: VQVAE, files, bucket, tokens: dict) -> None:
         if bucket:
             T = len(wav)
             padded = np.pad(wav, (0, math.ceil(T / bucket) * bucket - T))[None]
-            codes = model.encode(torch.from_numpy(padded), lengths=torch.tensor([T])).cpu().numpy()
+            codes = encode(torch.from_numpy(padded), lengths=torch.tensor([T])).cpu().numpy()
             codes = codes[:, :model.frames_for(T), :]
         else:
-            codes = model.encode(torch.from_numpy(wav[None])).cpu().numpy()
+            codes = encode(torch.from_numpy(wav[None])).cpu().numpy()
         tokens[fid] = codes
         if not args.no_synth:
             n = codes.shape[1]
             if bucket:
                 nb = math.ceil(n / (bucket // hop)) * (bucket // hop)
-                out = model.decode(torch.from_numpy(_edge_padded(codes[0], nb)[None])).cpu().numpy()[0, :n * hop]
+                out = decode(torch.from_numpy(_edge_padded(codes[0], nb)[None])).cpu().numpy()[0, :n * hop]
             else:
-                out = model.decode(torch.from_numpy(codes)).cpu().numpy()[0]
+                out = decode(torch.from_numpy(codes)).cpu().numpy()[0]
             write_wav(os.path.join(args.outputdir, fid + ".wav"), out, sr)
         print(f"{fid}: tokens {codes.shape}")
 
@@ -264,8 +284,8 @@ def main(argv=None) -> dict:
     """Runs the CLI; returns the tokens ``{fid: [1, frames, 4]}``."""
     args = get_args(argv)
     cfg = read_config(args)
-    devices = serving_devices(args.device) if args.data_parallel else None
-    if devices and args.batch_files % len(devices):
+    devices = serving_devices(args.device) if args.data_parallel or args.sequence_parallel else None
+    if args.data_parallel and args.batch_files % len(devices):
         sys.exit(f"--batch_files {args.batch_files} must be a multiple of the device count ({len(devices)}) for "
                  "--data_parallel")
     device = devices[0] if devices else args.device
@@ -291,7 +311,7 @@ def main(argv=None) -> dict:
     if args.batch_files > 1:
         run_batched(args, model, files, bucket, tokens, devices)
     else:
-        run_sequential(args, model, files, bucket, tokens)
+        run_sequential(args, model, files, bucket, tokens, devices)
     if args.tokens_out:
         np.savez(args.tokens_out, **tokens)
         print(f"wrote {len(tokens)} token tensors to {args.tokens_out}")

@@ -18,8 +18,10 @@ batch cut into one equal contiguous block per device, every block enqueued
 on its own device before any is fetched, and the codes gathered to the host
 in order (JAX ``SoundStreamCompressor(mesh=)``, codec/compress.py:116-149,
 ``_shard`` :252-271). The graph is pointwise over the batch, so blobs are
-byte-identical to one device's. Time sharding (JAX ``shard_axis="time"``)
-is not ported yet.
+byte-identical to one device's. ``shard_axis="time"`` instead cuts each
+batch's time axis into one block per device (``parallel/sequence.py``,
+``TimeShardedSoundStream``), for few long files: tokens, and so blobs, stay
+those of one device (JAX codec/compress.py:117-142).
 
 Behavioral parity target: academicodec_tpu/codec/compress.py:31-350.
 """
@@ -41,6 +43,7 @@ from academicodec_tpu_torch.codec.binary import (
 )
 from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, decompress_tokens_with_lm
 from academicodec_tpu_torch.parallel.mesh import module_replicas, split_rows
+from academicodec_tpu_torch.parallel.sequence import TimeShardedSoundStream
 
 
 def compress_codes(codes: np.ndarray, *, bits_per_codebook: int, metadata: dict) -> bytes:
@@ -103,16 +106,21 @@ class SoundStreamCompressor:
     ``lm``: a token LM of the model's streams at ``target_bw``; each blob is
     then LM-coded where that is smaller (:func:`compress_tokens_guarded`).
 
-    ``devices``: serve data-parallel over these devices (module docstring);
-    a batch must then divide by their count.
+    ``devices``: serve over these devices (module docstring), data-parallel
+    (``shard_axis="batch"``; a batch must then divide by their count) or
+    time-sharded (``shard_axis="time"``).
     """
 
     def __init__(self, model, target_bw: Optional[float] = None, bucket_seconds: Optional[float] = None,
-                 lm=None, devices: Optional[Sequence] = None):
+                 lm=None, devices: Optional[Sequence] = None, shard_axis: str = "batch"):
+        if shard_axis not in ("batch", "time"):
+            raise ValueError(f"shard_axis must be 'batch' or 'time', got {shard_axis!r}")
         self.model = model
-        self.replicas = module_replicas(model, devices) if devices else [model]
         self.lm = lm
         self.target_bw = target_bw if target_bw is not None else model.target_bandwidths[-1]
+        time_sharded = bool(devices) and shard_axis == "time"
+        self.sequence = TimeShardedSoundStream(model, devices, self.target_bw) if time_sharded else None
+        self.replicas = module_replicas(model, devices) if devices and not time_sharded else [model]
         self.bucket = None
         if bucket_seconds:
             hop = model.hop_length
@@ -149,8 +157,8 @@ class SoundStreamCompressor:
     def submit_encode(self, wavs: Sequence[np.ndarray], pad_to_batch: Optional[int] = None) -> List[torch.Tensor]:
         """Device half of :meth:`compress_batch`: pad and stack the batch and
         enqueue the encode; returns the codes ``[n_q, B, frames]`` as one block
-        a device, on that device, without waiting for them. Pair with
-        :meth:`pack_submitted`."""
+        a device, on that device (time-sharded: the whole codes on the first
+        device), without waiting for them. Pair with :meth:`pack_submitted`."""
         Ts = [int(w.shape[-1]) for w in wavs]
         Tmax = max(Ts)
         if self.bucket:
@@ -163,6 +171,8 @@ class SoundStreamCompressor:
         if pad_to_batch and len(rows) < pad_to_batch:
             rows += [np.zeros(Tpad, np.float32)] * (pad_to_batch - len(rows))
         batch = torch.from_numpy(np.stack(rows))
+        if self.sequence is not None:
+            return [self.sequence.encode(batch).gather()]
         return [m.encode(batch[blk], target_bw=self.target_bw)
                 for m, blk in zip(self.replicas, split_rows(len(batch), len(self.replicas)))]
 
@@ -205,7 +215,11 @@ class SoundStreamCompressor:
         if pad_to_batch and len(rows) < pad_to_batch:
             rows += [rows[0]] * (pad_to_batch - len(rows))
         codes = torch.from_numpy(np.stack(rows, axis=1))
-        blocks = [m.decode(codes[:, blk]) for m, blk in zip(self.replicas, split_rows(codes.shape[1], len(self.replicas)))]
+        if self.sequence is not None:
+            blocks = [self.sequence.decode(codes).gather()]
+        else:
+            blocks = [m.decode(codes[:, blk])
+                      for m, blk in zip(self.replicas, split_rows(codes.shape[1], len(self.replicas)))]
         wavs = torch.cat([w.float().cpu() for w in blocks]).numpy()
         out = []
         for i, (_, meta) in enumerate(items):

@@ -1608,7 +1608,7 @@ extern "C" int acad_resblock_tower(const void* x, const void* w, const float* bi
 }
 
 // K4 pass 1 and the reduction of its per-tile moments over the tiles; lengths
-// [B] int32 or null
+// [B] int32 or null; mom null: the per-tile partials in part only
 extern "C" int acad_resblock_tower_gn(const void* x, const void* w, const float* bias,
                                       void* outs, float* part, float* mom, const int* lengths,
                                       const int* spec, int B, int C, int T, int TT, int H, int buf,
@@ -1632,9 +1632,21 @@ extern "C" int acad_resblock_tower_gn(const void* x, const void* w, const float*
   } else {
     rc = run_gn_tower_fma<float>(x, w, bias, outs, part, lengths, tw, B, C, T, TT, H, s);
   }
-  if (rc != 0) return rc;
+  if (rc != 0 || mom == nullptr) return rc;
   const int G = tw.G, CM = C * (G + G * (G + 1) / 2), nT = (T + TT - 1) / TT;
   moments_reduce_kernel<<<(B * CM + 255) / 256, 256, 0, s>>>(part, mom, B, nT, CM);
+  return (int)cudaGetLastError();
+}
+
+// K4's moments reduction alone: mom [B, CM] = sum over part [B, nT, CM] in tile
+// order. Time shards that each hold whole tiles of one sequence gather their
+// per-tile partials in the sequence's tile order and reduce them here, so that
+// the moments are the bits of one launch over the whole sequence.
+extern "C" int acad_moments_reduce(const float* part, float* mom, int B, int nT, int CM, void* stream) {
+  if (B < 0 || nT < 0 || CM < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || CM == 0) return 0;
+  moments_reduce_kernel<<<(B * CM + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(part, mom, B, nT,
+                                                                                                 CM);
   return (int)cudaGetLastError();
 }
 

@@ -74,11 +74,11 @@ LRELU_SLOPE = 0.1
 FUSED_MAX_CHANNELS = 64
 
 
-def _lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def _masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return x if mask is None else x * mask
 
 
@@ -171,16 +171,16 @@ class ResBlock1(nn.Module):
         """``mask [B, 1, T]`` (0/1) zeroes every conv's output past the valid
         frames, as the exact-length convs' zero padding would see them."""
         for c1, c2 in zip(self.convs1, self.convs2):
-            xt = _masked(c1(_lrelu(x)), mask)
-            x = _masked(c2(_lrelu(xt)), mask) + x
+            xt = masked(c1(lrelu(x)), mask)
+            x = masked(c2(lrelu(xt)), mask) + x
         return x
 
     def stream(self, x: torch.Tensor, state=None):
         """One chunk of a causal block; ``state`` holds each conv's carried inputs."""
         state = list(state) if state is not None else [None] * (2 * len(self.convs1))
         for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
-            xt, state[2 * i] = c1.stream(_lrelu(x), state[2 * i])
-            xt, state[2 * i + 1] = c2.stream(_lrelu(xt), state[2 * i + 1])
+            xt, state[2 * i] = c1.stream(lrelu(x), state[2 * i])
+            xt, state[2 * i + 1] = c2.stream(lrelu(xt), state[2 * i + 1])
             x = xt + x
         return x, state
 
@@ -201,13 +201,13 @@ class ResBlock2(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         for c in self.convs:
-            x = _masked(c(_lrelu(x)), mask) + x
+            x = masked(c(lrelu(x)), mask) + x
         return x
 
     def stream(self, x: torch.Tensor, state=None):
         state = list(state) if state is not None else [None] * len(self.convs)
         for i, c in enumerate(self.convs):
-            xt, state[i] = c.stream(_lrelu(x), state[i])
+            xt, state[i] = c.stream(lrelu(x), state[i])
             x = xt + x
         return x, state
 
@@ -351,11 +351,23 @@ class HiFiGANEncoder(nn.Module):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
         return [*self.ups, self.conv_post]
 
+    def stage(self, i: int):
+        """Stage ``i``'s resblocks and their GroupNorms."""
+        nk = len(self.rks)
+        return self.resblocks[i * nk:(i + 1) * nk], self.normalize[i * nk:(i + 1) * nk]
+
+    def fused_stage(self, i: int) -> bool:
+        """Whether stage ``i`` is narrow enough for K4."""
+        return self.config.encoder_base_channels * 2 ** (i + 1) <= FUSED_MAX_CHANNELS
+
+    def packed_tower(self, i: int) -> PackedTower:
+        """Stage ``i``'s resblocks packed for K4 (kept until a weight changes)."""
+        return self._packed[i].get(self.stage(i)[0], self.rks, self.rds, self.config.resblock)
+
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x [B, 1, T]``; ``lengths [B]``: the valid samples of each row of a
         zero-padded batch (the length-masked encode; frames past a row's
         valid output frames are not meaningful)."""
-        nk = len(self.rks)
         x = self.conv_pre(x)
         L = mask = None
         if lengths is not None:
@@ -363,29 +375,32 @@ class HiFiGANEncoder(nn.Module):
             mask = frame_mask(L, x.shape[2]).to(x.dtype)
             x = x * mask  # the conv's bias leaks into the pad frames
         for i, (ups, (u, k)) in enumerate(zip(self.ups, self.ups_cfg)):
-            x = ups(_lrelu(x))
+            x = ups(lrelu(x))
             if L is not None:
                 L = (L + 2 * ((k - u) // 2) - k) // u + 1  # a strided conv's output length
                 mask = frame_mask(L, x.shape[2]).to(x.dtype)
                 x = x * mask
-            ch = x.shape[1]
-            blocks = self.resblocks[i * nk:(i + 1) * nk]
-            norms = self.normalize[i * nk:(i + 1) * nk]
-            if ch <= FUSED_MAX_CHANNELS and not _records_grad(x, *blocks, *norms):
-                packed = self._packed[i].get(blocks, self.rks, self.rds, self.config.resblock)
-                x = resblock_tower_gn(
-                    x, packed, None,
-                    torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
-                    num_groups=ch // 16, epsilon=1e-6, lengths=L,
-                )
-                continue
-            xs = None
-            for rb, gn in zip(blocks, norms):
-                r = rb(x, mask)
-                # the reference normalizes the accumulated sum (models.py:410-415)
-                xs = _masked(gn(r if xs is None else xs + r, mask, L), mask)
-            x = xs / nk
-        return self.conv_post(_lrelu(x, 0.01))  # default torch slope (models.py:417)
+            x = self.stage_forward(i, x, mask, L)
+        return self.conv_post(lrelu(x, 0.01))  # default torch slope (models.py:417)
+
+    def stage_forward(self, i: int, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                      L: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Stage ``i``'s resblocks and chained GroupNorms over ``x``, the output of
+        its strided conv; ``mask [B, 1, T]`` and ``L [B]``: the valid frames of a
+        length-masked encode."""
+        blocks, norms = self.stage(i)
+        if self.fused_stage(i) and not _records_grad(x, *blocks, *norms):
+            return resblock_tower_gn(
+                x, self.packed_tower(i), None,
+                torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
+                num_groups=x.shape[1] // 16, epsilon=1e-6, lengths=L,
+            )
+        xs = None
+        for rb, gn in zip(blocks, norms):
+            r = rb(x, mask)
+            # the reference normalizes the accumulated sum (models.py:410-415)
+            xs = masked(gn(r if xs is None else xs + r, mask, L), mask)
+        return xs / len(blocks)
 
 
 class HiFiGANGenerator(nn.Module):
@@ -437,37 +452,49 @@ class HiFiGANGenerator(nn.Module):
         """The convs the JAX package draws from N(0, 0.01^2) (nn/hifigan.py:35-37)."""
         return [_inner_conv(m) for m in (*self.ups, self.conv_post)]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stage(self, i: int):
+        """Stage ``i``'s resblocks."""
+        nk = len(self.config.resblock_kernel_sizes)
+        return self.resblocks[i * nk:(i + 1) * nk]
+
+    def fused_stage(self, i: int) -> bool:
+        """Whether stage ``i`` is narrow enough for K3 (never for a causal generator)."""
         h = self.config
-        nk = len(h.resblock_kernel_sizes)
-        ks = tuple(h.resblock_kernel_sizes)
-        dss = tuple(tuple(d) for d in h.resblock_dilation_sizes)
+        return h.upsample_initial_channel // 2 ** (i + 1) <= FUSED_MAX_CHANNELS and not h.causal
+
+    def packed_tower(self, i: int, post=None, pre=None) -> PackedTower:
+        """Stage ``i``'s resblocks packed for K3, with the ``conv_post`` fused
+        behind them and the upsampling ``ConvTranspose1d`` in front (kept until a
+        weight changes)."""
+        h = self.config
+        return self._packed[i].get(self.stage(i), tuple(h.resblock_kernel_sizes),
+                                   tuple(tuple(d) for d in h.resblock_dilation_sizes), h.resblock, post, pre)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        nk = len(self.config.resblock_kernel_sizes)
         x = self.conv_pre(x)
         n_up = len(self.ups)
         for i, ups in enumerate(self.ups):
-            blocks = self.resblocks[i * nk:(i + 1) * nk]
-            cout = h.upsample_initial_channel // 2 ** (i + 1)
+            blocks = self.stage(i)
             last = i == n_up - 1
-            if cout <= FUSED_MAX_CHANNELS and not h.causal and not _records_grad(
-                    x, *blocks, ups, self.conv_post if last else None):
+            if self.fused_stage(i) and not _records_grad(x, *blocks, ups, self.conv_post if last else None):
                 # conv_post and tanh run inside the last tower; with fused_pre
                 # lrelu and the upsampling convT run in front of it
                 post = self.conv_post if last else None
                 pre = ups if self.fused_pre else None
                 if pre is None:
-                    x = ups(_lrelu(x))
-                packed = self._packed[i].get(blocks, ks, dss, h.resblock, post, pre)
-                x = resblock_tower(x, packed, post_tanh=post is not None)
+                    x = ups(lrelu(x))
+                x = resblock_tower(x, self.packed_tower(i, post, pre), post_tanh=post is not None)
                 if post is not None:
                     return x
                 continue
-            x = ups(_lrelu(x))
+            x = ups(lrelu(x))
             xs = None
             for rb in blocks:
                 r = rb(x)
                 xs = r if xs is None else xs + r
             x = xs / nk
-        return torch.tanh(self.conv_post(_lrelu(x)))
+        return torch.tanh(self.conv_post(lrelu(x)))
 
     def stream(self, x: torch.Tensor, state=None):
         """One chunk of latent frames ``[B, latent_dim, frames]`` (any count) and
@@ -482,11 +509,11 @@ class HiFiGANGenerator(nn.Module):
         ups_states, res_states = list(ups_states), list(res_states)
         x, pre = self.conv_pre.stream(x, pre)
         for i, ups in enumerate(self.ups):
-            x, ups_states[i] = ups.stream(_lrelu(x), ups_states[i])
+            x, ups_states[i] = ups.stream(lrelu(x), ups_states[i])
             xs = None
             for j in range(i * nk, (i + 1) * nk):
                 r, res_states[j] = self.resblocks[j].stream(x, res_states[j])
                 xs = r if xs is None else xs + r
             x = xs / nk
-        y, post = self.conv_post.stream(_lrelu(x), post)
+        y, post = self.conv_post.stream(lrelu(x), post)
         return torch.tanh(y), (pre, ups_states, res_states, post)

@@ -47,6 +47,8 @@ _ENTRIES = {
     "acad_resblock_tower": (_I, [_P] * 8 + [_IP] + [_I] * 13 + [_P]),
     # x, w, bias, outs, part, mom, lengths, spec, B, C, T, TT, H, buf, smem, bf16, stream
     "acad_resblock_tower_gn": (_I, [_P] * 7 + [_IP] + [_I] * 8 + [_P]),
+    # part, mom, B, nT, CM, stream
+    "acad_moments_reduce": (_I, [_P, _P, _I, _I, _I, _P]),
     # mom, scales, biases, lengths, A, K, B, C, G, num_groups, T, eps, stream
     "acad_gn_affine": (_I, [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
     # rs, A, K, lengths, y, B, C, T, G, bf16, stream

@@ -16,6 +16,11 @@ derives the chained GroupNorm affines ``xs_g = GN_g(xs_{g-1} + r_g)`` on
 are read as 0 and written as 0, and the GroupNorm statistics count the valid
 frames only (the JAX package's length-masked encode,
 academicodec_tpu/nn/hifigan.py:318-344, which it runs on its plain lowering).
+A time shard runs K4 in its passes (``parallel/sequence.py``):
+:func:`gn_tower_partials` (pass 1, the per-tile partial moments kept) on
+each shard, :func:`moments_reduce` over every shard's own tiles in the
+sequence's tile order, :func:`gn_tower_affines` once, :func:`gn_tower_apply`
+on each shard.
 
 Chains follow the JAX call order: ResBlock1 convs ``(k, d0), (k, 1), (k, d1),
 (k, 1), ...`` in pairs with a residual add per pair, ResBlock2 one conv per
@@ -766,10 +771,13 @@ def resblock_tower(
     return y
 
 
-def gn_tower_chains(x: torch.Tensor, p: PackedTower, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def gn_tower_chains(x: torch.Tensor, p: PackedTower, lengths=None,
+                    partials: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 of K4 on the card: the chain outputs ``[G, B, C, T]`` and their
-    moments ``[B, C, n_mom]`` (per-tile partials summed in tile order); with
-    ``lengths [B]`` each row at its own length."""
+    moments ``[B, C, n_mom]`` (per-tile partials summed in tile order), or with
+    ``partials`` the per-tile partials ``[B, nT, C, n_mom]`` themselves (the
+    reduction is then not launched); with ``lengths [B]`` each row at its own
+    length. Counts one launch."""
     _check_call(x, p, "resblock_tower_gn")
     if p.pre_weight is not None:
         raise ValueError("resblock_tower_gn: K4 has no prologue")
@@ -781,14 +789,16 @@ def gn_tower_chains(x: torch.Tensor, p: PackedTower, lengths=None) -> Tuple[torc
     L = None if lengths is None else clamp_lengths(lengths, B, T, x.device)
     outs = torch.empty((G, B, C, T), dtype=x.dtype, device=x.device)
     part = torch.empty((B, nT, C, n_mom), dtype=torch.float32, device=x.device)
-    mom = torch.empty((B, C, n_mom), dtype=torch.float32, device=x.device)
+    mom = None if partials else torch.empty((B, C, n_mom), dtype=torch.float32, device=x.device)
     rc = load_library().acad_resblock_tower_gn(
         x.data_ptr(), p.w_all.data_ptr(), p.b_all.data_ptr(), outs.data_ptr(), part.data_ptr(),
-        mom.data_ptr(), None if L is None else L.data_ptr(), p.spec, B, C, T, TT, H, buf, smem,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        None if mom is None else mom.data_ptr(), None if L is None else L.data_ptr(), p.spec, B, C, T, TT, H,
+        buf, smem, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower_gn")
-    return outs, mom
+    global GN_TOWER_LAUNCHES
+    GN_TOWER_LAUNCHES += 1
+    return outs, (part if partials else mom)
 
 
 def gn_affines_cuda(mom, gn_scales, gn_biases, num_groups: int, epsilon: float, T: int, lengths=None):
@@ -870,7 +880,98 @@ def resblock_tower_gn(
         return torch.empty_like(x)
     L = None if lengths is None else clamp_lengths(lengths, B, T, x.device)
     outs, mom = gn_tower_chains(x, p, L)
-    global GN_TOWER_LAUNCHES
-    GN_TOWER_LAUNCHES += 1
     A, K = gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T, L)
     return gn_apply_cuda(outs, A, K, L)
+
+
+# ---------------------------------------------------------------- K4 in passes, for time shards
+
+
+def gn_tile(packed: PackedTower) -> int:
+    """The time steps of one K4 block (``TT``) for these operands: K4 sums its
+    moments tile by tile, ``[t TT, (t + 1) TT)``, whatever ``T``."""
+    return tower_geometry(packed, gn=True)[0]
+
+
+def tile_moments_plain(rs: Sequence[torch.Tensor], TT: int) -> torch.Tensor:
+    """The per-tile partial moments ``[B, nT, C, n_mom]`` (order as
+    :func:`moments`) of chain outputs ``[B, C, T]``: tile ``t`` sums the time
+    steps ``[t TT, (t + 1) TT)``, in f32."""
+    B, C, T = rs[0].shape
+    nT = -(-T // TT)
+    f = [F.pad(r.float(), (0, nT * TT - T)).reshape(B, C, nT, TT) for r in rs]
+    cols = [r.sum(dim=3) for r in f]
+    for g in range(len(f)):
+        for h in range(g, len(f)):
+            cols.append((f[g] * f[h]).sum(dim=3))
+    return torch.stack(cols, dim=3).transpose(1, 2).contiguous()
+
+
+def gn_tower_partials(x: torch.Tensor, packed: PackedTower, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's pass 1 alone: ``(chain outputs [G, B, C, T], per-tile partial
+    moments [B, nT, C, n_mom])`` of ``x [B, C, T]``, tiles of :func:`gn_tile`
+    steps; the kernel (:func:`gn_tower_chains`) for CUDA tensors, the plain
+    chains and :func:`tile_moments_plain` for CPU tensors. :func:`moments_reduce`
+    sums the partials."""
+    if x.device.type == "cpu" and packed.device.type == "cpu":
+        return gn_tower_partials_plain(x, packed, lengths)
+    _check_no_grad("resblock_tower_gn", packed, x)
+    B, C, T = x.shape
+    return gn_tower_chains(x, packed, None if lengths is None else clamp_lengths(lengths, B, T, x.device),
+                           partials=True)
+
+
+def gn_tower_partials_plain(x: torch.Tensor, packed: PackedTower, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`gn_tower_partials`'s function: the chains with ``F.conv1d`` and
+    :func:`tile_moments_plain` of them, on any device."""
+    B, C, T = x.shape
+    mask = None if lengths is None else frame_mask(clamp_lengths(lengths, B, T, x.device), T)
+    rs = _chains(x, packed.weights, packed.biases, packed.dilation_sizes, packed.resblock, mask)
+    return torch.stack(rs), tile_moments_plain(rs, gn_tile(packed))
+
+
+def moments_reduce_plain(part: torch.Tensor) -> torch.Tensor:
+    """:func:`moments_reduce`'s function: the tiles added one by one in order, in f32."""
+    B, nT, C, n_mom = part.shape
+    mom = torch.zeros((B, C, n_mom), dtype=torch.float32, device=part.device)
+    for t in range(nT):
+        mom = mom + part[:, t]
+    return mom
+
+
+def moments_reduce(part: torch.Tensor) -> torch.Tensor:
+    """Per-tile partial moments ``[B, nT, C, n_mom]`` summed over the tiles in
+    order, in f32 -> ``[B, C, n_mom]``: ``moments_reduce_kernel`` for CUDA
+    tensors (the bits of K4's own reduction), :func:`moments_reduce_plain` for
+    CPU tensors."""
+    if part.device.type == "cpu":
+        return moments_reduce_plain(part)
+    if part.dtype != torch.float32 or not part.is_contiguous():
+        raise ValueError("moments_reduce: part must be a contiguous f32 CUDA tensor")
+    B, nT, C, n_mom = part.shape
+    mom = torch.empty((B, C, n_mom), dtype=torch.float32, device=part.device)
+    rc = load_library().acad_moments_reduce(part.data_ptr(), mom.data_ptr(), B, nT, C * n_mom,
+                                            torch.cuda.current_stream(part.device).cuda_stream)
+    check(rc, "moments_reduce")
+    return mom
+
+
+def gn_tower_affines(mom: torch.Tensor, gn_scales: torch.Tensor, gn_biases: torch.Tensor, num_groups: int,
+                     epsilon: float, T: int, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's pass 2a alone: the affines ``(A [G, B, C], K [B, C])`` from moments
+    that count ``T`` frames, or with ``lengths [B]`` each row's ``lengths[b]``
+    clamped to ``[0, T]``; ``gn_affine_kernel`` for CUDA tensors,
+    :func:`gn_affines` for CPU tensors."""
+    if mom.device.type == "cpu":
+        count = T if lengths is None else clamp_lengths(lengths, mom.shape[0], T, mom.device)
+        return gn_affines(mom, gn_scales, gn_biases, num_groups, epsilon, count)
+    return gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T, lengths)
+
+
+def gn_tower_apply(rs: torch.Tensor, A: torch.Tensor, K: torch.Tensor, lengths=None) -> torch.Tensor:
+    """K4's pass 2b alone on ``rs [G, B, C, T]``; ``gn_apply_kernel`` for CUDA
+    tensors, :func:`gn_apply` for CPU tensors."""
+    if rs.device.type == "cpu":
+        L = None if lengths is None else clamp_lengths(lengths, rs.shape[1], rs.shape[3], rs.device)
+        return gn_apply(list(rs), A, K, L)
+    return gn_apply_cuda(rs, A, K, lengths)

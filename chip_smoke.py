@@ -48,8 +48,16 @@ of 3-10 s through ``cli.compress`` (Encodec_24k_240d, K1 + K2) and
 nb/wb); and the C++ crop loader (``native_loader``): built, an epoch
 bit-identical to the Python pipeline, batches a second against it, and
 ``cli.train_encodec`` / ``cli.train_hificodec`` at full width fed by it
-against the Python-fed runs. Any failed phase exits non-zero; without a
-CUDA device it exits 1 at once.
+against the Python-fed runs. Then data parallelism (``parallel``) and
+time-sharded serving (``sequence``): one 60 s Encodec_24k_240d stream in f32
+and bf16 through ``TimeShardedSoundStream`` on 1 and 4 time shards of the
+card against the unsharded model, one 60 s hificodec_24k_320d file through
+``cli.extract_tokens --sequence_parallel --device cuda:0,cuda:0,cuda:0,cuda:0``
+against the CLI without it, and ``cli.compress --sequence_parallel`` on
+three files (K1-K4 on every shard; K4's per-tile GroupNorm moments of every
+shard reduced in the sequence's tile order, its passes held against their
+plain versions and the sharded stage bit for bit against one launch). Any
+failed phase exits non-zero; without a CUDA device it exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -659,7 +667,9 @@ def phase_resblock_gn(device, iters=5) -> dict:
         bound_ms_lengths=with_lengths["bound_ms"],
         note="ms times the whole wrapper: the pass-1 kernel, the moments reduction, "
              "gn_affine_kernel and gn_apply_kernel; *_lengths the same with lengths spread over "
-             "40000-120000 frames (the bound counts the valid frames' operations)", cases=cases,
+             "40000-120000 frames (the bound counts the valid frames' operations); *_shard: pass 1 with "
+             "its per-tile partials kept, on an interior time shard of a 60 s file over 4 shards "
+             "(phase_sequence)", cases=cases,
     )
 
 
@@ -4050,6 +4060,452 @@ def phase_parallel(device="cuda", world1=None, ranks=None, serving=None) -> dict
     return result
 
 
+# time-sharded serving against unsharded serving on the same card. Encodec in f32
+# (TF32 off): no sum of the path crosses a shard, so its tokens must be identical;
+# HiFi-Codec in f32 sums the wide stages' GroupNorm statistics over the shards in
+# another order (in f64), which can part a token at a near-tie (as batched against
+# single extraction parted 6 of 14516, ROADMAP Queue 3 item 3): at most 1e-4 of
+# them; Encodec in bf16 at the 1e-3 that batched-vs-single extraction is held to.
+# Wavs decoded from the same codes: f32 within 1e-4 (cuDNN picks a conv's
+# algorithm by its shape, so a shard's convs may sum in another order), bf16
+# within the 0.05 of max |wav| that phase_stream allows a chunked decode.
+# HiFi-Codec's bf16 tokens are held to the count an unsharded control parts
+# (_seq_hifi_bf16), not to bf16_mismatch: in bf16 cuDNN's convs of the wide
+# encoder stages round apart at other widths, and at random weights with spread
+# codebooks such ulps part several percent of the tokens, sharded or not
+# (PERF.md, time-sharded serving). K4's sharded stage is held bit for bit (_seq_k4_stage).
+SEQ_LIMITS = dict(encodec_f32_mismatch=0.0, hifi_f32_mismatch=1e-4, bf16_mismatch=1e-3, f32_wav_atol=1e-4,
+                  bf16_wav_rel=STREAM_WAV_REL_ERR_LIMIT, k4_partials_rel=1e-5)
+
+
+def _seq_devices(device, shards: int) -> list:
+    """``shards`` entries naming one device (``cuda`` as ``cuda:0``): that many time shards on one card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", 0)
+    return [device] * shards
+
+
+def _seq_encodec(device, dtype, seconds: float, shards: int, iters: int, preset: str, overrides: dict) -> dict:
+    """(a) One stream of ``seconds`` through ``TimeShardedSoundStream`` on one and on
+    ``shards`` time shards of one device, against the unsharded model."""
+    from academicodec_tpu_torch.parallel.sequence import TimeShardedSoundStream
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    wav = seeded_wav(1, int(seconds * model.sample_rate), device, seed=21).to(dtype)
+    spread_codebooks(model, latent_frames(model, wav))
+    with torch.no_grad():
+        ref_codes = model.encode(wav)
+        ref_wav = model.decode(ref_codes)
+    out = {"unsharded": {"codes": list(ref_codes.shape)}}
+    if on_card:
+        out["unsharded"]["ms"] = time_ms(lambda: model.decode(model.encode(wav)), iters)
+    for n in (1, shards):
+        ts = TimeShardedSoundStream(model, _seq_devices(device, n))
+        reset_launches()
+        codes = ts.encode(wav)
+        y = ts.decode(codes)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = read_launches()
+        codes, y = codes.gather(), y.gather()
+        differ = int((codes != ref_codes).sum())
+        same_codes_wav = ts.decode(ref_codes).gather()
+        if dtype == torch.float32:
+            wav_err, wav_limit = (same_codes_wav - ref_wav).abs().max().item(), SEQ_LIMITS["f32_wav_atol"]
+            share_limit = SEQ_LIMITS["encodec_f32_mismatch"]
+        else:
+            wav_err, wav_limit = _rel_err(same_codes_wav, ref_wav), SEQ_LIMITS["bf16_wav_rel"]
+            share_limit = SEQ_LIMITS["bf16_mismatch"]
+        expected = {"rvq_encode": n if on_card else 0, "lstm2": 2 if on_card else 0, "resblock_tower": 0,
+                    "resblock_tower_gn": 0}
+        row = dict(shards=n, codes=list(codes.shape), tokens_differ=differ, tokens=ref_codes.numel(),
+                   tokens_differ_limit=share_limit, wav_err=wav_err, wav_limit=wav_limit, launches=launches,
+                   finite=bool(torch.isfinite(y.float()).all()), wav_shape=list(y.shape))
+        if on_card:
+            row["ms"] = time_ms(lambda: ts.decode(ts.encode(wav)).gather(), iters)
+        out[f"{n} shards"] = row
+        print(f"[sequence] {preset} {dtype} {seconds:g} s on {n} time shard(s): tokens differ {differ} of "
+              f"{ref_codes.numel()} (limit {share_limit} of them), wav of the same codes "
+              f"{'max abs diff' if dtype == torch.float32 else 'max abs diff / max |wav|'} {wav_err:.3g} "
+              f"(limit {wav_limit}), launches {launches} (expected {expected}), "
+              f"{row.get('ms', float('nan')):.3f} ms against {out['unsharded'].get('ms', float('nan')):.3f} "
+              "unsharded")
+        if not (differ <= share_limit * ref_codes.numel() and wav_err <= wav_limit and launches == expected
+                and row["finite"] and codes.shape == ref_codes.shape and y.shape == ref_wav.shape):
+            raise AssertionError(f"sequence: {preset} {dtype} on {n} shards: {row}")
+    check_distinct("sequence", ref_codes)
+    del model
+    return out
+
+
+def _seq_extract(device, seconds: float, shards: int, bucket_seconds: float, preset: str, overrides: dict) -> dict:
+    """(b) One file of ``seconds`` through ``cli.extract_tokens`` with
+    ``--sequence_parallel`` over ``shards`` time shards of one device against the
+    same CLI without it, at exact length and with ``--bucket_seconds``; and the
+    sharded decode of the unsharded tokens against the model's."""
+    import dataclasses
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import extract_tokens
+    from academicodec_tpu_torch.data.wavio import read_wav, write_wav
+    from academicodec_tpu_torch.parallel.sequence import TimeShardedVQVAE
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, **overrides)
+    sr = model.config.sampling_rate
+    wav = seeded_wav(1, int(seconds * sr), "cpu", seed=22)[0].numpy()
+    spread_codebooks(model, latent_frames(model, torch.from_numpy(wav[None])))
+    devs = ",".join(str(d) for d in _seq_devices(device, shards))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "wavs"))
+        write_wav(os.path.join(tmp, "wavs", "f0.wav"), wav, sr)
+        ckpt = os.path.join(tmp, "g_00000000")
+        torch.save(model.reference_state_dict(), ckpt)
+        config = os.path.join(tmp, "config.json")
+        with open(config, "w") as fh:
+            json.dump(dataclasses.asdict(model.config), fh)
+        flags = ["--config", config, "--model_path", ckpt, "--input", os.path.join(tmp, "wavs")]
+        for mode, bucket in (("exact", []), ("bucketed", ["--bucket_seconds", str(bucket_seconds)])):
+            runs = {}
+            for tag, extra in (("unsharded", ["--device", str(device)]),
+                               ("sharded", ["--sequence_parallel", "--device", devs])):
+                d = os.path.join(tmp, f"{mode}_{tag}")
+                reset_launches()
+                t0 = time.perf_counter()
+                tokens = extract_tokens.main(flags + bucket + extra + ["--outputdir", d])
+                if on_card:
+                    torch.cuda.synchronize()
+                runs[tag] = dict(tokens=tokens["f0"], wav=read_wav(os.path.join(d, "f0.wav"))[0],
+                                 launches=read_launches(), wall_s=time.perf_counter() - t0)
+            ref, got = runs["unsharded"]["tokens"], runs["sharded"]["tokens"]
+            differ = int((got != ref).sum()) if got.shape == ref.shape else ref.size
+            wav_diff = float(np.abs(runs["sharded"]["wav"] - runs["unsharded"]["wav"]).max())
+            expected = {"rvq_encode": 0, "lstm2": 0,
+                        **{k: shards * n if on_card else 0 for k, n in fused_stage_counts(model.config).items()}}
+            row = dict(tokens=ref.size, tokens_differ=differ, tokens_differ_limit=SEQ_LIMITS["hifi_f32_mismatch"],
+                       wav_files_max_abs_diff=wav_diff, launches=runs["sharded"]["launches"],
+                       launches_unsharded=runs["unsharded"]["launches"],
+                       wall_s=runs["sharded"]["wall_s"], wall_s_unsharded=runs["unsharded"]["wall_s"])
+            out[mode] = row
+            print(f"[sequence] cli.extract_tokens {mode} {preset} f32 {seconds:g} s, --sequence_parallel --device "
+                  f"{devs}: tokens differ {differ} of {ref.size} (limit {SEQ_LIMITS['hifi_f32_mismatch']} of them), "
+                  f"wav files max abs diff {wav_diff:.3g}, launches a file {row['launches']} (expected {expected}; "
+                  f"unsharded {row['launches_unsharded']}), wall {row['wall_s']:.2f} s against "
+                  f"{row['wall_s_unsharded']:.2f} s unsharded (model load and file IO included)")
+            if not (differ <= SEQ_LIMITS["hifi_f32_mismatch"] * ref.size and row["launches"] == expected
+                    and got.shape == ref.shape):
+                raise AssertionError(f"sequence: cli.extract_tokens {mode}: {row}")
+        with torch.no_grad():
+            codes = torch.from_numpy(runs["unsharded"]["tokens"])
+            y = TimeShardedVQVAE(model, _seq_devices(device, shards)).decode(codes).gather()
+            err = (y - model.decode(codes)).abs().max().item()
+        out["decode_same_tokens_max_abs_diff"] = err
+        print(f"[sequence] {preset} f32 sharded decode of the same tokens: max abs diff {err:.3g} "
+              f"(limit {SEQ_LIMITS['f32_wav_atol']})")
+        if not err <= SEQ_LIMITS["f32_wav_atol"]:
+            raise AssertionError(f"sequence: sharded HiFi-Codec decode differs by {err:.3g}")
+    check_distinct("sequence", torch.from_numpy(runs["unsharded"]["tokens"]))
+    del model
+    return out
+
+
+def _seq_hifi_bf16(device, seconds: float, shards: int, iters: int, preset: str, overrides: dict,
+                   bucket_seconds: float) -> dict:
+    """(b) in bf16, through ``TimeShardedVQVAE`` (the CLI serves f32): one file of
+    ``seconds`` on ``shards`` time shards of one device against the unsharded
+    model: the wav of the same tokens; the tokens, held to part no more of them
+    than an unsharded control does (the unsharded model on the file padded to
+    whole buckets and encoded with its length, whose convs run at other
+    widths too); where the encode parts, layer by layer
+    (:func:`_seq_encoder_stage_diffs`); and the roundtrip's ms."""
+    from academicodec_tpu_torch.parallel.sequence import TimeShardedVQVAE
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, dtype=torch.bfloat16, **overrides)
+    wav = seeded_wav(1, int(seconds * model.config.sampling_rate), device, seed=24).to(torch.bfloat16)
+    spread_codebooks(model, latent_frames(model, wav))
+    ts = TimeShardedVQVAE(model, _seq_devices(device, shards))
+    with torch.no_grad():
+        ref = model.encode(wav)
+        ref_wav = model.decode(ref)
+        T = wav.shape[-1]
+        bucket = round(bucket_seconds * model.config.sampling_rate)
+        control = model.encode(torch.nn.functional.pad(wav, (0, -(-T // bucket) * bucket - T)),
+                               lengths=torch.tensor([T]))[:, :ref.shape[1]]
+        reset_launches()
+        tokens = ts.encode(wav)
+        y = ts.decode(tokens)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = read_launches()
+        tokens, y = tokens.gather(), y.gather()
+        err = _rel_err(ts.decode(ref).gather(), ref_wav)
+    stages = _seq_encoder_stage_diffs(model, wav, _seq_devices(device, shards))
+    differ, control_differ = int((tokens != ref).sum()), int((control != ref).sum())
+    expected = {"rvq_encode": 0, "lstm2": 0,
+                **{k: shards * n if on_card else 0 for k, n in fused_stage_counts(model.config).items()}}
+    row = dict(tokens=ref.numel(), tokens_differ=differ, tokens_differ_limit=control_differ,
+               wav_rel_err=err, wav_limit=SEQ_LIMITS["bf16_wav_rel"], launches=launches,
+               finite=bool(torch.isfinite(y.float()).all()), encoder_layers=stages)
+    if on_card:
+        row["ms"] = time_ms(lambda: ts.decode(ts.encode(wav)).gather(), iters)
+        row["ms_unsharded"] = time_ms(lambda: model.decode(model.encode(wav)), iters)
+    print(f"[sequence] {preset} bf16 {seconds:g} s on {shards} time shards: tokens differ {differ} of {ref.numel()} "
+          f"(limit {control_differ}: what the unsharded model parts, padded to {bucket_seconds:g} s buckets and "
+          f"encoded with its length), wav of the same tokens max abs diff / max |wav| {err:.3g} (limit "
+          f"{SEQ_LIMITS['bf16_wav_rel']}), launches {launches} (expected {expected}), roundtrip "
+          f"{row.get('ms', float('nan')):.3f} ms against {row.get('ms_unsharded', float('nan')):.3f} unsharded")
+    print(f"[sequence] {preset} bf16 encoder layer by layer, sharded on the unsharded input against unsharded "
+          f"(max abs diff): {stages}")
+    if not (differ <= control_differ and err <= SEQ_LIMITS["bf16_wav_rel"] and launches == expected
+            and row["finite"] and y.shape == ref_wav.shape and tokens.shape == ref.shape):
+        raise AssertionError(f"sequence: {preset} bf16 on {shards} shards: {row}")
+    del model
+    return row
+
+
+def _seq_spans(model, T: int, shards: int, unit: int, length: int) -> list:
+    """The time blocks ``TimeShardedVQVAE`` cuts a ``T``-sample file into, in the
+    steps of a layer with ``unit`` steps a latent frame and ``length`` steps."""
+    from academicodec_tpu_torch.parallel.sequence import time_blocks
+
+    blocks = time_blocks(model.frames_for(T), shards)
+    return [(a * unit, b * unit) for a, b in blocks[:-1]] + [(blocks[-1][0] * unit, length)]
+
+
+def _seq_encoder_stage_diffs(model, wav, devices) -> list:
+    """Where a sharded HiFi-Codec encode parts from the unsharded one: each layer
+    of the encoder run sharded on the unsharded run's own input to it, and the
+    max abs difference of its output from the unsharded layer's: ``conv_pre``,
+    each stage's strided conv (``ups``), its first GroupNorm alone (on the
+    unsharded first resblock's output; wide stages only, K4 holds the narrow
+    ones' statistics), the whole stage (``stage_forward``: K4, or the resblocks
+    and GroupNorms), and ``conv_post``."""
+    from academicodec_tpu_torch.nn.hifigan import lrelu
+    from academicodec_tpu_torch.parallel import sequence
+
+    enc, n, T = model.encoder, len(devices), wav.shape[-1]
+    encs = [enc] * n
+
+    def split(v, unit):
+        return sequence.split_time(v, _seq_spans(model, T, n, unit, v.shape[-1]), devices)
+
+    def diff(sharded, ref):
+        return (sharded.gather().float() - ref.float()).abs().max().item()
+
+    unit = model.hop_length
+    with torch.no_grad():
+        x = enc.conv_pre(wav[:, None])
+        rows = [dict(layer="conv_pre", max_abs_diff=diff(sequence.conv1d([enc.conv_pre] * n, split(wav[:, None], unit)),
+                                                          x))]
+        for st, (u, _) in enumerate(enc.ups_cfg):
+            v = lrelu(x)
+            y = enc.ups[st](v)
+            row = dict(layer=f"stage {st}", channels=y.shape[1], k4=enc.fused_stage(st),
+                       ups=diff(sequence.conv1d([enc.ups[st]] * n, split(v, unit)), y))
+            unit //= u
+            if not enc.fused_stage(st):
+                gn, r0 = enc.stage(st)[1][0], enc.stage(st)[0][0](y)
+                row["group_norm"] = diff(sequence.group_norm([gn] * n, split(r0, unit)), gn(r0))
+            x = enc.stage_forward(st, y)
+            fn = sequence._encoder_stage_gn_fused if enc.fused_stage(st) else sequence._encoder_stage_unfused
+            row["stage"] = diff(fn(encs, st, split(y, unit), None), x)
+            rows.append(row)
+        v = lrelu(x, 0.01)
+        rows.append(dict(layer="conv_post", max_abs_diff=diff(sequence.conv1d([enc.conv_post] * n, split(v, unit)),
+                                                               enc.conv_post(v))))
+    return rows
+
+
+def _seq_k4_stage(device, dtype, seconds: float, shards: int, iters: int, preset: str, overrides: dict) -> dict:
+    """K4 as the sharded path runs it, at full width: ``preset``'s encoder stage 0
+    (its input from one file of ``seconds``) over ``shards`` time shards of one
+    device, cut as ``TimeShardedVQVAE`` cuts it. Each shard's pass 1 with its
+    per-tile partials kept (``gn_tower_partials``) on its window
+    (``sequence.k4_shard_tiles``) against its plain version on the same input:
+    the chain outputs at :data:`TOWER_LIMITS` and the partials likewise (x max
+    |plain|), and the partials against the plain per-tile moments of the
+    kernel's own chain outputs (``k4_partials_rel`` x max |plain|);
+    ``moments_reduce`` over the shards' owned tiles bitwise its plain version;
+    the sharded stage (one launch a shard) bit for bit one launch over the
+    whole sequence on the card (1e-5 on the CPU, whose plain sums follow the
+    tensor's length). The interior shard's pass 1 is timed against its plain
+    version and its bound (bf16)."""
+    from academicodec_tpu_torch.parallel import sequence
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, dtype=dtype, **overrides)
+    enc = model.encoder
+    if not enc.fused_stage(0):
+        raise AssertionError(f"sequence: {preset}'s encoder stage 0 does not run K4")
+    wav = seeded_wav(1, int(seconds * model.config.sampling_rate), device, seed=25).to(dtype)
+    packed = enc.packed_tower(0)
+    norms = enc.stage(0)[1]
+    scs, gbs = torch.stack([g.weight for g in norms]), torch.stack([g.bias for g in norms])
+    TT = resblock_ops.gn_tile(packed)
+    with torch.no_grad():
+        x = enc.ups[0](torch.nn.functional.leaky_relu(enc.conv_pre(wav[:, None]), 0.1))
+        B, C, N = x.shape
+        ref = resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, num_groups=C // 16)
+        spans = _seq_spans(model, wav.shape[-1], shards, model.hop_length // enc.ups_cfg[0][0], N)
+        xs = sequence.split_time(x, spans, _seq_devices(device, shards))
+        reset_launches()
+        got = sequence._encoder_stage_gn_fused([enc] * shards, 0, xs, None)
+        if on_card:
+            torch.cuda.synchronize()
+        launches = read_launches()
+        got = got.gather()
+        halo = resblock_ops.tower_halo(enc.rks, enc.rds, enc.config.resblock)
+        ranges, tiles = sequence.k4_shard_tiles(spans, N, halo, TT)
+        errs, parts = dict(chains=0.0, partials=0.0, partials_own=0.0, max_abs_err=0.0), []
+        for (lo, hi), (t_lo, t_hi) in zip(ranges, tiles):
+            ext = x[..., lo:hi].contiguous()
+            outs, part = resblock_ops.gn_tower_partials(ext, packed)
+            plain_outs, plain_part = resblock_ops.gn_tower_partials_plain(ext, packed)
+            errs["max_abs_err"] = max(errs["max_abs_err"], (outs.float() - plain_outs.float()).abs().max().item())
+            errs["chains"] = max(errs["chains"], _rel_err(outs, plain_outs))
+            errs["partials"] = max(errs["partials"], _rel_err(part, plain_part))
+            errs["partials_own"] = max(errs["partials_own"],
+                                       _rel_err(part, resblock_ops.tile_moments_plain(list(outs), TT)))
+            parts.append(part[:, t_lo - lo // TT:t_hi - lo // TT])
+        part = torch.cat(parts, dim=1)
+        reduce_bitwise = torch.equal(resblock_ops.moments_reduce(part), resblock_ops.moments_reduce_plain(part))
+    stage_diff = (got.float() - ref.float()).abs().max().item()
+    expected = {"rvq_encode": 0, "lstm2": 0, "resblock_tower": 0, "resblock_tower_gn": shards if on_card else 0}
+    tol = TOWER_LIMITS[dtype]
+    row = dict(shape=[B, C, N], spans=spans, windows=ranges, tiles=tiles, TT=TT, tolerance=tol,
+               partials_own_tolerance=SEQ_LIMITS["k4_partials_rel"], reduce_bitwise=reduce_bitwise,
+               stage_max_abs_diff_vs_one_launch=stage_diff, launches=launches, **errs)
+    print(f"[sequence] K4 sharded stage {preset} stage 0 {dtype} [{B},{C},{N}] over {shards} shards (windows "
+          f"{ranges}, tiles {tiles} of {TT}): pass 1 against plain, chains {errs['chains']:.3g} and partials "
+          f"{errs['partials']:.3g} of max |plain| (limit {tol}), partials against the plain moments of its own "
+          f"outputs {errs['partials_own']:.3g} (limit {SEQ_LIMITS['k4_partials_rel']}); moments_reduce bitwise its "
+          f"plain version: {reduce_bitwise}; the stage against one launch over the whole: max abs diff "
+          f"{stage_diff:.3g} (limit {0 if on_card else 1e-5}); launches {launches} (expected {expected})")
+    if not (errs["chains"] <= tol and errs["partials"] <= tol and errs["partials_own"] <= SEQ_LIMITS["k4_partials_rel"]
+            and reduce_bitwise and stage_diff <= (0.0 if on_card else 1e-5) and launches == expected):
+        raise AssertionError(f"sequence: K4's sharded stage disagrees ({dtype}): {row}")
+    if on_card and dtype == torch.bfloat16:
+        lo, hi = ranges[1]
+        ext = x[..., lo:hi].contiguous()
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: resblock_ops.gn_tower_partials(ext, packed), iters)
+            row["plain_ms"] = time_ms(lambda: resblock_ops.gn_tower_partials_plain(ext, packed), 2)
+        ks, G, T1 = enc.rks, len(enc.rks), hi - lo
+        taps = sum(k * len(resblock_ops.chain_conv_dilations(ds, "1")) for k, ds in zip(ks, enc.rds))
+        n_part = B * -(-T1 // TT) * C * (G + G * (G + 1) // 2)
+        row["bound_ms"], row["bound_by"] = bound(2.0 * B * T1 * C * C * taps,
+                                                 2 * (B * C * T1 * (1 + G) + C * C * taps) + 4 * n_part,
+                                                 PEAK_BF16_FLOPS)
+        row["shard_shape"] = [B, C, T1]
+        print(f"[sequence] K4 pass 1 with partials, interior shard [{B},{C},{T1}]: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    del model
+    return row
+
+
+def _seq_compress(device, shards: int, seconds, preset: str, overrides: dict) -> dict:
+    """(c) ``cli.compress --sequence_parallel`` over ``shards`` time shards of one
+    device against the same CLI without it, f32, on three files: ``seconds[0]``
+    long, which the shards split into whole frames, ``seconds[1]`` and 7
+    samples, which they cannot (uneven blocks and a ragged last shard), and
+    one of fewer frames than shards (served unsharded). Blobs must be
+    byte-identical."""
+    from academicodec_tpu_torch.models.presets import SOUNDSTREAM_PRESETS
+
+    import os
+    import tempfile
+
+    from academicodec_tpu_torch.cli import compress as compress_cli
+    from academicodec_tpu_torch.data.wavio import write_wav
+
+    on_card = torch.device(device).type == "cuda"
+    model = load_codec(preset, device=device, **overrides)
+    sr, hop = model.sample_rate, model.hop_length
+    cfg = dict(SOUNDSTREAM_PRESETS[preset], **overrides)
+    lengths = [int(round(seconds[0] * sr)), int(round(seconds[1] * sr)) + 7, 2 * hop - 7]
+    wavs = [seeded_wav(1, n, "cpu", seed=23 + i)[0].numpy() for i, n in enumerate(lengths)]
+    spread_codebooks(model, latent_frames(model, torch.from_numpy(wavs[0][None])))
+    devs = ",".join(str(d) for d in _seq_devices(device, shards))
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "in"))
+        for i, w in enumerate(wavs):
+            write_wav(os.path.join(tmp, "in", f"w{i}.wav"), w, sr)
+        pth = os.path.join(tmp, "m.pth")
+        torch.save(model.state_dict(), pth)
+        flags = ["--input", os.path.join(tmp, "in"), "--resume_path", pth, "--sr", str(sr), "--ratios",
+                 *map(str, model.ratios), "--target_bandwidths", *map(str, model.target_bandwidths), "--n_filters",
+                 str(cfg["n_filters"]), "--dimension", str(cfg["dimension"]), "--bins", str(model.bins),
+                 "--target_bw", str(model.target_bandwidths[-1]), "--ecdc"]
+        launches = {}
+        for tag, extra in (("unsharded", ["--device", str(device)]),
+                           ("sharded", ["--sequence_parallel", "--device", devs])):
+            reset_launches()
+            compress_cli.main(flags + extra + ["--output", os.path.join(tmp, tag)])
+            if on_card:
+                torch.cuda.synchronize()
+            launches[tag] = read_launches()
+        blobs = {tag: [open(os.path.join(tmp, tag, f"w{i}.ecdc"), "rb").read() for i in range(len(wavs))]
+                 for tag in launches}
+    same = [a == b for a, b in zip(blobs["sharded"], blobs["unsharded"])]
+    # per file: K1 once a shard (once for the file served unsharded), K2 once in the encoder and once in the decoder
+    frames = [-(-n // hop) for n in lengths]
+    k1 = sum(shards if f >= shards else 1 for f in frames)
+    expected = {"rvq_encode": k1 if on_card else 0, "lstm2": 2 * len(lengths) if on_card else 0,
+                "resblock_tower": 0, "resblock_tower_gn": 0}
+    print(f"[sequence] cli.compress {preset} f32, files of {list(lengths)} samples, --sequence_parallel --device "
+          f"{devs}: blobs byte-identical {same} ({[len(b) for b in blobs['sharded']]} bytes), launches "
+          f"{launches['sharded']} (expected {expected}; unsharded {launches['unsharded']})")
+    if not (all(same) and launches["sharded"] == expected):
+        raise AssertionError(f"sequence: cli.compress --sequence_parallel blobs {same}, launches {launches}")
+    del model
+    return dict(lengths=list(lengths), blobs_identical=same, launches=launches["sharded"],
+                launches_unsharded=launches["unsharded"], blob_bytes=[len(b) for b in blobs["sharded"]])
+
+
+def phase_sequence(device="cuda", seconds=60.0, shards=4, iters=3, hifi_seconds=60.0, bucket_seconds=10.0,
+                   compress_seconds=(20.0, 13.37), encodec=None, hifi=None, hifi_bf16=True) -> dict:
+    """Time-sharded serving (``parallel/sequence.py``) on one card, ``shards`` time
+    shards on one device: (a) the flagship Encodec_24k_240d (``encodec``:
+    overrides of its preset), one stream of ``seconds``, in f32 and bf16,
+    through ``TimeShardedSoundStream`` on 1 and on ``shards`` shards against the
+    unsharded model; (b) hificodec_24k_320d (``hifi``: overrides), one file of
+    ``hifi_seconds`` through ``cli.extract_tokens --sequence_parallel`` against
+    the CLI without it, exact and bucketed (f32), and through
+    ``TimeShardedVQVAE`` in bf16, and K4's sharded stage at its width
+    (:func:`_seq_k4_stage`, f32 and bf16 on the card); (c) ``cli.compress
+    --sequence_parallel`` on three files (``compress_seconds`` and one of fewer
+    frames than shards). Every run's launch counts are set to 0 just before
+    it and read just after. ``hifi_bf16``: run (b) in bf16 too; a CPU
+    rehearsal leaves it out, since the CPU build's bf16 ``conv1d`` with a
+    stride and no padding (a block's halo'd window) misses by whole units
+    (torch 2.13.0+cpu, oneDNN) where the same conv with padding does not.
+    Limits: :data:`SEQ_LIMITS`."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    result = {"limits": SEQ_LIMITS, "shards": shards, "device": nvidia_smi() if on_card else "cpu"}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for tag, dtype in (("encodec_f32", torch.float32), ("encodec_bf16", torch.bfloat16)):
+            result[tag] = _seq_encodec(device, dtype, seconds, shards, iters, FLAGSHIP, encodec or {})
+        result["extract"] = _seq_extract(device, hifi_seconds, shards, bucket_seconds, HIFI, hifi or {})
+        if hifi_bf16:
+            result["hifi_bf16"] = _seq_hifi_bf16(device, hifi_seconds, shards, iters, HIFI, hifi or {}, bucket_seconds)
+        for tag, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16))[:2 if hifi_bf16 else 1]:
+            result[f"k4_stage_{tag}"] = _seq_k4_stage(device, dtype, hifi_seconds, shards, iters, HIFI, hifi or {})
+        result["compress"] = _seq_compress(device, shards, compress_seconds, FLAGSHIP, encodec or {})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    result["wall_s"] = time.perf_counter() - t0
+    print(f"[sequence] the phase {result['wall_s']:.1f} s ({result['device']})")
+    return result
+
+
 def probe_bounds() -> list:
     """The bounds of ``benchmarks/pallas_int8_probe.py``'s two Pallas kernels (on
     no path of the package, not ported) at its four cases: 6 convs of k 7 over
@@ -4100,6 +4556,7 @@ def main() -> int:
     native = phase_native_loader({"train_encodec": train["f32"]["launches_step"],
                                   "train_hificodec": train_hifi["f32"]["launches_step"]}, device)
     parallel = phase_parallel(device)
+    sequence = phase_sequence(device)
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
@@ -4114,6 +4571,8 @@ def main() -> int:
         k["launches_train_dp_init_step"] = parallel["world1"]["encodec"]["launches_parallel"][0][name]
         k["launches_train_dp_step"] = parallel["world1"]["encodec"]["launches_parallel"][-1][name]
         k["launches_dp_compress"] = parallel["serving"]["compress_parallel_launches"][name]
+        k["launches_sequence_roundtrip"] = sequence["encodec_bf16"]["4 shards"]["launches"][name]
+        k["launches_sequence_compress"] = sequence["compress"]["launches"][name]
     k1.update(train["k1_shapes"])
     k2.update(train["k2_shapes"])
     k3["launches"] = hifi["launches"]["resblock_tower"]
@@ -4131,8 +4590,13 @@ def main() -> int:
             s[name] for s in native["train_hificodec"]["launches_steps"]]
         k["launches_train_hifi_dp_step"] = parallel["world1"]["hifi"]["launches_parallel"][-1][name]
         k["launches_dp_extract"] = parallel["serving"]["extract_parallel_launches"][name]
+        k["launches_sequence_extract"] = sequence["extract"]["exact"]["launches"][name]
         tag = "k3" if k is k3 else "k4"
         k["train_hifi_shapes"] = {c: v for c, v in train_hifi["towers"].items() if c.startswith(tag)}
+    shard = sequence["k4_stage_bf16"]
+    k4.update(ms_shard=shard["ms"], plain_ms_shard=shard["plain_ms"], bound_ms_shard=shard["bound_ms"],
+              max_abs_err_shard=shard["max_abs_err"],
+              launches_sequence_stage=shard["launches"]["resblock_tower_gn"])
     keys = ("roundtrip_ms", "realtime_factor", "peak_mem_gib")
     print(f"[main] {json.dumps({'distinct_tokens': main_path['distinct_tokens'], **{k: main_path[k] for k in keys}})}")
     print(f"[hifi] {json.dumps({'distinct_tokens': hifi['distinct_tokens'], **{k: hifi[k] for k in keys}})}")
@@ -4152,6 +4616,7 @@ def main() -> int:
     print(f"[evaluate] {json.dumps(evaluate)}")
     print(f"[native_loader] {json.dumps(native)}")
     print(f"[parallel] {json.dumps(parallel)}")
+    print(f"[sequence] {json.dumps(sequence)}")
     print(f"[probe_bounds] {json.dumps(probe_bounds())}")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(smi)

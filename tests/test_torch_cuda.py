@@ -1099,3 +1099,125 @@ def test_data_parallel_compressor_on_the_card_gives_the_plain_blobs(cuda):
         blobs.append(comp.compress_batch(wavs))
         assert (rvq_ops.LAUNCHES - before[0], lstm_ops.LAUNCHES - before[1]) == (1, 1)
     assert blobs[0] == blobs[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lengths", [None, (4000, 2222)])
+def test_gn_tower_partials_and_moments_reduce_match_plain(cuda, dtype, lengths):
+    """K4's pass 1 with its per-tile partials kept, at [2, 64, 4000], with and
+    without lengths: one launch; the chain outputs against the plain chains
+    (2e-2 of max |plain| in bf16, 1e-4 in f32, as chip_smoke's towers); the
+    partials against the plain per-tile moments of the kernel's own chain
+    outputs; ``moments_reduce`` bitwise its plain version (the same f32 adds in
+    tile order)."""
+    C, T = 64, 4000
+    x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, dtype, RB1_ENC[1], RB1_ENC[2], 2, C, T, seed=7)
+    L = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    packed = rb_ops.pack_tower(weights, biases, **kw)
+    before = rb_ops.GN_TOWER_LAUNCHES
+    outs, part = rb_ops.gn_tower_partials(x, packed, L)
+    torch.cuda.synchronize()
+    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    TT = rb_ops.gn_tile(packed)
+    assert part.shape == (2, -(-T // TT), C, 9)
+    ref = rb_ops.gn_tower_partials_plain(x, packed, L)[0].float()
+    rel = (outs.float() - ref).abs().max() / ref.abs().max()
+    assert rel <= (2e-2 if dtype == torch.bfloat16 else 1e-4)  # K3/K4 against plain, x max |plain|
+    torch.testing.assert_close(part, rb_ops.tile_moments_plain(list(outs), TT), rtol=1e-4, atol=1e-2)
+    assert torch.equal(rb_ops.moments_reduce(part), rb_ops.moments_reduce_plain(part))
+
+
+@pytest.mark.parametrize("dtype,C,T", [(torch.bfloat16, 64, 4000), (torch.float32, 32, 1001),
+                                       (torch.bfloat16, 128, 333)])  # bf16 at C 128: the FMA path
+def test_gn_tower_partials_reduce_to_the_one_call_moments(cuda, dtype, C, T):
+    """Pass 1 with its partials kept gives the chain outputs of a call without
+    them, and ``moments_reduce`` of its partials that call's moments, bit for
+    bit: a time shard's reduction is K4's own."""
+    x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, dtype, RB1_ENC[1], RB1_ENC[2], 2, C, T, seed=T)
+    packed = rb_ops.pack_tower(weights, biases, **kw)
+    outs0, mom0 = rb_ops.gn_tower_chains(x, packed)
+    outs1, part = rb_ops.gn_tower_partials(x, packed)
+    assert torch.equal(outs0, outs1) and torch.equal(mom0, rb_ops.moments_reduce(part))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_time_sharded_serving_on_the_card(cuda, dtype):
+    """``TimeShardedSoundStream`` and ``TimeShardedVQVAE`` on four time shards of
+    one card against the unsharded models at a small width: every shard launches
+    K1 (SoundStream) and K3/K4 (VQVAE), the SLSTMs K2 once each; tokens equal
+    in f32 (SoundStream: at most 1e-3 of them apart in bf16), wavs of the same
+    tokens within 1e-4 in f32 (cuDNN picks a conv's algorithm by its shape) and
+    0.05 of max |wav| in bf16. The VQVAE's bf16 tokens are not held at this
+    width: a strided conv over a halo'd block (no padding) and over the whole
+    sequence (its own padding) may round one bf16 output apart, and at 8-64
+    channels with random weights such an ulp moves several percent of the tokens
+    (on the CPU too). At full width chip_smoke's phase_sequence holds the bf16
+    VQVAE's parted tokens to at most those of an unsharded control, and its K4
+    stage bit for bit against one launch."""
+    import chip_smoke
+    from academicodec_tpu_torch.parallel.sequence import TimeShardedSoundStream, TimeShardedVQVAE
+
+    shards = [torch.device("cuda", 0)] * 4
+
+    def check(ref_codes, codes, ref_wav, wav):
+        if dtype == torch.float32:
+            assert torch.equal(codes, ref_codes)
+            torch.testing.assert_close(wav.float(), ref_wav.float(), atol=1e-4, rtol=0)
+        else:
+            assert codes is None or (codes != ref_codes).double().mean().item() <= 1e-3
+            assert chip_smoke._rel_err(wav, ref_wav) <= 0.05
+
+    model = SoundStream(n_filters=8, dimension=64, ratios=(8, 5, 4, 2), sample_rate=16000,
+                        target_bandwidths=(1, 2, 4), device=cuda, dtype=dtype, seed=3)
+    wav = chip_smoke.seeded_wav(2, 16000 * 3 + 77, cuda, seed=4)
+    chip_smoke.spread_codebooks(model, chip_smoke.latent_frames(model, wav))
+    ref = model.encode(wav)
+    ts = TimeShardedSoundStream(model, shards)
+    chip_smoke.reset_launches()
+    codes = ts.encode(wav)
+    torch.cuda.synchronize()
+    assert len(codes.parts) == 4 and chip_smoke.read_launches()["rvq_encode"] == 4
+    assert chip_smoke.read_launches()["lstm2"] == 1
+    check(ref, codes.gather(), model.decode(ref), ts.decode(ref).gather())
+
+    vq = VQVAE(HiFiCodecConfig(upsample_rates=(5, 4, 2, 2), upsample_kernel_sizes=(11, 8, 4, 4),
+                               encoder_base_channels=8, upsample_initial_channel=128, n_codes=64),
+               device=cuda, dtype=dtype, seed=5)
+    chip_smoke.spread_codebooks(vq, chip_smoke.latent_frames(vq, wav))
+    ref = vq.encode(wav)
+    vts = TimeShardedVQVAE(vq, shards)
+    chip_smoke.reset_launches()
+    tokens = vts.encode(wav)
+    out = vts.decode(ref)
+    torch.cuda.synchronize()
+    counts = chip_smoke.fused_stage_counts(vq.config)
+    assert chip_smoke.read_launches() == {"rvq_encode": 0, "lstm2": 0, **{k: 4 * n for k, n in counts.items()}}
+    check(ref, tokens.gather() if dtype == torch.float32 else None, vq.decode(ref), out.gather())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_k4_stage_is_one_launch_bit_for_bit(cuda, dtype):
+    """The encoder's K4 stage over four time shards of the card (each owning the
+    whole tiles that start in it, the partials reduced in the sequence's tile
+    order) gives the bits of one launch over the whole sequence: four launches,
+    output equal."""
+    from academicodec_tpu_torch.parallel import sequence
+
+    vq = VQVAE(HiFiCodecConfig(upsample_rates=(5, 4, 2, 2), upsample_kernel_sizes=(11, 8, 4, 4),
+                               encoder_base_channels=32, upsample_initial_channel=128, n_codes=64),
+               device=cuda, dtype=dtype, seed=6)
+    enc = vq.encoder
+    rng = np.random.default_rng(6)
+    wav = _randn(rng, (2, 1, 48000 + 77), cuda, 0.1).to(dtype)
+    with torch.no_grad():
+        x = enc.ups[0](torch.nn.functional.leaky_relu(enc.conv_pre(wav), 0.1))
+        norms = enc.stage(0)[1]
+        packed = enc.packed_tower(0)
+        ref = rb_ops.resblock_tower_gn(x, packed, None, torch.stack([n.weight for n in norms]),
+                                       torch.stack([n.bias for n in norms]), num_groups=x.shape[1] // 16)
+        spans = [(a * 40, min(b * 40, x.shape[2])) for a, b in sequence.time_blocks(-(-x.shape[2] // 40), 4)]
+        before = rb_ops.GN_TOWER_LAUNCHES
+        got = sequence._encoder_stage_gn_fused([enc] * 4, 0, sequence.split_time(x, spans, [cuda] * 4), None)
+        torch.cuda.synchronize()
+    assert rb_ops.GN_TOWER_LAUNCHES == before + 4
+    assert torch.equal(got.gather(), ref)

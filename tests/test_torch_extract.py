@@ -196,14 +196,42 @@ def test_extract_tokens_cli_matches_jax_batched_and_sequential(corpus, tmp_path,
 @pytest.mark.parametrize("extra,message", [
     (["--lm", "lm_dir"], "pass --tokens_ecdc"),
     (["--lm", "no_such_lm_dir", "--tokens_ecdc", "x"], "no LM checkpoint"),
-    (["--sequence_parallel", "--bucket_seconds", "1"], "Queue 1 item 9"),  # 9d; --data_parallel is ported
-    (["--sequence_parallel"], "Queue 1 item 9"),
     (["--batch_files", "2"], "needs --bucket_seconds"),
 ])
 def test_extract_tokens_cli_refuses_what_is_not_ported(corpus, tmp_path, capsys, extra, message):
     with pytest.raises(SystemExit):
         cli.get_args(_flags(corpus) + ["--outputdir", str(tmp_path)] + extra)
     assert message in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("bucket", [[], ["--bucket_seconds", "0.1"]], ids=["exact", "bucketed"])
+def test_extract_tokens_cli_sequence_parallel_matches_jax(corpus, tmp_path, monkeypatch, bucket):
+    """``--sequence_parallel --device cpu,cpu,cpu,cpu``, one file a call at exact
+    lengths or bucketed (masked encode, decode of edge-repeated codes): tokens
+    and ECDC blobs identical to the unsharded CLI's and to the JAX CLI's with
+    the flag, wavs within one 16-bit step of the unsharded CLI's and within
+    the JAX contract of the JAX CLI's."""
+    runs = {}
+    for tag, extra in (("sp", ["--sequence_parallel", "--device", "cpu,cpu,cpu,cpu"]), ("plain", ["--device", "cpu"])):
+        out = tmp_path / tag
+        cli.main(_flags(corpus) + bucket + extra + ["--outputdir", str(out), "--tokens_out", str(out / "t.npz"),
+                                                    "--tokens_ecdc", str(out / "ecdc")])
+        runs[tag] = out
+    out = tmp_path / "jax"
+    monkeypatch.setattr(sys, "argv", ["extract_tokens", *_flags(corpus), *bucket, "--sequence_parallel", "--outputdir",
+                                      str(out), "--tokens_out", str(out / "t.npz"), "--tokens_ecdc", str(out / "ecdc")])
+    jcli.main()
+    runs["jax"] = out
+    ref = np.load(runs["jax"] / "t.npz")
+    assert len(np.unique(np.concatenate([ref[n].reshape(-1) for n in ref.files]))) > 8
+    for name in ("a", "b", "c"):
+        blob = (runs["jax"] / "ecdc" / f"{name}.ecdc").read_bytes()
+        for tag in ("sp", "plain"):
+            np.testing.assert_array_equal(np.load(runs[tag] / "t.npz")[name], ref[name], err_msg=f"{tag}/{name}")
+            assert (runs[tag] / "ecdc" / f"{name}.ecdc").read_bytes() == blob, f"{tag}/{name}"
+        ours = read_wav(str(runs["sp"] / f"{name}.wav"))[0]
+        np.testing.assert_allclose(ours, read_wav(str(runs["plain"] / f"{name}.wav"))[0], atol=1.001 / 2**15, rtol=0)
+        np.testing.assert_allclose(ours, read_wav(str(runs["jax"] / f"{name}.wav"))[0], atol=1e-4, rtol=1e-3)
 
 
 def test_extract_tokens_cli_refuses_a_checkpoint_directory(corpus, tmp_path, capsys):

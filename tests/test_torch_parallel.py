@@ -19,6 +19,10 @@
   on its size); ``cli.compress`` / ``cli.extract_tokens --data_parallel``
   likewise, their 16-bit wav files within one step; the CLIs' argument
   checks against the JAX CLIs'.
+* ``cli.compress --sequence_parallel`` over four time shards on the CPU:
+  blobs byte-identical to the port's unsharded CLI and to the JAX CLI's
+  with the flag (tests/test_torch_sequence.py holds the sharded modules;
+  tests/test_torch_extract.py the extraction CLI).
 """
 
 import json
@@ -203,6 +207,8 @@ COMPRESS_CASES = [
     (["--sequence_parallel", "--packed_conv"], True),
     (["--data_parallel", "--batch_files", "2"], True),
     (["--data_parallel", "--batch_files", "2", "--bucket_seconds", "1"], False),
+    (["--sequence_parallel"], False),
+    (["--sequence_parallel", "--batch_files", "2", "--bucket_seconds", "1"], False),
 ]
 EXTRACT_CASES = [
     (["--data_parallel"], True),
@@ -211,13 +217,15 @@ EXTRACT_CASES = [
     (["--sequence_parallel", "--fused_resblock"], True),
     (["--data_parallel", "--batch_files", "2"], True),
     (["--data_parallel", "--batch_files", "4", "--bucket_seconds", "1"], False),
+    (["--sequence_parallel"], False),
+    (["--sequence_parallel", "--bucket_seconds", "1"], False),
 ]
 
 
 def test_cli_argument_checks_match_jax(tmp_path, monkeypatch):
     """``--data_parallel`` / ``--sequence_parallel`` combinations: each CLI refuses
-    what the JAX CLI refuses and takes what it takes; ``--sequence_parallel``
-    alone, which JAX takes, the port refuses, naming ROADMAP item 9d."""
+    what the JAX CLI refuses and takes what it takes; a device list needs one
+    of the two flags."""
     pth = tmp_path / "m.pth"
     torch.save({}, pth)
     base = ["--input", "in", "--output", "out", "--resume_path", str(pth)]
@@ -229,18 +237,36 @@ def test_cli_argument_checks_match_jax(tmp_path, monkeypatch):
         assert _jax_refuses(jextract_cli.get_args, ebase + extra, monkeypatch) is refused, extra
         assert _port_refuses(extract_cli.get_args, ebase + extra) is refused, extra
     for get_args, args in ((compress_cli.get_args, base), (extract_cli.get_args, ebase)):
-        with pytest.raises(SystemExit):
-            get_args(args + ["--sequence_parallel"])
+        assert get_args(args + ["--sequence_parallel", "--device", "cpu,cpu,cpu,cpu"]).sequence_parallel
         with pytest.raises(SystemExit):
             get_args(args + ["--device", "cpu,cpu"])
     monkeypatch.setattr(sys, "argv", ["cli"] + base + ["--sequence_parallel"])
     assert jcompress_cli.get_args().sequence_parallel
 
 
-def test_sequence_parallel_refusal_names_the_roadmap_item(capsys):
-    with pytest.raises(SystemExit):
-        compress_cli.get_args(["--input", "i", "--output", "o", "--resume_path", "x.pth", "--sequence_parallel"])
-    assert "Queue 1 item 9d" in capsys.readouterr().err
+def test_compress_cli_sequence_parallel_gives_one_device_and_jax_blobs(tmp_path, monkeypatch):
+    """Two files, one of a length the four shards cannot split evenly (a
+    ragged last shard): ``.ecdc`` blobs byte-identical to the unsharded CLI's
+    and to the JAX CLI's with ``--sequence_parallel``, wav files within one
+    16-bit step of the unsharded CLI's."""
+    wavs = [w[:n] for w, n in zip(_wavs(2, 16000, seed=12), (16000, 9973))]
+    model = _soundstream(wavs[:1])
+    pth = tmp_path / "m.pth"
+    torch.save(model.state_dict(), pth)
+    (tmp_path / "in").mkdir()
+    for i, w in enumerate(wavs):
+        write_wav(str(tmp_path / "in" / f"w{i}.wav"), w, 16000)
+    flags = ["--input", str(tmp_path / "in"), "--resume_path", str(pth), *[str(a) for a in _ss_flags()],
+             "--target_bw", "4", "--ecdc"]
+    compress_cli.main(flags + ["--output", str(tmp_path / "plain"), "--device", "cpu"])
+    compress_cli.main(flags + ["--output", str(tmp_path / "sp"), "--device", "cpu,cpu,cpu,cpu", "--sequence_parallel"])
+    monkeypatch.setattr(sys, "argv", ["compress"] + flags + ["--output", str(tmp_path / "jax"), "--sequence_parallel"])
+    jcompress_cli.main()
+    for i in range(2):
+        blobs = [(tmp_path / tag / f"w{i}.ecdc").read_bytes() for tag in ("sp", "plain", "jax")]
+        assert blobs[0] == blobs[1] == blobs[2]
+        np.testing.assert_allclose(read_wav(str(tmp_path / "sp" / f"w{i}.wav"))[0],
+                                   read_wav(str(tmp_path / "plain" / f"w{i}.wav"))[0], atol=PCM_STEP, rtol=0)
 
 
 def test_compress_cli_data_parallel_writes_one_device_blobs(tmp_path):
