@@ -1,0 +1,339 @@
+"""The int8 decision probe's two conv chains: the hand-written CUDA kernels
+(``csrc/chain.cu``) and their plain versions.
+
+P1 :func:`conv_chain_bf16` replaces the TPU kernel
+``benchmarks/pallas_int8_probe.py:_chain_kernel_bf16`` (``pallas_call`` at
+:110), P2 :func:`conv_chain_i8` replaces ``_chain_kernel_i8`` (:116). Both
+run a chain of ``P`` convs (the probe's 6) of k 7, dilation 1 and zero
+"same" padding over ``x [C, T]`` or ``[B, C, T]`` bf16, every row its own
+sequence, and return bf16 of ``x``'s shape. Conv ``p`` has weights ``W[p]
+[C, 7C]`` in the probe's tap-major layout (column ``j C + ci`` is tap ``j`` of
+input channel ``ci``, at offset ``j - 3``: :func:`shift_cols`) and bias ``b[p]
+[C, 1]`` f32. P1 sums bf16 products in f32, adds the bias, applies
+``where(y >= 0, y, 0.1 y)`` in f32 and rounds to bf16. P2 first quantizes
+that bf16 value with the conv's static scale ``s_act[p]``
+(``clip(round(x / s), -127, 127)``, IEEE division, half to even), sums int8 x
+int8 products in int32, then dequantizes, ``y = float(yi) * (s[p] *
+ws[p, co]) + b`` with no fused multiply-add, before the same lrelu and
+rounding. The sums are exact (at most 7 * 64 * 127^2 < 2^24), so P2's plain
+version sums in f32 and the kernel matches it bit for bit. Every conv reads
+zeros outside ``[0, T)``.
+
+:func:`calibrate` is the probe's ``run_case`` calibration: ``s[p] =
+max(amax_p, 1e-6) / 127`` from the inputs' max |.| at each conv of the f32
+reference chain (:func:`ref_chain`, f32 weights, each output rounded to
+bf16), and per output channel ``ws = max(max |w|, 1e-12) / 127``, ``wq =
+clip(round(w / ws), -127, 127)``. (``ops/int8.act_scale_from_amax`` has an
+eps of 1e-12; the probe's 1e-6 is kept here.)
+
+Weights carried across: the probe's parameters are plain arrays in the same
+tap-major layout on both sides, so the tests feed the same numpy arrays to
+the JAX kernel bodies and to these functions, and ``utils/convert.py`` has
+nothing to convert. torch's ``[O, I, K]`` of the same convs is
+:func:`to_oik`.
+
+On the H100 both chains are bound by operations (see the source); the
+kernels share one design so that their time ratio measures the number
+format. The wrappers take the operands packed once by :func:`pack_chain_bf16`
+/ :func:`pack_chain_i8` (the tap tiles and flat scales; on the CPU only the
+arrays as given). A CPU tensor runs the plain version; a CUDA tensor always
+launches the kernel or raises: mixed devices, C other than 32 or 64, and a
+CUDA call that autograd would record (the kernels have no backward) raise.
+``P1_LAUNCHES`` and ``P2_LAUNCHES`` count kernel launches, one where a kernel
+was launched (an empty ``x`` launches none).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from academicodec_tpu_torch.ops.cuda.build import check, load_library
+from academicodec_tpu_torch.ops.cuda.resblock import pack_taps
+
+P1_LAUNCHES = 0
+P2_LAUNCHES = 0
+
+KSIZE, HALF = 7, 3
+LRELU_SLOPE = 0.1
+# limits of csrc/chain.cu: channel counts, convs a chain, window rows a block
+# (8 warps x 3 m-tiles of 16), ring stages, rows past the window
+CHAIN_CHANNELS = (32, 64)
+MAX_CONVS, MAX_ROWS, STAGES, PAD_ROWS = 8, 384, 4, 16
+# the probe's calibration epsilons (benchmarks/pallas_int8_probe.py:96, :102)
+ACT_EPS, WEIGHT_EPS = 1e-6, 1e-12
+
+
+def shift_cols(a: torch.Tensor, k: int = KSIZE, d: int = 1) -> torch.Tensor:
+    """The port's copy of the probe's ``_shift_cols``: ``[..., C, W] -> [...,
+    k C, W]``, block ``j`` is ``a`` shifted by ``(j - (k - 1) / 2) d`` columns,
+    zeros past either end."""
+    W = a.shape[-1]
+    c = (k - 1) // 2 * d
+    ap = F.pad(a, (c, c))
+    return torch.cat([ap[..., j * d:j * d + W] for j in range(k)], dim=-2)
+
+
+def to_oik(w: torch.Tensor) -> torch.Tensor:
+    """Tap-major ``[P, C, 7C]`` -> torch's ``[P, C_out, C_in, 7]`` (a view)."""
+    P, C, _ = w.shape
+    return w.view(P, C, KSIZE, C).permute(0, 1, 3, 2)
+
+
+def _lrelu(y: torch.Tensor) -> torch.Tensor:
+    return torch.where(y >= 0, y, LRELU_SLOPE * y)
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """``[C, T]`` as one row ``[1, C, T]``; ``[B, C, T]`` as it is."""
+    if x.dim() not in (2, 3):
+        raise ValueError(f"conv chain: x must be [C, T] or [B, C, T], got {tuple(x.shape)}")
+    return x[None] if x.dim() == 2 else x
+
+
+def _col(v: torch.Tensor, P: int, C: int) -> torch.Tensor:
+    """A per-conv, per-channel f32 vector as ``[P, C, 1]``."""
+    return v.float().reshape(P, C, 1)
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def conv_chain_bf16_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """P1 as the probe's kernel body writes it: ``W[p] @ shift_cols(cur)`` of
+    bf16 values in f32, plus the bias, lrelu in f32, rounded to bf16."""
+    cur = _rows(x).to(torch.bfloat16)
+    P, C, _ = w.shape
+    wf, bf = w.to(torch.bfloat16).float(), _col(b, P, C)
+    for p in range(P):
+        y = torch.matmul(wf[p], shift_cols(cur.float())) + bf[p]
+        cur = _lrelu(y).to(torch.bfloat16)
+    return cur.reshape(x.shape)
+
+
+def quantize_act(v: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """``clip(round(v / s), -127, 127)`` in f32 (integer values)."""
+    return torch.round(v.float() / s).clamp(-127, 127)
+
+
+def conv_chain_i8_plain(x: torch.Tensor, wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor,
+                        s_act: torch.Tensor) -> torch.Tensor:
+    """P2 as the probe's kernel body writes it. The int8 sums are taken as an
+    f32 matmul of integer values, exact (with TF32 on or off: an int8 value
+    fits TF32's significand); the dequantizing multiply and the bias add are
+    separate operations, as the kernel keeps them."""
+    cur = _rows(x).to(torch.bfloat16)
+    P, C, _ = wq.shape
+    wf, wsf, bf, s = wq.float(), _col(ws, P, C), _col(b, P, C), s_act.float()
+    for p in range(P):
+        yi = torch.matmul(wf[p], shift_cols(quantize_act(cur, s[p])))
+        y = yi * (s[p] * wsf[p])
+        cur = _lrelu(y + bf[p]).to(torch.bfloat16)
+    return cur.reshape(x.shape)
+
+
+def ref_chain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The probe's ``ref_chain``: f32 weights, each conv's output rounded to
+    bf16; returns it and ``amax [P]``, max |.| of each conv's input."""
+    cur = _rows(x).to(torch.bfloat16)
+    P, C, _ = w.shape
+    wf, bf = w.float(), _col(b, P, C)
+    amax = []
+    for p in range(P):
+        amax.append(cur.float().abs().max())
+        y = torch.matmul(wf[p], shift_cols(cur.float())) + bf[p]
+        cur = _lrelu(y).to(torch.bfloat16)
+    return cur.reshape(x.shape), torch.stack(amax)
+
+
+def act_scales(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-6) / 127`` in f32: the probe's static activation scales."""
+    return amax.float().clamp_min(ACT_EPS) / 127.0
+
+
+def quantize_weights(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per output channel of each conv: ``(wq [P, C, 7C] int8, ws [P, C, 1] f32)``."""
+    wf = w.float()
+    ws = wf.abs().amax(dim=2, keepdim=True).clamp_min(WEIGHT_EPS) / 127.0
+    return torch.round(wf / ws).clamp(-127, 127).to(torch.int8), ws
+
+
+def calibrate(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> dict:
+    """The probe's calibration (``run_case``): the f32 reference output ``ref``,
+    ``amax``, ``s_act [P]``, ``wq`` and ``ws``."""
+    ref, amax = ref_chain(x, w, b)
+    wq, ws = quantize_weights(w)
+    return dict(ref=ref, amax=amax, s_act=act_scales(amax), wq=wq, ws=ws)
+
+
+# ---------------------------------------------------------------- the kernels
+
+
+def swizzle_perm_i8(C: int) -> torch.Tensor:
+    """Element permutation of a row-major ``[C][C]`` int8 tile under the
+    kernel's swizzle (16-byte chunks XORed with the 128-byte line index), as
+    ``resblock.swizzle_perm`` is for bf16 tiles. An involution."""
+    e = torch.arange(C * C)
+    return e ^ (((e >> 7) & (C // 16 - 1)) << 4)
+
+
+def pack_taps_chain(w: torch.Tensor) -> torch.Tensor:
+    """``[P, C, 7C]`` tap-major -> the ``7 P`` pre-swizzled ``[C_out][C_in]`` tap
+    tiles, conv after conv, flat: ``resblock.pack_taps`` of each conv for bf16,
+    the int8 swizzle for int8."""
+    if w.dtype != torch.int8:
+        return torch.cat([pack_taps(o) for o in to_oik(w)])
+    P, C, _ = w.shape
+    tiles = w.view(P, C, KSIZE, C).permute(0, 2, 1, 3).reshape(P * KSIZE, C * C)
+    return tiles[:, swizzle_perm_i8(C).to(w.device)].reshape(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def chain_tile(B: int, T: int, P: int, C: int, sms: int) -> int:
+    """Output rows a block: the widest multiple of 8 whose window ``TT + 6P``
+    fits 384 rows, narrowed (to 16 at least) until the ``B ceil(T / TT)``
+    blocks fill every SM's resident blocks (1 at C 64, 2 at C 32) where the
+    sequence is short."""
+    top = (MAX_ROWS - 2 * HALF * P) // 8 * 8
+    tiles = -(-sms * (1 if C == 64 else 2) // B)
+    per_tile = -(-T // tiles)
+    return max(16, min(top, -(-per_tile // 8) * 8))
+
+
+def chain_smem_bytes(C: int, itemsize: int, TT: int, P: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in csrc/chain.cu)."""
+    rb = C * itemsize
+    buf = -(-(TT + 2 * HALF * P + PAD_ROWS) * rb // 1024) * 1024
+    return 1024 + STAGES * C * rb + 2 * buf + 16 * STAGES
+
+
+@dataclass
+class ChainOperands:
+    """A chain's operands: ``raw`` as given (what the plain version reads:
+    ``(w, b)`` for P1, ``(wq, ws, b, s_act)`` for P2) and, on the card, the
+    kernel's: the packed tap tiles and the f32 biases, weight scales and
+    activation scales, flat. Build with :func:`pack_chain_bf16` /
+    :func:`pack_chain_i8`."""
+
+    int8: bool
+    C: int
+    P: int
+    device: torch.device
+    raw: Tuple[torch.Tensor, ...]
+    tiles: Optional[torch.Tensor] = None
+    bias: Optional[torch.Tensor] = None
+    ws: Optional[torch.Tensor] = None
+    s_act: Optional[torch.Tensor] = None
+
+
+def _check_shapes(name: str, w: torch.Tensor, *vectors: Tuple[str, torch.Tensor, int]) -> Tuple[int, int]:
+    if w.dim() != 3 or w.shape[2] != KSIZE * w.shape[1]:
+        raise ValueError(f"{name}: weights must be [P, C, 7C], got {tuple(w.shape)}")
+    P, C = w.shape[0], w.shape[1]
+    for what, v, n in vectors:
+        if v.numel() != n:
+            raise ValueError(f"{name}: {what} of {tuple(v.shape)} for P={P}, C={C}")
+    return P, C
+
+
+def _same_device(name: str, tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on {sorted(map(str, devices))}; the chain takes one device")
+    return devices.pop()
+
+
+def _pack(name: str, int8: bool, raw: Tuple[torch.Tensor, ...], P: int, C: int) -> ChainOperands:
+    dev = _same_device(name, raw)
+    ops = ChainOperands(int8=int8, C=C, P=P, device=dev, raw=raw)
+    if dev.type != "cuda":
+        return ops
+    if C not in CHAIN_CHANNELS or P > MAX_CONVS:
+        raise ValueError(f"{name}: the kernel takes C in {CHAIN_CHANNELS} and at most {MAX_CONVS} convs; "
+                         f"got C={C}, P={P}")
+    w = raw[0]
+    ops.tiles = pack_taps_chain(w if int8 else w.detach().to(torch.bfloat16)).contiguous()
+    ops.bias = (raw[2] if int8 else raw[1]).detach().float().reshape(-1).contiguous()
+    if int8:
+        ops.ws = raw[1].detach().float().reshape(-1).contiguous()
+        ops.s_act = raw[3].detach().float().reshape(-1).contiguous()
+    return ops
+
+
+def pack_chain_bf16(w: torch.Tensor, b: torch.Tensor) -> ChainOperands:
+    """P1's operands: ``w [P, C, 7C]`` (rounded to bf16), ``b [P, C, 1]``."""
+    P, C = _check_shapes("conv_chain_bf16", w, ("bias", b, w.shape[0] * w.shape[1]))
+    return _pack("conv_chain_bf16", False, (w, b), P, C)
+
+
+def pack_chain_i8(wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, s_act: torch.Tensor) -> ChainOperands:
+    """P2's operands: ``wq [P, C, 7C]`` int8, ``ws [P, C, 1]``, ``b [P, C, 1]``,
+    ``s_act [P]`` f32 (kept on its device: the kernel reads it there)."""
+    if wq.dtype != torch.int8:
+        raise ValueError(f"conv_chain_i8: int8 weights, got {wq.dtype}")
+    n = wq.shape[0] * wq.shape[1] if wq.dim() == 3 else -1
+    P, C = _check_shapes("conv_chain_i8", wq, ("weight scales", ws, n), ("bias", b, n),
+                         ("activation scales", s_act, wq.shape[0]))
+    return _pack("conv_chain_i8", True, (wq, ws, b, s_act), P, C)
+
+
+def _launch(name: str, x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
+    """The CUDA call's checks, then one launch, counted."""
+    global P1_LAUNCHES, P2_LAUNCHES
+    if ops.device.type != "cuda" or x.device != ops.device:
+        raise ValueError(f"{name}: x on {x.device}, operands on {ops.device}; the kernel takes CUDA tensors")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *ops.raw)):
+        raise RuntimeError(f"{name}: the kernel has no backward, and autograd would record this call; "
+                           "call it under torch.no_grad()")
+    xr = _rows(x)
+    if x.dtype != torch.bfloat16 or xr.shape[1] != ops.C:
+        raise ValueError(f"{name}: x must be bf16 [., {ops.C}, T], got {x.dtype} {tuple(x.shape)}")
+    xr = xr.contiguous()
+    B, C, T = xr.shape
+    y = torch.empty_like(xr)
+    if B == 0 or T == 0:
+        return y.reshape(x.shape)
+    TT = chain_tile(B, T, ops.P, C, _sm_count(x.device.index if x.device.index is not None else
+                                              torch.cuda.current_device()))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    lib = load_library()
+    if ops.int8:
+        rc = lib.acad_conv_chain_i8(xr.data_ptr(), ops.tiles.data_ptr(), ops.ws.data_ptr(), ops.bias.data_ptr(),
+                                    ops.s_act.data_ptr(), y.data_ptr(), B, C, T, ops.P, TT, stream)
+    else:
+        rc = lib.acad_conv_chain_bf16(xr.data_ptr(), ops.tiles.data_ptr(), ops.bias.data_ptr(), y.data_ptr(),
+                                      B, C, T, ops.P, TT, stream)
+    check(rc, name)
+    if ops.int8:
+        P2_LAUNCHES += 1
+    else:
+        P1_LAUNCHES += 1
+    return y.reshape(x.shape)
+
+
+def conv_chain_bf16(x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
+    """P1 over ``x [C, T]`` or ``[B, C, T]`` bf16 with the operands of
+    :func:`pack_chain_bf16`."""
+    if ops.int8:
+        raise ValueError("conv_chain_bf16: operands packed for conv_chain_i8")
+    if x.device.type == "cpu" and ops.device.type == "cpu":
+        return conv_chain_bf16_plain(x, *ops.raw)
+    return _launch("conv_chain_bf16", x, ops)
+
+
+def conv_chain_i8(x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
+    """P2 over ``x [C, T]`` or ``[B, C, T]`` bf16 with the operands of
+    :func:`pack_chain_i8`."""
+    if not ops.int8:
+        raise ValueError("conv_chain_i8: operands packed for conv_chain_bf16")
+    if x.device.type == "cpu" and ops.device.type == "cpu":
+        return conv_chain_i8_plain(x, *ops.raw)
+    return _launch("conv_chain_i8", x, ops)

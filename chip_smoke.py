@@ -56,8 +56,15 @@ card against the unsharded model, one 60 s hificodec_24k_320d file through
 against the CLI without it, and ``cli.compress --sequence_parallel`` on
 three files (K1-K4 on every shard; K4's per-tile GroupNorm moments of every
 shard reduced in the sequence's tile order, its passes held against their
-plain versions and the sharded stage bit for bit against one launch). Any
-failed phase exits non-zero; without a CUDA device it exits 1 at once.
+plain versions and the sharded stage bit for bit against one launch). Last,
+the int8 decision probe (``probe_chain``, ``probes/int8_chain.py``): the two
+conv chains of ``benchmarks/pallas_int8_probe.py``, P1 (bf16) and P2 (W8A8),
+at the probe's four tiles and at K3's stage shapes s2 [8, 64, 120000] and s3
+[8, 32, 240000], each held against its plain version (P1 within 2e-2 of max
+|plain|, P2 bit for bit, P2 within 0.12 relative L2 of the f32 reference),
+and the probe's decision taken from the s2/s3 ratios; P1/P2 launch on no
+other phase. Any failed phase exits non-zero; without a CUDA device it
+exits 1 at once.
 
     python3 chip_smoke.py
 
@@ -109,17 +116,14 @@ from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.ops import int8 as int8_ops
 from academicodec_tpu_torch.ops.cuda import build as kernel_build
+from academicodec_tpu_torch.ops.cuda import chain as chain_ops
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
+from academicodec_tpu_torch.probes import int8_chain
+from academicodec_tpu_torch.probes.int8_chain import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound, nvidia_smi
 from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS, THRESHOLD_EMA_DEAD_CODE
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
-
-# NVIDIA H100 SXM data-sheet peaks (dense), at its full 700 W power limit
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-HBM_BYTES_PER_S = 3.35e12
 
 FLAGSHIP = "encodec_24k_240d"
 HIFI = "hificodec_24k_320d"
@@ -136,8 +140,11 @@ INT8_CROSS_TOKEN_LIMIT = 0.1
 
 
 def reset_launches() -> None:
-    """Every kernel's count to 0, and the int8 GEMM's (a library call, read
-    apart from the kernels by ``int8_ops.INT_MM_CALLS``)."""
+    """K1-K4's counts to 0, and the int8 GEMM's (a library call, read apart
+    from the kernels by ``int8_ops.INT_MM_CALLS``). The probe's P1/P2 counts
+    (:func:`read_probe_launches`) are set to 0 by its own phase only, so that
+    up to it they count every launch of the run: ``main`` holds them at 0
+    over every serving and training phase."""
     rvq_ops.LAUNCHES = 0
     lstm_ops.LAUNCHES = 0
     resblock_ops.TOWER_LAUNCHES = 0
@@ -153,12 +160,8 @@ def read_launches() -> dict:
     }
 
 
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
+def read_probe_launches() -> dict:
+    return {"conv_chain_bf16": chain_ops.P1_LAUNCHES, "conv_chain_i8": chain_ops.P2_LAUNCHES}
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -174,12 +177,6 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(flops: float, nbytes: float, peak_flops: float):
-    """Least time (ms) the card could take, and which of the two bounds it."""
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def phase_device() -> str:
@@ -4507,20 +4504,79 @@ def phase_sequence(device="cuda", seconds=60.0, shards=4, iters=3, hifi_seconds=
 
 
 def probe_bounds() -> list:
-    """The bounds of ``benchmarks/pallas_int8_probe.py``'s two Pallas kernels (on
-    no path of the package, not ported) at its four cases: 6 convs of k 7 over
-    one ``[C, TT]`` tile, 2 * 6 * C * 7C * TT operations at the bf16 peak (P1)
-    and the int8 peak (P2), against the bytes of the bf16 input and output, the
-    weights (P1 f32; P2 int8 with f32 scales) and the f32 biases."""
-    rows = []
-    for C, TT in ((32, 8192), (64, 8192), (32, 4096), (64, 4096)):
-        ops, io = 2 * 6 * C * 7 * C * TT, 2 * C * TT * 2
-        for name, peak, nbytes in (("P1", PEAK_BF16_FLOPS, io + 6 * C * 7 * C * 4 + 6 * C * 4),
-                                   ("P2", PEAK_INT8_OPS, io + 6 * C * 7 * C + 6 * C * 4 * 2 + 6 * 4)):
-            ms, by = bound(ops, nbytes, peak)
-            rows.append({"kernel": name, "C": C, "TT": TT, "ops": ops, "bytes": nbytes, "bound_ms": ms,
-                         "bound_by": by})
+    """The bounds of the probe's two chains (``int8_chain.chain_bounds``) at its
+    four one-tile cases and its two decision shapes."""
+    rows = [dict(C=C, TT=TT, **int8_chain.chain_bounds(1, C, TT)) for C, TT in int8_chain.CASES]
+    rows += [dict(shape=tag, B=B, C=C, T=T, **int8_chain.chain_bounds(B, C, T)) for tag, B, C, T in int8_chain.SHAPES]
     return rows
+
+
+PROBE_P1_TOL = 2e-2   # P1 vs plain, x max |plain| (K3's bf16 limit, TOWER_LIMITS)
+PROBE_I8_REL_L2 = 0.12  # P2 vs the f32 reference chain (the port's int8 limit)
+
+
+def _probe_kernel(res: dict, launches: int, name: str, fmt: str, replaces: str, tolerance: str, err_key: str) -> dict:
+    """One kernel's entry of the ``kernels`` line: times summed over the two
+    decision shapes (one chain over each of K3's stage shapes)."""
+    shapes, rows = res["shapes"], res["cases"] + res["shapes"]
+
+    def total(key):
+        vals = [s[key] for s in shapes]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    return dict(
+        name=name, route="cuda", source="academicodec_tpu_torch/csrc/chain.cu", replaces=replaces,
+        launches=launches, max_abs_err=max(r[err_key] for r in rows), tolerance=tolerance,
+        ms=total(f"{fmt}_ms"), plain_ms=total(f"plain_{fmt}_ms"), bound_ms=total(f"bound_{fmt}_ms"),
+        bound_by="operations" if all(s[f"bound_{fmt}_by"] == "operations" for s in shapes) else "bytes",
+        library_ms=total(f"library_{fmt}_ms"),
+        per_shape={s["shape"]: {k: s[k] for k in (f"{fmt}_ms", f"plain_{fmt}_ms", f"bound_{fmt}_ms",
+                                                  f"library_{fmt}_ms")} for s in shapes},
+        per_tile=[{k: c[k] for k in ("C", "TT", f"{fmt}_ms", f"bound_{fmt}_ms")} for c in res["cases"]],
+        note="ms, plain_ms, bound_ms and library_ms sum the two decision shapes (s2 [8,64,120000] + s3 "
+             "[8,32,240000]); library: " + ("6 x cuDNN bf16 conv1d + bias + lrelu" if fmt == "bf16" else
+                                           "6 x ops/int8.conv1d_w8a8 (im2col + cuBLASLt int8 GEMM) + lrelu"),
+    )
+
+
+def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
+    """The int8 decision probe (``probes/int8_chain.py``) as its entry point runs
+    it, with every count set to 0 just before and read just after: P1 and P2
+    at the probe's four one-tile cases and at the decision shapes s2 and s3,
+    timed on the card, and the decision. Each kernel's output is held against
+    its plain version on the same inputs (P1 within ``PROBE_P1_TOL`` of max
+    |plain|, P2 bit for bit) and P2 against the f32 reference chain (relative
+    L2 within ``PROBE_I8_REL_L2``); K1-K4 launch no time. ``tiny``: the probe's
+    ``--tiny`` sizes (a CPU rehearsal)."""
+    on_card = torch.device(device).type == "cuda"
+    reset_launches()
+    chain_ops.P1_LAUNCHES = chain_ops.P2_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = int8_chain.run(device, tiny=tiny, out=lambda row: print(f"[probe_chain] {json.dumps(row)}", flush=True))
+    if on_card:
+        torch.cuda.synchronize()
+    launches = {**read_launches(), **read_probe_launches()}
+    rows = res["cases"] + res["shapes"]
+    misses = [r for r in rows if not (r["p1_vs_plain"] <= PROBE_P1_TOL and r["p2_bitwise"]
+                                      and r["rel_l2_i8"] <= PROBE_I8_REL_L2)]
+    expected = int8_chain.launches_per_kernel(len(res["cases"]), len(res["shapes"])) if on_card else 0
+    counted = (all(launches[k] == expected for k in ("conv_chain_bf16", "conv_chain_i8"))
+               and not any(read_launches().values()))
+    wall = time.perf_counter() - t0
+    print(f"[probe_chain] P1 against plain: at most {max(r['p1_vs_plain'] for r in rows):.3g} of max |plain| "
+          f"(limit {PROBE_P1_TOL}); P2 bitwise its plain version in {sum(r['p2_bitwise'] for r in rows)} of "
+          f"{len(rows)} runs, relative L2 against the f32 reference at most "
+          f"{max(r['rel_l2_i8'] for r in rows):.4g} (limit {PROBE_I8_REL_L2}); launches {launches} (expected "
+          f"{expected} each); decision: {res['decision']}; the phase {wall:.1f} s ({res['device']})")
+    if misses or not counted:
+        raise AssertionError(f"probe_chain: {len(misses)} runs miss their limits ({misses[:2]}), launches {launches}")
+    kernels = [
+        _probe_kernel(res, launches["conv_chain_bf16"], "conv_chain_bf16", "bf16",
+                      "benchmarks/pallas_int8_probe.py:110", f"{PROBE_P1_TOL} x max|plain|", "p1_max_abs_vs_plain"),
+        _probe_kernel(res, launches["conv_chain_i8"], "conv_chain_i8", "i8",
+                      "benchmarks/pallas_int8_probe.py:116", "bitwise", "p2_max_abs_vs_plain"),
+    ]
+    return dict(res, launches=launches, kernels=kernels, wall_s=wall)
 
 
 def main() -> int:
@@ -4557,6 +4613,14 @@ def main() -> int:
                                   "train_hificodec": train_hifi["f32"]["launches_step"]}, device)
     parallel = phase_parallel(device)
     sequence = phase_sequence(device)
+    outside = read_probe_launches()  # P1/P2 over every phase above: none is theirs
+    print(f"[probe_chain] P1/P2 launches over every serving and training phase: {outside} (expected 0)")
+    if any(outside.values()):
+        raise AssertionError(f"probe_chain: P1/P2 launched outside the probe: {outside}")
+    probe = phase_probe_chain(device)
+    p1, p2 = probe.pop("kernels")
+    for k in (p1, p2):
+        k["launches_serving_and_training"] = outside[k["name"]]
     k1["launches"] = main_path["launches"]["rvq_encode"]
     k2["launches"] = main_path["launches"]["lstm2"]
     for k, name in ((k1, "rvq_encode"), (k2, "lstm2")):
@@ -4618,7 +4682,8 @@ def main() -> int:
     print(f"[parallel] {json.dumps(parallel)}")
     print(f"[sequence] {json.dumps(sequence)}")
     print(f"[probe_bounds] {json.dumps(probe_bounds())}")
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(f"[probe_chain] {json.dumps(probe)}")
+    print(json.dumps({"kernels": [k1, k2, k3, k4, p1, p2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

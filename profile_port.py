@@ -32,6 +32,13 @@ chains, and inside the chains the waits for tap tiles and the epilogues).
 
     python3 profile_port.py --tower-clocks
 
+``--chain-clocks`` does the same for the int8 probe's chains, P1 and P2
+(``csrc/chain.cu``, ``-DCHAIN_PROFILE``), once each at the decision shapes s2
+and s3 (``probes/int8_chain.py``): window load, the taps (and inside them the
+waits for tap tiles), the epilogues.
+
+    python3 profile_port.py --chain-clocks
+
 ``--train-flops`` counts, with ``torch.utils.flop_counter`` on the CPU (no
 card needed), the forward FLOPs of each module of the Encodec_24k_240d
 trainer (``chip_smoke.TRAIN_RECIPE``) for one 1 s item: the SEANet encoder
@@ -86,6 +93,21 @@ def tower_clocks() -> None:
         print(f"[clocks] {tag} [8,{C},{T}] {chip_smoke._geometry(packed, gn=False)}", flush=True)
         ops.resblock_tower(x, packed)
         torch.cuda.synchronize()
+
+
+def chain_clocks() -> None:
+    """P1 and P2 once each at the s2 and s3 shapes from a ``-DCHAIN_PROFILE`` build."""
+    int8_chain, chain = chip_smoke.int8_chain, chip_smoke.chain_ops
+    for tag, B, C, T in int8_chain.SHAPES:
+        x, w, b = int8_chain.make_inputs(C, T, B, 0, "cuda")
+        cal = chain.calibrate(x, w, b)
+        tt = chain.chain_tile(B, T, int8_chain.N_CONVS, C, torch.cuda.get_device_properties(0).multi_processor_count)
+        print(f"[clocks] {tag} [{B},{C},{T}] TT {tt}", flush=True)
+        with torch.no_grad():
+            chain.conv_chain_bf16(x, chain.pack_chain_bf16(w.to(torch.bfloat16), b))
+            torch.cuda.synchronize()
+            chain.conv_chain_i8(x, chain.pack_chain_i8(cal["wq"], cal["ws"], b, cal["s_act"]))
+            torch.cuda.synchronize()
 
 
 def train_flops() -> dict:
@@ -160,6 +182,8 @@ def main(argv=None) -> int:
     parser.add_argument("--chunks", type=int, default=10, help="chunks in the --stream window")
     parser.add_argument("--tower-clocks", action="store_true",
                         help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
+    parser.add_argument("--chain-clocks", action="store_true",
+                        help="print clock64 phase counts of P1/P2 blocks from a -DCHAIN_PROFILE build")
     parser.add_argument("--fused-pre", action="store_true",
                         help="HiFi-Codec: fuse each narrow stage's upsampling convT into K3 (generator.fused_pre)")
     parser.add_argument("--train-flops", action="store_true",
@@ -183,6 +207,11 @@ def main(argv=None) -> int:
         chip_smoke.kernel_build.NVCC_FLAGS.append("-DTOWER_PROFILE")
         chip_smoke.phase_build()
         tower_clocks()
+        return 0
+    if args.chain_clocks:
+        chip_smoke.kernel_build.NVCC_FLAGS.append("-DCHAIN_PROFILE")
+        chip_smoke.phase_build()
+        chain_clocks()
         return 0
     chip_smoke.phase_build()
     if args.stream:

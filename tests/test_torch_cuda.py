@@ -17,9 +17,11 @@ from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES
+from academicodec_tpu_torch.ops.cuda import chain as chain_ops
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
+from academicodec_tpu_torch.probes import int8_chain
 
 pytestmark = pytest.mark.cuda
 
@@ -1221,3 +1223,136 @@ def test_sharded_k4_stage_is_one_launch_bit_for_bit(cuda, dtype):
         torch.cuda.synchronize()
     assert rb_ops.GN_TOWER_LAUNCHES == before + 4
     assert torch.equal(got.gather(), ref)
+
+
+# ---------------------------------------------------------------- the int8 probe's conv chains (P1, P2)
+
+
+def _chain_inputs(cuda, C, T, B=None, seed=0):
+    """The probe's seeded inputs and calibration: ``x, w, b, cal``."""
+    x, w, b = int8_chain.make_inputs(C, T, B, seed, cuda)
+    return x, w, b, chain_ops.calibrate(x, w, b)
+
+
+def _packed(w, b, cal):
+    """P1's and P2's packed operands."""
+    return (chain_ops.pack_chain_bf16(w.to(torch.bfloat16), b),
+            chain_ops.pack_chain_i8(cal["wq"], cal["ws"], b, cal["s_act"]))
+
+
+def _chains_both(x, w, b, cal):
+    """P1 and P2 on ``x``, one launch each, and their plain versions."""
+    ops16, ops8 = _packed(w, b, cal)
+    before = chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES
+    with torch.no_grad():
+        y16 = chain_ops.conv_chain_bf16(x, ops16)
+        y8 = chain_ops.conv_chain_i8(x, ops8)
+        torch.cuda.synchronize()
+        assert (chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        p16 = chain_ops.conv_chain_bf16_plain(x, w, b)
+        p8 = chain_ops.conv_chain_i8_plain(x, cal["wq"], cal["ws"], b, cal["s_act"])
+    return y16, y8, p16, p8
+
+
+def _check_chains(x, w, b, cal):
+    """P1 within K3's bf16 limit (2e-2 x max |plain|), P2 bit for bit its plain
+    version and within 0.12 relative L2 of the f32 reference chain."""
+    y16, y8, p16, p8 = _chains_both(x, w, b, cal)
+    assert y16.shape == y8.shape == x.shape and y16.dtype == y8.dtype == torch.bfloat16
+    assert (y16.float() - p16.float()).abs().max().item() <= 2e-2 * p16.float().abs().max().item()
+    assert torch.equal(y8, p8)
+    ref = cal["ref"].float()
+    assert ((y8.float() - ref).norm() / ref.norm()).item() <= 0.12
+    return y16, y8
+
+
+@pytest.mark.parametrize("C,T", [(32, 8192), (64, 8192), (32, 4096), (64, 4096)])
+def test_conv_chains_at_the_probe_cases(cuda, C, T):
+    """The probe's four one-tile cases ``[C, TT]``."""
+    _check_chains(*_chain_inputs(cuda, C, T, seed=C + T))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("T", [1, 5, 17, 18, 19, 343, 344, 345, 1001, 4099])
+def test_conv_chains_at_tile_edges(cuda, C, T):
+    """T below the chain's halo of 18, around one tile (344 rows at most), not a
+    multiple of 8 (the window's scalar loads), with a leading batch of 2."""
+    _check_chains(*_chain_inputs(cuda, C, T, B=2, seed=T))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_conv_chains_batch_equals_rows(cuda, C):
+    """``[B, C, T]``: each row its own sequence, bit for bit the row alone."""
+    x, w, b, cal = _chain_inputs(cuda, C, 3000, B=3, seed=3)
+    y16, y8 = _check_chains(x, w, b, cal)
+    ops16, ops8 = _packed(w, b, cal)
+    with torch.no_grad():
+        for i in range(3):
+            assert torch.equal(chain_ops.conv_chain_bf16(x[i], ops16), y16[i])
+            assert torch.equal(chain_ops.conv_chain_i8(x[i], ops8), y8[i])
+
+
+@pytest.mark.parametrize("tag,B,C,T", [("s2", 8, 64, 120000), ("s3", 8, 32, 240000)])
+def test_conv_chains_at_the_decision_shapes(cuda, tag, B, C, T):
+    _check_chains(*_chain_inputs(cuda, C, T, B=B))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_conv_chain_i8_rounds_half_to_even_and_clips(cuda, C):
+    """Inputs on the quantizer's ties (k + 1/2 steps of the first scale) and past
+    +-127 steps: the kernel quantizes them as the plain version does."""
+    x, w, b, cal = _chain_inputs(cuda, C, 1000, B=2, seed=7)
+    s = torch.full((6,), 2.0 ** -5, device=cuda)
+    steps = torch.arange(-300, 300, device=cuda).float() + 0.5
+    x = (steps[torch.randint(0, 600, x.shape, generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)]
+         * s[0]).to(torch.bfloat16)
+    with torch.no_grad():
+        y8 = chain_ops.conv_chain_i8(x, chain_ops.pack_chain_i8(cal["wq"], cal["ws"], b, s))
+        p8 = chain_ops.conv_chain_i8_plain(x, cal["wq"], cal["ws"], b, s)
+    assert torch.equal(y8, p8)
+
+
+def test_conv_chain_wrappers_device_rules(cuda):
+    """Mixed devices, C other than 32/64 on the card and a call autograd would
+    record raise; an empty ``x`` launches nothing and counts nothing."""
+    x, w, b, cal = _chain_inputs(cuda, 32, 500, B=2)
+    ops16, ops8 = _packed(w, b, cal)
+    with pytest.raises(ValueError):
+        chain_ops.conv_chain_bf16(x, chain_ops.pack_chain_bf16(w.cpu().to(torch.bfloat16), b.cpu()))
+    with pytest.raises(ValueError):
+        chain_ops.conv_chain_i8(x.cpu(), ops8)
+    with pytest.raises(ValueError):
+        chain_ops.pack_chain_i8(cal["wq"], cal["ws"], b, cal["s_act"].cpu())
+    w16, b16 = _chain_inputs(cuda, 16, 100)[1:3]
+    with pytest.raises(ValueError):
+        chain_ops.pack_chain_bf16(w16.to(torch.bfloat16), b16)
+    with pytest.raises(RuntimeError):
+        chain_ops.conv_chain_bf16(x, chain_ops.pack_chain_bf16(w.to(torch.bfloat16).requires_grad_(), b))
+    before = chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES
+    with torch.no_grad():
+        for empty in (x[:0], x[..., :0]):
+            assert chain_ops.conv_chain_bf16(empty, ops16).shape == empty.shape
+            assert chain_ops.conv_chain_i8(empty, ops8).shape == empty.shape
+    assert (chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES) == before
+
+
+@pytest.mark.parametrize("s", [0.0123, 3.7 / 127, 2.0 ** -5, 1e-6 / 127, 0.1 / 3])
+def test_conv_chain_i8_quantizes_every_bf16_value(cuda, s):
+    """Every finite bf16 value through P2's quantizer (the window load) at scale
+    ``s``: one conv whose centre tap is the identity, so the output
+    ``bf16(lrelu(xi s))`` tells each quantized value apart; bit for bit the
+    plain version's IEEE division, ties and clipping included."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = bits[torch.isfinite(bits.float())]
+    C = 32
+    x = torch.cat([v, torch.zeros(-v.numel() % C, dtype=torch.bfloat16)]).reshape(1, C, -1).to(cuda)
+    wq = torch.zeros((1, C, 7 * C), dtype=torch.int8)
+    wq[0, torch.arange(C), 3 * C + torch.arange(C)] = 1
+    ws, b = torch.ones((1, C, 1)), torch.zeros((1, C, 1))
+    s_act = torch.tensor([s], dtype=torch.float32)
+    args = [t.to(cuda) for t in (wq, ws, b, s_act)]
+    with torch.no_grad():
+        y8 = chain_ops.conv_chain_i8(x, chain_ops.pack_chain_i8(*args))
+        p8 = chain_ops.conv_chain_i8_plain(x, *args)
+    assert torch.equal(y8, p8)
+    assert p8.float().unique().numel() == 255  # every int8 value but -128 reached, each its own output

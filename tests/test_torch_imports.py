@@ -1,4 +1,4 @@
-"""Import hygiene: the port (``parallel/`` included) and chip_smoke.py load no JAX and nothing of the JAX package."""
+"""Import hygiene: the port (``parallel/`` and ``probes/`` included) and chip_smoke.py load no JAX and nothing of the JAX package."""
 
 import os
 import subprocess
@@ -22,14 +22,15 @@ serving = ["academicodec_tpu_torch." + n for n in ("streaming", "codec.compress"
                                                    "eval.stoi", "eval.pesq", "eval.metrics", "cli.evaluate",
                                                    "cli.wavlst", "utils.plotting", "data.native_loader",
                                                    "native.build", "parallel", "parallel.mesh",
-                                                   "parallel.sequence")]
+                                                   "parallel.sequence", "ops.cuda.chain", "probes",
+                                                   "probes.int8_chain")]
 for name in serving + names:
     importlib.import_module(name)
 import chip_smoke
 banned = ("jax", "jaxlib", "flax", "academicodec_tpu")
 loaded = sorted(m for m in set(sys.modules) - before if m.split(".")[0] in banned)
 print(len(names), loaded)
-sys.exit(1 if loaded or len(names) < 47 or not set(serving) <= set(names) else 0)
+sys.exit(1 if loaded or len(names) < 73 or not set(serving) <= set(names) else 0)
 """
 
 
