@@ -53,10 +53,12 @@ _ENTRIES = {
     "acad_gn_affine": (_I, [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P]),
     # rs, A, K, lengths, y, B, C, T, G, bf16, stream
     "acad_gn_apply": (_I, [_P] * 5 + [_I] * 5 + [_P]),
-    # x, w, bias, y, B, C, T, P, TT, stream
-    "acad_conv_chain_bf16": (_I, [_P] * 4 + [_I] * 5 + [_P]),
-    # x, wq, ws, bias, s_act, y, B, C, T, P, TT, stream
-    "acad_conv_chain_i8": (_I, [_P] * 6 + [_I] * 5 + [_P]),
+    # x, w, bias, y, B, C, T, P, TT, NW, stream
+    "acad_conv_chain_bf16": (_I, [_P] * 4 + [_I] * 6 + [_P]),
+    # x, wq, ws, bias, s_act, tau, y, B, C, T, P, TT, NW, stream
+    "acad_conv_chain_i8": (_I, [_P] * 7 + [_I] * 6 + [_P]),
+    # int8, C, NW, out[3]
+    "acad_conv_chain_geometry": (_I, [_I] * 3 + [_IP]),
     "acad_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -33,18 +33,24 @@ nothing to convert. torch's ``[O, I, K]`` of the same convs is
 :func:`to_oik`.
 
 On the H100 both chains are bound by operations (see the source); the
-kernels share one design so that their time ratio measures the number
-format. The wrappers take the operands packed once by :func:`pack_chain_bf16`
-/ :func:`pack_chain_i8` (the tap tiles and flat scales; on the CPU only the
-arrays as given). A CPU tensor runs the plain version; a CUDA tensor always
-launches the kernel or raises: mixed devices, C other than 32 or 64, and a
-CUDA call that autograd would record (the kernels have no backward) raise.
+kernels share one ``wgmma`` design (M = output channels, N = time over the
+window's overlapping im2col view; :class:`ChainLayout` is its geometry) so
+that their time ratio measures the number format; a short sequence takes the
+narrow block (:func:`chain_cols`) so that its blocks fill more of the SMs. The wrappers take the
+operands packed once by :func:`pack_chain_bf16` / :func:`pack_chain_i8` (the
+A tiles of :func:`pack_taps_chain`, flat scales, and P2's quantizer
+thresholds of :func:`quant_thresholds`, which replace a division per element
+by one table load with the same bits; on the CPU only the arrays as given).
+A CPU tensor runs the plain version; a CUDA tensor always launches the
+kernel or raises: mixed devices, C other than 32 or 64, and a CUDA call that
+autograd would record (the kernels have no backward) raise.
 ``P1_LAUNCHES`` and ``P2_LAUNCHES`` count kernel launches, one where a kernel
 was launched (an empty ``x`` launches none).
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -53,17 +59,20 @@ import torch
 import torch.nn.functional as F
 
 from academicodec_tpu_torch.ops.cuda.build import check, load_library
-from academicodec_tpu_torch.ops.cuda.resblock import pack_taps
 
 P1_LAUNCHES = 0
 P2_LAUNCHES = 0
 
 KSIZE, HALF = 7, 3
 LRELU_SLOPE = 0.1
-# limits of csrc/chain.cu: channel counts, convs a chain, window rows a block
-# (8 warps x 3 m-tiles of 16), ring stages, rows past the window
+# csrc/chain.cu: channel counts, convs a chain, wgmma's M rows, B columns a consumer
+# warpgroup computes a conv (two halves of 128, or one in the narrow block), consumer
+# warpgroups a block, a conv's first window row, entries of a P2 threshold table
 CHAIN_CHANNELS = (32, 64)
-MAX_CONVS, MAX_ROWS, STAGES, PAD_ROWS = 8, 384, 4, 16
+MAX_CONVS, M_ROWS, N_COLS, CONSUMERS, FIRST_ROW, QTAB = 8, 64, 256, 2, 4, 256
+N_HALF = N_COLS // 2
+H100_SMS = 132  # the H100 SXM's SMs, for geometry computed off the card
+QBIAS = 2.0 ** -13  # P2's quantizer takes its candidate this far below v / s
 # the probe's calibration epsilons (benchmarks/pallas_int8_probe.py:96, :102)
 ACT_EPS, WEIGHT_EPS = 1e-6, 1e-12
 
@@ -170,26 +179,125 @@ def calibrate(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> dict:
     return dict(ref=ref, amax=amax, s_act=act_scales(amax), wq=wq, ws=ws)
 
 
-# ---------------------------------------------------------------- the kernels
+# ---------------------------------------------------------------- P2's exact quantizer
 
 
-def swizzle_perm_i8(C: int) -> torch.Tensor:
-    """Element permutation of a row-major ``[C][C]`` int8 tile under the
-    kernel's swizzle (16-byte chunks XORed with the 128-byte line index), as
-    ``resblock.swizzle_perm`` is for bf16 tiles. An involution."""
-    e = torch.arange(C * C)
-    return e ^ (((e >> 7) & (C // 16 - 1)) << 4)
+@functools.lru_cache(maxsize=None)
+def _bf16_values(device: str) -> torch.Tensor:
+    """Every bf16 value but NaN, as f32, in ascending order."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32, device=device).to(torch.int16)
+    v = bits.view(torch.bfloat16).float()
+    return torch.sort(v[~torch.isnan(v)]).values
 
 
-def pack_taps_chain(w: torch.Tensor) -> torch.Tensor:
-    """``[P, C, 7C]`` tap-major -> the ``7 P`` pre-swizzled ``[C_out][C_in]`` tap
-    tiles, conv after conv, flat: ``resblock.pack_taps`` of each conv for bf16,
-    the int8 swizzle for int8."""
-    if w.dtype != torch.int8:
-        return torch.cat([pack_taps(o) for o in to_oik(w)])
-    P, C, _ = w.shape
-    tiles = w.view(P, C, KSIZE, C).permute(0, 2, 1, 3).reshape(P * KSIZE, C * C)
-    return tiles[:, swizzle_perm_i8(C).to(w.device)].reshape(-1)
+def quant_thresholds(s_act: torch.Tensor) -> torch.Tensor:
+    """``[P]`` scales -> ``[P, 256]`` f32 thresholds, on ``s_act``'s device: entry
+    ``q + 127`` is the least bf16 ``v`` with ``quantize_act(v, s) >= q`` for ``q``
+    in -126 .. 127, found by :func:`quantize_act` itself over every bf16 value
+    (monotone in ``v`` for ``s > 0``); the guards ``-inf`` (``q = -127``, every
+    ``v``) and NaN (``q = 128``, none) close the ends."""
+    s = s_act.detach().float().reshape(-1, 1)
+    v = _bf16_values(str(s.device))
+    q = quantize_act(v, s).contiguous()
+    levels = torch.arange(-126, 128, dtype=torch.float32, device=s.device).expand(s.shape[0], -1).contiguous()
+    tau = v[torch.searchsorted(q, levels)]
+    ends = torch.full((s.shape[0], 1), float("-inf"), device=s.device)
+    return torch.cat([ends, tau, torch.full_like(ends, float("nan"))], dim=1).contiguous()
+
+
+def quantize_act_thresholds(v: torch.Tensor, s: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """The kernel's quantizer, as its plain version: the candidate ``clip(rint(v
+    (1/s) - 2^-13), -127, 127)`` lies at or one step below :func:`quantize_act`
+    (``v / s`` and ``v (1/s)`` differ by a few ulp, less than the bias), and one
+    threshold of ``tau [256]`` (:func:`quant_thresholds`) decides which. The
+    candidate is the kernel's one fused multiply-add, ``fma(v, 1/s, -2^-13)``
+    rounded once to f32: taken here in f64, where the product of a bf16 and an
+    f32 is exact and so is the sum wherever its rounding can reach a
+    half-integer. Equals :func:`quantize_act` for every bf16 value
+    (``tests/test_torch_chain.py`` checks all of them)."""
+    vf = v.float()
+    inv = torch.reciprocal(s.float())
+    q0 = torch.round((vf.double() * inv.double() - QBIAS).float()).clamp(-127, 127)
+    return q0 + (vf >= tau[(q0 + 128).long()]).float()
+
+
+# ---------------------------------------------------------------- the kernels' layout
+
+
+@dataclass(frozen=True)
+class ChainLayout:
+    """What the launch and the packing need of the kernel's geometry for ``C``
+    channels of ``itemsize`` bytes, ``P`` convs and ``cols`` B columns a consumer
+    warpgroup (``Geo`` and ``out0`` in csrc/chain.cu; :func:`kernel_geometry`
+    reads the rest, the ring's stages and the shared memory, from the library)."""
+
+    C: int
+    itemsize: int
+    P: int
+    cols: int = N_COLS
+
+    @property
+    def phases(self) -> int:
+        """Output phases stacked in wgmma's M = 64 rows: one at C 64, two at C 32
+        (rows ``(r, co)``, output time ``2u + r`` of B column ``u``)."""
+        return M_ROWS // self.C
+
+    @property
+    def line(self) -> int:
+        """Bytes between two B columns: the swizzle width of A and B."""
+        return self.phases * self.C * self.itemsize
+
+    @property
+    def offsets(self) -> int:
+        """Window rows in a column's K: the 7 taps, or 8 row offsets with two phases."""
+        return KSIZE if self.phases == 1 else 8
+
+    @property
+    def tiles_per_conv(self) -> int:
+        return self.offsets * self.C * self.itemsize // self.line
+
+    @property
+    def tile_bytes(self) -> int:
+        return M_ROWS * self.line
+
+    @property
+    def span(self) -> int:
+        """Window rows one consumer warpgroup computes a conv."""
+        return self.phases * self.cols
+
+    @property
+    def rows(self) -> int:
+        """Rows of a window (the block's two are ping-ponged between convs)."""
+        return FIRST_ROW + CONSUMERS * self.span + HALF
+
+    @property
+    def out0(self) -> int:
+        """The first output row of a tile: even, past the last conv's halo."""
+        return (HALF * self.P + 2) & ~1
+
+    @property
+    def tile(self) -> int:
+        """Output time steps a block: the widest multiple of 8 that the last
+        conv's valid rows ``[3P + 1, rows - 3P)`` hold from ``out0``."""
+        return (self.rows - HALF * self.P - self.out0) // 8 * 8
+
+    def blocks(self, B: int, T: int) -> int:
+        return B * -(-T // self.tile)
+
+
+def chain_tile(P: int, C: int, cols: int = N_COLS) -> int:
+    """Output time steps a block (``ChainLayout.tile``; the same for both
+    chains)."""
+    return ChainLayout(C, 2, P, cols).tile
+
+
+def chain_cols(B: int, T: int, P: int, C: int, sms: int = H100_SMS) -> int:
+    """B columns a consumer warpgroup computes a conv: the narrow block's 128
+    where all of its ``B ceil(T / tile)`` blocks run at once on the ``sms`` SMs
+    (one block an SM), else 256. A wide block's time is mostly its products,
+    so on a short sequence the narrow one finishes in about half of it."""
+    narrow = ChainLayout(C, 2, P, N_HALF).blocks(B, T)
+    return N_HALF if narrow <= sms else N_COLS
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,31 +305,76 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def chain_tile(B: int, T: int, P: int, C: int, sms: int) -> int:
-    """Output rows a block: the widest multiple of 8 whose window ``TT + 6P``
-    fits 384 rows, narrowed (to 16 at least) until the ``B ceil(T / TT)``
-    blocks fill every SM's resident blocks (1 at C 64, 2 at C 32) where the
-    sequence is short."""
-    top = (MAX_ROWS - 2 * HALF * P) // 8 * 8
-    tiles = -(-sms * (1 if C == 64 else 2) // B)
-    per_tile = -(-T // tiles)
-    return max(16, min(top, -(-per_tile // 8) * 8))
+@functools.lru_cache(maxsize=1024)
+def _launch_geometry(B: int, T: int, P: int, C: int, sms: int) -> Tuple[int, int]:
+    """``(cols, TT)`` of a launch, kept per shape: a one-tile call takes tens of
+    microseconds on the card, so the host's share of it counts."""
+    cols = chain_cols(B, T, P, C, sms)
+    return cols, chain_tile(P, C, cols)
 
 
-def chain_smem_bytes(C: int, itemsize: int, TT: int, P: int) -> int:
-    """Dynamic shared memory of one block (``smem_bytes`` in csrc/chain.cu)."""
-    rb = C * itemsize
-    buf = -(-(TT + 2 * HALF * P + PAD_ROWS) * rb // 1024) * 1024
-    return 1024 + STAGES * C * rb + 2 * buf + 16 * STAGES
+def kernel_geometry(int8: bool, C: int, cols: int) -> dict:
+    """The block geometry of a launch as the built library has it
+    (``acad_conv_chain_geometry``): the window's rows, the ring's stages and the
+    dynamic shared memory the launch sets."""
+    out = (ctypes.c_int * 3)()
+    check(load_library().acad_conv_chain_geometry(int(int8), C, cols, out), "conv chain geometry")
+    return dict(rows=out[0], stages=out[1], smem_bytes=out[2])
+
+
+def out_channel_perm(C: int) -> torch.Tensor:
+    """P2's A rows: row ``m`` holds output channel ``perm[m]``; in each 16 rows, ``g ->
+    2g`` and ``g + 8 -> 2g + 1``, so that a thread's accumulator rows ``g``, ``g +
+    8`` are one int8 channel pair."""
+    m = torch.arange(C)
+    return 16 * (m // 16) + 2 * (m % 8) + (m % 16) // 8
+
+
+def swizzle_perm(line: int, nbytes: int) -> torch.Tensor:
+    """Byte permutation of a row-major ``[rows][line]`` tile under the wgmma
+    swizzle of that width (16-byte chunks XORed with the 128-byte line index,
+    ``line / 16 - 1`` masking it). An involution."""
+    e = torch.arange(nbytes)
+    return e ^ (((e >> 7) & (line // 16 - 1)) << 4)
+
+
+def unswizzled_taps(w: torch.Tensor) -> torch.Tensor:
+    """``[P, C, 7C]`` tap-major -> the kernel's A operand before the swizzle, ``[P,
+    64, offsets, C]``: row ``r C + co`` holds output channel ``co`` (through
+    :func:`out_channel_perm` for int8) of phase ``r`` at row offsets ``r .. r +
+    6``; rows past the channels and the other offsets are 0."""
+    P, C, _ = w.shape
+    lay = ChainLayout(C, w.element_size(), P)
+    taps = w.view(P, C, KSIZE, C)
+    if w.dtype == torch.int8:
+        taps = taps[:, out_channel_perm(C).to(w.device)]
+    a = torch.zeros((P, M_ROWS, lay.offsets, C), dtype=w.dtype, device=w.device)
+    for r in range(lay.phases):
+        a[:, r * C:(r + 1) * C, r:r + KSIZE] = taps
+    return a
+
+
+def pack_taps_chain(w: torch.Tensor) -> torch.Tensor:
+    """``[P, C, 7C]`` tap-major bf16 or int8 -> the kernel's A tiles, flat bytes:
+    :func:`unswizzled_taps` cut along K into ``[64][line]`` tiles, conv after
+    conv, each swizzled with its width's pattern (:func:`swizzle_perm`)."""
+    P, C, _ = w.shape
+    lay = ChainLayout(C, w.element_size(), P)
+    a = unswizzled_taps(w)
+    per = lay.line // w.element_size()
+    tiles = a.reshape(P, M_ROWS, lay.tiles_per_conv, per).permute(0, 2, 1, 3).contiguous()
+    raw = tiles.view(torch.uint8).reshape(P * lay.tiles_per_conv, lay.tile_bytes)
+    return raw[:, swizzle_perm(lay.line, lay.tile_bytes).to(w.device)].reshape(-1)
 
 
 @dataclass
 class ChainOperands:
     """A chain's operands: ``raw`` as given (what the plain version reads:
     ``(w, b)`` for P1, ``(wq, ws, b, s_act)`` for P2) and, on the card, the
-    kernel's: the packed tap tiles and the f32 biases, weight scales and
-    activation scales, flat. Build with :func:`pack_chain_bf16` /
-    :func:`pack_chain_i8`."""
+    kernel's: the A tiles of :func:`pack_taps_chain`, the f32 biases, weight
+    scales and activation scales, flat, and P2's thresholds
+    (:func:`quant_thresholds`). Build with
+    :func:`pack_chain_bf16` / :func:`pack_chain_i8`."""
 
     int8: bool
     C: int
@@ -232,6 +385,7 @@ class ChainOperands:
     bias: Optional[torch.Tensor] = None
     ws: Optional[torch.Tensor] = None
     s_act: Optional[torch.Tensor] = None
+    tau: Optional[torch.Tensor] = None
 
 
 def _check_shapes(name: str, w: torch.Tensor, *vectors: Tuple[str, torch.Tensor, int]) -> Tuple[int, int]:
@@ -265,6 +419,7 @@ def _pack(name: str, int8: bool, raw: Tuple[torch.Tensor, ...], P: int, C: int) 
     if int8:
         ops.ws = raw[1].detach().float().reshape(-1).contiguous()
         ops.s_act = raw[3].detach().float().reshape(-1).contiguous()
+        ops.tau = quant_thresholds(ops.s_act)
     return ops
 
 
@@ -276,7 +431,8 @@ def pack_chain_bf16(w: torch.Tensor, b: torch.Tensor) -> ChainOperands:
 
 def pack_chain_i8(wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, s_act: torch.Tensor) -> ChainOperands:
     """P2's operands: ``wq [P, C, 7C]`` int8, ``ws [P, C, 1]``, ``b [P, C, 1]``,
-    ``s_act [P]`` f32 (kept on its device: the kernel reads it there)."""
+    ``s_act [P]`` f32, positive (kept on its device: the kernel reads it and its
+    thresholds there)."""
     if wq.dtype != torch.int8:
         raise ValueError(f"conv_chain_i8: int8 weights, got {wq.dtype}")
     n = wq.shape[0] * wq.shape[1] if wq.dim() == 3 else -1
@@ -301,16 +457,17 @@ def _launch(name: str, x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
     y = torch.empty_like(xr)
     if B == 0 or T == 0:
         return y.reshape(x.shape)
-    TT = chain_tile(B, T, ops.P, C, _sm_count(x.device.index if x.device.index is not None else
-                                              torch.cuda.current_device()))
+    index = torch.cuda.current_device() if x.device.index is None else x.device.index
+    cols, TT = _launch_geometry(B, T, ops.P, C, _sm_count(index))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = load_library()
     if ops.int8:
         rc = lib.acad_conv_chain_i8(xr.data_ptr(), ops.tiles.data_ptr(), ops.ws.data_ptr(), ops.bias.data_ptr(),
-                                    ops.s_act.data_ptr(), y.data_ptr(), B, C, T, ops.P, TT, stream)
+                                    ops.s_act.data_ptr(), ops.tau.data_ptr(), y.data_ptr(), B, C, T, ops.P, TT,
+                                    cols, stream)
     else:
         rc = lib.acad_conv_chain_bf16(xr.data_ptr(), ops.tiles.data_ptr(), ops.bias.data_ptr(), y.data_ptr(),
-                                      B, C, T, ops.P, TT, stream)
+                                      B, C, T, ops.P, TT, cols, stream)
     check(rc, name)
     if ops.int8:
         P2_LAUNCHES += 1

@@ -90,6 +90,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -4539,6 +4540,55 @@ def _probe_kernel(res: dict, launches: int, name: str, fmt: str, replaces: str, 
     )
 
 
+def chain_geometry(B: int, C: int, T: int, P: int = 6, on_card: bool = False) -> dict:
+    """P1/P2's launch geometry at ``[B, C, T]`` as the wrapper picks it
+    (``chain.chain_cols``, ``chain.ChainLayout``; the SMs of card 0 on the card,
+    the H100's 132 off it): output time steps a block (TT), B columns a consumer
+    warpgroup computes a conv (wgmma halves of N 128), phases stacked in M,
+    blocks; on the card also each chain's ring stages and the dynamic shared
+    memory its launch sets, read from the built library, whose window rows must
+    be the wrapper's."""
+    sms = chain_ops._sm_count(0) if on_card else chain_ops.H100_SMS
+    cols = chain_ops.chain_cols(B, T, P, C, sms)
+    lay = chain_ops.ChainLayout(C, 2, P, cols)
+    geo = dict(TT=lay.tile, n_per_warpgroup=cols, warpgroups=chain_ops.CONSUMERS, phases=lay.phases,
+               blocks=lay.blocks(B, T), sms=sms)
+    if on_card:
+        for name, int8 in (("bf16", False), ("i8", True)):
+            kg = chain_ops.kernel_geometry(int8, C, cols)
+            if kg["rows"] != lay.rows:
+                raise AssertionError(f"probe_chain: the kernel's window has {kg['rows']} rows, "
+                                     f"the wrapper's {lay.rows}")
+            geo.update({f"stages_{name}": kg["stages"], f"smem_{name}": kg["smem_bytes"]})
+    return geo
+
+
+def chain_sass_counts() -> dict:
+    """Each chain kernel's tensor-core instructions in the built library, read
+    with ``cuobjdump --dump-sass``: wgmma (``HGMMA`` bf16, ``IGMMA`` int8) and
+    ``mma.sync`` (``HMMA``, ``IMMA``), per chain and template ``C<c>/N<columns>``."""
+    path, _ = kernel_build.build()
+    tool = os.path.join(os.path.dirname(kernel_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(path)], capture_output=True, text=True, check=True,
+                          timeout=600).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = re.search(r"chain_kernelI(a|13__nv_bfloat16)Li(\d+)ELi(\d+)E", m.group(1))
+            key = None
+            if fn:
+                chain = "conv_chain_i8" if fn.group(1) == "a" else "conv_chain_bf16"
+                key = (chain, f"C{fn.group(2)}/N{fn.group(3)}")
+                counts.setdefault(chain, {})[key[1]] = dict.fromkeys(("HGMMA", "IGMMA", "HMMA", "IMMA"), 0)
+            continue
+        if key is not None:
+            op = re.search(r"\b(HGMMA|IGMMA|HMMA|IMMA)\.", line)
+            if op:
+                counts[key[0]][key[1]][op.group(1)] += 1
+    return counts
+
+
 def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
     """The int8 decision probe (``probes/int8_chain.py``) as its entry point runs
     it, with every count set to 0 just before and read just after: P1 and P2
@@ -4546,9 +4596,23 @@ def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
     timed on the card, and the decision. Each kernel's output is held against
     its plain version on the same inputs (P1 within ``PROBE_P1_TOL`` of max
     |plain|, P2 bit for bit) and P2 against the f32 reference chain (relative
-    L2 within ``PROBE_I8_REL_L2``); K1-K4 launch no time. ``tiny``: the probe's
-    ``--tiny`` sizes (a CPU rehearsal)."""
+    L2 within ``PROBE_I8_REL_L2``); K1-K4 launch no time. First the chains'
+    launch geometry at each case and shape, and on the card their tensor-core
+    instructions in the built library: each chain issues ``wgmma`` and no
+    ``mma.sync``. ``tiny``: the probe's ``--tiny`` sizes (a CPU rehearsal)."""
     on_card = torch.device(device).type == "cuda"
+    cases = int8_chain.TINY_CASES if tiny else int8_chain.CASES
+    geometry = {f"C{C}/TT{TT}": chain_geometry(1, C, TT, on_card=on_card) for C, TT in cases}
+    geometry.update({tag: chain_geometry(B, C, T, on_card=on_card) for tag, B, C, T in
+                     (int8_chain.TINY_SHAPES if tiny else int8_chain.SHAPES)})
+    print(f"[probe_chain] geometry {json.dumps(geometry)}")
+    sass = chain_sass_counts() if on_card else None
+    if on_card:
+        print(f"[probe_chain] SASS tensor-core instructions {json.dumps(sass)}")
+        wgmma = {k: sum(c["HGMMA"] + c["IGMMA"] for c in v.values()) for k, v in sass.items()}
+        mma_sync = sum(c["HMMA"] + c["IMMA"] for v in sass.values() for c in v.values())
+        if sorted(wgmma) != ["conv_chain_bf16", "conv_chain_i8"] or not all(wgmma.values()) or mma_sync:
+            raise AssertionError(f"probe_chain: a chain kernel issues no wgmma, or mma.sync: {sass}")
     reset_launches()
     chain_ops.P1_LAUNCHES = chain_ops.P2_LAUNCHES = 0
     t0 = time.perf_counter()
@@ -4576,7 +4640,9 @@ def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
         _probe_kernel(res, launches["conv_chain_i8"], "conv_chain_i8", "i8",
                       "benchmarks/pallas_int8_probe.py:116", "bitwise", "p2_max_abs_vs_plain"),
     ]
-    return dict(res, launches=launches, kernels=kernels, wall_s=wall)
+    for k in kernels:
+        k.update(sass=None if sass is None else sass[k["name"]])
+    return dict(res, launches=launches, kernels=kernels, geometry=geometry, wall_s=wall)
 
 
 def main() -> int:

@@ -34,10 +34,23 @@ chains, and inside the chains the waits for tap tiles and the epilogues).
 
 ``--chain-clocks`` does the same for the int8 probe's chains, P1 and P2
 (``csrc/chain.cu``, ``-DCHAIN_PROFILE``), once each at the decision shapes s2
-and s3 (``probes/int8_chain.py``): window load, the taps (and inside them the
-waits for tap tiles), the epilogues.
+and s3 and at two of the probe's one-tile cases, ``[64, 8192]`` and ``[32,
+8192]``, which take the narrow block (``probes/int8_chain.py``), after their
+geometry and the count of wgmma instructions in each chain kernel: window
+load, the products (and inside them the waits for weight tiles), the
+epilogues, the waits between convs.
 
     python3 profile_port.py --chain-clocks
+
+``--chain-launch`` times P1 and P2 at the probe's four one-tile cases three
+ways (the default build): the device time of one launch alone (CUDA events
+around it, the median of 16, each synchronised), of a launch in the probe's
+serial run (events around 16 launches, each on the last one's output), and
+the host's time to issue one launch (the wall clock of those 16 before the
+synchronisation). Where the host's time exceeds a launch alone, the serial
+run waits on the host.
+
+    python3 profile_port.py --chain-launch
 
 ``--train-flops`` counts, with ``torch.utils.flop_counter`` on the CPU (no
 card needed), the forward FLOPs of each module of the Encodec_24k_240d
@@ -57,6 +70,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from collections import defaultdict
 
 import torch
@@ -96,18 +110,57 @@ def tower_clocks() -> None:
 
 
 def chain_clocks() -> None:
-    """P1 and P2 once each at the s2 and s3 shapes from a ``-DCHAIN_PROFILE`` build."""
+    """P1 and P2 once each at the s2 and s3 shapes and at two one-tile cases from a
+    ``-DCHAIN_PROFILE`` build, after each chain's wgmma and mma.sync counts in the
+    built library."""
     int8_chain, chain = chip_smoke.int8_chain, chip_smoke.chain_ops
-    for tag, B, C, T in int8_chain.SHAPES:
+    print(f"[clocks] SASS tensor-core instructions {json.dumps(chip_smoke.chain_sass_counts())}", flush=True)
+    for tag, B, C, T in int8_chain.SHAPES + (("tile", 1, 64, 8192), ("tile", 1, 32, 8192)):
         x, w, b = int8_chain.make_inputs(C, T, B, 0, "cuda")
         cal = chain.calibrate(x, w, b)
-        tt = chain.chain_tile(B, T, int8_chain.N_CONVS, C, torch.cuda.get_device_properties(0).multi_processor_count)
-        print(f"[clocks] {tag} [{B},{C},{T}] TT {tt}", flush=True)
+        geometry = chip_smoke.chain_geometry(B, C, T, on_card=True)
+        print(f"[clocks] {tag} [{B},{C},{T}] {json.dumps(geometry)}", flush=True)
         with torch.no_grad():
             chain.conv_chain_bf16(x, chain.pack_chain_bf16(w.to(torch.bfloat16), b))
             torch.cuda.synchronize()
             chain.conv_chain_i8(x, chain.pack_chain_i8(cal["wq"], cal["ws"], b, cal["s_act"]))
             torch.cuda.synchronize()
+
+
+def chain_launch(iters: int = 16) -> list:
+    """P1/P2 at the probe's one-tile cases: device ms of a launch alone and in the
+    probe's serial run, host us to issue one (see the module docstring)."""
+    int8_chain, chain = chip_smoke.int8_chain, chip_smoke.chain_ops
+    rows = []
+    for C, TT in int8_chain.CASES:
+        x, w, b = int8_chain.make_inputs(C, TT, None, 0, "cuda")
+        cal = chain.calibrate(x, w, b)
+        kernels = (("bf16", chain.conv_chain_bf16, chain.pack_chain_bf16(w.to(torch.bfloat16), b)),
+                   ("i8", chain.conv_chain_i8, chain.pack_chain_i8(cal["wq"], cal["ws"], b, cal["s_act"])))
+        for name, fn, ops in kernels:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            alone = []
+            with torch.no_grad():
+                fn(x, ops)
+                torch.cuda.synchronize()
+                for _ in range(iters):
+                    start.record()
+                    fn(x, ops)
+                    end.record()
+                    end.synchronize()
+                    alone.append(start.elapsed_time(end))
+                v = x
+                start.record()
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    v = fn(v, ops)
+                host_s = time.perf_counter() - t0
+                end.record()
+                end.synchronize()
+            rows.append(dict(case=[C, TT], chain=name, **chip_smoke.chain_geometry(1, C, TT, on_card=True),
+                             alone_ms=sorted(alone)[iters // 2], serial_ms=start.elapsed_time(end) / iters,
+                             host_us=host_s / iters * 1e6))
+    return rows
 
 
 def train_flops() -> dict:
@@ -184,6 +237,8 @@ def main(argv=None) -> int:
                         help="print clock64 phase counts of K3 blocks from a -DTOWER_PROFILE build")
     parser.add_argument("--chain-clocks", action="store_true",
                         help="print clock64 phase counts of P1/P2 blocks from a -DCHAIN_PROFILE build")
+    parser.add_argument("--chain-launch", action="store_true",
+                        help="time P1/P2 launches at the probe's one-tile cases alone, serial, and on the host")
     parser.add_argument("--fused-pre", action="store_true",
                         help="HiFi-Codec: fuse each narrow stage's upsampling convT into K3 (generator.fused_pre)")
     parser.add_argument("--train-flops", action="store_true",
@@ -214,6 +269,10 @@ def main(argv=None) -> int:
         chain_clocks()
         return 0
     chip_smoke.phase_build()
+    if args.chain_launch:
+        for row in chain_launch():
+            print(f"[chain_launch] {json.dumps(row)} ({smi})")
+        return 0
     if args.stream:
         # the window of chip_smoke's streaming phase, profiled there
         phase = chip_smoke.phase_stream_hifi if args.preset == chip_smoke.HIFI else chip_smoke.phase_stream

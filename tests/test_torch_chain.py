@@ -27,7 +27,6 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from academicodec_tpu_torch.ops.cuda import chain
-from academicodec_tpu_torch.ops.cuda import resblock as rb
 from academicodec_tpu_torch.probes import int8_chain
 
 _SPEC = importlib.util.spec_from_file_location(
@@ -213,35 +212,205 @@ def test_wrappers_device_rules():
         chain.pack_chain_bf16(wt[:, :, :-1], bt)
 
 
+def _unpack(packed, P, C, dtype):
+    """The kernel's A operand ``[P, 64, offsets C]`` from the packed bytes: each
+    tile unswizzled (the permutation is an involution), the tiles of a conv side
+    by side along K."""
+    lay = chain.ChainLayout(C, torch.empty((), dtype=dtype).element_size(), P)
+    raw = packed.view(P * lay.tiles_per_conv, lay.tile_bytes)[:, chain.swizzle_perm(lay.line, lay.tile_bytes)]
+    per = lay.line // lay.itemsize
+    tiles = raw.contiguous().view(dtype).view(P, lay.tiles_per_conv, chain.M_ROWS, per)
+    return tiles.permute(0, 2, 1, 3).reshape(P, chain.M_ROWS, lay.tiles_per_conv * per)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
 @pytest.mark.parametrize("C", [32, 64])
-def test_tap_packing(C):
-    """bf16 tiles are ``resblock.pack_taps`` of each conv; int8 tiles unswizzle
-    (the permutation is an involution) to the tap blocks ``W[p][:, jC:(j+1)C]``."""
+def test_tap_packing(C, dtype):
+    """The A tiles unpack to the ``[P, C, 7C]`` weights: row ``r C + co`` of M holds
+    output channel ``co`` of phase ``r`` (int8: channel ``out_channel_perm[co]``,
+    so rows g and g + 8 of 16 are channels 2g and 2g + 1) at row offsets ``r .. r
+    + 6``; the rest of K and M is 0. Each tile is swizzled with the pattern of its
+    line width (128 bytes at C 64 bf16 and C 32 bf16's two phases, 64 at C 64
+    int8 and C 32 int8's two phases)."""
     w = torch.from_numpy(_inputs(C, 8, C)[1])
-    wb = w.to(torch.bfloat16)
-    expected = torch.cat([rb.pack_taps(wb[p].view(C, K, C).permute(0, 2, 1)) for p in range(P)])
-    assert torch.equal(chain.pack_taps_chain(wb), expected)
-    perm = chain.swizzle_perm_i8(C)
-    assert torch.equal(perm[perm], torch.arange(C * C))
-    wq, _ = chain.quantize_weights(w)
-    tiles = chain.pack_taps_chain(wq).view(P * K, C * C)[:, perm].view(P, K, C, C)
-    for p in range(P):
-        for j in range(K):
-            assert torch.equal(tiles[p, j], wq[p][:, j * C:(j + 1) * C])
+    wt = chain.quantize_weights(w)[0] if dtype == torch.int8 else w.to(dtype)
+    lay = chain.ChainLayout(C, wt.element_size(), P)
+    assert lay.phases == 64 // C and lay.line == 64 * wt.element_size()
+    perm = chain.swizzle_perm(lay.line, lay.tile_bytes)
+    assert torch.equal(perm[perm], torch.arange(lay.tile_bytes))
+    if lay.line == 128:  # the 128-byte pattern: row i of an 8-row atom has its chunks XORed with i
+        assert perm.view(-1, 8, 16)[3, 5, 0] == 3 * 128 + (5 ^ 3) * 16
+    packed = chain.pack_taps_chain(wt)
+    assert packed.dtype == torch.uint8 and packed.numel() == P * lay.tiles_per_conv * lay.tile_bytes
+    a = _unpack(packed, P, C, dtype).view(P, chain.M_ROWS, lay.offsets, C)
+    rows = chain.out_channel_perm(C) if dtype == torch.int8 else torch.arange(C)
+    if dtype == torch.int8:
+        assert rows[:16].tolist() == [0, 2, 4, 6, 8, 10, 12, 14, 1, 3, 5, 7, 9, 11, 13, 15]
+    taps = wt.view(P, C, K, C)[:, rows]  # [p, row, j, ci]
+    expected = torch.zeros_like(a)
+    for r in range(lay.phases):
+        expected[:, r * C:(r + 1) * C, r:r + K] = taps
+    assert torch.equal(a, expected)
+    assert torch.equal(chain.unswizzled_taps(wt), expected)
+
+
+def _model_one_conv(x, w, b, ws=None, s=None, cols=chain.N_COLS):
+    """The kernel's index math for one conv (P = 1) over ``x [C, T]`` bf16, on the
+    CPU; P2 where ``ws``, ``s`` are given (``w`` int8). Per block, the window
+    ``[rows][C]`` holds global positions ``g0 + r`` (0 outside ``[0, T)``; P2
+    quantized through the thresholds). Per consumer warpgroup and half (two of
+    them a warpgroup at ``cols`` 256, one in the narrow block's 128), B is the
+    window's overlapping view ``as_strided((128, offsets C), (phases C, 1))``
+    from row ``FIRST_ROW + wg span + half 128 phases - 3``, A the unpacked tiles;
+    accumulator row ``m`` is phase ``m // C`` of its (permuted) channel, column
+    ``n`` window row ``row0 + phases n + phase``; the block writes rows ``[out0,
+    out0 + TT)``."""
+    C, T = x.shape
+    int8 = ws is not None
+    lay = chain.ChainLayout(C, 1 if int8 else 2, 1, cols)
+    a = _unpack(chain.pack_taps_chain(w), 1, C, w.dtype)[0].double()
+    rows = chain.out_channel_perm(C) if int8 else torch.arange(C)
+    tau = chain.quant_thresholds(s)[0] if int8 else None
+    n = chain.N_HALF
+    y = torch.zeros((C, T), dtype=torch.bfloat16)
+    for tile in range(-(-T // lay.tile)):
+        g0 = tile * lay.tile - lay.out0
+        pos = torch.arange(lay.rows) + g0
+        inside = (pos >= 0) & (pos < T)
+        win = torch.zeros((lay.rows, C))
+        win[inside] = x[:, pos[inside]].t().float()
+        if int8:
+            win = chain.quantize_act_thresholds(win, s[0], tau)
+        flat = win.double().reshape(-1)
+        for wg in range(chain.CONSUMERS):
+            for half in range(cols // n):
+                row0 = chain.FIRST_ROW + wg * lay.span + half * n * lay.phases
+                bmat = flat.as_strided((n, lay.offsets * C), (lay.phases * C, 1), (row0 - 3) * C)
+                acc = (a @ bmat.t()).float()  # [64, 128], exact
+                for m in range(lay.phases * C):
+                    r, co = divmod(m, C)
+                    ch = int(rows[co])
+                    out_rows = row0 + lay.phases * torch.arange(n) + r
+                    keep = (out_rows >= lay.out0) & (out_rows < lay.out0 + lay.tile) & (g0 + out_rows < T)
+                    v = acc[m] * (s[0] * ws.reshape(-1)[ch]) if int8 else acc[m]
+                    v = v + b.reshape(-1)[ch]
+                    y[ch, (g0 + out_rows)[keep]] = torch.where(v >= 0, v, 0.1 * v).to(torch.bfloat16)[keep]
+    return y
+
+
+def _check_descriptor_model(C, tiles, int8, cols):
+    T = int(chain.ChainLayout(C, 2, 1, cols).tile * tiles)
+    x, w, b = _inputs(C, T, C + T)
+    xt, wt, bt = _bf16(x), torch.from_numpy(w[:1]), torch.from_numpy(b[:1])
+    if int8:
+        cal = chain.calibrate(xt, torch.from_numpy(w), torch.from_numpy(b))
+        wq, ws, s = cal["wq"][:1], cal["ws"][:1], cal["s_act"][:1]
+        assert torch.equal(_model_one_conv(xt, wq, bt, ws, s, cols), chain.conv_chain_i8_plain(xt, wq, ws, bt, s))
+    else:
+        got = _model_one_conv(xt, wt.to(torch.bfloat16), bt, cols=cols).float()
+        ref = chain.conv_chain_bf16_plain(xt, wt, bt).float()
+        assert (got != ref).float().mean() <= 1e-3 and (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C,tiles", [(32, 1.0), (64, 1.0), (32, 2.3), (64, 2.3)])
+def test_descriptor_model_equals_one_conv(C, tiles, int8):
+    """The CPU model of the kernel's geometry (:func:`_model_one_conv`) against
+    one conv of the plain versions: at one whole tile (the tile's edge is the
+    sequence's) and over a ragged last tile. P1's products are exact here (f64
+    sums of bf16 products), so it matches up to the plain version's own f32
+    sums: equal but for at most 1e-3 of the elements, those within P1's
+    limit; P2 bit for bit."""
+    _check_descriptor_model(C, tiles, int8, chain.N_COLS)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [32, 64])
+def test_descriptor_model_of_the_narrow_block(C, int8):
+    """The same model for the narrow block of short sequences (one N 128 half a
+    warpgroup, half the tile), over a ragged last tile."""
+    _check_descriptor_model(C, 2.3, int8, chain.N_HALF)
+
+
+@pytest.mark.parametrize("C,TT", list(int8_chain.CASES) + [(None, None)])
+def test_threshold_quantizer_equals_quantize_act(C, TT):
+    """The kernel's quantizer (its plain version :func:`quantize_act_thresholds`)
+    equals :func:`quantize_act` for every finite bf16 value and +-inf: at the six
+    calibrated scales of each of the probe's four cases, and (``C`` None) at the
+    five scales of the card's every-bf16-value test."""
+    if C is None:
+        scales = torch.tensor([0.0123, 3.7 / 127, 2.0 ** -5, 1e-6 / 127, 0.1 / 3])
+    else:
+        x, w, b = int8_chain.make_inputs(C, TT)
+        scales = chain.calibrate(x, w, b)["s_act"]
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = bits[~torch.isnan(bits.float())]
+    assert torch.isinf(v.float()).sum() == 2 and v.numel() == 65536 - 254
+    tau = chain.quant_thresholds(scales)
+    assert tau.shape == (scales.numel(), 256) and torch.isnan(tau[:, -1]).all() and torch.isneginf(tau[:, 0]).all()
+    for s, t in zip(scales, tau):
+        ref = chain.quantize_act(v, s)
+        assert torch.equal(chain.quantize_act_thresholds(v, s, t), ref)
+        assert ref.min() == -127 and ref.max() == 127  # both clips reached (+-inf at least)
+
+
+@pytest.mark.parametrize("s", ["eps", "calibrated", 1.0, 1e3 / 127])
+def test_fused_candidate_at_the_scale_extremes(s):
+    """The kernel's candidate ``fma(v, 1/s, -2^-13)`` (one rounding, modelled in
+    f64) at the smallest scale the calibration gives (``1e-6 / 127``), the
+    largest of the probe's four cases, and two larger ones: for every bf16 value
+    it lies at or one step below ``rint(v / s)`` before the clip, so one
+    threshold decides, and the quantizer equals :func:`quantize_act`."""
+    if s == "eps":
+        s = chain.act_scales(torch.zeros(1))[0]
+    elif s == "calibrated":
+        s = torch.stack([chain.calibrate(*int8_chain.make_inputs(C, TT))["s_act"].max()
+                         for C, TT in int8_chain.CASES]).max()
+    s = torch.as_tensor(s, dtype=torch.float32)
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    v = bits[~torch.isnan(bits.float())].float()
+    inv = torch.reciprocal(s)
+    fused = (v.double() * inv.double() - chain.QBIAS).float()
+    exact = torch.round(v / s)
+    finite = torch.isfinite(exact) & (exact.abs() <= 200)
+    step = torch.round(fused[finite]) - exact[finite]
+    assert ((step == 0) | (step == -1)).all() and (step == -1).any()
+    assert torch.equal(chain.quantize_act_thresholds(v, s, chain.quant_thresholds(s[None])[0]),
+                       chain.quantize_act(v, s))
 
 
 def test_tile_geometry():
-    """Windows of at most 384 rows, tiles a multiple of 8 that fill the SMs on
-    short sequences; the block fits its shared-memory budget (all of an SM at C
-    64, half at C 32, where two blocks share one)."""
-    for B, C, T in ((8, 64, 120000), (8, 32, 240000), (1, 64, 8192), (1, 32, 4096), (2, 64, 5)):
-        tt = chain.chain_tile(B, T, P, C, 132)
-        assert tt % 8 == 0 and 16 <= tt and tt + 6 * P <= chain.MAX_ROWS
-        if B * -(-T // 344) < 132 * (1 if C == 64 else 2) and T > 16 * 132:
-            assert B * -(-T // tt) >= 128
+    """Each block's two consumer warpgroups compute 2 x 256 columns of every conv
+    (one phase: 512 rows; two at C 32: 1024), or 2 x 128 in the narrow block;
+    its output rows start even past the last conv's halo and fit the rows that
+    conv leaves valid. (The kernel's shared memory is its own: a static assert
+    in csrc/chain.cu, read back on the card by ``chain.kernel_geometry``.)"""
+    for C in (32, 64):
         for itemsize in (1, 2):
-            assert chain.chain_smem_bytes(C, itemsize, tt, P) <= (227 if C == 64 else 113) * 1024
-    assert chain.chain_tile(8, 120000, P, 64, 132) == 344
+            for p in (1, 6, 8):
+                for cols in (chain.N_COLS, chain.N_HALF):
+                    lay = chain.ChainLayout(C, itemsize, p, cols)
+                    assert lay.rows == chain.FIRST_ROW + 2 * cols * lay.phases + 3
+                    assert lay.out0 % 2 == 0 and lay.out0 >= 3 * p + 1 and lay.tile % 8 == 0
+                    assert lay.out0 + lay.tile <= lay.rows - 3 * p < lay.out0 + lay.tile + 8
+                    assert lay.tiles_per_conv * lay.tile_bytes == 64 * lay.offsets * C * itemsize
+    assert chain.chain_tile(P, 64) == 480 and chain.chain_tile(P, 32) == 992
+    assert chain.chain_tile(P, 64, chain.N_HALF) == 224 and chain.chain_tile(P, 32, chain.N_HALF) == 480
+    assert chain.ChainLayout(64, 2, P).blocks(8, 120000) == 8 * 250
+
+
+@pytest.mark.parametrize("B,C,T", [(8, 64, 120000), (8, 32, 240000), (1, 64, 8192), (1, 32, 8192),
+                                   (1, 64, 4096), (1, 32, 4096), (2, 64, 5), (3, 64, 8000), (4, 64, 8000)])
+def test_short_sequences_take_the_narrow_block(B, C, T):
+    """The narrow block where all of its blocks run at once on the H100's 132
+    SMs, the wide one otherwise: the decision shapes stay wide, the probe's
+    one-tile cases go narrow (18 and 5-9 wide blocks would leave most SMs idle),
+    and between ``[3, 64, 8000]`` and ``[4, 64, 8000]`` the rule turns (108 and 144
+    narrow blocks against 132)."""
+    cols = chain.chain_cols(B, T, P, C, 132)
+    narrow = chain.ChainLayout(C, 2, P, chain.N_HALF).blocks(B, T)
+    assert cols == (chain.N_HALF if narrow <= 132 else chain.N_COLS)
+    assert (cols == chain.N_HALF) == ((B, T) not in ((8, 120000), (8, 240000), (4, 8000)))
 
 
 def test_chain_bounds_at_the_decision_shapes():

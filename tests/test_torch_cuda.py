@@ -1272,12 +1272,66 @@ def test_conv_chains_at_the_probe_cases(cuda, C, T):
     _check_chains(*_chain_inputs(cuda, C, T, seed=C + T))
 
 
+def _cols(cuda, B, T, C, P=6):
+    """The B columns a consumer warpgroup the wrapper picks on this card."""
+    return chain_ops.chain_cols(B, T, P, C, chain_ops._sm_count(torch.device(cuda).index or 0))
+
+
 @pytest.mark.parametrize("C", [32, 64])
-@pytest.mark.parametrize("T", [1, 5, 17, 18, 19, 343, 344, 345, 1001, 4099])
+@pytest.mark.parametrize("T", [1, 5, 17, 18, 19, 223, 224, 225, 479, 480, 481, 1001, 4099])
 def test_conv_chains_at_tile_edges(cuda, C, T):
-    """T below the chain's halo of 18, around one tile (344 rows at most), not a
-    multiple of 8 (the window's scalar loads), with a leading batch of 2."""
+    """T below the chain's halo of 18, around one narrow tile (224 time steps at
+    C 64, 480 at C 32: ``chain_tile(6, C, N_HALF)``; a leading batch of 2 takes
+    the narrow block), not a multiple of 8 (the window's scalar loads)."""
+    assert _cols(cuda, 2, T, C) == chain_ops.N_HALF
     _check_chains(*_chain_inputs(cuda, C, T, B=2, seed=T))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("d", [-1, 0, 1])
+def test_conv_chains_at_wide_tile_edges(cuda, C, d):
+    """Around one wide tile (480 time steps at C 64, 992 at C 32), with a batch of
+    48 that takes the wide block."""
+    T = chain_ops.chain_tile(6, C) + d
+    assert _cols(cuda, 48, T, C) == chain_ops.N_COLS
+    _check_chains(*_chain_inputs(cuda, C, T, B=48, seed=T))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("B,extra", [(1, None), (1, 5), (3, 100)])
+def test_conv_chains_past_the_sequence_end(cuda, C, B, extra):
+    """Columns past T: one sequence below one tile (B 1, T 100: the second
+    consumer warpgroup's columns lie wholly past the end), a last (narrow) tile
+    of 5 time steps, and one of 100."""
+    T = 100 if extra is None else chain_ops.chain_tile(6, C, chain_ops.N_HALF) + extra
+    assert _cols(cuda, B, T, C) == chain_ops.N_HALF
+    _check_chains(*_chain_inputs(cuda, C, T, B=B, seed=T + B))
+
+
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_conv_chains_other_depths(cuda, C, P):
+    """Chains of 1, 3 and 8 convs (odd chains end in the other window; the tile's
+    first output row moves with the halo), over edges of their own tiles: the
+    narrow block's at a batch of 2, the wide block's at 48."""
+    for B, cols in ((2, chain_ops.N_HALF), (48, chain_ops.N_COLS)):
+        T = 2 * chain_ops.chain_tile(P, C, cols) + 37
+        assert _cols(cuda, B, T, C, P) == cols
+        x, w, b = int8_chain.make_inputs(C, T, B, P, cuda)
+        wp, bp = torch.cat([w] * 2)[:P], torch.cat([b] * 2)[:P]
+        _check_chains(x, wp, bp, chain_ops.calibrate(x, wp, bp))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("C", [32, 64])
+@pytest.mark.parametrize("cols", [128, 256])
+def test_conv_chain_kernel_geometry(cuda, int8, C, cols):
+    """The library's block geometry (``acad_conv_chain_geometry``): the window
+    rows the wrapper's tile is cut from, a ring of 11 or 14 stages, and shared
+    memory within the 227 KB a block may opt into."""
+    kg = chain_ops.kernel_geometry(int8, C, cols)
+    assert kg["rows"] == chain_ops.ChainLayout(C, 1 if int8 else 2, 6, cols).rows
+    assert kg["stages"] in (11, 14) and 0 < kg["smem_bytes"] <= MAX_SMEM_BYTES
 
 
 @pytest.mark.parametrize("C", [32, 64])
