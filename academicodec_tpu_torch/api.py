@@ -9,6 +9,7 @@ import torch
 from academicodec_tpu_torch.models import presets
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
+from academicodec_tpu_torch.utils import profiling
 
 
 def reference_state_dict(ckpt: dict) -> dict:
@@ -20,6 +21,7 @@ def reference_state_dict(ckpt: dict) -> dict:
     return {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
 
 
+@profiling.span("codec.load")
 def load_codec(
     preset: str,
     checkpoint: Optional[str] = None,
@@ -37,6 +39,8 @@ def load_codec(
     ``cli/train_hificodec.py`` (``state_<step>.pt``, which holds the ``g_*``
     parts), or None for random weights drawn from ``seed``. The default device is the
     card; without one this raises rather than running on the CPU.
+
+    The whole call is one ``codec.load`` span (``utils/profiling.py``).
     """
     model = presets.build(preset, device=device, dtype=dtype, seed=seed, **overrides)
     if checkpoint is not None:

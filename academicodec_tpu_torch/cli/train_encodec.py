@@ -16,7 +16,11 @@ continues from the newest ``latest`` at the epoch its metadata records, and
 (``data/native_loader.py``): the same batches as the Python pipeline, bit for
 bit; it raises if its library cannot be built. ``--packed_conv`` selects a
 TPU lowering in JAX and is accepted as a no-op. ``--profile_dir`` records
-steps 10-20 of the first epoch with torch.profiler.
+steps 10-20 of the first epoch with torch.profiler, the program's ``train.*``
+and ``codec.*`` spans on its timeline. Each log line after an epoch's first
+gives ``s/b``: the wall seconds per step since the epoch's last log line, read
+with the device synchronized, so it holds the steps' device work, the loader
+and any checkpoint written between the lines.
 
 ``--multihost`` trains data-parallel, one process per card, as ``torchrun``
 starts them (``parallel.init_from_env``; NCCL on the cards, gloo with
@@ -50,7 +54,7 @@ from academicodec_tpu_torch.parallel.mesh import init_from_env, missing_torchrun
 from academicodec_tpu_torch.train.encodec import EncodecTrainConfig, EncodecTrainer
 from academicodec_tpu_torch.utils.checkpoint import load_checkpoint, load_checkpoint_meta, save_checkpoint, scan_checkpoint
 from academicodec_tpu_torch.utils.logging import Logger
-from academicodec_tpu_torch.utils.profiling import StepTimer, param_count, trace
+from academicodec_tpu_torch.utils.profiling import param_count, trace
 
 
 def get_args(argv=None):
@@ -157,7 +161,6 @@ def main(argv=None):
                     f"discriminator params: {param_count(state.discriminators):,}")
 
     best_valid = float("inf")
-    timer = StepTimer()
     for epoch in range(start_epoch, args.n_epochs + 1):
         trainer.set_epoch_lr(state, epoch)
         t_epoch = time.time()
@@ -170,21 +173,25 @@ def main(argv=None):
         else:
             it = batch_iterator(train_ds, local_bs, seed=args.seed, epochs=1, start_epoch=epoch,
                                 process_index=pidx, process_count=pcount)
-        with contextlib.ExitStack() as profiling:
+        logged = None  # (wall clock, steps) at this epoch's last log line
+        with contextlib.ExitStack() as tracing:
             for i, batch in enumerate(it):
                 if args.profile_dir and epoch == start_epoch and i == 10:
-                    profiling.enter_context(trace(args.profile_dir))
+                    tracing.enter_context(trace(args.profile_dir))
                 state, metrics = trainer.train_step(state, batch)
                 if i % args.print_freq == 0:
                     m = {k: float(v) for k, v in metrics.items()}
-                    sps = timer.tick()
-                    rate = f" s/b={sps:.3f}" if sps else ""
+                    if device.type == "cuda":
+                        torch.cuda.synchronize(device)
+                    now = (time.perf_counter(), i)
+                    rate = f" s/b={(now[0] - logged[0]) / (now[1] - logged[1]):.3f}" if logged else ""
+                    logged = now
                     logger.log_info(f"epoch {epoch} step {state.step} "
                                     + " ".join(f"{k}={v:.4f}" for k, v in m.items()) + rate, check_primary=False)
                     for k, v in m.items():
                         logger.add_scalar(f"train/{k}", v, state.step)
                 if args.profile_dir and epoch == start_epoch and i == 20:
-                    profiling.close()
+                    tracing.close()
                     logger.log_info(f"profile of steps 10-20 written to {args.profile_dir}")
                 if state.step % args.checkpoint_interval == 0:
                     save_checkpoint(args.path, "latest", state.step, state.state_dict(), meta={"epoch": epoch})

@@ -26,6 +26,11 @@ stages of at least N channels as W8A8 int8 (``nn/hifigan.py``), once
 :func:`calibrate_quant` has recorded their activation scales; the scales
 of the JAX package's ``'quant'`` collection load with :meth:`VQVAE.load_quant`.
 
+Each public call is a root span (``codec.encode`` / ``codec.decode``, a
+stream chunk too) over the stages ``codec.upload``, ``codec.encoder``,
+``codec.quantize``, ``codec.dequantize`` and ``codec.decoder``
+(``utils/profiling.py``).
+
 Behavioral parity target: academicodec_tpu/models/hificodec.py:23-135
 (reference models/hificodec/vqvae.py:12-45).
 """
@@ -42,6 +47,7 @@ from academicodec_tpu_torch.models.soundstream import resolve_device
 from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANEncoder, HiFiGANGenerator
 from academicodec_tpu_torch.quant.grvq import GroupResidualVQ
+from academicodec_tpu_torch.utils import profiling
 
 # std of the N(0, std^2) init of the convs the JAX package draws with
 # hifigan_normal_init (reference utils.py:181-184)
@@ -111,9 +117,12 @@ class VQVAE(nn.Module):
     def forward(self, x: torch.Tensor, training: bool = False):
         """wav ``[B, T]`` -> ``(wav [B, T], loss_q, codes [B, frames, n_res * G])``
         (JAX models/hificodec.py:74-82), in the dtype of ``x`` and the weights."""
-        c = self.encoder(x[:, None, :])
-        q, loss_q, codes = self.quantizer(c.transpose(1, 2), training=training)
-        y = self.generator(q.transpose(1, 2).contiguous())
+        with profiling.span("codec.encoder"):
+            c = self.encoder(x[:, None, :])
+        with profiling.span("codec.quantize"):
+            q, loss_q, codes = self.quantizer(c.transpose(1, 2), training=training)
+        with profiling.span("codec.decoder"):
+            y = self.generator(q.transpose(1, 2).contiguous())
         return y[:, 0, :], loss_q, codes
 
     def w8a8_convs(self) -> Dict[str, Conv1d]:
@@ -130,15 +139,19 @@ class VQVAE(nn.Module):
             conv.act_amax = torch.as_tensor(act_amax[name], dtype=torch.float32).reshape(()).to(self.device)
 
     @torch.no_grad()
+    @profiling.span("codec.encode")
     def encode(self, x, lengths=None) -> torch.Tensor:
         """wav ``[B, T]`` -> tokens ``[B, frames, n_res * G]`` int32 (reference
         vqvae.py:37-45). ``lengths [B]``: the valid samples of each row of a
         zero-padded batch; each row's first ``frames_for(lengths[b])`` token
         frames are then those of its exact-length encode (JAX
         models/hificodec.py:84-97); the caller trims the rest."""
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        c = self.encoder(x[:, None, :], lengths)
-        return self.quantizer.encode(c.transpose(1, 2))
+        with profiling.span("codec.upload"):
+            x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        with profiling.span("codec.encoder"):
+            c = self.encoder(x[:, None, :], lengths)
+        with profiling.span("codec.quantize"):
+            return self.quantizer.encode(c.transpose(1, 2))
 
     def frames_for(self, n_samples: int) -> int:
         """Token frames of an exact-length encode of ``n_samples`` samples: each
@@ -149,20 +162,28 @@ class VQVAE(nn.Module):
         return n
 
     @torch.no_grad()
+    @profiling.span("codec.decode")
     def decode(self, codes) -> torch.Tensor:
         """tokens ``[B, frames, n_res * G]`` -> wav ``[B, T]`` (reference vqvae.py:31-35)."""
-        codes = torch.as_tensor(codes).to(device=self.device)
-        q = self.quantizer.embed(codes)
-        return self.generator(q.transpose(1, 2).contiguous())[:, 0, :]
+        with profiling.span("codec.upload"):
+            codes = torch.as_tensor(codes).to(device=self.device)
+        with profiling.span("codec.dequantize"):
+            q = self.quantizer.embed(codes)
+        with profiling.span("codec.decoder"):
+            return self.generator(q.transpose(1, 2).contiguous())[:, 0, :]
 
     @torch.no_grad()
+    @profiling.span("codec.decode")
     def decode_stream(self, codes, state=None):
         """One chunk of tokens ``[B, frames, n_res * G]`` and the generator state
         the last chunk left (None starts a stream) -> ``(wav [B, frames * hop],
         next state)``; causal configs only (JAX models/hificodec.py:104-110)."""
-        codes = torch.as_tensor(codes).to(device=self.device)
-        q = self.quantizer.embed(codes)
-        y, state = self.generator.stream(q.transpose(1, 2).contiguous(), state)
+        with profiling.span("codec.upload"):
+            codes = torch.as_tensor(codes).to(device=self.device)
+        with profiling.span("codec.dequantize"):
+            q = self.quantizer.embed(codes)
+        with profiling.span("codec.decoder"):
+            y, state = self.generator.stream(q.transpose(1, 2).contiguous(), state)
         return y[:, 0, :], state
 
 

@@ -11,6 +11,11 @@ chunk at a time, with the towers' state passed in and given back by the
 caller (``streaming.py`` keeps it per session), so that the model itself
 holds no state of a stream.
 
+Each public call is a root span (``codec.encode`` / ``codec.decode``, a
+stream chunk too) over the stages ``codec.upload``, ``codec.encoder``,
+``codec.quantize``, ``codec.dequantize`` and ``codec.decoder``
+(``utils/profiling.py``).
+
 Behavioral parity target: academicodec_tpu/models/soundstream.py:26-131
 (reference models/encodec/net3.py:12-61).
 """
@@ -29,6 +34,7 @@ from academicodec_tpu_torch.nn.lstm import LSTMParams
 from academicodec_tpu_torch.nn.seanet import SEANetDecoder, SEANetEncoder
 from academicodec_tpu_torch.quant.core_vq import ResidualVQ
 from academicodec_tpu_torch.quant.vq import ResidualVectorQuantizer
+from academicodec_tpu_torch.utils import profiling
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -128,42 +134,62 @@ class SoundStream(nn.Module):
         SLSTMs run K2 when autograd does not record the call, else the library LSTM.
         ``group``: the data-parallel process group of the codebooks' statistics
         (``quant/core_vq.py``); ``x`` is then this rank's rows."""
-        e = self.encoder(x[:, None, :])
-        quantized, codes, _bw, commit = self.quantizer(
-            e.transpose(1, 2), self.frame_rate, n_q=n_q if n_q is not None else self.n_q,
-            training=training, draws=draws, group=group,
-        )
-        return self.decoder(quantized.transpose(1, 2))[:, 0, :], commit, codes
+        with profiling.span("codec.encoder"):
+            e = self.encoder(x[:, None, :])
+        with profiling.span("codec.quantize"):
+            quantized, codes, _bw, commit = self.quantizer(
+                e.transpose(1, 2), self.frame_rate, n_q=n_q if n_q is not None else self.n_q,
+                training=training, draws=draws, group=group,
+            )
+        with profiling.span("codec.decoder"):
+            return self.decoder(quantized.transpose(1, 2))[:, 0, :], commit, codes
 
     @torch.no_grad()
+    @profiling.span("codec.encode")
     def encode(self, x, target_bw: Optional[float] = None, st: int = 0) -> torch.Tensor:
         """wav ``[B, T]`` -> codes ``[n_q - st, B, frames]`` int32 (reference net3.py:47-56)."""
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        e = self.encoder(x[:, None, :])
+        with profiling.span("codec.upload"):
+            x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        with profiling.span("codec.encoder"):
+            e = self.encoder(x[:, None, :])
         bw = target_bw if target_bw is not None else self.target_bandwidths[-1]
-        return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st)
+        with profiling.span("codec.quantize"):
+            return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st)
 
     @torch.no_grad()
+    @profiling.span("codec.decode")
     def decode(self, codes) -> torch.Tensor:
         """codes ``[n, B, frames]`` -> wav ``[B, T]`` (reference net3.py:58-61)."""
-        codes = torch.as_tensor(codes).to(device=self.device)
-        quantized = self.quantizer.decode(codes)
-        return self.decoder(quantized.transpose(1, 2))[:, 0, :]
+        with profiling.span("codec.upload"):
+            codes = torch.as_tensor(codes).to(device=self.device)
+        with profiling.span("codec.dequantize"):
+            quantized = self.quantizer.decode(codes)
+        with profiling.span("codec.decoder"):
+            return self.decoder(quantized.transpose(1, 2))[:, 0, :]
 
     @torch.no_grad()
+    @profiling.span("codec.encode")
     def encode_stream(self, x, state=None, target_bw: Optional[float] = None, st: int = 0):
         """One stream chunk, wav ``[B, chunk]`` (``chunk % hop_length == 0``), and the
         encoder state the last chunk left (None starts a stream) -> ``(codes
         [n_q - st, B, chunk / hop], next state)`` (JAX models/soundstream.py:133-142)."""
-        x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
-        e, state = self.encoder.stream(x[:, None, :], state)
+        with profiling.span("codec.upload"):
+            x = torch.as_tensor(x).to(device=self.device, dtype=self.dtype)
+        with profiling.span("codec.encoder"):
+            e, state = self.encoder.stream(x[:, None, :], state)
         bw = target_bw if target_bw is not None else self.target_bandwidths[-1]
-        return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st), state
+        with profiling.span("codec.quantize"):
+            return self.quantizer.encode(e.transpose(1, 2), self.frame_rate, bw, st=st), state
 
     @torch.no_grad()
+    @profiling.span("codec.decode")
     def decode_stream(self, codes, state=None):
         """One chunk of codes ``[n, B, frames]`` and the decoder state -> ``(wav
         [B, frames * hop], next state)`` (JAX models/soundstream.py:144-150)."""
-        codes = torch.as_tensor(codes).to(device=self.device)
-        y, state = self.decoder.stream(self.quantizer.decode(codes).transpose(1, 2), state)
+        with profiling.span("codec.upload"):
+            codes = torch.as_tensor(codes).to(device=self.device)
+        with profiling.span("codec.dequantize"):
+            quantized = self.quantizer.decode(codes)
+        with profiling.span("codec.decoder"):
+            y, state = self.decoder.stream(quantized.transpose(1, 2), state)
         return y[:, 0, :], state

@@ -5,7 +5,10 @@ started together, for ``sm_90a`` (Hopper), then linked into one shared
 library with a plain C interface. Nothing includes PyTorch's headers, so a
 cold build takes seconds. The library lands in ``csrc/build/`` under a name
 that hashes the sources and flags, and is built at first use. A failed
-build raises: there is no fallback.
+build raises: there is no fallback. Loading the library is the span
+``kernels.load``, and the build inside it, where one runs, the span
+``kernels.builds`` (``utils/profiling.py``): its count is the builds, its
+seconds their host time.
 
 Each C entry point takes device pointers and the CUDA stream as
 ``void*`` and returns ``cudaGetLastError()`` after its launches.
@@ -21,6 +24,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import List, Tuple
+
+from academicodec_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -91,6 +96,14 @@ def build() -> Tuple[Path, str]:
     log_path = lib.with_suffix(".log")
     if lib.exists() and log_path.exists():
         return lib, log_path.read_text()
+    log = _compile(lib)
+    log_path.write_text(log)
+    return lib, log
+
+
+@profiling.span("kernels.builds")
+def _compile(lib: Path) -> str:
+    """Compile every source with ``nvcc`` and link them into ``lib``; returns the compiler's report."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     objs, procs = [], []
@@ -123,12 +136,11 @@ def build() -> Tuple[Path, str]:
     if link.returncode != 0:
         raise RuntimeError(f"linking {lib.name} failed (rc {link.returncode}):\n{link.stdout}")
     os.replace(tmp, lib)
-    log = "".join(logs)
-    log_path.write_text(log)
-    return lib, log
+    return "".join(logs)
 
 
 @functools.cache
+@profiling.span("kernels.load")
 def load_library() -> ctypes.CDLL:
     """The built kernel library, with every entry point's signature declared."""
     path, _ = build()

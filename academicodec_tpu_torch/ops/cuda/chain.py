@@ -44,8 +44,8 @@ by one table load with the same bits; on the CPU only the arrays as given).
 A CPU tensor runs the plain version; a CUDA tensor always launches the
 kernel or raises: mixed devices, C other than 32 or 64, and a CUDA call that
 autograd would record (the kernels have no backward) raise.
-``P1_LAUNCHES`` and ``P2_LAUNCHES`` count kernel launches, one where a kernel
-was launched (an empty ``x`` launches none).
+Each launch adds one to the counter ``p1.launches`` or
+``p2.launches`` (``utils/profiling.py``); an empty ``x`` launches none.
 """
 
 from __future__ import annotations
@@ -59,9 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from academicodec_tpu_torch.ops.cuda.build import check, load_library
-
-P1_LAUNCHES = 0
-P2_LAUNCHES = 0
+from academicodec_tpu_torch.utils import profiling
 
 KSIZE, HALF = 7, 3
 LRELU_SLOPE = 0.1
@@ -443,7 +441,6 @@ def pack_chain_i8(wq: torch.Tensor, ws: torch.Tensor, b: torch.Tensor, s_act: to
 
 def _launch(name: str, x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
     """The CUDA call's checks, then one launch, counted."""
-    global P1_LAUNCHES, P2_LAUNCHES
     if ops.device.type != "cuda" or x.device != ops.device:
         raise ValueError(f"{name}: x on {x.device}, operands on {ops.device}; the kernel takes CUDA tensors")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *ops.raw)):
@@ -469,10 +466,7 @@ def _launch(name: str, x: torch.Tensor, ops: ChainOperands) -> torch.Tensor:
         rc = lib.acad_conv_chain_bf16(xr.data_ptr(), ops.tiles.data_ptr(), ops.bias.data_ptr(), y.data_ptr(),
                                       B, C, T, ops.P, TT, cols, stream)
     check(rc, name)
-    if ops.int8:
-        P2_LAUNCHES += 1
-    else:
-        P1_LAUNCHES += 1
+    profiling.count("p2.launches" if ops.int8 else "p1.launches")
     return y.reshape(x.shape)
 
 

@@ -29,7 +29,8 @@ A carry enters the kernel directly: each block loads its own units' state,
 and one extra grid barrier publishes h before the first step.
 
 ``lstm2`` runs the kernel for CUDA tensors and the plain version only for
-CPU tensors. ``LAUNCHES`` counts wrapper calls that launched the kernel.
+CPU tensors. Each wrapper call that launched the kernel adds one
+to the counter ``k2.launches`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES, check, load_library
-
-LAUNCHES = 0
+from academicodec_tpu_torch.utils import profiling
 
 WARPS = 12  # warps per block of csrc/lstm2.cu
 
@@ -182,8 +182,7 @@ def lstm2(
         torch.cuda.current_stream(dev).cuda_stream,
     )
     check(rc, "lstm2")
-    global LAUNCHES
-    LAUNCHES += 1
+    profiling.count("k2.launches")
     return (y, tuple(carry_out.unbind(0))) if return_carry else y
 
 
@@ -195,7 +194,7 @@ def grid_barriers(iters: int, B: int, H: int, w_dtype: torch.dtype, device) -> N
     """Enqueue ``iters`` bare grid barriers on the grid ``lstm2`` would launch
     for this shape (same blocks, threads and shared memory) and nothing else:
     the floor of one recurrence step. For timing only; not counted in
-    ``LAUNCHES``."""
+    ``k2.launches``."""
     dev = torch.device(device)
     _, blocks, smem = lstm2_geometry(B, H, w_dtype.itemsize, _num_sms(dev))
     barrier = torch.zeros((1,), dtype=torch.int32, device=dev)

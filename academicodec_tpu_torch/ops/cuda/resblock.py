@@ -46,8 +46,8 @@ version; CUDA tensors always launch the kernel or raise. The kernels have
 no backward: a CUDA call that autograd would record (gradients enabled and
 an input or weight requiring one) raises ``RuntimeError`` rather than return
 a tensor the gradient cannot pass; ``nn/hifigan.py`` runs such stages
-unfused. ``TOWER_LAUNCHES`` and ``GN_TOWER_LAUNCHES`` count kernel launches,
-one per call of a wrapper.
+unfused. Each call of a wrapper adds one to the counter
+``k3.launches`` or ``k4.launches`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -62,9 +62,7 @@ import torch
 import torch.nn.functional as F
 
 from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES, check, load_library
-
-TOWER_LAUNCHES = 0
-GN_TOWER_LAUNCHES = 0
+from academicodec_tpu_torch.utils import profiling
 
 LRELU_SLOPE = 0.1
 # limits of csrc/resblock.cu: chains per tower, convs per chain, output
@@ -766,8 +764,7 @@ def resblock_tower(
         int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower")
-    global TOWER_LAUNCHES
-    TOWER_LAUNCHES += 1
+    profiling.count("k3.launches")
     return y
 
 
@@ -796,8 +793,7 @@ def gn_tower_chains(x: torch.Tensor, p: PackedTower, lengths=None,
         buf, smem, int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "resblock_tower_gn")
-    global GN_TOWER_LAUNCHES
-    GN_TOWER_LAUNCHES += 1
+    profiling.count("k4.launches")
     return outs, (part if partials else mom)
 
 

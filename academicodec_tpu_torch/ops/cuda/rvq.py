@@ -22,7 +22,8 @@ Distances are exact f32 FMA (no TF32), so tokens match the plain version up
 to near-ties in summation order.
 
 ``rvq_encode`` runs the kernel for CUDA tensors and the plain version only
-for CPU tensors. ``LAUNCHES`` counts kernel launches.
+for CPU tensors. Each launch adds one to the counter ``k1.launches``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ from __future__ import annotations
 import torch
 
 from academicodec_tpu_torch.ops.cuda.build import MAX_SMEM_BYTES, check, load_library
-
-LAUNCHES = 0
+from academicodec_tpu_torch.utils import profiling
 
 # rows per block, dims and codes per codebook tile, and ring stages of
 # csrc/rvq.cu
@@ -99,6 +99,5 @@ def rvq_encode(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
         n, d, n_q, k, torch.cuda.current_stream(x.device).cuda_stream,
     )
     check(rc, "rvq_encode")
-    global LAUNCHES
-    LAUNCHES += 1
+    profiling.count("k1.launches")
     return codes

@@ -15,7 +15,8 @@ in f64, which is exact for these sums (at hificodec_24k_320d's widest int8
 conv they reach 11 * 512 * 127^2 ~ 9.1e7, past f32's 2^24, far below f64's
 2^53). The JAX package computes this conv with ``lax.conv_general_dilated``
 outside any Pallas kernel, so the library GEMM stands where it stood.
-``INT_MM_CALLS`` counts the GEMMs launched.
+Each GEMM launched adds one to the counter ``int8.gemms``
+(``utils/profiling.py``).
 
 Behavioral parity target: academicodec_tpu/ops/int8.py:38-100.
 """
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-INT_MM_CALLS = 0
+from academicodec_tpu_torch.utils import profiling
 
 _MIN_ROWS = 17  # torch._int_mm on CUDA needs more than 16 rows
 
@@ -86,8 +87,7 @@ def conv1d_int32(xi: torch.Tensor, wi: torch.Tensor, stride: int = 1, dilation: 
     cols = F.pad(cols, (0, kd8 - kd, 0, max(0, _MIN_ROWS - m)))
     w = F.pad(wi.reshape(O, kd), (0, kd8 - kd, 0, _round_up(O, 8) - O))
     y = torch._int_mm(cols, w.t())
-    global INT_MM_CALLS
-    INT_MM_CALLS += 1
+    profiling.count("int8.gemms")
     return y[:m, :O].reshape(B, t_out, O).permute(0, 2, 1)
 
 

@@ -52,6 +52,8 @@ forward, hiding a drift, and its hooks do not follow the phases'
 
 The state is updated in place and returned, so a caller writes
 ``state, metrics = trainer.train_step(state, x)`` as with JAX.
+``train_step`` is the span ``train.step`` over ``train.g_phase`` and
+``train.d_phase`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -86,6 +88,7 @@ from academicodec_tpu_torch.parallel.mesh import (
 )
 from academicodec_tpu_torch.quant.core_vq import sample_rows
 from academicodec_tpu_torch.train.state import GANTrainState, make_optimizer, mp_apply, set_learning_rate
+from academicodec_tpu_torch.utils import profiling
 
 FAMILIES = ("stft", "mpd", "msd")
 
@@ -248,6 +251,7 @@ class EncodecTrainer:
         return total, dict(rec_loss=rec, adv_g_loss=adv, feat_loss=feat, commit_loss=commit)
 
     # ------------------------------------------------------------------
+    @profiling.span("train.step")
     def train_step(self, state: GANTrainState, x: torch.Tensor, draws: Optional[StepDraws] = None,
                    return_codes: bool = False):
         """One G update and one D update on ``x [B, T]`` (this rank's rows under a
@@ -269,38 +273,40 @@ class EncodecTrainer:
         disc_factor = adopt_weight(cfg.lambda_adv, state.step, cfg.discriminator_iter_start)
 
         # ---- generator phase: gradients for the generator only ----
-        state.g_opt.zero_grad(set_to_none=True)
-        discs.requires_grad_(False)
-        metrics_k, codes_k = [], {"g": [], "d": []}
-        try:
-            for i in range(k):
-                g_x, commit, codes = self._gen_forward(model, xm[i], draws.g.n_q, draws.g.rows[i])
-                with torch.no_grad():
-                    out_real = self._disc_all(discs, xm[i])
-                out_gen = self._disc_all(discs, g_x)
-                total, metrics = self._g_loss(out_real, out_gen, xm[i], g_x, commit, state.step)
-                total.backward()
-                metrics_k.append(dict(loss_g=total.detach(), **{n: v.detach() for n, v in metrics.items()}))
-                codes_k["g"].append(codes)
-        finally:
-            discs.requires_grad_(True)
-        self._mean_grads(model, k)
-        all_reduce_mean_grads(model, self.group)
-        state.g_opt.step()
+        with profiling.span("train.g_phase"):
+            state.g_opt.zero_grad(set_to_none=True)
+            discs.requires_grad_(False)
+            metrics_k, codes_k = [], {"g": [], "d": []}
+            try:
+                for i in range(k):
+                    g_x, commit, codes = self._gen_forward(model, xm[i], draws.g.n_q, draws.g.rows[i])
+                    with torch.no_grad():
+                        out_real = self._disc_all(discs, xm[i])
+                    out_gen = self._disc_all(discs, g_x)
+                    total, metrics = self._g_loss(out_real, out_gen, xm[i], g_x, commit, state.step)
+                    total.backward()
+                    metrics_k.append(dict(loss_g=total.detach(), **{n: v.detach() for n, v in metrics.items()}))
+                    codes_k["g"].append(codes)
+            finally:
+                discs.requires_grad_(True)
+            self._mean_grads(model, k)
+            all_reduce_mean_grads(model, self.group)
+            state.g_opt.step()
 
         # ---- discriminator phase, on a fresh no-grad generator forward ----
-        state.d_opt.zero_grad(set_to_none=True)
-        d_losses = []
-        for i in range(k):
-            with torch.no_grad():
-                g_x2, _, codes = self._gen_forward(model, xm[i], draws.d.n_q, draws.d.rows[i])
-            codes_k["d"].append(codes)
-            loss_d = disc_factor * _hinge_d(self._disc_all(discs, xm[i]), self._disc_all(discs, g_x2))
-            loss_d.backward()
-            d_losses.append(loss_d.detach())
-        self._mean_grads(discs, k)
-        all_reduce_mean_grads(discs, self.group)
-        state.d_opt.step()
+        with profiling.span("train.d_phase"):
+            state.d_opt.zero_grad(set_to_none=True)
+            d_losses = []
+            for i in range(k):
+                with torch.no_grad():
+                    g_x2, _, codes = self._gen_forward(model, xm[i], draws.d.n_q, draws.d.rows[i])
+                codes_k["d"].append(codes)
+                loss_d = disc_factor * _hinge_d(self._disc_all(discs, xm[i]), self._disc_all(discs, g_x2))
+                loss_d.backward()
+                d_losses.append(loss_d.detach())
+            self._mean_grads(discs, k)
+            all_reduce_mean_grads(discs, self.group)
+            state.d_opt.step()
 
         state.step += 1
         metrics = {n: torch.stack([m[n] for m in metrics_k]).mean() for n in metrics_k[0]}

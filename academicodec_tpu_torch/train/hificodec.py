@@ -43,6 +43,8 @@ alone, which every rank holds alike.
 
 The state is updated in place and returned, so a caller writes
 ``state, metrics = trainer.train_step(state, y)`` as with JAX.
+``train_step`` is the span ``train.step`` over ``train.g_phase`` and
+``train.d_phase`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ from academicodec_tpu_torch.nn.discriminators import (
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, invalidate_packed
 from academicodec_tpu_torch.parallel.mesh import all_reduce_mean_grads, all_reduce_mean_metrics, microbatches
 from academicodec_tpu_torch.train.state import GANTrainState, make_optimizer, mp_apply, set_learning_rate
+from academicodec_tpu_torch.utils import profiling
 
 # the order of the JAX trainer's loss sums
 FAMILIES = ("msd", "mpd", "mstftd")
@@ -181,6 +184,7 @@ class HiFiCodecTrainer:
         return discs(y, advance)
 
     # ------------------------------------------------------------------
+    @profiling.span("train.step")
     def train_step(self, state: HiFiCodecTrainState, y: torch.Tensor):
         """One D update, then one G update, on ``y [B, T]`` (this rank's rows under a
         group) -> ``(state, metrics)``: ``loss_gen_all``, ``loss_disc_all``,
@@ -196,49 +200,51 @@ class HiFiCodecTrainer:
         ym = microbatches(y, k, self.group)
 
         # ---- discriminator phase, on a no-grad generator forward ----
-        state.d_opt.zero_grad(set_to_none=True)
-        us = discs.spectral_u()
-        u0 = [u.clone() for u in us]
-        d_losses = []
-        for i in range(k):
-            with torch.no_grad():
-                y_g, _, _ = self._gen(model, ym[i])
-                for u, u_start in zip(us, u0):  # every microbatch steps u from the pre-step u
-                    u.copy_(u_start)
-            out_real = self._disc(discs, ym[i], advance=True)
-            out_gen = self._disc(discs, y_g)
-            loss_d = 0.0
-            for name in FAMILIES:
-                loss_d = loss_d + ls_discriminator_loss(out_real[name][0], out_gen[name][0])[0]
-            loss_d.backward()
-            d_losses.append(loss_d.detach())
-        _mean_grads(discs, k)
-        all_reduce_mean_grads(discs, self.group)
-        state.d_opt.step()
+        with profiling.span("train.d_phase"):
+            state.d_opt.zero_grad(set_to_none=True)
+            us = discs.spectral_u()
+            u0 = [u.clone() for u in us]
+            d_losses = []
+            for i in range(k):
+                with torch.no_grad():
+                    y_g, _, _ = self._gen(model, ym[i])
+                    for u, u_start in zip(us, u0):  # every microbatch steps u from the pre-step u
+                        u.copy_(u_start)
+                out_real = self._disc(discs, ym[i], advance=True)
+                out_gen = self._disc(discs, y_g)
+                loss_d = 0.0
+                for name in FAMILIES:
+                    loss_d = loss_d + ls_discriminator_loss(out_real[name][0], out_gen[name][0])[0]
+                loss_d.backward()
+                d_losses.append(loss_d.detach())
+            _mean_grads(discs, k)
+            all_reduce_mean_grads(discs, self.group)
+            state.d_opt.step()
 
         # ---- generator phase, against the updated discriminators and the new u ----
-        state.g_opt.zero_grad(set_to_none=True)
-        discs.requires_grad_(False)
-        g_metrics = []
-        try:
-            for i in range(k):
-                y_hat, loss_q, _ = self._gen(model, ym[i])
-                loss_mel, mel_error = hifigan_mel_losses(ym[i], y_hat, None, **self._mel_cfg())
-                with torch.no_grad():
-                    out_real = self._disc(discs, ym[i])
-                out_gen = self._disc(discs, y_hat)
-                total = loss_mel + self.cfg.lambda_q * loss_q
-                for name in FAMILIES:
-                    gen_l, _ = ls_generator_loss(out_gen[name][0])
-                    total = total + gen_l + absolute_feature_loss(out_real[name][1], out_gen[name][1])
-                total.backward()
-                g_metrics.append((total.detach(), loss_q.detach(), mel_error.detach()))
-        finally:
-            discs.requires_grad_(True)
-        _mean_grads(model, k)
-        all_reduce_mean_grads(model, self.group)
-        state.g_opt.step()
-        invalidate_packed(model)  # the fused optimizer leaves the version counters as they were
+        with profiling.span("train.g_phase"):
+            state.g_opt.zero_grad(set_to_none=True)
+            discs.requires_grad_(False)
+            g_metrics = []
+            try:
+                for i in range(k):
+                    y_hat, loss_q, _ = self._gen(model, ym[i])
+                    loss_mel, mel_error = hifigan_mel_losses(ym[i], y_hat, None, **self._mel_cfg())
+                    with torch.no_grad():
+                        out_real = self._disc(discs, ym[i])
+                    out_gen = self._disc(discs, y_hat)
+                    total = loss_mel + self.cfg.lambda_q * loss_q
+                    for name in FAMILIES:
+                        gen_l, _ = ls_generator_loss(out_gen[name][0])
+                        total = total + gen_l + absolute_feature_loss(out_real[name][1], out_gen[name][1])
+                    total.backward()
+                    g_metrics.append((total.detach(), loss_q.detach(), mel_error.detach()))
+            finally:
+                discs.requires_grad_(True)
+            _mean_grads(model, k)
+            all_reduce_mean_grads(model, self.group)
+            state.g_opt.step()
+            invalidate_packed(model)  # the fused optimizer leaves the version counters as they were
 
         state.step += 1
         loss_g, loss_q, mel_error = (torch.stack(c).mean() for c in zip(*g_metrics))

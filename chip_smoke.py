@@ -125,6 +125,7 @@ from academicodec_tpu_torch.probes import int8_chain
 from academicodec_tpu_torch.probes.int8_chain import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound, nvidia_smi
 from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS, THRESHOLD_EMA_DEAD_CODE
 from academicodec_tpu_torch.streaming import StreamingDecoder, StreamingEncoder, StreamingVQVAEDecoder
+from academicodec_tpu_torch.utils import profiling
 
 FLAGSHIP = "encodec_24k_240d"
 HIFI = "hificodec_24k_320d"
@@ -140,29 +141,31 @@ INT8_MIN_CHANNELS = 128
 INT8_CROSS_TOKEN_LIMIT = 0.1
 
 
+# K1-K4's launch counters (``utils/profiling.py``) by the kernel's name here
+LAUNCH_COUNTERS = {"rvq_encode": "k1.launches", "lstm2": "k2.launches", "resblock_tower": "k3.launches",
+                   "resblock_tower_gn": "k4.launches"}
+PROBE_COUNTERS = {"conv_chain_bf16": "p1.launches", "conv_chain_i8": "p2.launches"}
+
+
 def reset_launches() -> None:
     """K1-K4's counts to 0, and the int8 GEMM's (a library call, read apart
-    from the kernels by ``int8_ops.INT_MM_CALLS``). The probe's P1/P2 counts
+    from the kernels by :func:`int8_gemms`). The probe's P1/P2 counts
     (:func:`read_probe_launches`) are set to 0 by its own phase only, so that
     up to it they count every launch of the run: ``main`` holds them at 0
     over every serving and training phase."""
-    rvq_ops.LAUNCHES = 0
-    lstm_ops.LAUNCHES = 0
-    resblock_ops.TOWER_LAUNCHES = 0
-    resblock_ops.GN_TOWER_LAUNCHES = 0
-    int8_ops.INT_MM_CALLS = 0
+    profiling.reset(*LAUNCH_COUNTERS.values(), "int8.gemms")
 
 
 def read_launches() -> dict:
-    return {
-        "rvq_encode": rvq_ops.LAUNCHES, "lstm2": lstm_ops.LAUNCHES,
-        "resblock_tower": resblock_ops.TOWER_LAUNCHES,
-        "resblock_tower_gn": resblock_ops.GN_TOWER_LAUNCHES,
-    }
+    return {k: profiling.total(name).count for k, name in LAUNCH_COUNTERS.items()}
 
 
 def read_probe_launches() -> dict:
-    return {"conv_chain_bf16": chain_ops.P1_LAUNCHES, "conv_chain_i8": chain_ops.P2_LAUNCHES}
+    return {k: profiling.total(name).count for k, name in PROBE_COUNTERS.items()}
+
+
+def int8_gemms() -> int:
+    return profiling.total("int8.gemms").count
 
 
 def time_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -916,7 +919,7 @@ def phase_extract(device="cuda", n_files=8, min_seconds=3.0, max_seconds=10.0, b
                                      os.path.join(tmp, "q.npz"), "--batch_files", str(n_files), "--bucket_seconds",
                                      str(bucket_seconds), "--int8_min_channels", str(int8_min_channels),
                                      "--tokens_ecdc", os.path.join(tmp, "ecdc_q"), "--lm", os.path.join(tmp, "lm")])
-        gemms = int8_ops.INT_MM_CALLS
+        gemms = int8_gemms()
         q_launches = read_launches()
         int8_tokens = np.load(os.path.join(tmp, "q.npz"))
         blobs = {k: open(os.path.join(tmp, "ecdc_q", f"{k}.ecdc"), "rb").read() for k in keys}
@@ -1143,7 +1146,7 @@ def phase_int8(device="cuda", dtype=torch.bfloat16, batch=8, seconds=10.0, iters
     n_tok = q.quantizer.n_residual * q.quantizer.n_groups
     expected = {"rvq_encode": 0, "lstm2": 0, **fused_stage_counts(q.config)}
     result = checked_roundtrip("int8", q, wav, expected, (batch, -(-wav.shape[1] // q.hop_length), n_tok))
-    gemms = int8_ops.INT_MM_CALLS
+    gemms = int8_gemms()
     with torch.no_grad():
         codes_fp = fp.encode(wav)
         out_fp = fp.decode(codes_fp).float()
@@ -4614,7 +4617,7 @@ def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
         if sorted(wgmma) != ["conv_chain_bf16", "conv_chain_i8"] or not all(wgmma.values()) or mma_sync:
             raise AssertionError(f"probe_chain: a chain kernel issues no wgmma, or mma.sync: {sass}")
     reset_launches()
-    chain_ops.P1_LAUNCHES = chain_ops.P2_LAUNCHES = 0
+    profiling.reset(*PROBE_COUNTERS.values())
     t0 = time.perf_counter()
     res = int8_chain.run(device, tiny=tiny, out=lambda row: print(f"[probe_chain] {json.dumps(row)}", flush=True))
     if on_card:

@@ -28,6 +28,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from academicodec_tpu_torch.ops.cuda import chain
 from academicodec_tpu_torch.probes import int8_chain
+from academicodec_tpu_torch.utils import profiling
 
 _SPEC = importlib.util.spec_from_file_location(
     "pallas_int8_probe", Path(__file__).resolve().parents[1] / "benchmarks" / "pallas_int8_probe.py")
@@ -134,9 +135,9 @@ def test_p1_plain_matches_the_pallas_kernel(C, TT):
     past both ends of the tile)."""
     x, w, b = _inputs(C, TT, C + TT)
     ref = _jax_p1(x, w, b)
-    before = chain.P1_LAUNCHES
+    before = profiling.total("p1.launches").count
     got = chain.conv_chain_bf16(_bf16(x), chain.pack_chain_bf16(torch.from_numpy(w), torch.from_numpy(b)))
-    assert chain.P1_LAUNCHES == before and got.dtype == torch.bfloat16 and got.shape == (C, TT)
+    assert profiling.total("p1.launches").count == before and got.dtype == torch.bfloat16 and got.shape == (C, TT)
     assert np.abs(got.float().numpy() - ref).max() <= 1e-2 * np.abs(ref).max()
 
 
@@ -145,11 +146,11 @@ def test_p2_plain_matches_the_pallas_kernel(C, TT):
     x, w, b = _inputs(C, TT, 2 * C + TT)
     cal = _jax_calibration(x, w, b)
     ref = _jax_p2(x, cal["wq"], cal["ws"], b, cal["s_act"])
-    before = chain.P2_LAUNCHES
+    before = profiling.total("p2.launches").count
     ops = chain.pack_chain_i8(*(torch.from_numpy(cal[k]) for k in ("wq", "ws")), torch.from_numpy(b),
                               torch.from_numpy(cal["s_act"]))
     got = chain.conv_chain_i8(_bf16(x), ops).float().numpy()
-    assert chain.P2_LAUNCHES == before
+    assert profiling.total("p2.launches").count == before
     ulps = _bf16_ulps(got, ref)
     assert ulps.max() <= 1 and (ulps > 0).mean() <= 1e-3
     # W8A8 stays within the port's int8 limit of the f32 reference chain
@@ -195,11 +196,11 @@ def test_wrappers_device_rules():
     xt, wt, bt = _bf16(x), torch.from_numpy(w), torch.from_numpy(b)
     cal = chain.calibrate(xt, wt, bt)
     q = (cal["wq"], cal["ws"], bt, cal["s_act"])
-    before = chain.P1_LAUNCHES, chain.P2_LAUNCHES
+    before = profiling.total("p1.launches").count, profiling.total("p2.launches").count
     assert torch.equal(chain.conv_chain_bf16(xt, chain.pack_chain_bf16(wt, bt)),
                        chain.conv_chain_bf16_plain(xt, wt, bt))
     assert torch.equal(chain.conv_chain_i8(xt, chain.pack_chain_i8(*q)), chain.conv_chain_i8_plain(xt, *q))
-    assert (chain.P1_LAUNCHES, chain.P2_LAUNCHES) == before
+    assert (profiling.total("p1.launches").count, profiling.total("p2.launches").count) == before
     with pytest.raises(ValueError):
         chain.pack_chain_bf16(wt, bt.to("meta"))
     with pytest.raises(ValueError):
@@ -429,7 +430,7 @@ def test_probe_entry_point_rehearsal(capsys):
     """``python -m academicodec_tpu_torch.probes.int8_chain --device cpu --tiny``:
     a device line, the four cases with the probe's keys, the two decision
     shapes, the decision line; nothing timed on the CPU, no launch."""
-    before = chain.P1_LAUNCHES, chain.P2_LAUNCHES
+    before = profiling.total("p1.launches").count, profiling.total("p2.launches").count
     assert int8_chain.main(["--device", "cpu", "--tiny"]) == 0
     rows = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
     assert rows[0] == {"device": "cpu"} and len(rows) == 1 + 4 + 2 + 1
@@ -438,7 +439,7 @@ def test_probe_entry_point_rehearsal(capsys):
         assert r["bf16_ms"] is None and r["p2_bitwise"] and r["err_i8"] < 0.1
     assert [r["shape"] for r in rows[5:7]] == ["s2", "s3"]
     assert rows[-1]["decision"] == "not taken: no device time"
-    assert (chain.P1_LAUNCHES, chain.P2_LAUNCHES) == before
+    assert (profiling.total("p1.launches").count, profiling.total("p2.launches").count) == before
 
 
 def test_chip_smoke_probe_chain_rehearsal():

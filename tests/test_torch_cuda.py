@@ -22,6 +22,7 @@ from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
 from academicodec_tpu_torch.probes import int8_chain
+from academicodec_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -55,10 +56,10 @@ def test_rvq_kernel_matches_plain(cuda, n, d, k, n_q):
     tokens equal the plain version's exactly at these sizes."""
     rng = np.random.default_rng(n)
     x, embed = _randn(rng, (n, d), cuda), _randn(rng, (n_q, k, d), cuda)
-    before = rvq_ops.LAUNCHES
+    before = profiling.total("k1.launches").count
     codes = rvq_ops.rvq_encode(x, embed)
     torch.cuda.synchronize()
-    assert rvq_ops.LAUNCHES == before + 1
+    assert profiling.total("k1.launches").count == before + 1
     assert codes.dtype == torch.int32 and codes.shape == (n_q, n)
     torch.testing.assert_close(codes, rvq_ops.rvq_encode_plain(x, embed), rtol=0, atol=0)
 
@@ -99,10 +100,10 @@ def test_lstm2_kernel_matches_plain(cuda, wdt, odt, B, T, H, atol):
     x_proj = _randn(rng, (T, B, 4 * H), cuda, 0.5)
     ws = [_randn(rng, (4 * H, H), cuda, H ** -0.5).to(wdt) for _ in range(3)]
     b2 = _randn(rng, (4 * H,), cuda, 0.1)
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     y = lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=odt)
     torch.cuda.synchronize()
-    assert lstm_ops.LAUNCHES == before + 1
+    assert profiling.total("k2.launches").count == before + 1
     assert y.dtype == odt and y.shape == (T, B, H)
     ref = lstm_ops.lstm2_plain(x_proj, *ws, b2, out_dtype=odt)
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=atol)
@@ -160,10 +161,10 @@ def test_lstm2_kernel_carry_matches_plain(cuda, wdt, B, T, H, atol):
     rng = np.random.default_rng(T + H)
     x_proj, ws, b2 = _lstm2_case(rng, wdt, B, T, H, cuda)
     carry = tuple(_randn(rng, (B, H), cuda, 0.5) for _ in range(4))
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     y, final = lstm_ops.lstm2(x_proj, *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
     torch.cuda.synchronize()
-    assert lstm_ops.LAUNCHES == before + 1
+    assert profiling.total("k2.launches").count == before + 1
     ref, ref_final = lstm_ops.lstm2_plain(x_proj, *ws, b2, out_dtype=wdt, carry=carry, return_carry=True)
     torch.testing.assert_close(y.float(), ref.float(), atol=atol, rtol=atol)
     for a, b in zip(final, ref_final):
@@ -208,10 +209,10 @@ def test_lstm2_kernel_split_calls_equal_one_call(cuda, wdt, B, H, split):
 def test_lstm2_empty_sequence_launches_nothing(cuda):
     H = 64
     ws = [torch.zeros((4 * H, H), device=cuda) for _ in range(3)]
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     y = lstm_ops.lstm2(torch.zeros((0, 2, 4 * H), device=cuda), *ws, torch.zeros(4 * H, device=cuda),
                        out_dtype=torch.float32)
-    assert y.shape == (0, 2, H) and lstm_ops.LAUNCHES == before
+    assert y.shape == (0, 2, H) and profiling.total("k2.launches").count == before
 
 
 def test_soundstream_cuda_matches_cpu(cuda):
@@ -222,11 +223,11 @@ def test_soundstream_cuda_matches_cpu(cuda):
     wav = torch.from_numpy(
         (np.random.default_rng(3).standard_normal((2, 4800)) * 0.1).astype(np.float32)
     )
-    k1, k2 = rvq_ops.LAUNCHES, lstm_ops.LAUNCHES
+    k1, k2 = profiling.total("k1.launches").count, profiling.total("k2.launches").count
     codes = on_gpu.encode(wav)
     out = on_gpu.decode(codes)
     torch.cuda.synchronize()
-    assert (rvq_ops.LAUNCHES - k1, lstm_ops.LAUNCHES - k2) == (1, 2)
+    assert (profiling.total("k1.launches").count - k1, profiling.total("k2.launches").count - k2) == (1, 2)
     codes_cpu = on_cpu.encode(wav)
     torch.testing.assert_close(codes.cpu(), codes_cpu, rtol=0, atol=0)
     torch.testing.assert_close(out.cpu(), on_cpu.decode(codes_cpu), atol=1e-4, rtol=1e-3)
@@ -274,10 +275,10 @@ def test_resblock_tower_kernel_matches_plain(cuda, dtype, rbk, B, C, T, post):
         kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
                   post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=True)
     x = _randn(rng, (B, C, T), cuda, 0.5).to(dtype)
-    before = rb_ops.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     y = rb_ops.resblock_tower(x, weights, biases, **kw)
     torch.cuda.synchronize()
-    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert profiling.total("k3.launches").count == before + 1
     assert y.dtype == dtype and y.shape == (B, 1 if post else C, T)
     ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
     torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
@@ -301,10 +302,10 @@ def test_resblock_tower_gn_kernel_matches_plain(cuda, dtype, ks, dss, C, T):
     gbs = _randn(rng, (G, C), cuda, 0.1).to(dtype)
     x = _randn(rng, (2, C, T), cuda, 0.5).to(dtype)
     kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
-    before = rb_ops.GN_TOWER_LAUNCHES
+    before = profiling.total("k4.launches").count
     y = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, **kw)
     torch.cuda.synchronize()
-    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    assert profiling.total("k4.launches").count == before + 1
     assert y.dtype == dtype and y.shape == x.shape
     ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, **kw).float()
     # bf16: the JAX package's tolerance for this bundle
@@ -321,10 +322,10 @@ def _k3_case(cuda, dtype, rbk, B, C, T, post=False, post_tanh=True, seed=None):
         kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
                   post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=post_tanh)
     x = _randn(rng, (B, C, T), cuda, 0.5).to(dtype)
-    before = rb_ops.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     y = rb_ops.resblock_tower(x, weights, biases, **kw)
     torch.cuda.synchronize()
-    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert profiling.total("k3.launches").count == before + 1
     assert y.dtype == dtype and y.shape == (B, 1 if post else C, T)
     ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
     torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
@@ -487,11 +488,11 @@ def test_vqvae_cuda_matches_cpu(cuda):
     with torch.no_grad():  # the codebooks are a parameter (trained by gradient)
         for m in (on_gpu, on_cpu):
             m.quantizer.codebooks.copy_(cb.float())
-    k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+    k3, k4 = profiling.total("k3.launches").count, profiling.total("k4.launches").count
     codes = on_gpu.encode(wav)
     out = on_gpu.decode(codes)
     torch.cuda.synchronize()
-    assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
+    assert (profiling.total("k3.launches").count - k3, profiling.total("k4.launches").count - k4) == (2, 2)
     codes_cpu = on_cpu.encode(wav)
     torch.testing.assert_close(codes.cpu(), codes_cpu, rtol=0, atol=0)
     torch.testing.assert_close(out.cpu(), on_cpu.decode(codes_cpu), atol=1e-4, rtol=1e-3)
@@ -508,12 +509,13 @@ def test_streaming_sessions_cuda_match_cpu(cuda):
     on_gpu, on_cpu = SoundStream(device=cuda, **kw), SoundStream(device="cpu", **kw)
     wav = torch.from_numpy((np.random.default_rng(7).standard_normal((2, 4800)) * 0.1).astype(np.float32))
     chunks = wav.split(960, dim=-1)
-    k1, k2 = rvq_ops.LAUNCHES, lstm_ops.LAUNCHES
+    k1, k2 = profiling.total("k1.launches").count, profiling.total("k2.launches").count
     enc, dec = StreamingEncoder(on_gpu), StreamingDecoder(on_gpu)
     codes = [enc.process(c) for c in chunks]
     out = torch.cat([dec.process(c) for c in codes], -1)
     torch.cuda.synchronize()
-    assert (rvq_ops.LAUNCHES - k1, lstm_ops.LAUNCHES - k2) == (len(chunks), 2 * len(chunks))
+    k1, k2 = profiling.total("k1.launches").count - k1, profiling.total("k2.launches").count - k2
+    assert (k1, k2) == (len(chunks), 2 * len(chunks))
     enc_cpu, dec_cpu = StreamingEncoder(on_cpu), StreamingDecoder(on_cpu)
     codes_cpu = [enc_cpu.process(c) for c in chunks]
     torch.testing.assert_close(torch.cat(codes, -1).cpu(), torch.cat(codes_cpu, -1), rtol=0, atol=0)
@@ -530,11 +532,11 @@ def test_causal_vqvae_streaming_cuda_matches_cpu(cuda):
                           upsample_initial_channel=256, encoder_base_channels=16, causal=True)
     on_gpu, on_cpu = VQVAE(cfg, device=cuda), VQVAE(cfg, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(8).integers(0, 1024, size=(2, 25, 4)).astype(np.int32))
-    k3 = rb_ops.TOWER_LAUNCHES
+    k3 = profiling.total("k3.launches").count
     dec = StreamingVQVAEDecoder(on_gpu)
     out = torch.cat([dec.process(c) for c in toks.split(10, dim=1)], -1)
     torch.cuda.synchronize()
-    assert rb_ops.TOWER_LAUNCHES == k3
+    assert profiling.total("k3.launches").count == k3
     torch.testing.assert_close(out.cpu(), on_cpu.decode(toks), atol=1e-4, rtol=1e-3)
 
 
@@ -554,10 +556,10 @@ def _k3_pre_case(cuda, dtype, B, C_in, C, T_in, u, kT, post, seed=0):
         kw.update(post_weight=_randn(rng, (1, C, 7), cuda, 0.5 / np.sqrt(C * 7)).to(dtype),
                   post_bias=_randn(rng, (1,), cuda, 0.1).to(dtype), post_tanh=True)
     x = _randn(rng, (B, C_in, T_in), cuda, 0.5).to(dtype)
-    before = rb_ops.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     y = rb_ops.resblock_tower(x, weights, biases, **kw)
     torch.cuda.synchronize()
-    assert rb_ops.TOWER_LAUNCHES == before + 1
+    assert profiling.total("k3.launches").count == before + 1
     assert y.dtype == dtype and y.shape == (B, 1 if post else C, T_in * u)
     ref = rb_ops.resblock_tower_plain(x, weights, biases, **kw).float()
     torch.testing.assert_close(y.float(), ref, atol=_tol(dtype, ref, 1e-4), rtol=0)
@@ -617,10 +619,10 @@ def test_resblock_tower_gn_lengths_kernel(cuda, dtype, ks, dss, C, T, lengths):
     x = _randn(rng, (len(lengths), C, T), cuda, 0.5).to(dtype)
     kw = dict(kernel_sizes=ks, dilation_sizes=dss, resblock="1", num_groups=C // 16)
     L = torch.tensor(lengths, dtype=torch.int32, device=cuda)
-    before = rb_ops.GN_TOWER_LAUNCHES
+    before = profiling.total("k4.launches").count
     y = rb_ops.resblock_tower_gn(x, weights, biases, scs, gbs, lengths=L, **kw)
     torch.cuda.synchronize()
-    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    assert profiling.total("k4.launches").count == before + 1
     ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, lengths=L, **kw).float()
     torch.testing.assert_close(y.float(), ref, atol=5e-2 if dtype == torch.bfloat16 else 1e-4, rtol=0)
     for b, n in enumerate(lengths):
@@ -666,12 +668,12 @@ def test_vqvae_masked_encode_and_fused_pre_on_the_card(cuda):
         alone = model.encode(torch.from_numpy(w[None]))
         assert alone.shape[1] == model.frames_for(len(w))
         assert torch.equal(codes[i:i + 1, :alone.shape[1]], alone)
-    before = rb_ops.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     out = model.decode(codes)
     model.generator.fused_pre = True
     out_pre = model.decode(codes)
     torch.cuda.synchronize()
-    assert rb_ops.TOWER_LAUNCHES == before + 4
+    assert profiling.total("k3.launches").count == before + 4
     torch.testing.assert_close(out_pre, out, atol=1e-4, rtol=1e-3)
 
 
@@ -691,10 +693,10 @@ def test_int8_conv_gemm_matches_plain(cuda, B, C, O, K, T, stride, dilation, pad
     g = torch.Generator().manual_seed(B * C + K)
     xi = torch.randint(-127, 128, (B, C, T), generator=g, dtype=torch.int8)
     wi = torch.randint(-127, 128, (O, C, K), generator=g, dtype=torch.int8)
-    before = int8.INT_MM_CALLS
+    before = profiling.total("int8.gemms").count
     y = int8.conv1d_int32(xi.to(cuda), wi.to(cuda), stride, dilation, padding)
     torch.cuda.synchronize()
-    assert int8.INT_MM_CALLS == before + 1 and y.dtype == torch.int32
+    assert profiling.total("int8.gemms").count == before + 1 and y.dtype == torch.int32
     assert torch.equal(y.cpu(), int8.conv1d_int32_plain(xi, wi, stride, dilation, padding))
 
 
@@ -756,12 +758,12 @@ def test_slstm_library_lstm_on_the_card_matches_the_cpu(cuda, layers):
         y_cpu, c_cpu = mod(x, carry, return_carry=True)
         gpu = mod.to(cuda)
         y, c = gpu(x.to(cuda), tuple(tuple(t.to(cuda) for t in hc) for hc in carry), return_carry=True)
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     torch.testing.assert_close(y.cpu(), y_cpu, atol=1e-5, rtol=0)
     for hc, hc_cpu in zip(c, c_cpu):
         for a, b in zip(hc, hc_cpu):
             torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
-    assert lstm_ops.LAUNCHES == before  # no K2: it is 2-layer only
+    assert profiling.total("k2.launches").count == before  # no K2: it is 2-layer only
 
 
 @pytest.mark.parametrize("norm", ["layer_norm", "time_group_norm"])
@@ -786,10 +788,10 @@ def test_rvq_kernel_as_kmeans_assignment(cuda):
     rng = np.random.default_rng(16)
     x = _randn(rng, (1600, 512), cuda)
     means = x[torch.from_numpy(rng.permutation(1600)[:1024]).to(cuda)][None]
-    before = rvq_ops.LAUNCHES
+    before = profiling.total("k1.launches").count
     codes = rvq_ops.rvq_encode(x, means)
     torch.cuda.synchronize()
-    assert rvq_ops.LAUNCHES == before + 1
+    assert profiling.total("k1.launches").count == before + 1
     torch.testing.assert_close(codes, rvq_ops.rvq_encode_plain(x, means), rtol=0, atol=0)
 
 
@@ -810,10 +812,10 @@ def test_training_forward_on_the_card_matches_the_cpu(cuda):
     for call, active in enumerate((3, 6, 6)):
         x = torch.from_numpy(rng.standard_normal((4, 100, dim)).astype(np.float32))
         rows = torch.stack([sample_rows(g, 400, bins) for _ in range(n_q)])
-        before = rvq_ops.LAUNCHES
+        before = profiling.total("k1.launches").count
         q, codes, losses = gpu(x.to(cuda), n_q=active, training=True, draws=rows)
         torch.cuda.synchronize()
-        launches = rvq_ops.LAUNCHES - before
+        launches = profiling.total("k1.launches").count - before
         q_ref, codes_ref, losses_ref = cpu(x, n_q=active, training=True, draws=rows)
         expected = {0: 3 * (KMEANS_ITERS + 1) + 3, 1: 3 * (KMEANS_ITERS + 1) + 6, 2: 1}[call]
         assert launches == expected, (call, launches)
@@ -843,11 +845,11 @@ def test_slstm_under_autograd_runs_the_library_lstm(cuda):
     mod(xc).square().sum().backward()
     gpu = mod.to(cuda)
     xg = x.to(cuda).requires_grad_(True)
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     y = gpu(xg)
     y.square().sum().backward()
     torch.cuda.synchronize()
-    assert lstm_ops.LAUNCHES == before
+    assert profiling.total("k2.launches").count == before
     torch.testing.assert_close(xg.grad.cpu(), xc.grad, atol=1e-5, rtol=1e-5)
     assert gpu.lstm.weight_hh_l0.grad is not None and torch.isfinite(gpu.lstm.weight_hh_l0.grad).all()
 
@@ -859,11 +861,11 @@ def test_slstm_without_grad_launches_k2(cuda):
     gpu = mod.to(cuda)
     xg = x.to(cuda)
     ref = gpu(xg).detach()  # parameters require grad: the library LSTM
-    before = lstm_ops.LAUNCHES
+    before = profiling.total("k2.launches").count
     with torch.no_grad():
         y = gpu(xg)
     torch.cuda.synchronize()
-    assert lstm_ops.LAUNCHES == before + 1
+    assert profiling.total("k2.launches").count == before + 1
     torch.testing.assert_close(y, ref, atol=1e-4, rtol=0)
 
 
@@ -946,13 +948,13 @@ def test_hifi_d_phase_forward_on_the_towers_equals_the_plain_chains(cuda):
     x = _hifi_batch().to(cuda)
     for _ in range(2):
         model = state.generator
-        k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+        k3, k4 = profiling.total("k3.launches").count, profiling.total("k4.launches").count
         with torch.no_grad():
             y, _, codes = model(x, training=True)
         torch.cuda.synchronize()
-        assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
+        assert (profiling.total("k3.launches").count - k3, profiling.total("k4.launches").count - k4) == (2, 2)
         y_ref, _, codes_ref = model(x, training=True)
-        assert rb_ops.TOWER_LAUNCHES - k3 == 2  # none under autograd
+        assert profiling.total("k3.launches").count - k3 == 2  # none under autograd
         assert torch.equal(codes, codes_ref)
         torch.testing.assert_close(y, y_ref.detach(), atol=1e-4 * y_ref.abs().max().item(), rtol=0)
         state, _m = trainer.train_step(state, x)
@@ -970,9 +972,9 @@ def test_hifi_step_launches_the_towers_only_in_the_d_phase(cuda):
     expected = chip_smoke.fused_stage_counts(trainer.cfg.model)
     assert by_phase["no_grad"] == expected == {"resblock_tower": 2, "resblock_tower_gn": 2}
     assert not any(by_phase["grad"].values())
-    k3, k4 = rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES
+    k3, k4 = profiling.total("k3.launches").count, profiling.total("k4.launches").count
     trainer.eval_step(state, x)
-    assert (rb_ops.TOWER_LAUNCHES - k3, rb_ops.GN_TOWER_LAUNCHES - k4) == (2, 2)
+    assert (profiling.total("k3.launches").count - k3, profiling.total("k4.launches").count - k4) == (2, 2)
 
 
 def test_spectral_u_advances_once_per_step_on_the_card(cuda):
@@ -1097,9 +1099,10 @@ def test_data_parallel_compressor_on_the_card_gives_the_plain_blobs(cuda):
     wavs = [row.numpy() for row in batch]
     blobs = []
     for comp in (SoundStreamCompressor(model), SoundStreamCompressor(model, devices=[torch.device("cuda", 0)])):
-        before = (rvq_ops.LAUNCHES, lstm_ops.LAUNCHES)
+        before = (profiling.total("k1.launches").count, profiling.total("k2.launches").count)
         blobs.append(comp.compress_batch(wavs))
-        assert (rvq_ops.LAUNCHES - before[0], lstm_ops.LAUNCHES - before[1]) == (1, 1)
+        now = profiling.total("k1.launches").count, profiling.total("k2.launches").count
+        assert (now[0] - before[0], now[1] - before[1]) == (1, 1)
     assert blobs[0] == blobs[1]
 
 
@@ -1116,10 +1119,10 @@ def test_gn_tower_partials_and_moments_reduce_match_plain(cuda, dtype, lengths):
     x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, dtype, RB1_ENC[1], RB1_ENC[2], 2, C, T, seed=7)
     L = None if lengths is None else torch.tensor(lengths, dtype=torch.int32, device=cuda)
     packed = rb_ops.pack_tower(weights, biases, **kw)
-    before = rb_ops.GN_TOWER_LAUNCHES
+    before = profiling.total("k4.launches").count
     outs, part = rb_ops.gn_tower_partials(x, packed, L)
     torch.cuda.synchronize()
-    assert rb_ops.GN_TOWER_LAUNCHES == before + 1
+    assert profiling.total("k4.launches").count == before + 1
     TT = rb_ops.gn_tile(packed)
     assert part.shape == (2, -(-T // TT), C, 9)
     ref = rb_ops.gn_tower_partials_plain(x, packed, L)[0].float()
@@ -1218,10 +1221,10 @@ def test_sharded_k4_stage_is_one_launch_bit_for_bit(cuda, dtype):
         ref = rb_ops.resblock_tower_gn(x, packed, None, torch.stack([n.weight for n in norms]),
                                        torch.stack([n.bias for n in norms]), num_groups=x.shape[1] // 16)
         spans = [(a * 40, min(b * 40, x.shape[2])) for a, b in sequence.time_blocks(-(-x.shape[2] // 40), 4)]
-        before = rb_ops.GN_TOWER_LAUNCHES
+        before = profiling.total("k4.launches").count
         got = sequence._encoder_stage_gn_fused([enc] * 4, 0, sequence.split_time(x, spans, [cuda] * 4), None)
         torch.cuda.synchronize()
-    assert rb_ops.GN_TOWER_LAUNCHES == before + 4
+    assert profiling.total("k4.launches").count == before + 4
     assert torch.equal(got.gather(), ref)
 
 
@@ -1243,12 +1246,13 @@ def _packed(w, b, cal):
 def _chains_both(x, w, b, cal):
     """P1 and P2 on ``x``, one launch each, and their plain versions."""
     ops16, ops8 = _packed(w, b, cal)
-    before = chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES
+    before = profiling.total("p1.launches").count, profiling.total("p2.launches").count
     with torch.no_grad():
         y16 = chain_ops.conv_chain_bf16(x, ops16)
         y8 = chain_ops.conv_chain_i8(x, ops8)
         torch.cuda.synchronize()
-        assert (chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES) == (before[0] + 1, before[1] + 1)
+        now = profiling.total("p1.launches").count, profiling.total("p2.launches").count
+        assert now == (before[0] + 1, before[1] + 1)
         p16 = chain_ops.conv_chain_bf16_plain(x, w, b)
         p8 = chain_ops.conv_chain_i8_plain(x, cal["wq"], cal["ws"], b, cal["s_act"])
     return y16, y8, p16, p8
@@ -1382,12 +1386,12 @@ def test_conv_chain_wrappers_device_rules(cuda):
         chain_ops.pack_chain_bf16(w16.to(torch.bfloat16), b16)
     with pytest.raises(RuntimeError):
         chain_ops.conv_chain_bf16(x, chain_ops.pack_chain_bf16(w.to(torch.bfloat16).requires_grad_(), b))
-    before = chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES
+    before = profiling.total("p1.launches").count, profiling.total("p2.launches").count
     with torch.no_grad():
         for empty in (x[:0], x[..., :0]):
             assert chain_ops.conv_chain_bf16(empty, ops16).shape == empty.shape
             assert chain_ops.conv_chain_i8(empty, ops8).shape == empty.shape
-    assert (chain_ops.P1_LAUNCHES, chain_ops.P2_LAUNCHES) == before
+    assert (profiling.total("p1.launches").count, profiling.total("p2.launches").count) == before
 
 
 @pytest.mark.parametrize("s", [0.0123, 3.7 / 127, 2.0 ** -5, 1e-6 / 127, 0.1 / 3])

@@ -32,6 +32,7 @@ from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.utils.convert import hificodec_state_from_jax
+from academicodec_tpu_torch.utils import profiling
 from tests.test_torch_train import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # encoder stages ch 32, 64 (K4) and 128 (plain); generator 128 (plain), 64 (K3)
@@ -74,13 +75,14 @@ def _check_roundtrip(cfg_kw, wav, seed, atol):
     codes_ref, out_ref = _jax_roundtrip(jmodel, variables, wav)
     model = _port_model(variables, cfg_kw)
     assert model.hop_length == jmodel.hop_length
-    launches = (rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES)
+    launches = (profiling.total("k3.launches").count, profiling.total("k4.launches").count)
     codes = model.encode(torch.from_numpy(wav))
     assert codes.dtype == torch.int32
     np.testing.assert_array_equal(codes.numpy(), codes_ref)
     assert len(np.unique(codes_ref)) > 8  # the tokens spread
     out = model.decode(codes)
-    assert (rb_ops.TOWER_LAUNCHES, rb_ops.GN_TOWER_LAUNCHES) == launches  # plain versions on the CPU
+    now = profiling.total("k3.launches").count, profiling.total("k4.launches").count
+    assert now == launches  # plain versions on the CPU
     np.testing.assert_allclose(out.numpy(), out_ref, atol=atol, rtol=1e-3)
 
 

@@ -43,6 +43,7 @@ from academicodec_tpu_torch.models.hificodec import VQVAE, calibrate_quant
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANGenerator
 from academicodec_tpu_torch.ops import int8
 from academicodec_tpu_torch.utils.convert import hificodec_quant_from_jax, hificodec_state_from_jax
+from academicodec_tpu_torch.utils import profiling
 from test_torch_hificodec import TINY, _spread_codebooks
 
 THRESHOLD = 128
@@ -159,12 +160,12 @@ def test_calibrate_quant_matches_jax(models):
 def test_int8_serving_with_jax_scales_matches_jax(models):
     model = models["model"]
     model.load_quant(hificodec_quant_from_jax(models["quant"]))
-    calls = int8.INT_MM_CALLS
+    calls = profiling.total("int8.gemms").count
     codes = model.encode(torch.from_numpy(models["wav"]))
     np.testing.assert_array_equal(codes.numpy(), models["codes"])
     assert len(np.unique(models["codes"])) > 8
     np.testing.assert_allclose(model.decode(codes).numpy(), models["out"], atol=1e-4, rtol=1e-3)
-    assert int8.INT_MM_CALLS == calls  # the plain versions on the CPU
+    assert profiling.total("int8.gemms").count == calls  # the plain versions on the CPU
 
 
 def test_extract_tokens_int8_cli_matches_jax(models, tmp_path, monkeypatch):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 import academicodec_tpu.ops.pallas.resblock as jrb
 from academicodec_tpu_torch.ops.cuda import resblock as rb
+from academicodec_tpu_torch.utils import profiling
 
 RB1 = ("1", (3, 7, 11), ((1, 3, 5),) * 3)
 RB2 = ("2", (3, 7), ((1, 3), (1, 3)))
@@ -68,9 +69,9 @@ def test_tower_plain_matches_pallas(resblock, ks, dss, dtype):
     rng = np.random.default_rng(0)
     x = (rng.standard_normal((2, 700, 32)) * 0.5).astype(np.float32)
     weights, biases = _rand_tower(rng, ks, dss, resblock, 32)
-    before = rb.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     ref, out = _run_both(x, weights, biases, resblock, ks, dss, dtype=dtype)
-    assert rb.TOWER_LAUNCHES == before  # CPU tensors run the plain version
+    assert profiling.total("k3.launches").count == before  # CPU tensors run the plain version
     assert out.shape == ref.shape
     # bf16: both round at the same points; only f32 summation order differs,
     # which can flip a bf16 rounding (the JAX package's bf16 tower tolerance)
@@ -124,13 +125,13 @@ def test_gn_tower_plain_matches_pallas(T, ks, dss):
         dilation_sizes=dss, resblock="1", num_groups=C // 16, interpret=True,
     ))
     tw, tb = _to_torch(weights, biases)
-    before = rb.GN_TOWER_LAUNCHES
+    before = profiling.total("k4.launches").count
     out = rb.resblock_tower_gn(
         torch.from_numpy(np.ascontiguousarray(x.transpose(0, 2, 1))), tw, tb,
         torch.from_numpy(scs), torch.from_numpy(gbs), kernel_sizes=ks, dilation_sizes=dss,
         resblock="1", num_groups=C // 16,
     )
-    assert rb.GN_TOWER_LAUNCHES == before
+    assert profiling.total("k4.launches").count == before
     np.testing.assert_allclose(out.numpy().transpose(0, 2, 1), ref, atol=3e-5)
 
 
@@ -415,10 +416,10 @@ def test_tower_plain_pre_matches_pallas(monkeypatch, u, kT, post):
     ref = np.asarray(jrb.resblock_tower(jnp.asarray(z), jw, jb, kernel_sizes=ks, dilation_sizes=dss,
                                         resblock=resblock, interpret=True, **jkw))
     tw, tb = _to_torch(weights, biases)
-    before = rb.TOWER_LAUNCHES
+    before = profiling.total("k3.launches").count
     out = rb.resblock_tower(torch.from_numpy(np.ascontiguousarray(z.transpose(0, 2, 1))), tw, tb,
                             kernel_sizes=ks, dilation_sizes=dss, resblock=resblock, **tkw)
-    assert rb.TOWER_LAUNCHES == before
+    assert profiling.total("k3.launches").count == before
     assert out.shape == (B, 1 if post else C, T_in * u)
     np.testing.assert_allclose(out.numpy().transpose(0, 2, 1), ref, atol=2e-5)
 

@@ -114,6 +114,9 @@ def test_train_cli_one_epoch_resume_and_serve(tmp_path):
     assert ckpt.load_checkpoint_meta(latest) == {"epoch": 1}
     log = open(os.path.join(out, "logs", "log.txt")).read()
     assert "loss_g" in log and "valid" in log
+    # seconds per step from the epoch's second log line on (one step a line here)
+    steps = [line for line in log.splitlines() if ": epoch 0 step" in line]
+    assert len(steps) == 2 and "s/b=" not in steps[0] and float(steps[1].split("s/b=")[1]) > 0
     steps_before = ckpt.checkpoint_step(latest)
     assert steps_before == 2  # 16 files, batch 8
 
@@ -192,16 +195,27 @@ def test_train_step_rejects_segments_off_the_hop():
 
 
 def test_profiling_helpers(tmp_path):
-    """``trace`` writes a Chrome trace of the enclosed work (the CLI's
-    ``--profile_dir``); ``StepTimer`` skips its warm-up ticks; ``param_count``."""
-    from academicodec_tpu_torch.utils.profiling import StepTimer, param_count, trace
+    """``trace`` writes a Chrome trace of the enclosed work with the program's spans
+    on its timeline (the CLI's ``--profile_dir``); the ``train.step`` span's host
+    seconds over its count is the mean host time of a step; ``param_count``."""
+    import json
+    import time
+
+    from academicodec_tpu_torch.utils import profiling
+    from academicodec_tpu_torch.utils.profiling import param_count, trace
 
     with trace(str(tmp_path / "prof")):
-        torch.ones(64).cumsum(0).sum()
-    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+        with profiling.span("train.step"):
+            torch.ones(64).cumsum(0).sum()
+    names = {e.get("name") for e in json.loads((tmp_path / "prof" / "trace.json").read_text())["traceEvents"]}
+    assert "train.step" in names
     with trace(None) as prof:
         assert prof is None
-    timer = StepTimer(warmup=2)
-    assert [timer.tick() is None for _ in range(3)] == [True, True, False]
-    assert timer.steps_per_sec > 0
+    before = profiling.total("train.step")
+    for pause in (0.01, 0.03):
+        with profiling.span("train.step"):
+            time.sleep(pause)
+    now = profiling.total("train.step")
+    assert now.count - before.count == 2
+    assert 0.02 <= (now.seconds - before.seconds) / (now.count - before.count) < 0.2  # the mean of 10 and 30 ms
     assert param_count(torch.nn.Linear(3, 2)) == 8
