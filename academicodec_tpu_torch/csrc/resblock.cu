@@ -84,13 +84,24 @@
 // equal the moments of the row at its exact length bit for bit; the affines
 // count lengths[b] frames and gn_apply writes 0 past them.
 //
-// Built with -DTOWER_PROFILE, two blocks of tower_kernel print the clock64
-// counts of their phases (profile_port.py --tower-clocks).
+// Built with -DTOWER_PROFILE, two blocks of tower_kernel and of
+// gn_tower_fma_kernel_c print the clock64 counts of their phases
+// (profile_port.py --tower-clocks).
 //
-// The FMA path (tower_fma_kernel, gn_tower_fma_kernel; f32, or channel counts
-// the tensor-core path does not take) keeps a channel-major window [C][ld]
-// and gives each lane 8 channels x 8 columns. It is the exactness reference
-// on the card.
+// The FMA path (f32, or channel counts the tensor-core path does not take)
+// keeps a channel-major window [C][ld]; its products are f32 FMAs (no TF32),
+// so its outputs are the plain version's on the CPU to f32 rounding. K3's
+// tower_fma_kernel and K4's gn_tower_fma_kernel (other widths) give each
+// lane 8 channels x 8 columns of a whole 256-column strip, 8 warps over a
+// three-buffer window. K4 in f32 at C 16/32/64 runs gn_tower_fma_kernel_c,
+// the same FMAs in the same order redesigned for Hopper (its section below):
+// on the H100 at the encoder's stage 0 (C 64, halo 60) the old design ran
+// its convs at ~23% of the FMA issue rate (clock64: the weights' latency
+// behind one __ldg a step, 2 warps a scheduler, a runtime tap loop) over 1.88
+// columns per output column, and every tile past a row's length; the new one
+// skips those tiles, computes 1.22 columns per output column in a 432-column
+// window of two buffers, and issues at ~46% with 16 warps, unrolled taps and
+// the weights a step ahead.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1460,6 +1471,271 @@ __global__ void gn_apply_kernel(const S* __restrict__ rs, const float* __restric
     *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(o);
 }
 
+// ------------------------------------------------------------ K4 pass 1, FMA path at C 16, 32, 64
+
+// gn_tower_fma_kernel_c<S, C>: K4's pass 1 in f32 FMAs at the channel counts C 16,
+// 32 and 64 (f32 storage: bf16 at these widths takes the tensor cores). ptxas
+// compiles the product loops (gn_conv_nt) once for each C and folds the
+// constant in: 3% faster at C 64 than C as a kernel argument, for ~50 s more of
+// build (measured on the H100's machine). It computes what
+// gn_tower_fma_kernel computes, with the same FMAs in the same order, so the
+// chain outputs are its bits; what differs is the work around them:
+// - a block whose centre starts at or past its row's valid length writes the
+//   zeros every conv would give and zero moments, and runs no conv; in a tile
+//   that straddles the length each conv stops at it (its outputs past it are 0);
+// - each chain starts at its own halo, H - halo_g columns into the window;
+// - two window buffers [C][ld] (cur, y1): the first conv of a pair forms its
+//   operand S(lrelu(cur)) at the load instead of reading a third buffer, so the
+//   window is 432 columns at C 64 against H 60 (256 with three buffers);
+// - 16 warps: warp w takes output channels 8 (w % (C / 8)) .. + 8 and column
+//   group w / (C / 8); a lane holds NT columns 32 apart (conflict-free scalar
+//   loads), NT = the conv's width over gn_span(C) rounded up, from 4 to 8, a
+//   template parameter like the tap count (3, 7, 11 unrolled, else a runtime
+//   loop), so every conv computes whole strips without a per-element
+//   predicate: columns past the conv's range read what lies there and are not
+//   stored;
+// - each step's 8 weights (ci, tap) load one step ahead into registers (two
+//   steps ahead, or an L1 prefetch of the next input channels' weights, measured
+//   no faster: the weights come from L1).
+// The moments of a tile: a warp per channel sums all G chains' values and
+// products in one pass over what the block wrote (lane-strided, then a fixed
+// shuffle tree), the same order whatever the run.
+
+constexpr int GN_THREADS = 512;
+constexpr int GN_WARPS = GN_THREADS / 32;
+constexpr int GN_NT_MIN = 4, GN_NT_MAX = 8;  // columns a lane holds in one conv
+
+// columns one step of NT adds at C channels: 32 lanes x the column groups
+__host__ __device__ __forceinline__ int gn_span(int C) { return 32 * GN_WARPS / (C / CO_T); }
+
+// dynamic shared memory of gn_tower_fma_kernel_c: two [C][ld] buffers and one
+// span of elements past them, which the last row's dropped columns read
+__host__ __device__ __forceinline__ size_t gn_fma_smem(int C, int W, int itemsize) {
+  return (2 * (size_t)C * row_stride(W) + gn_span(C)) * itemsize;
+}
+
+// One conv at window columns [olo, ohi), ohi > olo, weights w [C_in][k][C_out]:
+// lane l of column group s holds columns olo + 32 (s NT + m) + l, m < NT, so the
+// block computes [olo, olo + gn_span(C) NT) and stores [olo, ohi). Each sum runs
+// over (ci, tap) from 0, then adds the bias, as conv_pass. LRELU_IN: the operand
+// is S(lrelu(in)). OUT_LRELU: out = S(lrelu(S(y))); OUT_RESIDUAL: out = S(res + y),
+// res read at the output column. y is 0 outside [0, Tv) in global time.
+template <typename S, int K, int NT, bool LRELU_IN>
+__device__ __forceinline__ void gn_conv(const S* in, S* out, const S* res, const S* __restrict__ w,
+                                        const float* __restrict__ bias, int C, int k, int d, int ld,
+                                        int olo, int ohi, int t0, int Tv, int mode) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, groups = C / CO_T;
+  const int co0 = (warp % groups) * CO_T;
+  const int col = olo + (warp / groups) * 32 * NT + lane;
+  const int kk = K > 0 ? K : k, steps = C * kk;
+  const S* src = in + col - (kk - 1) / 2 * d;
+  const S* wc = w + co0;
+  float acc[CO_T][NT];
+#pragma unroll
+  for (int o = 0; o < CO_T; ++o)
+#pragma unroll
+    for (int m = 0; m < NT; ++m) acc[o][m] = 0.f;
+  float wv[CO_T];
+  load_w8(wc, wv);
+  auto tap = [&](int ci, int j) {
+    float wn[CO_T];  // the next step's weights, in flight during this step's products
+    load_w8(wc + (size_t)min(ci * kk + j + 1, steps - 1) * C, wn);
+    const S* p = src + ci * ld + j * d;
+    float a[NT];
+#pragma unroll
+    for (int m = 0; m < NT; ++m) {
+      const float v = to_f<S>(p[32 * m]);
+      a[m] = LRELU_IN ? round_to<S>(lrelu(v)) : v;
+    }
+#pragma unroll
+    for (int o = 0; o < CO_T; ++o)
+#pragma unroll
+      for (int m = 0; m < NT; ++m) acc[o][m] = fmaf(wv[o], a[m], acc[o][m]);
+#pragma unroll
+    for (int o = 0; o < CO_T; ++o) wv[o] = wn[o];
+  };
+  for (int ci = 0; ci < C; ++ci) {
+    if constexpr (K > 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) tap(ci, j);
+    } else {
+      for (int j = 0; j < k; ++j) tap(ci, j);
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < NT; ++m) {
+    const int c = col + 32 * m, gt = t0 + c;
+    if (c >= ohi) break;
+    const bool live = gt >= 0 && gt < Tv;
+#pragma unroll
+    for (int o = 0; o < CO_T; ++o) {
+      const int at = (co0 + o) * ld + c;
+      const float y = live ? acc[o][m] + __ldg(bias + co0 + o) : 0.f;
+      out[at] = mode == OUT_LRELU ? from_f<S>(lrelu(round_to<S>(y))) : from_f<S>(to_f<S>(res[at]) + y);
+    }
+  }
+}
+
+// not inlined: one copy of each (K, LRELU_IN) for a kernel's every conv
+template <typename S, int K, bool LRELU_IN>
+__device__ __noinline__ void gn_conv_nt(int nt, const S* in, S* out, const S* res, const S* w, const float* bias, int C,
+                           int k, int d, int ld, int olo, int ohi, int t0, int Tv, int mode) {
+  switch (nt) {
+    case 4: gn_conv<S, K, 4, LRELU_IN>(in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    case 5: gn_conv<S, K, 5, LRELU_IN>(in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    case 6: gn_conv<S, K, 6, LRELU_IN>(in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    case 7: gn_conv<S, K, 7, LRELU_IN>(in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    default: gn_conv<S, K, 8, LRELU_IN>(in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode);
+  }
+}
+
+// the conv at its tap count and width: NT from the columns it stores
+template <typename S, bool LRELU_IN>
+__device__ void gn_conv_at(const S* in, S* out, const S* res, const S* w, const float* bias, int C, int k,
+                           int d, int ld, int olo, int ohi, int t0, int Tv, int mode) {
+  const int span = gn_span(C);
+  const int nt = max(GN_NT_MIN, (ohi - olo + span - 1) / span);
+  switch (k) {
+    case 3: gn_conv_nt<S, 3, LRELU_IN>(nt, in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    case 7: gn_conv_nt<S, 7, LRELU_IN>(nt, in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    case 11: gn_conv_nt<S, 11, LRELU_IN>(nt, in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode); break;
+    default: gn_conv_nt<S, 0, LRELU_IN>(nt, in, out, res, w, bias, C, k, d, ld, olo, ohi, t0, Tv, mode);
+  }
+}
+
+// K4 pass 1 at C in {16, 32, 64} in f32 FMAs. Arguments, outputs and their bits as
+// gn_tower_fma_kernel's; TT from pick_tile_fma_gn (ops/cuda/resblock.py), so that the
+// window W = TT + 2H is at most GN_NT_MAX spans. Grid (ceil(T / TT), B).
+template <typename S, int C>
+__global__ void __launch_bounds__(GN_THREADS, 1)
+gn_tower_fma_kernel_c(const S* __restrict__ x, const S* __restrict__ w, const float* __restrict__ bias,
+                      S* outs, float* __restrict__ part, const int* __restrict__ lengths, Tower tw, int B,
+                      int T, int TT, int H) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int W = TT + 2 * H, ld = row_stride(W), G = tw.G, n_mom = G + G * (G + 1) / 2;
+  S* cur = reinterpret_cast<S*>(smem_raw);
+  S* y1 = cur + C * ld;
+  const int b = blockIdx.y, tile = blockIdx.x, nT = gridDim.x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t0 = tile * TT - H;
+  const int width = min(TT, T - tile * TT);  // centre columns inside [0, T)
+  const int Tv = valid_length(lengths, b, T);
+  S* ob = outs + ((size_t)b * C) * T + (size_t)tile * TT;  // chain g at + g B C T
+  const size_t chain_stride = (size_t)B * C * T;
+  float* pb = part + ((size_t)b * nT + tile) * C * n_mom;
+  if (tile * TT >= Tv) {  // every output of the tile is 0: write that, and zero moments
+    for (int g = 0; g < G; ++g)
+      for (int c = warp; c < C; c += GN_WARPS)
+        for (int j = lane; j < width; j += 32) ob[g * chain_stride + (size_t)c * T + j] = from_f<S>(0.f);
+    for (int i = threadIdx.x; i < C * n_mom; i += GN_THREADS) pb[i] = 0.f;
+    return;
+  }
+  const int e = min(W, Tv - t0);  // window columns from e on lie past the valid length
+  for (int c = warp; c < C; c += GN_WARPS)  // y1 there holds the zeros no conv writes
+    for (int col = e + lane; col < W; col += 32) y1[c * ld + col] = from_f<S>(0.f);
+#ifdef TOWER_PROFILE
+  long long tl = 0, ts = 0, tcv[MAX_CHAINS] = {0, 0, 0, 0}, c0 = clock64(), cs = c0;
+#endif
+  const S* xb = x + (size_t)b * C * T;
+  const S* wg = w;
+  const float* bg = bias;
+  for (int g = 0; g < G; ++g) {
+    const int k = tw.k[g], half = (k - 1) / 2, n = tw.n_convs[g];
+    const size_t wstride = (size_t)C * C * k;
+    int lo = H - chain_halo(tw, g), hi = W - lo;
+    for (int c = warp; c < C; c += GN_WARPS)
+      for (int col = lo + lane; col < hi; col += 32) {
+        const int gt = t0 + col;
+        cur[c * ld + col] = (gt >= 0 && gt < Tv) ? xb[(size_t)c * T + gt] : from_f<S>(0.f);
+      }
+    __syncthreads();
+#ifdef TOWER_PROFILE
+    long long c1 = clock64();
+    tl += c1 - c0;
+#endif
+    S* fin = cur;  // the buffer holding the chain's running value
+    for (int p = 0; p < n; ++p) {
+      const int r = half * tw.dil[g][p], olo = lo + r, ohi = min(hi - r, e);
+      S* other = fin == cur ? y1 : cur;
+      if (ohi > olo) {
+        if (tw.resblock == 1 && p % 2 == 0)  // first of a pair: y1 = S(lrelu(S(conv(lrelu(cur)))))
+          gn_conv_at<S, true>(fin, other, nullptr, wg + p * wstride, bg + p * C, C, k, tw.dil[g][p], ld, olo,
+                              ohi, t0, Tv, OUT_LRELU);
+        else if (tw.resblock == 1)  // second: cur = S(cur + conv(y1))
+          gn_conv_at<S, false>(other, fin, fin, wg + p * wstride, bg + p * C, C, k, tw.dil[g][p], ld, olo,
+                               ohi, t0, Tv, OUT_RESIDUAL);
+        else  // ResBlock2: the other buffer = S(cur + conv(lrelu(cur)))
+          gn_conv_at<S, true>(fin, other, fin, wg + p * wstride, bg + p * C, C, k, tw.dil[g][p], ld, olo,
+                              ohi, t0, Tv, OUT_RESIDUAL);
+      }
+      if (tw.resblock == 2) fin = other;
+      lo = olo;
+      hi -= r;
+      __syncthreads();
+    }
+#ifdef TOWER_PROFILE
+    c0 = clock64();
+    tcv[g] = c0 - c1;
+#endif
+    for (int c = warp; c < C; c += GN_WARPS)
+      for (int j = lane; j < width; j += 32) ob[g * chain_stride + (size_t)c * T + j] = fin[c * ld + H + j];
+    __syncthreads();
+#ifdef TOWER_PROFILE
+    long long c2 = clock64();
+    ts += c2 - c0;
+    c0 = c2;
+#endif
+    wg += (size_t)n * wstride;
+    bg += n * C;
+  }
+  // partial moments of this tile from what the block wrote: per channel a warp,
+  // each lane its columns in order, then a fixed shuffle tree
+  constexpr int NQ = MAX_CHAINS * (MAX_CHAINS + 1) / 2;
+  for (int c = warp; c < C; c += GN_WARPS) {
+    float m[MAX_CHAINS], q[NQ];
+#pragma unroll
+    for (int i = 0; i < MAX_CHAINS; ++i) m[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < NQ; ++i) q[i] = 0.f;
+    const S* rc = ob + (size_t)c * T;
+    for (int j = lane; j < width; j += 32) {
+      float v[MAX_CHAINS];
+#pragma unroll
+      for (int g = 0; g < MAX_CHAINS; ++g) v[g] = g < G ? to_f<S>(rc[g * chain_stride + j]) : 0.f;
+      int i = 0;
+#pragma unroll
+      for (int g = 0; g < MAX_CHAINS; ++g) {
+        m[g] += v[g];
+#pragma unroll
+        for (int h = g; h < MAX_CHAINS; ++h, ++i) q[i] += v[g] * v[h];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int i = 0; i < MAX_CHAINS; ++i) m[i] += __shfl_xor_sync(0xffffffffu, m[i], o);
+#pragma unroll
+      for (int i = 0; i < NQ; ++i) q[i] += __shfl_xor_sync(0xffffffffu, q[i], o);
+    }
+    if (lane == 0) {  // m_0..m_{G-1}, then q_gh for g <= h < G
+      float* dst = pb + (size_t)c * n_mom;
+      int i = 0, at = G;
+#pragma unroll
+      for (int g = 0; g < MAX_CHAINS; ++g) {
+        if (g < G) dst[g] = m[g];
+#pragma unroll
+        for (int h = g; h < MAX_CHAINS; ++h, ++i)
+          if (h < G) dst[at++] = q[i];
+      }
+    }
+  }
+#ifdef TOWER_PROFILE
+  if (threadIdx.x == 0 && blockIdx.y == 0 && (blockIdx.x == 3 || blockIdx.x == 200))
+    printf("PROFILE gn_fma C%d tile %d: load %lld chains %lld %lld %lld store %lld moments %lld total %lld\n", C,
+           blockIdx.x, tl, tcv[0], tcv[1], tcv[2], ts, clock64() - c0, clock64() - cs);
+#endif
+}
+
 // ------------------------------------------------------------ host side
 
 // spec: tc, G, resblock, k[MAX_CHAINS], n_convs[MAX_CHAINS], dil[MAX_CHAINS][MAX_CONVS],
@@ -1547,6 +1823,23 @@ int run_gn_tower_fma(const void* x, const void* w, const float* bias, void* outs
 }
 
 template <int C>
+int run_gn_tower_fma_c(const void* x, const void* w, const float* bias, void* outs, float* part,
+                       const int* lengths, const Tower& tw, int B, int T, int TT, int H, cudaStream_t stream) {
+  // a conv computes at most GN_NT_MAX spans, and at least GN_NT_MIN from a column
+  // at most H: so every read lies below the row's W + one span
+  const int W = TT + 2 * H;
+  if (TT < (GN_NT_MIN - 1) * gn_span(C) || W > GN_NT_MAX * gn_span(C)) return (int)cudaErrorInvalidValue;
+  const size_t smem = gn_fma_smem(C, W, sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(gn_tower_fma_kernel_c<float, C>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  gn_tower_fma_kernel_c<float, C><<<dim3((T + TT - 1) / TT, B), GN_THREADS, smem, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), bias, static_cast<float*>(outs), part,
+      lengths, tw, B, T, TT, H);
+  return (int)cudaGetLastError();
+}
+
+template <int C>
 int run_gn_tower_tc(const void* x, const void* w, const float* bias, void* outs, float* part,
                     const int* lengths, const Tower& tw, int B, int T, int TT, int H, int buf,
                     int smem, cudaStream_t stream) {
@@ -1627,6 +1920,12 @@ extern "C" int acad_resblock_tower_gn(const void* x, const void* w, const float*
       rc = run_gn_tower_tc<16>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, buf, smem, s);
     else
       return (int)cudaErrorInvalidValue;
+  } else if (!bf16 && C == 64) {
+    rc = run_gn_tower_fma_c<64>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, s);
+  } else if (!bf16 && C == 32) {
+    rc = run_gn_tower_fma_c<32>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, s);
+  } else if (!bf16 && C == 16) {
+    rc = run_gn_tower_fma_c<16>(x, w, bias, outs, part, lengths, tw, B, T, TT, H, s);
   } else if (bf16) {
     rc = run_gn_tower_fma<__nv_bfloat16>(x, w, bias, outs, part, lengths, tw, B, C, T, TT, H, s);
   } else {

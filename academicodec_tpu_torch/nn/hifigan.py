@@ -63,6 +63,7 @@ from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d, SConv1d, SCo
 from academicodec_tpu_torch.ops.cuda.resblock import (
     PackedTower,
     frame_mask,
+    on_host,
     pack_tower,
     resblock_tower,
     resblock_tower_gn,
@@ -87,6 +88,12 @@ def _records_grad(x: torch.Tensor, *modules: Optional[nn.Module]) -> bool:
     if not torch.is_grad_enabled():
         return False
     return x.requires_grad or any(p.requires_grad for m in modules if m is not None for p in m.parameters())
+
+
+def strided_length(n, kernel_size: int, stride: int):
+    """Output length of an encoder stage's strided conv (padding ``(k - u) // 2``)
+    over ``n`` valid samples: an int or an integer tensor."""
+    return (n + 2 * ((kernel_size - stride) // 2) - kernel_size) // stride + 1
 
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
@@ -369,31 +376,34 @@ class HiFiGANEncoder(nn.Module):
         zero-padded batch (the length-masked encode; frames past a row's
         valid output frames are not meaningful)."""
         x = self.conv_pre(x)
-        L = mask = None
+        L = Lh = mask = None
         if lengths is not None:
             L = torch.as_tensor(lengths, device=x.device).reshape(-1).long()
+            # K4 takes host lengths as given: it counts its skipped tiles from them
+            Lh = torch.as_tensor(lengths).reshape(-1).long() if on_host(lengths) else None
             mask = frame_mask(L, x.shape[2]).to(x.dtype)
             x = x * mask  # the conv's bias leaks into the pad frames
         for i, (ups, (u, k)) in enumerate(zip(self.ups, self.ups_cfg)):
             x = ups(lrelu(x))
             if L is not None:
-                L = (L + 2 * ((k - u) // 2) - k) // u + 1  # a strided conv's output length
+                L = strided_length(L, k, u)
+                Lh = None if Lh is None else strided_length(Lh, k, u)
                 mask = frame_mask(L, x.shape[2]).to(x.dtype)
                 x = x * mask
-            x = self.stage_forward(i, x, mask, L)
+            x = self.stage_forward(i, x, mask, L, Lh)
         return self.conv_post(lrelu(x, 0.01))  # default torch slope (models.py:417)
 
     def stage_forward(self, i: int, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                      L: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      L: Optional[torch.Tensor] = None, L_host: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Stage ``i``'s resblocks and chained GroupNorms over ``x``, the output of
         its strided conv; ``mask [B, 1, T]`` and ``L [B]``: the valid frames of a
-        length-masked encode."""
+        length-masked encode (``L_host``: the same on the host, for K4)."""
         blocks, norms = self.stage(i)
         if self.fused_stage(i) and not _records_grad(x, *blocks, *norms):
             return resblock_tower_gn(
                 x, self.packed_tower(i), None,
                 torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
-                num_groups=x.shape[1] // 16, epsilon=1e-6, lengths=L,
+                num_groups=x.shape[1] // 16, epsilon=1e-6, lengths=L if L_host is None else L_host,
             )
         xs = None
         for rb, gn in zip(blocks, norms):

@@ -37,8 +37,16 @@ tensor-core path: a time-major swizzled window read by ``ldmatrix``, each
 conv's taps streamed into shared memory by bulk copies as pre-swizzled
 ``[C_out][C_in]`` tiles (:func:`pack_taps`), every chain started at its own
 halo (:func:`pick_tile_tc`). Everything else takes the f32 FMA path (see the
-source for both designs). K4's pass 2 is two more kernels,
-``gn_affine_kernel`` and ``gn_apply_kernel``.
+source for the designs). K4 in f32 at C in {16, 32, 64} runs
+``gn_tower_fma_kernel_c``, redesigned for Hopper: a tile whose centre starts
+at or past its row's length runs no conv (it writes the zeros and zero
+moments; :func:`k4_tiles` counts such tiles, the counters ``k4.tiles`` and
+``k4.tiles_skipped`` add them up from host lengths), a straddling tile stops
+each conv at the length, each chain starts at its own halo, and two window
+buffers (the first conv of a pair takes ``lrelu`` at its load) and 16 warps
+with whole-strip columns a lane (:func:`pick_tile_fma_gn`) compute 1.22
+columns per output column at the encoder's stage 0 against 1.88. K4's pass 2
+is two more kernels, ``gn_affine_kernel`` and ``gn_apply_kernel``.
 
 Wrappers take ``[B, C, T]`` activations and torch ``[O, I, K]`` weights, or
 the operands packed once by :func:`pack_tower`. CPU tensors run the plain
@@ -47,7 +55,8 @@ no backward: a CUDA call that autograd would record (gradients enabled and
 an input or weight requiring one) raises ``RuntimeError`` rather than return
 a tensor the gradient cannot pass; ``nn/hifigan.py`` runs such stages
 unfused. Each call of a wrapper adds one to the counter
-``k3.launches`` or ``k4.launches`` (``utils/profiling.py``).
+``k3.launches`` or ``k4.launches`` (``utils/profiling.py``); K4's wrappers
+also add their tiles to ``k4.tiles`` and ``k4.tiles_skipped`` (:func:`count_tiles`).
 """
 
 from __future__ import annotations
@@ -308,11 +317,46 @@ def gn_recombine(
 def clamp_lengths(lengths, B: int, T: int, device) -> torch.Tensor:
     """``lengths`` (any integer sequence or tensor of ``B`` entries) as a
     contiguous int32 tensor on ``device``, clamped to ``[0, T]`` as the
-    kernels clamp them."""
-    L = torch.as_tensor(lengths, device=device).reshape(-1)
+    kernels clamp them. Host lengths reach a card by an asynchronous copy from
+    pinned memory: the host does not wait for the device."""
+    L = torch.as_tensor(lengths).reshape(-1)
     if L.numel() != B or L.is_floating_point():
         raise ValueError(f"lengths: {B} integer lengths expected, got {tuple(L.shape)} {L.dtype}")
-    return L.clamp(0, T).to(torch.int32).contiguous()
+    L = L.clamp(0, T).to(torch.int32).contiguous()
+    device = torch.device(device)
+    if L.device.type == "cpu" and device.type == "cuda":
+        return L.pin_memory().to(device, non_blocking=True)
+    return L.to(device)
+
+
+def on_host(lengths) -> bool:
+    """Whether ``lengths`` can be read without waiting for a device: a sequence or a CPU tensor."""
+    return not (isinstance(lengths, torch.Tensor) and lengths.device.type != "cpu")
+
+
+def k4_tiles(lengths, B: int, T: int, TT: int) -> Tuple[int, int]:
+    """``(tiles, tiles past the length)`` of one K4 pass-1 launch over ``[B, C, T]``
+    in tiles of ``TT`` steps: row ``b``'s tiles from ``ceil(lengths[b] / TT)`` on
+    (``lengths[b]`` clamped to ``[0, T]``) start at or past its valid length.
+    ``lengths``: host integers, or None (no tile past it)."""
+    nT = -(-T // TT)
+    if lengths is None:
+        return B * nT, 0
+    L = torch.as_tensor(lengths).reshape(-1).long().clamp(0, T)
+    return B * nT, int((nT - (L + TT - 1) // TT).sum())
+
+
+def count_tiles(lengths, B: int, T: int, TT: int, skips: bool) -> None:
+    """Add one K4 pass-1 launch's blocks to the counters ``k4.tiles`` and, where
+    the kernel skips them (``skips``: ``gn_tower_fma_kernel_c``),
+    ``k4.tiles_skipped``: the tiles that start at or past their row's length and
+    run no conv. From ``lengths`` as the caller holds them; lengths on a card
+    count nothing (reading them would wait for the device)."""
+    if not on_host(lengths):
+        return
+    tiles, past = k4_tiles(lengths, B, T, TT)
+    profiling.count("k4.tiles", tiles)
+    profiling.count("k4.tiles_skipped", past if skips else 0)
 
 
 def resblock_tower_gn_plain(
@@ -361,6 +405,75 @@ def uses_tc(dtype: torch.dtype, C: int) -> bool:
 def row_stride(width: int) -> int:
     """Shared-memory row stride of the FMA path's window (``row_stride`` in csrc/resblock.cu)."""
     return -(-width // 8) * 8
+
+
+# K4's f32 FMA path at these channel counts (gn_tower_fma_kernel_c): 16 warps, a
+# lane's columns in one conv from FMA_GN_NT[0] to FMA_GN_NT[1]
+FMA_GN_CHANNELS, FMA_GN_WARPS, FMA_GN_NT = (16, 32, 64), 16, (4, 8)
+
+
+def uses_fma_gn(dtype: torch.dtype, C: int) -> bool:
+    """Whether K4's pass 1 runs ``gn_tower_fma_kernel_c`` (f32 at C 16, 32, 64)."""
+    return dtype == torch.float32 and C in FMA_GN_CHANNELS
+
+
+def fma_gn_span(C: int) -> int:
+    """Columns a conv of ``gn_tower_fma_kernel_c`` computes for each column a lane
+    holds: 32 lanes x the warps side by side along time (``gn_span``)."""
+    return 32 * FMA_GN_WARPS // (C // CO_TILE)
+
+
+def fma_gn_smem(C: int, W: int) -> int:
+    """Shared bytes of ``gn_tower_fma_kernel_c`` at a window of ``W`` columns
+    (``gn_fma_smem``): two f32 ``[C][row_stride(W)]`` buffers and one span."""
+    return (2 * C * row_stride(W) + fma_gn_span(C)) * 4
+
+
+@dataclass(frozen=True)
+class FmaGnGeometry:
+    """One block of ``gn_tower_fma_kernel_c``: ``TT`` output columns from a window
+    of ``W = TT + 2H``; ``smem`` bytes of dynamic shared memory; ``nts`` each
+    conv's columns a lane (call order, chain after chain, every chain at its
+    own halo); ``cost`` columns computed per output column, tap-weighted."""
+
+    TT: int
+    W: int
+    H: int
+    smem: int
+    nts: Tuple[int, ...]
+    cost: float
+
+
+@functools.lru_cache(maxsize=None)
+def pick_tile_fma_gn(C: int, kernel_sizes: Tuple[int, ...], dilation_sizes: Tuple[Tuple[int, ...], ...],
+                     resblock: str) -> FmaGnGeometry:
+    """K4's f32 FMA path at C in :data:`FMA_GN_CHANNELS`: the ``TT`` (a multiple of
+    8, at least 16) whose window fits shared memory and computes the fewest
+    columns per output column. A conv whose range is ``n`` columns computes
+    ``fma_gn_span(C) * NT`` of them, ``NT = ceil(n / span)`` at least
+    ``FMA_GN_NT[0]``; the window is at most ``FMA_GN_NT[1]`` spans, and TT at
+    least ``FMA_GN_NT[0] - 1`` spans, so that a conv's reads (from a column at
+    most H, a halo at most H) stay within a row and one span."""
+    halos = chain_halos(kernel_sizes, dilation_sizes, resblock)
+    H, span = max(halos), fma_gn_span(C)
+    taps = sum(k * len(chain_conv_dilations(ds, resblock)) for k, ds in zip(kernel_sizes, dilation_sizes))
+    best = None
+    tt = max(16, -(-(FMA_GN_NT[0] - 1) * span // 8) * 8)
+    while fma_gn_smem(C, tt + 2 * H) <= MAX_SMEM_BYTES and tt + 2 * H <= FMA_GN_NT[1] * span:
+        W, nts, cols = tt + 2 * H, [], 0
+        for k, ds, h in zip(kernel_sizes, dilation_sizes, halos):
+            lo, hi = H - h, W - (H - h)
+            for d in chain_conv_dilations(ds, resblock):
+                lo, hi = lo + (k - 1) // 2 * d, hi - (k - 1) // 2 * d
+                nts.append(max(FMA_GN_NT[0], -(-(hi - lo) // span)))
+                cols += k * nts[-1] * span
+        cost = cols / (tt * taps)
+        if best is None or cost <= best.cost:
+            best = FmaGnGeometry(tt, W, H, fma_gn_smem(C, W), tuple(nts), cost)
+        tt += 8
+    if best is None:
+        raise ValueError(f"resblock tower: C={C} with halo {H} does not fit K4's f32 window")
+    return best
 
 
 def pick_tile(C: int, H: int, post_halo: int, itemsize: int, with_acc: bool, u: int = 1) -> Tuple[int, int]:
@@ -706,6 +819,8 @@ def tower_geometry(packed: PackedTower, gn: bool):
         geo = pick_tile_tc(packed.C, packed.kernel_sizes, packed.dilation_sizes, packed.resblock, H - Hc, gn,
                            packed.pre_geo)
         return geo.TT, H, Hc, geo.buf, geo.smem
+    if gn and uses_fma_gn(packed.dtype, packed.C):
+        return pick_tile_fma_gn(packed.C, packed.kernel_sizes, packed.dilation_sizes, packed.resblock).TT, H, Hc, 0, 0
     itemsize = 2 if packed.dtype == torch.bfloat16 else 4
     TT, _ = pick_tile(packed.C, H, H - Hc, itemsize, with_acc=not gn, u=u)
     return TT, H, Hc, 0, 0
@@ -875,6 +990,7 @@ def resblock_tower_gn(
     if B == 0 or T == 0:
         return torch.empty_like(x)
     L = None if lengths is None else clamp_lengths(lengths, B, T, x.device)
+    count_tiles(lengths, B, T, gn_tile(p), uses_fma_gn(p.dtype, C))
     outs, mom = gn_tower_chains(x, p, L)
     A, K = gn_affines_cuda(mom, gn_scales, gn_biases, num_groups, epsilon, T, L)
     return gn_apply_cuda(outs, A, K, L)
@@ -913,6 +1029,7 @@ def gn_tower_partials(x: torch.Tensor, packed: PackedTower, lengths=None) -> Tup
         return gn_tower_partials_plain(x, packed, lengths)
     _check_no_grad("resblock_tower_gn", packed, x)
     B, C, T = x.shape
+    count_tiles(lengths, B, T, gn_tile(packed), uses_fma_gn(packed.dtype, C))
     return gn_tower_chains(x, packed, None if lengths is None else clamp_lengths(lengths, B, T, x.device),
                            partials=True)
 

@@ -693,8 +693,11 @@ def phase_resblock_gn_lengths(device, iters=5, B=8, C=64, T=120000) -> list:
         gkw = dict(num_groups=C // 16)
         x = _randn((B, C, T), device, dtype, seed=T + 2)
         packed = resblock_ops.pack_tower(weights, biases, kernel_sizes=ks, dilation_sizes=dss, resblock="1")
+        counters = ("k4.tiles", "k4.tiles_skipped")
         with torch.no_grad():
-            y = resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, lengths=L, **gkw)
+            before = [profiling.total(n).count for n in counters]
+            y = resblock_ops.resblock_tower_gn(x, packed, None, scs, gbs, lengths=lengths, **gkw)  # host lengths
+            tiles = [profiling.total(n).count - v for n, v in zip(counters, before)]
             ref = resblock_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, kernel_sizes=ks,
                                                        dilation_sizes=dss, lengths=L, **gkw).float()
             err = (y.float() - ref).abs().max().item()
@@ -703,13 +706,17 @@ def phase_resblock_gn_lengths(device, iters=5, B=8, C=64, T=120000) -> list:
                 x[b:b + 1, :, :n].contiguous(), packed, None, scs, gbs, **gkw).float()).abs().max().item()
                 for b, n in enumerate(lengths))
         tol = 5e-2 if dtype == torch.bfloat16 else 1e-4
+        # the f32 kernel at C 64 skips the tiles past the lengths; the tensor-core path runs them all
+        n_tiles, n_past = resblock_ops.k4_tiles(lengths, B, T, resblock_ops.gn_tile(packed))
+        want = [n_tiles, n_past if resblock_ops.uses_fma_gn(dtype, C) else 0]
         print(f"[resblock_gn] {tag} {dtype} [{B},{C},{T}] lengths {lengths}: max abs diff {err:.3g} (atol {tol}); "
               f"nonzero pad values {pad_nonzero} (limit 0); each row against its exact-length call: max abs "
-              f"diff {alone:.3g} (atol {tol}, 0 expected)")
-        if not (err <= tol and pad_nonzero == 0 and alone <= tol):
+              f"diff {alone:.3g} (atol {tol}, 0 expected); k4.tiles, k4.tiles_skipped {tiles} (expected {want})")
+        if not (err <= tol and pad_nonzero == 0 and alone <= tol and tiles == want):
             raise AssertionError(f"resblock_tower_gn with lengths disagrees ({tag})")
         case = dict(case=tag, shape=[B, C, T], lengths=lengths, max_abs_err=err, tolerance=tol,
-                    pad_nonzero=pad_nonzero, max_abs_diff_vs_exact_length=alone)
+                    pad_nonzero=pad_nonzero, max_abs_diff_vs_exact_length=alone, tiles=tiles[0],
+                    tiles_skipped=tiles[1])
         if dtype == torch.bfloat16:
             with torch.no_grad():
                 case["ms"] = time_ms(

@@ -29,6 +29,8 @@ busiest operators by self CPU time.
 launches K3 once at each flagship stage shape: two blocks of the tensor-core
 kernel then print the ``clock64`` counts of their phases (window loads, the
 chains, and inside the chains the waits for tap tiles and the epilogues).
+Then K4's f32 pass 1 once at the encoder's stage 0, ``[16, 64, 120000]``:
+two blocks print their window loads, each chain, the stores and the moments.
 
     python3 profile_port.py --tower-clocks
 
@@ -96,7 +98,9 @@ def group_of(name: str) -> str:
 
 
 def tower_clocks() -> None:
-    """One K3 launch at the s2 and at the s3 shape from a ``-DTOWER_PROFILE`` build."""
+    """One K3 launch at the s2 and at the s3 shape, and one f32 K4 pass 1 at the
+    encoder's stage 0 (the tokenization cell's 16 x 10 s, no lengths), from a
+    ``-DTOWER_PROFILE`` build."""
     ops = chip_smoke.resblock_ops
     for tag, C, T in (("s2", 64, 120000), ("s3", 32, 240000)):
         weights, biases = chip_smoke._tower_weights(C, chip_smoke.RB1_KS, chip_smoke.RB1_DS, "cuda",
@@ -107,6 +111,14 @@ def tower_clocks() -> None:
         print(f"[clocks] {tag} [8,{C},{T}] {chip_smoke._geometry(packed, gn=False)}", flush=True)
         ops.resblock_tower(x, packed)
         torch.cuda.synchronize()
+    ks = tuple(reversed(chip_smoke.RB1_KS))
+    weights, biases = chip_smoke._tower_weights(64, ks, chip_smoke.RB1_DS, "cuda", torch.float32, seed=65)
+    packed = ops.pack_tower(weights, biases, kernel_sizes=ks, dilation_sizes=chip_smoke.RB1_DS)
+    x = chip_smoke._randn((16, 64, 120000), "cuda", torch.float32, seed=1)
+    print(f"[clocks] K4 f32 s0 [16,64,120000] TT {ops.gn_tile(packed)}", flush=True)
+    with torch.no_grad():
+        ops.gn_tower_chains(x, packed)
+    torch.cuda.synchronize()
 
 
 def chain_clocks() -> None:

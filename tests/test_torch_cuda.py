@@ -427,6 +427,46 @@ def test_resblock_tower_gn_at_tile_edges(cuda, C, edge):
     torch.testing.assert_close(y.float(), ref, atol=5e-2, rtol=0)
 
 
+@pytest.mark.parametrize("C", [16, 32, 64])
+@pytest.mark.parametrize("case", ["edges", "tails"])
+def test_k4_f32_skips_the_tiles_past_the_lengths(cuda, C, case):
+    """K4's f32 pass 1 at C 16/32/64 (``gn_tower_fma_kernel_c``) with host
+    lengths, T not a multiple of TT: rows of length 0, ending on a tile
+    boundary, inside a tile, at full T ("edges"); one frame short of T, on the
+    second boundary, one frame, one past a boundary ("tails"). The output
+    against the plain version at K4's f32 limit; chain outputs and the output
+    exactly 0 past each length; the per-tile moments those of the plain
+    per-tile sums at ``gn_tile`` (exactly 0 in the tiles past a length); two
+    runs the same bits; ``k4.tiles`` / ``k4.tiles_skipped`` as ``k4_tiles``
+    counts them."""
+    ks, dss = RB1_ENC[1], RB1_ENC[2]
+    TT = rb_ops.pick_tile_fma_gn(C, ks, dss, "1").TT
+    T = 2 * TT + 37
+    lengths = {"edges": [0, TT, TT + TT // 3, T], "tails": [T - 1, 2 * TT, 1, 2 * TT + 1]}[case]
+    B = len(lengths)
+    x, weights, biases, scs, gbs, kw = _k4_inputs(cuda, torch.float32, ks, dss, B, C, T, seed=C + T)
+    packed = rb_ops.pack_tower(weights, biases, **kw)
+    assert rb_ops.gn_tile(packed) == TT
+    names = ("k4.tiles", "k4.tiles_skipped")
+    before = [profiling.total(n).count for n in names]
+    y = rb_ops.resblock_tower_gn(x, packed, None, scs, gbs, num_groups=C // 16, lengths=lengths)
+    outs, part = rb_ops.gn_tower_partials(x, packed, lengths)
+    outs1, part1 = rb_ops.gn_tower_partials(x, packed, lengths)
+    torch.cuda.synchronize()
+    tiles, past = rb_ops.k4_tiles(lengths, B, T, TT)
+    assert past > 0 and [profiling.total(n).count - v for n, v in zip(names, before)] == [3 * tiles, 3 * past]
+    ref = rb_ops.resblock_tower_gn_plain(x, weights, biases, scs, gbs, num_groups=C // 16, lengths=lengths,
+                                         **kw).float()
+    torch.testing.assert_close(y.float(), ref, atol=1e-4, rtol=0)
+    chains = rb_ops.gn_tower_partials_plain(x, packed, lengths)[0].float()
+    assert ((outs - chains).abs().max() / chains.abs().max()).item() <= 1e-4
+    assert torch.equal(outs, outs1) and torch.equal(part, part1)
+    torch.testing.assert_close(part, rb_ops.tile_moments_plain(list(outs), TT), rtol=1e-4, atol=1e-2)
+    for b, n in enumerate(lengths):
+        assert torch.count_nonzero(outs[:, b, :, n:]) == 0 and torch.count_nonzero(y[b, :, n:]) == 0
+        assert torch.count_nonzero(part[b, -(-n // TT):]) == 0
+
+
 @pytest.mark.parametrize("dtype,B,C,T", [(torch.bfloat16, 8, 64, 120000), (torch.bfloat16, 2, 32, 1001),
                                          (torch.float32, 2, 32, 575)])
 def test_resblock_tower_gn_is_reproducible(cuda, dtype, B, C, T):

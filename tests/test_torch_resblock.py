@@ -560,3 +560,152 @@ def test_packed_stage_with_fused_pre_rebuilds_after_an_ups_update():
         expected = fresh(z)
     assert gen._packed[0].packed is not kept[0] and gen._packed[1].packed is kept[1]
     assert torch.allclose(y1, expected, atol=1e-6) and not torch.allclose(y1, y0, atol=1e-6)
+
+
+@pytest.mark.parametrize("C,rbk,expected", [
+    (64, RB1_ENC, (312, 432, 221440)),  # the encoder's stage 0 (hificodec_24k_320d), as the kernel runs it
+    (32, RB1_ENC, (752, 872, 223744)),
+    (16, RB1_ENC, (1680, 1800, 231424)),
+    (64, RB2, None),
+    (32, ("1", (5, 3), ((1, 2), (1, 3))), None),  # k 5: the runtime tap loop
+    (16, ("1", (3,), ((1,),)), None),  # one shallow chain: the window is capped by the lanes, not memory
+])
+def test_pick_tile_fma_gn(C, rbk, expected):
+    """K4's f32 FMA path at C 16/32/64: TT a multiple of 8 (at least 16 and
+    GN_NT_MIN - 1 spans), the window within GN_NT_MAX spans and shared memory,
+    every conv's range inside
+    the NT spans it computes (NT from 4 to 8, each chain at its own halo), and
+    at the encoder's stage 0 fewer columns computed per output than today's kernel."""
+    resblock, ks, dss = rbk
+    geo = rb.pick_tile_fma_gn(C, ks, dss, resblock)
+    halos = rb.chain_halos(ks, dss, resblock)
+    span = rb.fma_gn_span(C)
+    assert span * (C // rb.CO_TILE) == 32 * rb.FMA_GN_WARPS
+    assert geo.TT >= 16 and geo.TT % 8 == 0 and geo.H == max(halos) and geo.W == geo.TT + 2 * geo.H
+    assert (rb.FMA_GN_NT[0] - 1) * span <= geo.TT and geo.W <= rb.FMA_GN_NT[1] * span  # reads within a row + a span
+    assert geo.smem == rb.fma_gn_smem(C, geo.W) == (2 * C * rb.row_stride(geo.W) + span) * 4 <= 227 * 1024
+    i = 0
+    for k, ds, h in zip(ks, dss, halos):
+        lo, hi = geo.H - h, geo.W - (geo.H - h)
+        for d in rb.chain_conv_dilations(ds, resblock):
+            lo, hi = lo + (k - 1) // 2 * d, hi - (k - 1) // 2 * d
+            assert rb.FMA_GN_NT[0] <= geo.nts[i] <= rb.FMA_GN_NT[1] and geo.nts[i] * span >= hi - lo
+            i += 1
+        assert (lo, hi) == (geo.H, geo.H + geo.TT)  # every chain ends on the centre
+    assert i == len(geo.nts)
+    if expected is not None:
+        assert (geo.TT, geo.W, geo.smem) == expected
+        old_tt, _ = rb.pick_tile(C, geo.H, 0, 4, with_acc=False)  # a conv of today's kernel: whole strips
+        assert geo.cost < min(1.25, (old_tt + 2 * geo.H + rb.STRIP - 1) // rb.STRIP * rb.STRIP / old_tt)
+
+
+@pytest.mark.parametrize("dtype,C,gn,path", [
+    (torch.float32, 64, True, "fma_gn"), (torch.float32, 16, True, "fma_gn"),
+    (torch.float32, 48, True, "fma"),    # other widths keep today's kernel
+    (torch.float32, 64, False, "fma"),   # K3 keeps today's FMA kernel
+    (torch.bfloat16, 64, True, "tc"), (torch.bfloat16, 128, True, "fma"),
+])
+def test_tower_geometry_picks_the_k4_path(dtype, C, gn, path):
+    """``tower_geometry`` (and so ``gn_tile``) takes the tile of the kernel the
+    C entry point dispatches to: f32 K4 at C 16/32/64 -> gn_tower_fma_kernel_c."""
+    resblock, ks, dss = RB1_ENC
+    packed = rb.PackedTower([], [], ks, dss, resblock, None, None, dtype, torch.device("cuda"), C)
+    packed.tc = rb.uses_tc(dtype, C)
+    TT, H, Hc, buf, smem = rb.tower_geometry(packed, gn=gn)
+    assert rb.uses_fma_gn(dtype, C) == (dtype == torch.float32 and C in (16, 32, 64))
+    expect = {
+        "fma_gn": lambda: rb.pick_tile_fma_gn(C, ks, dss, resblock).TT,
+        "fma": lambda: rb.pick_tile(C, H, 0, 2 if dtype == torch.bfloat16 else 4, with_acc=not gn)[0],
+        "tc": lambda: rb.pick_tile_tc(C, ks, dss, resblock, 0, gn).TT,
+    }[path]()
+    assert TT == expect and H == Hc == 60
+    if gn:
+        assert rb.gn_tile(packed) == TT
+
+
+def _tiles_brute(lengths, B, T, TT):
+    nT = -(-T // TT)
+    if lengths is None:
+        return B * nT, 0
+    return B * nT, sum(1 for n in lengths for t in range(nT) if t * TT >= min(max(int(n), 0), T))
+
+
+@pytest.mark.parametrize("T,TT,lengths", [
+    (1000, 312, [0, 312, 624, 500]),       # length 0, two ending on a tile boundary, one inside a tile
+    (1000, 312, [1000, 999, 1, 313]),      # full T (not a multiple of TT), one frame short, one frame, one past
+    (936, 312, [936, 935, -5, 2000]),      # T a multiple of TT; lengths clamped to [0, T]
+    (120000, 312, None),                   # no lengths: nothing past them
+    (50, 312, [50, 0, 17]),                # one tile shorter than TT
+])
+def test_k4_tiles_counts_the_tiles_past_each_length(T, TT, lengths):
+    """``k4_tiles``: a row's tiles from ceil(length / TT) on start at or past its
+    length (the tiles gn_tower_fma_kernel_c skips), lengths clamped to [0, T]."""
+    B = 4 if lengths is None else len(lengths)
+    assert rb.k4_tiles(lengths, B, T, TT) == _tiles_brute(lengths, B, T, TT)
+    if lengths is not None:
+        assert rb.k4_tiles(torch.tensor(lengths), B, T, TT) == _tiles_brute(lengths, B, T, TT)
+
+
+@pytest.mark.parametrize("k,u", [(4, 2), (8, 4), (11, 5), (16, 8), (3, 1)])
+def test_strided_length_is_the_strided_convs_output_length(k, u):
+    """``strided_length``: an encoder stage's strided conv (padding (k - u) // 2)
+    maps n valid samples to this many valid frames, ints and tensors alike."""
+    from academicodec_tpu_torch.nn.hifigan import strided_length
+
+    ns = [k, k + 1, 97, 1000, 1001, 240000]
+    got = strided_length(torch.tensor(ns), k, u)
+    for n, g in zip(ns, got.tolist()):
+        want = torch.nn.functional.conv1d(torch.zeros(1, 1, n), torch.zeros(1, 1, k), stride=u,
+                                          padding=(k - u) // 2).shape[-1]
+        assert strided_length(n, k, u) == g == want
+
+
+def test_count_tiles_reads_host_lengths_only():
+    """``count_tiles`` adds a launch's tiles and, where the kernel skips them, the
+    tiles past the lengths, from host lengths (the tokenization cell's 16 clips
+    through the encoder's stage-0 conv: 2152 of 6160 tiles at TT 312); lengths
+    on a device, which it would have to wait for, count nothing."""
+    from academicodec_tpu_torch.nn.hifigan import strided_length
+
+    clips = [int(round(24000 * (3.0 + 7.0 * (i + 0.5) / 16))) for i in range(16)]  # 3-10 s, evenly spaced
+    L = [strided_length(n, 4, 2) for n in clips]
+    names = ("k4.tiles", "k4.tiles_skipped")
+    profiling.reset(*names)
+    rb.count_tiles(L, 16, 120000, 312, skips=True)
+    assert [profiling.total(n).count for n in names] == list(_tiles_brute(L, 16, 120000, 312)) == [6160, 2152]
+    rb.count_tiles(torch.tensor(L), 16, 120000, 312, skips=False)  # a kernel that runs every tile
+    rb.count_tiles(None, 16, 120000, 312, skips=True)
+    assert [profiling.total(n).count for n in names] == [3 * 6160, 2152]
+    rb.count_tiles(torch.tensor(L, device="meta"), 16, 120000, 312, skips=True)
+    assert [profiling.total(n).count for n in names] == [3 * 6160, 2152]
+    assert rb.on_host(L) and rb.on_host(torch.tensor(L)) and not rb.on_host(torch.tensor(L, device="meta"))
+    assert torch.equal(rb.clamp_lengths(L + [0], 17, 100000, "cpu"),
+                       torch.tensor([min(v, 100000) for v in L] + [0], dtype=torch.int32))
+
+
+def test_encoder_hands_k4_the_host_lengths(monkeypatch):
+    """``HiFiGANEncoder.forward`` with host lengths gives K4 its stage's lengths
+    on the host (through the strided conv's formula), so that K4 counts its
+    tiles without waiting for the device; lengths on a device reach K4 as they are."""
+    from academicodec_tpu_torch.nn import hifigan
+
+    seen = []
+    real = hifigan.resblock_tower_gn
+
+    def spy(x, *args, lengths=None, **kw):
+        seen.append(lengths)
+        return real(x, *args, lengths=lengths, **kw)
+
+    monkeypatch.setattr(hifigan, "resblock_tower_gn", spy)
+    cfg = hifigan.HiFiCodecConfig(upsample_rates=(2, 2), upsample_kernel_sizes=(4, 4), upsample_initial_channel=32,
+                                  resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1,),),
+                                  encoder_base_channels=8)
+    enc = hifigan.HiFiGANEncoder(cfg, norm="none")
+    x = torch.randn(2, 1, 400)
+    with torch.no_grad():
+        enc(x, [400, 123])
+    assert len(seen) == 2  # both stages: 16 and 32 channels
+    want = [400, 123]
+    for got in seen:
+        want = [hifigan.strided_length(n, 4, 2) for n in want]
+        assert isinstance(got, torch.Tensor) and got.device.type == "cpu" and got.tolist() == want
