@@ -3,7 +3,8 @@
 The port's copy of ``academicodec_tpu/models/presets.py``:
 ``build("encodec_24k_240d")`` gives a SoundStream, ``build("hificodec_24k_320d")``
 a HiFi-Codec VQVAE, each configured as the reference recipe trains and
-serves it (egs/*/start.sh flags and config JSONs).
+serves it (egs/*/start.sh flags and config JSONs). ``build("mimi_24k_1920d")``
+gives Kyutai's Mimi (``models/mimi.py``), which only the port has.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Union
 
 from academicodec_tpu_torch.models.hificodec import VQVAE
+from academicodec_tpu_torch.models.mimi import Mimi
 from academicodec_tpu_torch.models.soundstream import SoundStream
 from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig
 
@@ -58,15 +60,23 @@ HIFICODEC_PRESETS: Dict[str, dict] = {
     ),
 }
 
+MIMI_PRESETS: Dict[str, dict] = {
+    # https://huggingface.co/kyutai/mimi/blob/main/config.json; moshi/models/loaders.py
+    "mimi_24k_1920d": dict(
+        n_filters=64, dimension=512, ratios=(8, 6, 5, 4), sample_rate=24000,
+        num_layers=8, num_heads=8, ffn_dim=2048, context=250, n_q=32, codebook_dim=256, bins=2048,
+    ),
+}
+
 # keyword arguments of the VQVAE module itself; the rest configure HiFiCodecConfig
 _VQVAE_KW = ("norm", "int8_min_channels", "device", "dtype", "seed")
 
 
 def names():
-    return sorted(list(SOUNDSTREAM_PRESETS) + list(HIFICODEC_PRESETS))
+    return sorted(list(SOUNDSTREAM_PRESETS) + list(HIFICODEC_PRESETS) + list(MIMI_PRESETS))
 
 
-def build(name: str, **kwargs) -> Union[SoundStream, VQVAE]:
+def build(name: str, **kwargs) -> Union[SoundStream, VQVAE, Mimi]:
     """Build a preset; ``kwargs`` override preset fields or pass ``device``,
     ``dtype`` and ``seed`` (and ``norm``, and HiFi-Codec's ``int8_min_channels``)
     to the model."""
@@ -76,4 +86,6 @@ def build(name: str, **kwargs) -> Union[SoundStream, VQVAE]:
         kw = {**HIFICODEC_PRESETS[name], **kwargs}
         module_kw = {k: kw.pop(k) for k in _VQVAE_KW if k in kw}
         return VQVAE(config=HiFiCodecConfig(**kw), **module_kw)
+    if name in MIMI_PRESETS:
+        return Mimi(**{**MIMI_PRESETS[name], **kwargs})
     raise KeyError(f"unknown preset {name!r}; available: {names()}")

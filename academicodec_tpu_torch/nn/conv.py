@@ -195,9 +195,10 @@ class Conv1d(_NormedWeight):
 
 
 class ConvTranspose1d(_NormedWeight):
-    """Transposed conv over ``[B, C, T]`` with an ``[I, O, K]`` kernel; ``padding``
+    """Transposed conv over ``[B, C, T]`` with an ``[I, O/groups, K]`` kernel; ``padding``
     has torch's meaning, that much output cut from each side
-    (academicodec_tpu/nn/conv.py:231-321)."""
+    (academicodec_tpu/nn/conv.py:231-321). ``groups`` as in torch (``groups =
+    I = O``: depthwise)."""
 
     def __init__(
         self,
@@ -208,11 +209,12 @@ class ConvTranspose1d(_NormedWeight):
         bias: bool = True,
         norm: str = "none",
         padding: int = 0,
+        groups: int = 1,
     ):
         super().__init__()
-        self.stride, self.padding = stride, padding
-        self.fan_in = out_channels * kernel_size  # torch convT fan_in = out * k
-        self._make_weight((in_channels, out_channels, kernel_size), norm)
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.fan_in = out_channels // groups * kernel_size  # torch convT fan_in = (out / groups) * k
+        self._make_weight((in_channels, out_channels // groups, kernel_size), norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator, normal_std=None) -> None:
@@ -221,7 +223,7 @@ class ConvTranspose1d(_NormedWeight):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose1d(
-            x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding
+            x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding, groups=self.groups
         )
 
 
@@ -361,6 +363,7 @@ class SConvTranspose1d(nn.Module):
         trim_right_ratio: float = 1.0,
         bias: bool = True,
         norm: str = "weight_norm",
+        groups: int = 1,
     ):
         super().__init__()
         if not (causal or trim_right_ratio == 1.0):
@@ -368,7 +371,7 @@ class SConvTranspose1d(nn.Module):
         self.kernel_size, self.stride = kernel_size, stride
         self.causal, self.trim_right_ratio = causal, trim_right_ratio
         self.convtr = NormConvTranspose1d(
-            in_channels, out_channels, kernel_size, stride=stride, bias=bias, norm=norm
+            in_channels, out_channels, kernel_size, stride=stride, bias=bias, norm=norm, groups=groups
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -386,7 +389,7 @@ class SConvTranspose1d(nn.Module):
         if not (self.causal and self.trim_right_ratio == 1.0):
             raise ValueError("streaming needs a causal conv-transpose with trim_right_ratio 1")
         conv = self.convtr.convtr
-        y = F.conv_transpose1d(x, conv.resolved_weight(), None, stride=self.stride)
+        y = F.conv_transpose1d(x, conv.resolved_weight(), None, stride=self.stride, groups=conv.groups)
         emit = x.shape[-1] * self.stride
         if tail is not None:
             y[..., : tail.shape[-1]] += tail

@@ -1,9 +1,17 @@
-"""Bandwidth-driven residual vector quantizer.
+"""Residual vector quantizers: bandwidth-driven (SoundStream / Encodec) and split (Mimi).
 
-Behavioral parity target: academicodec_tpu/quant/vq.py:58-96 (the
+:class:`ResidualVectorQuantizer`'s behavioral parity target:
+academicodec_tpu/quant/vq.py:58-96 (the
 ``n_q = floor(bandwidth / (log2(bins) * frame_rate / 1000))`` selection,
 clamped to the codebook count, and the training forward's
 ``(quantized, codes, bandwidth, mean commit loss)``).
+
+:class:`SplitResidualVectorQuantizer` is Mimi's (moshi
+quantization/vq.py ``SplitResidualVectorQuantizer``): a first part of
+``n_q_semantic`` codebooks and a rest of ``n_q - n_q_semantic``, each with
+its own bias-free 1x1 projections into and out of the codebooks' dimension,
+both quantizing the same latent; decoding sums the two parts' outputs. Each
+part's search is one K1 call (``quant/core_vq.py``). Serving only.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+from academicodec_tpu_torch.nn.conv import Conv1d
 from academicodec_tpu_torch.quant.core_vq import ResidualVQ
 
 
@@ -66,3 +75,52 @@ class ResidualVectorQuantizer(nn.Module):
     def decode(self, codes: torch.Tensor, st: int = 0) -> torch.Tensor:
         """codes ``[n, B, T]`` -> ``[B, T, D]``."""
         return self.vq.decode(codes, st=st)
+
+
+class ProjectedResidualVQ(nn.Module):
+    """``input_proj`` (``dimension -> codebook_dim``), a residual VQ of ``n_q`` codebooks,
+    ``output_proj`` back; both projections 1x1 convs without bias, on ``[B, C, T]``."""
+
+    def __init__(self, dimension: int, codebook_dim: int, n_q: int, bins: int):
+        super().__init__()
+        self.n_q = n_q
+        self.input_proj = Conv1d(dimension, codebook_dim, 1, bias=False)
+        self.output_proj = Conv1d(codebook_dim, dimension, 1, bias=False)
+        self.vq = ResidualVQ(num_quantizers=n_q, dim=codebook_dim, codebook_size=bins)
+
+    def encode(self, x: torch.Tensor, n_q: int) -> torch.Tensor:
+        """``x [B, dimension, T]`` -> codes ``[n_q, B, T]`` int32."""
+        return self.vq.encode(self.input_proj(x).transpose(1, 2), n_q=n_q)
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes ``[n, B, T]`` -> ``[B, dimension, T]``."""
+        return self.output_proj(self.vq.decode(codes).transpose(1, 2))
+
+
+class SplitResidualVectorQuantizer(nn.Module):
+    """Mimi's split RVQ (module docstring): codes ``[n_q, B, T]``, the first part's first."""
+
+    def __init__(self, dimension: int = 512, codebook_dim: int = 256, n_q: int = 32, n_q_semantic: int = 1,
+                 bins: int = 2048):
+        super().__init__()
+        if not 1 <= n_q_semantic < n_q:
+            raise ValueError(f"n_q_semantic {n_q_semantic} outside 1..{n_q - 1}")
+        self.n_q, self.n_q_semantic, self.bins = n_q, n_q_semantic, bins
+        self.rvq_first = ProjectedResidualVQ(dimension, codebook_dim, n_q_semantic, bins)
+        self.rvq_rest = ProjectedResidualVQ(dimension, codebook_dim, n_q - n_q_semantic, bins)
+
+    def encode(self, x: torch.Tensor, n_q: Optional[int] = None) -> torch.Tensor:
+        """``x [B, dimension, T]`` -> codes ``[n_q, B, T]`` int32 (all codebooks for None)."""
+        n_q = self.n_q if n_q is None else int(n_q)
+        if not 1 <= n_q <= self.n_q:
+            raise ValueError(f"n_q {n_q} outside 1..{self.n_q}")
+        first = self.rvq_first.encode(x, min(n_q, self.n_q_semantic))
+        if n_q <= self.n_q_semantic:
+            return first
+        return torch.cat([first, self.rvq_rest.encode(x, n_q - self.n_q_semantic)])
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes ``[n, B, T]`` -> ``[B, dimension, T]``: the parts' outputs summed."""
+        k = self.n_q_semantic
+        out = self.rvq_first.decode(codes[:k])
+        return out if codes.shape[0] <= k else out + self.rvq_rest.decode(codes[k:])
