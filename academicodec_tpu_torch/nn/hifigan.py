@@ -27,7 +27,13 @@ JAX package (academicodec_tpu/nn/hifigan.py:318-344): ``lengths [B]`` marks
 each row's valid prefix of a zero-padded batch, every conv output is zeroed
 past it and the GroupNorm statistics count only valid frames, so that each
 row's valid frames equal its exact-length encode. K4 takes the lengths
-itself.
+itself. Given host lengths (no autograd), each wider stage runs on its
+valid frames only (:class:`Segments`): the rows' valid frames laid end to
+end in one row ``[1, C, N]``, each followed by as many zero frames as the
+stage's convs reach, the GroupNorm statistics taken per segment, and the
+stage's output put back into the zero-padded batch. Each stage counts its
+padded frames (``encoder.frames``) and the frames it computes
+(``encoder.frames_computed``) in ``utils/profiling.py``.
 
 ``int8_min_channels`` (0 = off) serves the resblock convs of every stage of
 at least that many channels that is not fused as W8A8 int8
@@ -68,6 +74,7 @@ from academicodec_tpu_torch.ops.cuda.resblock import (
     resblock_tower,
     resblock_tower_gn,
 )
+from academicodec_tpu_torch.utils import profiling
 
 LRELU_SLOPE = 0.1
 # stages this narrow take the fused towers: the JAX package's default
@@ -98,6 +105,68 @@ def strided_length(n, kernel_size: int, stride: int):
 
 def get_padding(kernel_size: int, dilation: int = 1) -> int:
     return int((kernel_size * dilation - dilation) / 2)
+
+
+def stage_reach(kernel_sizes: Sequence[int], dilation_sizes: Sequence[Sequence[int]]) -> int:
+    """The widest one-sided reach of a stage's resblock convs, ``max get_padding(k, d)``."""
+    return max(get_padding(k, d) for k, ds in zip(kernel_sizes, dilation_sizes) for d in ds)
+
+
+class Segments:
+    """The valid frames of a zero-padded batch ``[B, C, T]`` laid end to end in
+    one row ``[1, C, N]``: row ``b``'s ``lengths[b]`` frames, then ``gap`` zero
+    frames. With ``gap`` at least the reach of every "same" conv run over the
+    row, each valid output frame sees the inputs and zeros that its row's
+    exact-length conv sees.
+
+    ``lengths``: host integers (the offsets and ``N``, no sync); ``L``: the
+    same on the batch's device, where the index tensors are built."""
+
+    def __init__(self, lengths, L: torch.Tensor, gap: int, T: int):
+        self.lengths = [min(max(int(n), 0), T) for n in lengths]
+        self.gap, self.T = gap, T
+        self.offsets = [sum(self.lengths[:b]) + gap * b for b in range(len(self.lengths))]
+        self.N = self.frames(self.lengths, gap, T)
+        self.count = L.reshape(-1).long().clamp(0, T)
+        span = self.count + gap
+        start = torch.cumsum(span, 0) - span
+        # each frame's row (a gap belongs to the row before it)
+        self.row = torch.repeat_interleave(torch.arange(len(self.lengths), device=L.device), span,
+                                           output_size=self.N)
+        # [1, 1, N]: the row's valid frames
+        self.valid = (torch.arange(self.N, device=L.device) - start[self.row] < self.count[self.row])[None, None]
+        # each padded frame's place in the row, and whether it is valid
+        self.index = (start[:, None] + torch.arange(T, device=L.device)).clamp(max=max(self.N - 1, 0)).reshape(-1)
+        self.padded_valid = frame_mask(self.count, T)[:, 0]
+
+    @staticmethod
+    def frames(lengths, gap: int, T: int) -> int:
+        """``N`` for host ``lengths``."""
+        return sum(min(max(int(n), 0), T) + gap for n in lengths)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``[B, C, T]`` -> ``[1, C, N]``, the gaps zero."""
+        gap = x.new_zeros(x.shape[1], self.gap)
+        return torch.cat([p for b, n in enumerate(self.lengths) for p in (x[b, :, :n], gap)], dim=1)[None]
+
+    def scatter(self, y: torch.Tensor) -> torch.Tensor:
+        """``[1, C, N]`` -> the zero-padded ``[B, C, T]``."""
+        out = y.new_zeros(len(self.lengths), y.shape[1], self.T)
+        for b, (o, n) in enumerate(zip(self.offsets, self.lengths)):
+            out[b, :, :n] = y[0, :, o:o + n]
+        return out
+
+    def sums(self, v: torch.Tensor) -> torch.Tensor:
+        """``v [G, N]`` -> ``[G, B]``: each segment's sum over its valid frames, in
+        a fixed order (each segment's frames put back in its padded row, then
+        summed)."""
+        G = v.shape[0]
+        vp = v[:, self.index].reshape(G, len(self.lengths), self.T)
+        return torch.where(self.padded_valid, vp, 0.0).sum(-1)
+
+    def per_frame(self, s: torch.Tensor) -> torch.Tensor:
+        """``s [G, B]`` -> ``[G, 1, N]``: each frame its segment's value."""
+        return s[:, self.row][:, None]
 
 
 @dataclass(frozen=True)
@@ -233,10 +302,11 @@ class GroupNormTorch(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                count: Optional[torch.Tensor] = None) -> torch.Tensor:
+                count: Optional[torch.Tensor] = None, segments: Optional["Segments"] = None) -> torch.Tensor:
         """``mask [B, 1, T]`` (0/1) and ``count [B]`` (its valid frames), set
         together, restrict the statistics to the valid frames; they accumulate
-        in f32 (JAX nn/hifigan.py:239-280).
+        in f32 (JAX nn/hifigan.py:239-280). ``segments``: ``x`` is the row
+        ``[1, C, N]`` they lay out, normalized per segment (:meth:`segmented`).
 
         On the card f32 inputs accumulate in f64, masked or not: CUDA's
         reductions pick their order from the reduced length, so f32 sums over
@@ -245,6 +315,8 @@ class GroupNormTorch(nn.Module):
         near-ties (ROADMAP.md Queue 3 item 3). In f64 both round to the same
         f32 statistics. bf16 serving keeps its sums: its tokens are not held
         batched against single, and f64 passes over the wide stages cost it time."""
+        if segments is not None:
+            return self.segmented(x, segments)
         B, C, T = x.shape
         xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
         acc = torch.float64 if x.is_cuda and x.dtype == torch.float32 else None
@@ -264,6 +336,24 @@ class GroupNormTorch(nn.Module):
             mean, var = mean.float().to(x.dtype), var.float().to(x.dtype)
         xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
         return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
+
+    def segmented(self, x: torch.Tensor, seg: Segments, acc: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The masked forward over ``x [1, C, N]`` laid out by ``seg``: each
+        segment's statistics over its valid frames, accumulated in ``acc``, by
+        default as the masked forward accumulates them (f64 for f32 on the
+        card, else f32). A segment of no valid frames is normalized by zeros
+        (its frames are gaps the caller zeroes), never 0 / 0."""
+        _, C, N = x.shape
+        G = self.num_groups
+        if acc is None:
+            acc = torch.float64 if x.is_cuda and x.dtype == torch.float32 else torch.float32
+        xf = x.reshape(G, C // G, N).to(acc)
+        n = (seg.count.to(acc) * (C // G)).clamp(min=1)
+        mean = seg.sums(xf.sum(1)) / n
+        var = seg.sums((xf - seg.per_frame(mean)).square().sum(1)) / n
+        mean, var = mean.float().to(x.dtype), var.float().to(x.dtype)
+        xg = (x.reshape(G, C // G, N) - seg.per_frame(mean)) * seg.per_frame(torch.rsqrt(var + self.epsilon))
+        return xg.reshape(1, C, N) * self.weight[:, None] + self.bias[:, None]
 
 
 class PackedStage:
@@ -397,7 +487,9 @@ class HiFiGANEncoder(nn.Module):
                       L: Optional[torch.Tensor] = None, L_host: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Stage ``i``'s resblocks and chained GroupNorms over ``x``, the output of
         its strided conv; ``mask [B, 1, T]`` and ``L [B]``: the valid frames of a
-        length-masked encode (``L_host``: the same on the host, for K4)."""
+        length-masked encode (``L_host``: the same on the host, for K4, and for
+        an unfused stage's :class:`Segments` when they are fewer frames than the
+        batch)."""
         blocks, norms = self.stage(i)
         if self.fused_stage(i) and not _records_grad(x, *blocks, *norms):
             return resblock_tower_gn(
@@ -405,12 +497,23 @@ class HiFiGANEncoder(nn.Module):
                 torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
                 num_groups=x.shape[1] // 16, epsilon=1e-6, lengths=L if L_host is None else L_host,
             )
+        B, _, T = x.shape
+        seg = None
+        if L_host is not None and not _records_grad(x, *blocks, *norms):
+            lengths, gap = L_host.tolist(), stage_reach(self.rks, self.rds)
+            if 0 < Segments.frames(lengths, gap, T) < B * T:
+                seg = Segments(lengths, L, gap, T)
+                x, mask = seg.gather(x), seg.valid.to(x.dtype)
+        if not self.fused_stage(i):
+            profiling.count("encoder.frames", B * T)
+            profiling.count("encoder.frames_computed", B * T if seg is None else seg.N)
         xs = None
         for rb, gn in zip(blocks, norms):
             r = rb(x, mask)
             # the reference normalizes the accumulated sum (models.py:410-415)
-            xs = masked(gn(r if xs is None else xs + r, mask, L), mask)
-        return xs / len(blocks)
+            v = r if xs is None else xs + r
+            xs = masked(gn(v, mask, L) if seg is None else gn(v, segments=seg), mask)
+        return xs / len(blocks) if seg is None else seg.scatter(xs / len(blocks))
 
 
 class HiFiGANGenerator(nn.Module):

@@ -113,7 +113,7 @@ from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, de
 from academicodec_tpu_torch.models.hificodec import calibrate_quant
 from academicodec_tpu_torch.models.lm import RVQTokenLM, save_lm
 from academicodec_tpu_torch.native.build import get_bitpack_lib
-from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS
+from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS, Segments, stage_reach, strided_length
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.ops import int8 as int8_ops
 from academicodec_tpu_torch.ops.cuda import build as kernel_build
@@ -2883,9 +2883,11 @@ def _encoder_captures(model, run):
     return tokens, caps
 
 
-def _groupnorm_f32_forward(self, x, mask=None, count=None):
+def _groupnorm_f32_forward(self, x, mask=None, count=None, segments=None):
     """``GroupNormTorch.forward`` with f32 statistics on every device, as the
     port had it before its card sums of f32 inputs went to f64."""
+    if segments is not None:
+        return self.segmented(x, segments, acc=torch.float32)
     B, C, T = x.shape
     xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
     if mask is None:
@@ -2944,6 +2946,25 @@ def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extra
     return {"runs": runs[1:], "encodes": encodes}
 
 
+def _unsegmented(model, caps, lengths, width):
+    """Batched captures put back in the padded batch where a wide stage ran on
+    its valid frames (``nn/hifigan.Segments``: its resblocks' and GroupNorms'
+    outputs are one row ``[1, C, N]``), so that they compare row by row."""
+    enc = model.encoder
+    L, T, segs = torch.as_tensor(lengths).long(), width, []
+    for u, k in enc.ups_cfg:
+        L, T = strided_length(L, k, u), strided_length(T, k, u)
+        segs.append(Segments(L.tolist(), L, stage_reach(enc.rks, enc.rds), T))
+    out = []
+    for name, c in caps:
+        if name.startswith(("resblocks.", "normalize.")):
+            seg = segs[int(name.split(".")[1]) // len(enc.rks)]
+            if c.shape[0] != len(L) or c.shape[-1] != seg.T:
+                c = seg.scatter(c)
+        out.append((name, c))
+    return out
+
+
 def phase_extract_stages(device="cuda", bucket_seconds=10.0, **corpus) -> dict:
     """Each file of ``phase_extract``'s corpus encoded alone at its exact length
     and in the batch padded to whole buckets with its length (the CLI's two
@@ -2965,6 +2986,7 @@ def phase_extract_stages(device="cuda", bucket_seconds=10.0, **corpus) -> dict:
         try:
             with torch.no_grad():
                 tok_b, cap_b = _encoder_captures(model, lambda: model.encode(batch, lengths=torch.from_numpy(lengths)))
+                cap_b = _unsegmented(model, cap_b, lengths, width)
                 singles = [_encoder_captures(model, lambda w=w: model.encode(torch.from_numpy(w)[None]))
                            for w in wavs]
         finally:

@@ -937,6 +937,41 @@ def test_masked_groupnorm_of_a_padded_row_equals_its_exact_length(cuda):
             assert torch.equal(padded[i, :, : r.shape[1]], exact[0]), i
 
 
+def test_segmented_encode_at_the_tokenization_cells_shapes(cuda):
+    """The tokenization cell's shapes (16 rows of 3-10 s in a 10 s bucket, f32,
+    the published widths): with host lengths the wide encoder stages run
+    segmented (``encoder.frames_computed / encoder.frames`` 0.652), and the
+    tokens of every row's valid frames equal the padded path's (the same
+    lengths on the card: ratio 1) and each row's exact-length encode."""
+    import chip_smoke
+    from academicodec_tpu_torch.api import load_codec
+
+    model = load_codec("hificodec_24k_320d", device=cuda, dtype=torch.float32)
+    sr = model.config.sampling_rate
+    lengths = [round((3.0 + 7.0 * (i + 0.5) / 16) * sr) for i in range(16)]
+    rng = np.random.default_rng(20)
+    wavs = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in lengths]
+    batch = torch.from_numpy(np.stack([np.pad(w, (0, 10 * sr - len(w))) for w in wavs]))
+    chip_smoke.spread_codebooks(model, chip_smoke.latent_frames(model, torch.from_numpy(wavs[0])[None]))
+
+    def encode(L):
+        profiling.reset("encoder.frames", "encoder.frames_computed")
+        codes = model.encode(batch, lengths=L)
+        torch.cuda.synchronize()
+        return codes, profiling.total("encoder.frames_computed").count / profiling.total("encoder.frames").count
+
+    codes, share = encode(torch.tensor(lengths))
+    padded, share_padded = encode(torch.tensor(lengths, device=cuda))
+    assert round(share, 3) == 0.652 and share_padded == 1
+    assert len(torch.unique(codes)) > 8
+    for b, w in enumerate(wavs):
+        alone = model.encode(torch.from_numpy(w)[None])
+        f = model.frames_for(len(w))
+        assert alone.shape[1] == f
+        assert torch.equal(codes[b, :f], padded[b, :f]), b
+        assert torch.equal(codes[b, :f], alone[0]), b
+
+
 # ---------------------------------------------------------------- HiFi-Codec trainer
 TRAIN_HIFI = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=64,
                   resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 2),), encoder_base_channels=8, n_codes=64)
