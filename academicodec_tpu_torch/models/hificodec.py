@@ -45,7 +45,7 @@ import torch.nn as nn
 
 from academicodec_tpu_torch.models.soundstream import resolve_device
 from academicodec_tpu_torch.nn.conv import Conv1d, ConvTranspose1d
-from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANEncoder, HiFiGANGenerator
+from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANEncoder, HiFiGANGenerator, strided_length
 from academicodec_tpu_torch.quant.grvq import GroupResidualVQ
 from academicodec_tpu_torch.utils import profiling
 
@@ -158,7 +158,7 @@ class VQVAE(nn.Module):
         encoder stage's strided-conv output length."""
         n = n_samples
         for u, k in self.encoder.ups_cfg:
-            n = (n + 2 * ((k - u) // 2) - k) // u + 1
+            n = strided_length(n, k, u)
         return n
 
     @torch.no_grad()

@@ -112,29 +112,76 @@ def stage_reach(kernel_sizes: Sequence[int], dilation_sizes: Sequence[Sequence[i
     return max(get_padding(k, d) for k, ds in zip(kernel_sizes, dilation_sizes) for d in ds)
 
 
-class Segments:
+class Frames:
+    """A layout of frames, as :class:`GroupNormTorch` and :func:`norm_chain` read
+    it: the tensors that hold them (``parts``, ``join``), ``mask`` (None: every
+    frame counts), ``average`` over each (row, group)'s valid frames and
+    ``spread`` of its statistics back over the frames."""
+
+    mask = None
+
+    def parts(self, x):
+        return [x]
+
+    def join(self, ys, x):
+        return ys[0]
+
+    def masked(self, x):
+        return masked(x, self.mask)
+
+    def spread(self, s, v):
+        return s
+
+
+class Padded(Frames):
+    """A zero-padded batch ``x [B, C, T]``: every frame valid, or row ``b``'s first
+    ``count[b]`` (a length-masked encode; ``mask [B, 1, T]`` in ``x``'s dtype).
+    ``host``: the counts on the host, if the caller gave them there (K4 counts
+    its skipped tiles from them; a wide stage lays its rows out as :class:`Segments`)."""
+
+    def __init__(self, count=None, host=None, x: Optional[torch.Tensor] = None):
+        self.count, self.host = count, host
+        self.mask = None if count is None else frame_mask(count, x.shape[2]).to(x.dtype)
+
+    def average(self, vs, acc):
+        """``[v [B, G, C / G, T]]`` -> ``[B, G, 1, 1]``."""
+        (v,) = vs
+        if self.mask is None:
+            return v.mean(dim=(2, 3), keepdim=True)
+        n = (self.count * v.shape[2]).reshape(-1, 1, 1, 1)
+        return (v * self.mask.to(v.dtype)[:, None]).sum(dim=(2, 3), keepdim=True) / n
+
+
+ALL_FRAMES = Padded()
+
+
+class Segments(Frames):
     """The valid frames of a zero-padded batch ``[B, C, T]`` laid end to end in
     one row ``[1, C, N]``: row ``b``'s ``lengths[b]`` frames, then ``gap`` zero
     frames. With ``gap`` at least the reach of every "same" conv run over the
     row, each valid output frame sees the inputs and zeros that its row's
-    exact-length conv sees.
+    exact-length conv sees. As a layout, each segment is a row of its own.
 
     ``lengths``: host integers (the offsets and ``N``, no sync); ``L``: the
-    same on the batch's device, where the index tensors are built."""
+    same on the batch's device, where the index tensors are built; ``dtype``:
+    the batch's, that of ``mask``."""
 
-    def __init__(self, lengths, L: torch.Tensor, gap: int, T: int):
+    def __init__(self, lengths, L: torch.Tensor, gap: int, T: int, dtype: torch.dtype = torch.float32):
         self.lengths = [min(max(int(n), 0), T) for n in lengths]
-        self.gap, self.T = gap, T
+        self.T = T
         self.offsets = [sum(self.lengths[:b]) + gap * b for b in range(len(self.lengths))]
         self.N = self.frames(self.lengths, gap, T)
         self.count = L.reshape(-1).long().clamp(0, T)
         span = self.count + gap
         start = torch.cumsum(span, 0) - span
-        # each frame's row (a gap belongs to the row before it)
+        # each frame's row (a gap belongs to the row before it) and place in it
         self.row = torch.repeat_interleave(torch.arange(len(self.lengths), device=L.device), span,
                                            output_size=self.N)
+        time = torch.arange(self.N, device=L.device) - start[self.row]
         # [1, 1, N]: the row's valid frames
-        self.valid = (torch.arange(self.N, device=L.device) - start[self.row] < self.count[self.row])[None, None]
+        self.valid = (time < self.count[self.row])[None, None]
+        self.mask = self.valid.to(dtype)
+        self.time = time.clamp(max=T - 1)  # the padded frame each frame copies (a gap's is zeroed)
         # each padded frame's place in the row, and whether it is valid
         self.index = (start[:, None] + torch.arange(T, device=L.device)).clamp(max=max(self.N - 1, 0)).reshape(-1)
         self.padded_valid = frame_mask(self.count, T)[:, 0]
@@ -145,16 +192,18 @@ class Segments:
         return sum(min(max(int(n), 0), T) + gap for n in lengths)
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``[B, C, T]`` -> ``[1, C, N]``, the gaps zero."""
-        gap = x.new_zeros(x.shape[1], self.gap)
-        return torch.cat([p for b, n in enumerate(self.lengths) for p in (x[b, :, :n], gap)], dim=1)[None]
+        """``[B, C, T]`` -> ``[1, C, N]``, the gaps zero: one indexed copy from ``x``'s
+        channel planes (stride ``T``; row ``b``'s frame ``t`` at ``b C T + t``)."""
+        B, C, T = x.shape
+        planes = x.contiguous().as_strided((C, (B - 1) * C * T + T), (T, 1))
+        return planes.index_select(1, self.row * (C * T) + self.time).masked_fill_(~self.valid[0], 0)[None]
 
     def scatter(self, y: torch.Tensor) -> torch.Tensor:
-        """``[1, C, N]`` -> the zero-padded ``[B, C, T]``."""
-        out = y.new_zeros(len(self.lengths), y.shape[1], self.T)
-        for b, (o, n) in enumerate(zip(self.offsets, self.lengths)):
-            out[b, :, :n] = y[0, :, o:o + n]
-        return out
+        """``[1, C, N]`` -> the zero-padded ``[B, C, T]``: one gather through
+        ``index`` (broadcast over rows and channels, never materialized)."""
+        B, C = len(self.lengths), y.shape[1]
+        index = self.index.view(B, 1, self.T).expand(B, C, self.T)
+        return torch.gather(y.expand(B, C, -1), 2, index).masked_fill_(~self.padded_valid[:, None], 0)
 
     def sums(self, v: torch.Tensor) -> torch.Tensor:
         """``v [G, N]`` -> ``[G, B]``: each segment's sum over its valid frames, in
@@ -164,9 +213,25 @@ class Segments:
         vp = v[:, self.index].reshape(G, len(self.lengths), self.T)
         return torch.where(self.padded_valid, vp, 0.0).sum(-1)
 
-    def per_frame(self, s: torch.Tensor) -> torch.Tensor:
+    def average(self, vs, acc):
+        """``[v [1, G, C / G, N]]`` -> ``[G, B]``; a segment of no valid frames
+        (its frames are gaps) averages to zero, never 0 / 0."""
+        (v,) = vs
+        return self.sums(v.sum(2)[0]) / (self.count * v.shape[2]).clamp(min=1)
+
+    def spread(self, s, v):
         """``s [G, B]`` -> ``[G, 1, N]``: each frame its segment's value."""
         return s[:, self.row][:, None]
+
+
+def norm_chain(chains, norms, frames: Frames):
+    """A stage's output: each GroupNorm normalizes the sum of the chain outputs so
+    far (reference models.py:410-415), masked to ``frames``' valid frames; the
+    last, over the chain count. A generator runs each chain as the loop reaches it."""
+    xs = None
+    for r, gn in zip(chains, norms):
+        xs = frames.masked(gn(r if xs is None else xs + r, frames))
+    return xs / len(norms)
 
 
 @dataclass(frozen=True)
@@ -301,12 +366,10 @@ class GroupNormTorch(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                count: Optional[torch.Tensor] = None, segments: Optional["Segments"] = None) -> torch.Tensor:
-        """``mask [B, 1, T]`` (0/1) and ``count [B]`` (its valid frames), set
-        together, restrict the statistics to the valid frames; they accumulate
-        in f32 (JAX nn/hifigan.py:239-280). ``segments``: ``x`` is the row
-        ``[1, C, N]`` they lay out, normalized per segment (:meth:`segmented`).
+    def accumulation(self, x: torch.Tensor, frames: Frames) -> Optional[torch.dtype]:
+        """The dtype the statistics of ``x`` sum in: f64 for f32 on the card;
+        else f32 when only some frames count (JAX nn/hifigan.py:239-280); else
+        None, ``x``'s own, as ``frames`` averages it.
 
         On the card f32 inputs accumulate in f64, masked or not: CUDA's
         reductions pick their order from the reduced length, so f32 sums over
@@ -315,45 +378,26 @@ class GroupNormTorch(nn.Module):
         near-ties (ROADMAP.md Queue 3 item 3). In f64 both round to the same
         f32 statistics. bf16 serving keeps its sums: its tokens are not held
         batched against single, and f64 passes over the wide stages cost it time."""
-        if segments is not None:
-            return self.segmented(x, segments)
-        B, C, T = x.shape
-        xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
-        acc = torch.float64 if x.is_cuda and x.dtype == torch.float32 else None
-        if mask is None and acc is None:
-            mean = xg.mean(dim=(2, 3), keepdim=True)
-            var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
-        else:
-            xf = xg.to(acc or torch.float32)
-            if mask is None:
-                mean = xf.mean(dim=(2, 3), keepdim=True)
-                var = (xf - mean).square().mean(dim=(2, 3), keepdim=True)
-            else:
-                m = mask.to(xf.dtype)[:, None]  # [B, 1, 1, T]
-                n = (count.to(xf.dtype) * (C // self.num_groups)).reshape(B, 1, 1, 1)
-                mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
-                var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
-            mean, var = mean.float().to(x.dtype), var.float().to(x.dtype)
-        xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
-        return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
+        if x.is_cuda and x.dtype == torch.float32:
+            return torch.float64
+        return torch.float32 if frames.mask is not None else None
 
-    def segmented(self, x: torch.Tensor, seg: Segments, acc: Optional[torch.dtype] = None) -> torch.Tensor:
-        """The masked forward over ``x [1, C, N]`` laid out by ``seg``: each
-        segment's statistics over its valid frames, accumulated in ``acc``, by
-        default as the masked forward accumulates them (f64 for f32 on the
-        card, else f32). A segment of no valid frames is normalized by zeros
-        (its frames are gaps the caller zeroes), never 0 / 0."""
-        _, C, N = x.shape
-        G = self.num_groups
-        if acc is None:
-            acc = torch.float64 if x.is_cuda and x.dtype == torch.float32 else torch.float32
-        xf = x.reshape(G, C // G, N).to(acc)
-        n = (seg.count.to(acc) * (C // G)).clamp(min=1)
-        mean = seg.sums(xf.sum(1)) / n
-        var = seg.sums((xf - seg.per_frame(mean)).square().sum(1)) / n
-        mean, var = mean.float().to(x.dtype), var.float().to(x.dtype)
-        xg = (x.reshape(G, C // G, N) - seg.per_frame(mean)) * seg.per_frame(torch.rsqrt(var + self.epsilon))
-        return xg.reshape(1, C, N) * self.weight[:, None] + self.bias[:, None]
+    def forward(self, x, frames: Frames = ALL_FRAMES):
+        """``x`` laid out as ``frames`` says: the mean and then the variance are
+        ``frames``' averages of ``x`` and of its squared deviations, in the
+        :meth:`accumulation` dtype, each rounded back to ``x``'s dtype once."""
+        parts = frames.parts(x)
+        xg = [p.reshape(p.shape[0], self.num_groups, -1, p.shape[-1]) for p in parts]
+        acc = self.accumulation(parts[0], frames)
+        xf = xg if acc is None else [v.to(acc) for v in xg]
+        # without acc the deviations are taken from the mean in x's dtype, as Tensor.mean gives it
+        mean = frames.average(xf, acc).to(xf[0].dtype)
+        var = frames.average([(v - frames.spread(mean, v)).square() for v in xf], acc).to(xf[0].dtype)
+        mean, var = mean.to(parts[0].dtype), var.to(parts[0].dtype)
+        scale = torch.rsqrt(var + self.epsilon)
+        ys = [((v - frames.spread(mean, v)) * frames.spread(scale, v)).reshape(p.shape)
+              * self.weight[:, None].to(p.device) + self.bias[:, None].to(p.device) for v, p in zip(xg, parts)]
+        return frames.join(ys, x)
 
 
 class PackedStage:
@@ -466,54 +510,45 @@ class HiFiGANEncoder(nn.Module):
         zero-padded batch (the length-masked encode; frames past a row's
         valid output frames are not meaningful)."""
         x = self.conv_pre(x)
-        L = Lh = mask = None
+        frames = ALL_FRAMES
         if lengths is not None:
-            L = torch.as_tensor(lengths, device=x.device).reshape(-1).long()
-            # K4 takes host lengths as given: it counts its skipped tiles from them
-            Lh = torch.as_tensor(lengths).reshape(-1).long() if on_host(lengths) else None
-            mask = frame_mask(L, x.shape[2]).to(x.dtype)
-            x = x * mask  # the conv's bias leaks into the pad frames
+            host = torch.as_tensor(lengths).reshape(-1).long() if on_host(lengths) else None
+            frames = Padded(torch.as_tensor(lengths, device=x.device).reshape(-1).long(), host, x)
+        x = frames.masked(x)  # the conv's bias leaks into the pad frames
         for i, (ups, (u, k)) in enumerate(zip(self.ups, self.ups_cfg)):
             x = ups(lrelu(x))
-            if L is not None:
-                L = strided_length(L, k, u)
-                Lh = None if Lh is None else strided_length(Lh, k, u)
-                mask = frame_mask(L, x.shape[2]).to(x.dtype)
-                x = x * mask
-            x = self.stage_forward(i, x, mask, L, Lh)
+            if frames.count is not None:
+                host = None if frames.host is None else strided_length(frames.host, k, u)
+                frames = Padded(strided_length(frames.count, k, u), host, x)
+            x = frames.masked(x)  # rebound: the unmasked output must not stay alive through the stage
+            x = self.stage_forward(i, x, frames)
         return self.conv_post(lrelu(x, 0.01))  # default torch slope (models.py:417)
 
-    def stage_forward(self, i: int, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                      L: Optional[torch.Tensor] = None, L_host: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def stage_forward(self, i: int, x: torch.Tensor, frames: Padded = ALL_FRAMES) -> torch.Tensor:
         """Stage ``i``'s resblocks and chained GroupNorms over ``x``, the output of
-        its strided conv; ``mask [B, 1, T]`` and ``L [B]``: the valid frames of a
-        length-masked encode (``L_host``: the same on the host, for K4, and for
-        an unfused stage's :class:`Segments` when they are fewer frames than the
-        batch)."""
+        its strided conv, laid out as ``frames`` says. Given host counts, an
+        unfused stage runs on :class:`Segments` when they are fewer frames than
+        the batch."""
         blocks, norms = self.stage(i)
         if self.fused_stage(i) and not _records_grad(x, *blocks, *norms):
             return resblock_tower_gn(
                 x, self.packed_tower(i), None,
                 torch.stack([n.weight for n in norms]), torch.stack([n.bias for n in norms]),
-                num_groups=x.shape[1] // 16, epsilon=1e-6, lengths=L if L_host is None else L_host,
+                num_groups=x.shape[1] // 16, epsilon=1e-6,
+                lengths=frames.count if frames.host is None else frames.host,
             )
         B, _, T = x.shape
-        seg = None
-        if L_host is not None and not _records_grad(x, *blocks, *norms):
-            lengths, gap = L_host.tolist(), stage_reach(self.rks, self.rds)
+        layout = frames
+        if frames.host is not None and not _records_grad(x, *blocks, *norms):
+            lengths, gap = frames.host.tolist(), stage_reach(self.rks, self.rds)
             if 0 < Segments.frames(lengths, gap, T) < B * T:
-                seg = Segments(lengths, L, gap, T)
-                x, mask = seg.gather(x), seg.valid.to(x.dtype)
+                layout = Segments(lengths, frames.count, gap, T, x.dtype)
+                x = layout.gather(x)
         if not self.fused_stage(i):
             profiling.count("encoder.frames", B * T)
-            profiling.count("encoder.frames_computed", B * T if seg is None else seg.N)
-        xs = None
-        for rb, gn in zip(blocks, norms):
-            r = rb(x, mask)
-            # the reference normalizes the accumulated sum (models.py:410-415)
-            v = r if xs is None else xs + r
-            xs = masked(gn(v, mask, L) if seg is None else gn(v, segments=seg), mask)
-        return xs / len(blocks) if seg is None else seg.scatter(xs / len(blocks))
+            profiling.count("encoder.frames_computed", B * T if layout is frames else layout.N)
+        y = norm_chain((rb(x, layout.mask) for rb in blocks), norms, layout)
+        return y if layout is frames else layout.scatter(y)
 
 
 class HiFiGANGenerator(nn.Module):

@@ -37,15 +37,16 @@ unsharded run:
   quantizes its own frames;
 * the HiFi-Codec encoder's GroupNorm statistics span the time axis: each
   frame is counted by one shard only (K4's tiles, each owned by the shard it
-  starts in; the masked sums of :func:`group_norm` on the wider stages), the
-  shards' sums meet on the first device, the affines follow from them and
-  the global frame count, and each shard applies them to its own frames (the
-  algebra of JAX's pass 2, academicodec_tpu/ops/pallas/resblock.py:583-631).
-  K4's sums keep the tile order of one launch over the whole sequence
+  starts in; on the wider stages each block's own valid frames, the layout
+  :class:`TimeBlocks` that ``GroupNormTorch`` reads), the shards' sums meet
+  on the first device, the affines follow from them and the global frame
+  count, and each shard applies them to its own frames (the algebra of
+  JAX's pass 2, academicodec_tpu/ops/pallas/resblock.py:583-631). K4's sums
+  keep the tile order of one launch over the whole sequence
   (:func:`_encoder_stage_gn_fused`), so on the card they are its bits; the
-  wider stages' sums (f64 for f32 on the card, as ``GroupNormTorch``) and
-  the CPU's plain sums are the one place where the sharded run adds in
-  another order than the unsharded one.
+  wider stages' sums (in ``GroupNormTorch``'s dtype: f64 for f32 on the
+  card) and the CPU's plain sums are the one place where the sharded run
+  adds in another order than the unsharded one.
 
 Outputs are :class:`TimeShards`: the blocks, each on its device, in time
 order; ``gather()`` (or ``np.asarray``) concatenates them.
@@ -63,7 +64,7 @@ import torch
 import torch.nn as nn
 
 from academicodec_tpu_torch.nn.conv import ConvTranspose1d, Conv1d, SConv1d, SConvTranspose1d
-from academicodec_tpu_torch.nn.hifigan import lrelu, masked
+from academicodec_tpu_torch.nn.hifigan import Frames, lrelu, norm_chain, strided_length
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.nn.seanet import SEANetResnetBlock
 from academicodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d
@@ -119,6 +120,12 @@ class TimeShards:
         """``fn`` on every block (pointwise in time); ``dim``: the results' time
         axis, if not this one."""
         return TimeShards([fn(p) for p in self.parts], self.dim if dim is None else dim)
+
+    def __add__(self, other: "TimeShards") -> "TimeShards":
+        return TimeShards([a + b for a, b in zip(self.parts, other.parts)], self.dim)
+
+    def __truediv__(self, d) -> "TimeShards":
+        return self.map(lambda p: p / d)
 
     def gather(self, device=None) -> torch.Tensor:
         """The whole tensor on ``device`` (the first block's by default)."""
@@ -313,10 +320,6 @@ def gather_apply(x: TimeShards, fn: Callable) -> TimeShards:
     return split_time(y, x.spans, x.devices, x.dim)
 
 
-def add(x: TimeShards, y: TimeShards) -> TimeShards:
-    return TimeShards([a + b for a, b in zip(x.parts, y.parts)], x.dim)
-
-
 # ---------------------------------------------------------------- layers
 
 
@@ -373,7 +376,7 @@ def layer(ms: Sequence[nn.Module], x: TimeShards) -> TimeShards:
         y = x
         for j in range(len(m.block)):
             y = layer([mi.block[j] for mi in ms], y)
-        return add(layer([mi.shortcut for mi in ms], x), y)
+        return layer([mi.shortcut for mi in ms], x) + y
     if isinstance(m, (nn.ELU, nn.Identity)):
         return TimeShards([mi(p) for mi, p in zip(ms, x.parts)], x.dim)
     raise TypeError(f"time sharding: no sharded forward for {type(m).__name__}")
@@ -385,47 +388,39 @@ def sequential(ms: Sequence[nn.Sequential], x: TimeShards) -> TimeShards:
     return x
 
 
-def group_norm(gns: Sequence[nn.Module], x: TimeShards, masks=None, count=None) -> TimeShards:
-    """``GroupNormTorch`` over the sharded sequence: its two passes (the mean,
-    then the squared deviations from it) summed over every block's own
-    (valid) frames on the first device, rounded where ``GroupNormTorch``
-    rounds: in f64 for f32 inputs on the card, in f32 with a mask; otherwise
-    the mean and each squared deviation in the input's dtype, their sums in
-    f32 (``Tensor.mean``). ``masks[i] [B, 1, t_i]`` and ``count [B]`` (the
-    global valid frames) as its ``mask`` and ``count``."""
-    gn, dev0 = gns[0], x.parts[0].device
-    B, C, _ = x.parts[0].shape
-    G = gn.num_groups
-    dtype = x.parts[0].dtype
-    wide = torch.float64 if x.parts[0].is_cuda and dtype == torch.float32 else None
-    acc = wide or torch.float32
-    xs = [p.reshape(B, G, C // G, -1) for p in x.parts]
-    ms = [None if masks is None else m.to(acc)[:, None] for m in (masks or [None] * len(xs))]
-    frames = float(x.length) if count is None else torch.as_tensor(count, device=dev0).to(acc).reshape(B, 1, 1, 1)
-    n = frames * (C // G)
+class TimeBlocks(Frames):
+    """The layout of a :class:`TimeShards` batch ``[B, C, t_i]``: each block's own
+    frames below the global valid lengths ``L [B]`` (None: all), the blocks' sums
+    added on the first device in block order, over the global count."""
 
-    def total(vals):
+    def __init__(self, x: TimeShards, L=None):
+        self.dev0, self.length, self.count = x.parts[0].device, x.length, L
+        self.mask = None if L is None else [frame_mask(L.to(p.device) - a, p.shape[2]).to(p.dtype)
+                                            for p, (a, _) in zip(x.parts, x.spans)]
+
+    def parts(self, x):
+        return x.parts
+
+    def join(self, ys, x):
+        return TimeShards(ys, x.dim)
+
+    def masked(self, x):
+        return x if self.mask is None else TimeShards([p * m for p, m in zip(x.parts, self.mask)], x.dim)
+
+    def spread(self, s, v):
+        return s.to(v.device)
+
+    def average(self, vs, acc):
+        """``[v [B, G, C / G, t_i]]`` -> ``[B, G, 1, 1]``, summed in ``acc`` (by
+        default f32, as ``Tensor.mean`` sums)."""
+        acc = acc or torch.float32
         s = None
-        for v, m in zip(vals, ms):
+        for v, m in zip(vs, self.mask or [None] * len(vs)):
             v = v.to(acc)
-            v = (v if m is None else v * m).sum(dim=(2, 3), keepdim=True).to(dev0)
+            v = (v if m is None else v * m.to(acc)[:, None]).sum(dim=(2, 3), keepdim=True).to(self.dev0)
             s = v if s is None else s + v
-        return s
-
-    if masks is None and wide is None:  # GroupNormTorch's Tensor.mean branch, in the input's dtype
-        mean = (total(xs) / n).to(dtype)
-        var = (total([(v - mean.to(v.device)).square() for v in xs]) / n).to(dtype)
-    else:
-        xs = [v.to(acc) for v in xs]
-        mean = total(xs) / n
-        var = total([(v - mean.to(v.device)).square() for v in xs]) / n
-        mean, var = mean.float().to(dtype), var.float().to(dtype)
-    out = []
-    for g, p in zip(gns, x.parts):
-        pg = p.reshape(B, G, C // G, -1)
-        pg = (pg - mean.to(p.device)) * torch.rsqrt(var.to(p.device) + g.epsilon)
-        out.append(pg.reshape(p.shape) * g.weight[:, None] + g.bias[:, None])
-    return TimeShards(out, x.dim)
+        n = float(self.length) if self.count is None else self.count.to(self.dev0).to(acc).reshape(-1, 1, 1, 1)
+        return s / (n * vs[0].shape[2])
 
 
 # ---------------------------------------------------------------- models
@@ -549,28 +544,13 @@ def _encoder_stage_unfused(encs, st: int, x: TimeShards, L) -> TimeShards:
     """A wider encoder stage: each chain on each block plus the tower's halo,
     then the chained GroupNorms with their statistics summed over the blocks."""
     e0 = encs[0]
-    nk = len(e0.rks)
-    halo = tower_halo(e0.rks, e0.rds, e0.config.resblock)
-    ext, offs = with_halo(x, halo)
-    rs = [[] for _ in range(nk)]
+    ext, offs = with_halo(x, tower_halo(e0.rks, e0.rds, e0.config.resblock))
+    rs = [[] for _ in e0.rks]
     for e, p, off, (a, b) in zip(encs, ext, offs, x.spans):
         mask = None if L is None else frame_mask(L.to(p.device) - (a - off), p.shape[2]).to(p.dtype)
         for g, rb in enumerate(e.stage(st)[0]):
             rs[g].append(rb(p, mask).narrow(2, off, b - a))
-    masks = _own_masks(x, L)
-    xs = None
-    for g in range(nk):
-        v = TimeShards(rs[g]) if xs is None else add(xs, TimeShards(rs[g]))
-        xs = group_norm([e.stage(st)[1][g] for e in encs], v, masks, L)
-        xs = TimeShards([masked(p, m) for p, m in zip(xs.parts, masks or [None] * len(xs.parts))])
-    return xs.map(lambda p: p / nk)
-
-
-def _own_masks(x: TimeShards, L) -> Optional[List[torch.Tensor]]:
-    """Each block's ``[B, 1, t]`` frame mask of the global valid lengths ``L``."""
-    if L is None:
-        return None
-    return [frame_mask(L.to(p.device) - a, p.shape[2]).to(p.dtype) for p, (a, _) in zip(x.parts, x.spans)]
+    return norm_chain([TimeShards(r) for r in rs], e0.stage(st)[1], TimeBlocks(x, L))
 
 
 def hifigan_encode(encs, x: TimeShards, lengths=None) -> TimeShards:
@@ -579,17 +559,12 @@ def hifigan_encode(encs, x: TimeShards, lengths=None) -> TimeShards:
     samples (the length-masked encode)."""
     e0 = encs[0]
     L = None if lengths is None else torch.as_tensor(lengths).reshape(-1).long().cpu()
-
-    def mask(v: TimeShards) -> TimeShards:
-        masks = _own_masks(v, L)
-        return v if masks is None else TimeShards([p * m for p, m in zip(v.parts, masks)])
-
-    x = mask(conv1d([e.conv_pre for e in encs], x))
+    x = conv1d([e.conv_pre for e in encs], x)
+    x = TimeBlocks(x, L).masked(x)
     for st, (u, k) in enumerate(e0.ups_cfg):
         x = conv1d([e.ups[st] for e in encs], x.map(lrelu))
-        if L is not None:
-            L = (L + 2 * ((k - u) // 2) - k) // u + 1
-            x = mask(x)
+        L = None if L is None else strided_length(L, k, u)
+        x = TimeBlocks(x, L).masked(x)
         x = (_encoder_stage_gn_fused if e0.fused_stage(st) else _encoder_stage_unfused)(encs, st, x, L)
     return conv1d([e.conv_post for e in encs], x.map(lambda p: lrelu(p, 0.01)))
 

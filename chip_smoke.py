@@ -2883,30 +2883,16 @@ def _encoder_captures(model, run):
     return tokens, caps
 
 
-def _groupnorm_f32_forward(self, x, mask=None, count=None, segments=None):
-    """``GroupNormTorch.forward`` with f32 statistics on every device, as the
-    port had it before its card sums of f32 inputs went to f64."""
-    if segments is not None:
-        return self.segmented(x, segments, acc=torch.float32)
-    B, C, T = x.shape
-    xg = x.reshape(B, self.num_groups, C // self.num_groups, T)
-    if mask is None:
-        mean = xg.mean(dim=(2, 3), keepdim=True)
-        var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
-    else:
-        m, xf = mask.float()[:, None], xg.float()
-        n = (count.float() * (C // self.num_groups)).reshape(B, 1, 1, 1)
-        mean = (xf * m).sum(dim=(2, 3), keepdim=True) / n
-        var = ((xf - mean).square() * m).sum(dim=(2, 3), keepdim=True) / n
-        mean, var = mean.to(x.dtype), var.to(x.dtype)
-    xg = (xg - mean) * torch.rsqrt(var + self.epsilon)
-    return xg.reshape(B, C, T) * self.weight[:, None] + self.bias[:, None]
+def _f32_accumulation(self, x, frames):
+    """``GroupNormTorch.accumulation`` with f32 statistics on every device, as
+    the port had them before its card sums of f32 inputs went to f64."""
+    return torch.float32 if frames.mask is not None else None
 
 
 def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extract) -> dict:
     """What f64 GroupNorm statistics cost corpus tokenization: ``phase_extract``
     with ``GroupNormTorch`` as it is (f32 inputs on the card sum in f64) and
-    with f32 statistics (:func:`_groupnorm_f32_forward`), after a warm-up run,
+    with f32 statistics (:func:`_f32_accumulation`), after a warm-up run,
     in the order f32, f64, f64, f32; for each run the batched run's audio
     seconds per wall second, its peak memory and the token mismatch batched
     vs one file a call. On the card, then, the batched masked encode of the
@@ -2914,11 +2900,11 @@ def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extra
     ``iters``) and peak memory."""
     from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
 
-    f64_forward, runs, encodes, shape = GroupNormTorch.forward, [], [], None
+    f64_accumulation, runs, encodes, shape = GroupNormTorch.accumulation, [], [], None
     order = ("f32", "f64", "f64", "f32")
     try:
         for stats in ("warm-up",) + order:
-            GroupNormTorch.forward = _groupnorm_f32_forward if stats == "f32" else f64_forward
+            GroupNormTorch.accumulation = _f32_accumulation if stats == "f32" else f64_accumulation
             r = phase_extract(device, bucket_seconds=bucket_seconds, **extract)
             runs.append(dict(stats=stats, audio_s_per_s=r.get("audio_seconds_per_wall_second"),
                              peak_mem_gib=r.get("peak_mem_gib"), token_mismatch=r["token_mismatch"]))
@@ -2931,7 +2917,7 @@ def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extra
                 batch[i, : len(w)] = torch.from_numpy(w)
             batch, lens, shape = batch.to(model.device), torch.from_numpy(lengths), list(batch.shape)
             for stats in order:
-                GroupNormTorch.forward = _groupnorm_f32_forward if stats == "f32" else f64_forward
+                GroupNormTorch.accumulation = _f32_accumulation if stats == "f32" else f64_accumulation
                 with torch.no_grad():
                     model.encode(batch, lengths=lens)
                     torch.cuda.synchronize()
@@ -2939,7 +2925,7 @@ def phase_extract_groupnorm(device="cuda", bucket_seconds=10.0, iters=5, **extra
                     ms = time_ms(lambda: model.encode(batch, lengths=lens), iters, warmup=0)
                 encodes.append(dict(stats=stats, encode_ms=ms, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30))
     finally:
-        GroupNormTorch.forward = f64_forward
+        GroupNormTorch.accumulation = f64_accumulation
     print(f"[extract_groupnorm] {json.dumps(runs[1:])}")
     if encodes:
         print(f"[extract_groupnorm] the batched masked encode of {shape}: {json.dumps(encodes)} ({nvidia_smi()})")
@@ -4340,7 +4326,8 @@ def _seq_encoder_stage_diffs(model, wav, devices) -> list:
             unit //= u
             if not enc.fused_stage(st):
                 gn, r0 = enc.stage(st)[1][0], enc.stage(st)[0][0](y)
-                row["group_norm"] = diff(sequence.group_norm([gn] * n, split(r0, unit)), gn(r0))
+                r0s = split(r0, unit)
+                row["group_norm"] = diff(gn(r0s, sequence.TimeBlocks(r0s)), gn(r0))
             x = enc.stage_forward(st, y)
             fn = sequence._encoder_stage_gn_fused if enc.fused_stage(st) else sequence._encoder_stage_unfused
             row["stage"] = diff(fn(encs, st, split(y, unit), None), x)

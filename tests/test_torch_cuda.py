@@ -915,7 +915,7 @@ def test_masked_groupnorm_of_a_padded_row_equals_its_exact_length(cuda):
     its exact length (the wide HiFi-Codec encoder stages of a batched encode;
     ROADMAP.md Queue 3 item 3)."""
     dtype = torch.float32
-    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, frame_mask
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, Padded
 
     gn = GroupNormTorch(8, 128, epsilon=1e-6)
     with torch.no_grad():
@@ -931,7 +931,7 @@ def test_masked_groupnorm_of_a_padded_row_equals_its_exact_length(cuda):
         batch[i, :, : r.shape[1]] = r
     count = torch.tensor(lengths, device=cuda)
     with torch.no_grad():
-        padded = gn(batch, frame_mask(count, width).to(dtype), count)
+        padded = gn(batch, Padded(count, None, batch))
         for i, r in enumerate(rows):
             exact = gn(r[None])
             assert torch.equal(padded[i, :, : r.shape[1]], exact[0]), i

@@ -220,12 +220,12 @@ def test_chip_smoke_extract_stages_rehearsal():
 
 
 @pytest.mark.parametrize("masked", [False, True])
-def test_chip_smoke_groupnorm_f32_statistics_match_the_module_on_the_cpu(masked):
-    """``chip_smoke._groupnorm_f32_forward`` (the f32 statistics that
-    ``phase_extract_groupnorm`` times against the f64 ones) is
-    ``GroupNormTorch.forward`` bit for bit on the CPU, where the module keeps
-    f32 sums, with and without a length mask."""
-    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
+def test_chip_smoke_groupnorm_f32_statistics_match_the_module_on_the_cpu(monkeypatch, masked):
+    """``GroupNormTorch`` with ``chip_smoke._f32_accumulation`` (the f32
+    statistics that ``phase_extract_groupnorm`` times against the f64 ones)
+    is its forward bit for bit on the CPU, where the module keeps f32 sums,
+    with and without a length mask."""
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, Padded
 
     gn = GroupNormTorch(4, 16)
     g = torch.Generator().manual_seed(0)
@@ -233,8 +233,7 @@ def test_chip_smoke_groupnorm_f32_statistics_match_the_module_on_the_cpu(masked)
         gn.weight.copy_(torch.randn(16, generator=g))
         gn.bias.copy_(torch.randn(16, generator=g))
         x = torch.randn((3, 16, 50), generator=g)
-        kw = {}
-        if masked:
-            count = torch.tensor([50, 31, 7])
-            kw = dict(mask=(torch.arange(50)[None] < count[:, None]).float()[:, None], count=count)
-        assert torch.equal(chip_smoke._groupnorm_f32_forward(gn, x, **kw), gn(x, **kw))
+        frames = Padded(torch.tensor([50, 31, 7]), None, x) if masked else Padded()
+        want = gn(x, frames)
+        monkeypatch.setattr(GroupNormTorch, "accumulation", chip_smoke._f32_accumulation)
+        assert torch.equal(gn(x, frames), want)

@@ -29,13 +29,13 @@ def test_chip_smoke_extract_groupnorm_rehearsal():
     """chip_smoke's opt-in ``extract_groupnorm`` at a tiny width on the CPU: a
     warm-up and four corpus tokenizations, f32 and f64 statistics in turn,
     each token for token equal batched and one file a call, and
-    ``GroupNormTorch.forward`` restored after it."""
+    ``GroupNormTorch.accumulation`` restored after it."""
     from academicodec_tpu_torch.nn.hifigan import GroupNormTorch
 
-    forward = GroupNormTorch.forward
+    accumulation = GroupNormTorch.accumulation
     tiny = dict(TINY, n_codes=64)
     r = chip_smoke.phase_extract_groupnorm("cpu", n_files=2, min_seconds=0.1, max_seconds=0.2, bucket_seconds=0.2,
                                            lm_width=dict(dim=16, num_heads=2, num_layers=1, past_context=8), **tiny)
     assert [run["stats"] for run in r["runs"]] == ["f32", "f64", "f64", "f32"]
     assert all(run["token_mismatch"] == 0.0 and run["audio_s_per_s"] is None for run in r["runs"])
-    assert GroupNormTorch.forward is forward
+    assert GroupNormTorch.accumulation is accumulation

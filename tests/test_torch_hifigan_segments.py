@@ -24,7 +24,7 @@ import chip_smoke
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.presets import HIFICODEC_PRESETS
 from academicodec_tpu_torch.nn import hifigan
-from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANEncoder, Segments, frame_mask, stage_reach
+from academicodec_tpu_torch.nn.hifigan import HiFiCodecConfig, HiFiGANEncoder, Padded, Segments, frame_mask, stage_reach
 from academicodec_tpu_torch.utils import profiling
 
 # encoder stages of 32 and 64 channels (K4's plain version) and of 128 and 256
@@ -174,7 +174,7 @@ def test_segments_lay_out_and_sum_each_row():
     v = torch.arange(2 * seg.N, dtype=torch.float64).reshape(2, seg.N) + 1
     want = torch.stack([torch.stack([v[g, o:o + n].sum() for o, n in zip(seg.offsets, seg.lengths)]) for g in range(2)])
     assert torch.equal(seg.sums(v), want)
-    assert torch.equal(seg.per_frame(want)[:, 0, seg.offsets[2]], want[:, 2])
+    assert torch.equal(seg.spread(want, None)[:, 0, seg.offsets[2]], want[:, 2])
 
 
 def test_segmented_groupnorm_equals_the_masked_groupnorm_per_row():
@@ -191,9 +191,36 @@ def test_segmented_groupnorm_equals_the_masked_groupnorm_per_row():
     x = (torch.randn(3, 64, T) + 0.3) * mask
     seg = Segments(lengths, L, 5, T)
     with torch.no_grad():
-        padded = gn(x, mask, L) * mask
-        row = gn(seg.gather(x), segments=seg) * seg.valid.float()
+        padded = gn(x, Padded(L, None, x)) * mask
+        row = gn(seg.gather(x), seg) * seg.valid.float()
     torch.testing.assert_close(seg.scatter(row), padded, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_time_blocks_groupnorm_equals_the_padded_groupnorm(masked):
+    """``GroupNormTorch`` over a padded batch cut into time blocks
+    (``parallel/sequence.TimeBlocks``: each block's own frames, their sums
+    added on the first block's device, the global count) against the padded
+    layout over the whole batch, in f32: every frame (unmasked) or the valid
+    frames (masked) agree to f32 rounding (the same statistics summed in
+    another order)."""
+    from academicodec_tpu_torch.parallel.sequence import TimeBlocks, split_time
+
+    gn = hifigan.GroupNormTorch(4, 64)
+    with torch.no_grad():
+        gn.weight.normal_(1.0, 0.1)
+        gn.bias.normal_(0.0, 0.1)
+    T = 50
+    L = torch.tensor([50, 7, 33]) if masked else None
+    frames = Padded(L, None, torch.empty(3, 64, T)) if masked else Padded()
+    x = frames.masked(torch.randn(3, 64, T) + 0.3)
+    blocks = split_time(x, [(0, 12), (12, 13), (13, 40), (40, T)], ["cpu"] * 4)
+    with torch.no_grad():
+        padded = frames.masked(gn(x, frames))
+        sharded = TimeBlocks(blocks, L)
+        out = sharded.masked(gn(blocks, sharded))
+    assert [p.shape[2] for p in out.parts] == [12, 1, 27, 10]
+    torch.testing.assert_close(out.gather(), padded, rtol=1e-5, atol=1e-6)
 
 
 def test_the_tokenization_cells_counters():
@@ -210,7 +237,7 @@ def test_the_tokenization_cells_counters():
             if not enc.fused_stage(i):
                 L = Lh.to("meta")
                 x = torch.empty(16, enc.config.encoder_base_channels * 2 ** (i + 1), T, device="meta")
-                assert enc.stage_forward(i, x, frame_mask(L, T).float(), L, Lh).shape == x.shape
+                assert enc.stage_forward(i, x, hifigan.Padded(L, Lh, x)).shape == x.shape
     frames, computed = profiling.total("encoder.frames").count, profiling.total("encoder.frames_computed").count
     assert stage_reach(enc.rks, enc.rds) == 25
     want, L = 0, torch.tensor(lengths)

@@ -501,9 +501,9 @@ def test_gn_tower_plain_lengths_equal_exact_length_calls():
 
 def test_gn_tower_plain_lengths_match_the_unfused_masked_stage():
     """The masked K4 plain version equals the port's unfused masked stage
-    (ResBlock1 with a mask, GroupNormTorch with mask and count, JAX
+    (ResBlock1 with a mask, GroupNormTorch over the masked padded layout, JAX
     nn/hifigan.py:151-184, 239-280) on the same weights."""
-    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, ResBlock1
+    from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, Padded, ResBlock1
 
     ks, dss = (11, 7, 3), ((1, 3, 5),) * 3
     C, T = 32, 260
@@ -521,7 +521,7 @@ def test_gn_tower_plain_lengths_match_the_unfused_masked_stage():
     with torch.no_grad():
         for blk, gn in zip(blocks, norms):
             r = blk(x, mask)
-            xs = gn(r if xs is None else xs + r, mask, L) * mask
+            xs = gn(r if xs is None else xs + r, Padded(L, None, x)) * mask
         ref = xs / len(ks)
         ws, bs = zip(*(blk.weights_and_biases() for blk in blocks))
         out = rb.resblock_tower_gn(x, ws, bs, torch.stack([n.weight for n in norms]),

@@ -37,7 +37,7 @@ from academicodec_tpu.utils.torch_import import import_hificodec
 from academicodec_tpu_torch.codec.compress import SoundStreamCompressor
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.soundstream import SoundStream
-from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, HiFiCodecConfig, ResBlock1
+from academicodec_tpu_torch.nn.hifigan import GroupNormTorch, HiFiCodecConfig, Padded, ResBlock1
 from academicodec_tpu_torch.ops.cuda import resblock as rb_ops
 from academicodec_tpu_torch.ops.padding import pad1d
 from academicodec_tpu_torch.parallel import sequence
@@ -238,11 +238,12 @@ def test_k4_shard_passes_are_groupnorm_over_the_whole(masked):
     ranges, tiles = sequence.k4_shard_tiles(spans, N, rb_ops.tower_halo(ks, dss), TT)
     assert [t for a, b in tiles for t in range(a, b)] == list(range(-(-N // TT))) and tiles[1][0] == tiles[1][1]
     with torch.no_grad():
-        mask = None if L is None else rb_ops.frame_mask(L, N).to(x.dtype)
+        frames = Padded(L, None, x) if masked else Padded()
+        mask = frames.mask
         rs = [rb(x * (1 if mask is None else mask), mask) for rb in blocks]
         xs = None
         for r, gn in zip(rs, norms):
-            xs = gn(r if xs is None else xs + r, mask, L)
+            xs = gn(r if xs is None else xs + r, frames)
             xs = xs if mask is None else xs * mask
         ref = xs / len(ks)
         whole_tiles = rb_ops.tile_moments_plain(rs, TT)
