@@ -122,7 +122,7 @@ class VQVAE(nn.Module):
         with profiling.span("codec.quantize"):
             q, loss_q, codes = self.quantizer(c.transpose(1, 2), training=training)
         with profiling.span("codec.decoder"):
-            y = self.generator(q.transpose(1, 2).contiguous())
+            y = self.generator(q.transpose(1, 2))
         return y[:, 0, :], loss_q, codes
 
     def w8a8_convs(self) -> Dict[str, Conv1d]:
@@ -170,7 +170,7 @@ class VQVAE(nn.Module):
         with profiling.span("codec.dequantize"):
             q = self.quantizer.embed(codes)
         with profiling.span("codec.decoder"):
-            return self.generator(q.transpose(1, 2).contiguous())[:, 0, :]
+            return self.generator(q.transpose(1, 2))[:, 0, :]
 
     @torch.no_grad()
     @profiling.span("codec.decode")

@@ -28,6 +28,22 @@ kernel, then ``nn/norm.py`` on the conv's output, keys ``conv.norm.weight``
 / ``conv.norm.bias``); a conv-transpose with either mode keeps a plain
 kernel and no norm, as the JAX package's ``ConvTranspose1d`` does.
 
+``Conv1d`` and ``ConvTranspose1d`` also take a 4-D ``[B, C, 1, T]`` input,
+the layout in which the HiFi-Codec wide stages run bf16 on the card
+(``nn/hifigan.py``): a channels-last tensor, each frame's channels
+contiguous, which cuDNN's 16-bit kernels read and write as they are. It runs
+as ``F.conv2d`` / ``F.conv_transpose2d`` with the kernel viewed as ``[O, I,
+1, K]`` (``[I, O, 1, K]``) and stored channels-last, stride, dilation and
+padding on the time axis, and gives a channels-last ``[B, O, 1, T']``
+(``F.conv1d`` would make a 3-D view of that layout contiguous first). A
+dilated conv runs as the undilated conv of its interleaved phases
+(:func:`conv_phases`): for the dilated 2-D conv at 512 channels (k 11 at d
+3 and 5, k 7 at d 5) cuDNN's heuristics pick a direct kernel ~600x slower
+than the phases' implicit GEMM (89-139 ms against 0.15-0.21 ms at 16 x 750
+frames; H100, cuDNN 9.22). Each such call counts ``towers.cl_convs``
+(``utils/profiling.py``). A 3-D input runs the 1-D conv as before; a
+``w8a8`` conv takes 3-D inputs only.
+
 ``Conv1d(w8a8=True)`` is the W8A8 int8 serving conv of ``ops/int8.py``: its
 static activation scale, ``act_amax`` (max |input|), is recorded by a
 calibration pass (``calibrating = True``, full-precision conv meanwhile;
@@ -58,6 +74,7 @@ import torch.nn.functional as F
 from academicodec_tpu_torch.nn.norm import POST_NORMS
 from academicodec_tpu_torch.ops.int8 import act_scale_from_amax, conv1d_w8a8
 from academicodec_tpu_torch.ops.padding import get_extra_padding_for_conv1d, pad1d, unpad1d
+from academicodec_tpu_torch.utils import profiling
 
 # norms of a kernel itself; the S-convs also take the post-conv norms of nn/norm.py
 KERNEL_NORMS = ("none", "weight_norm", "spectral_norm")
@@ -138,6 +155,32 @@ def _channel_norm(v: torch.Tensor) -> torch.Tensor:
     return v.square().sum(dim=tuple(range(1, v.dim())), keepdim=True).sqrt()
 
 
+def channels_last_kernel(w: torch.Tensor, axis: int = 2) -> torch.Tensor:
+    """A 1-D conv kernel ``[O, I, K]`` as the ``[O, I, 1, K]`` channels-last kernel
+    of a conv over ``[B, C, 1, T]`` (module docstring); ``axis`` 3: ``[O, I, K, 1]``."""
+    return w.unsqueeze(axis).contiguous(memory_format=torch.channels_last)
+
+
+def conv_phases(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor], dilation: int, padding: int,
+                groups: int = 1) -> torch.Tensor:
+    """The conv of ``x [B, C, 1, T]`` channels-last with the kernel ``w [O, I, K]``
+    dilated by ``d``, stride 1 and ``padding`` a multiple of ``d``, as an undilated
+    ``(K, 1)`` conv over the view ``[B, C, T / d, d]``: frame ``j d + r`` is row
+    ``j`` of column ``r``, so each column is one phase of the dilated conv, and
+    the rows' zero padding is the frames' (``padding / d`` rows each side). Where
+    ``d`` does not divide ``T``, zero frames pad the end (the frames the conv's
+    own zero padding reads there) and the output is cropped to ``T``."""
+    B, C, _, T = x.shape
+    d = dilation
+    Tp = -(-T // d) * d
+    if Tp != T:
+        x = F.pad(x, (0, Tp - T))
+    y = F.conv2d(x.view(B, C, Tp // d, d), channels_last_kernel(w, 3), bias, padding=(padding // d, 0),
+                 groups=groups)
+    y = y.view(B, y.shape[1], 1, Tp)
+    return y if Tp == T else y[..., :T].contiguous(memory_format=torch.channels_last)
+
+
 class Conv1d(_NormedWeight):
     """Cross-correlation over ``[B, C, T]`` with a ``[O, I/groups, K]`` kernel
     and ``padding`` zeros on each side (the HiFi-Codec convs' fixed "same"
@@ -172,7 +215,19 @@ class Conv1d(_NormedWeight):
         self._init_weight(generator, self.fan_in, normal_std)
 
     def forward(self, x: torch.Tensor, advance: bool = False) -> torch.Tensor:
-        """``advance``: step a spectral norm's ``u`` in this call (module docstring)."""
+        """``x [B, C, T]``, or ``[B, C, 1, T]`` channels-last (module docstring);
+        ``advance``: step a spectral norm's ``u`` in this call."""
+        if x.dim() == 4:
+            if self.w8a8:
+                raise ValueError("a w8a8 Conv1d takes [B, C, T] inputs only, not a channels-last [B, C, 1, T]")
+            profiling.count("towers.cl_convs")
+            w = self.resolved_weight(advance)
+            if self.dilation > 1 and self.stride == 1 and self.padding % self.dilation == 0:
+                return conv_phases(x, w, self.bias, self.dilation, self.padding, self.groups)
+            return F.conv2d(
+                x, channels_last_kernel(w), self.bias, stride=(1, self.stride),
+                padding=(0, self.padding), dilation=(1, self.dilation), groups=self.groups,
+            )
         if self.w8a8:
             if self.calibrating:  # record max |x|, convolve at full precision
                 amax = x.detach().abs().max().float()
@@ -222,6 +277,13 @@ class ConvTranspose1d(_NormedWeight):
         self._init_weight(generator, self.fan_in, normal_std)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, C, T]``, or ``[B, C, 1, T]`` channels-last (module docstring)."""
+        if x.dim() == 4:
+            profiling.count("towers.cl_convs")
+            return F.conv_transpose2d(
+                x, channels_last_kernel(self.resolved_weight()), self.bias, stride=(1, self.stride),
+                padding=(0, self.padding), groups=self.groups,
+            )
         return F.conv_transpose1d(
             x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding, groups=self.groups
         )

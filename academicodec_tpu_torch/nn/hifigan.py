@@ -44,6 +44,20 @@ threshold N serves what JAX's ``fused_resblock=True, int8_min_channels=N``
 serves (JAX nn/hifigan.py:403-451, 670-684). The causal generator has no
 int8 variant.
 
+In 16-bit on the card, the stages wider than ``FUSED_MAX_CHANNELS`` run on a
+channels-last ``[B, C, 1, T]`` activation (:func:`channels_last_stages`):
+cuDNN's 16-bit convs are NHWC kernels, and on a ``[B, C, T]`` tensor each
+conv reorders its input to channels-last and its output back. The encoder
+enters the layout in the lrelu in front of its first wide stage's strided
+conv and leaves it as a view after ``conv_post`` (its output ``[B, D, T]``
+has each frame's channels contiguous, so ``c.transpose(1, 2)`` is ``[B, T,
+D]`` with no copy); the generator takes the decode's ``[B, T, D]`` latents as
+a ``[B, D, 1, T]`` view and hands its first fused stage a contiguous ``[B,
+C, T]``. Every conv, lrelu, residual add and GroupNorm in between keeps the
+layout. f32, length-masked encodes, int8 models and causal generators keep
+``[B, C, T]``. The layout changes count ``towers.layout_copies`` and the
+convs ``towers.cl_convs`` (``nn/conv.py``, ``utils/profiling.py``).
+
 ``HiFiCodecConfig(causal=True)`` builds the causal generator of the JAX
 package: every conv left-padded with zeros (``SConv1d``), every upsample
 conv-transpose right-trimmed (``SConvTranspose1d``), so that tokens -> wav
@@ -88,6 +102,46 @@ def lrelu(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
 
 def masked(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
     return x if mask is None else x * mask
+
+
+def on_card(x: torch.Tensor) -> bool:
+    return x.is_cuda
+
+
+def channels_last_stages(x: torch.Tensor, int8: bool, lengths=None) -> bool:
+    """Whether the wide stages over ``x`` run channels-last (module docstring):
+    on the card, in a 16-bit dtype (cuDNN's f32 kernels are NCHW kernels), no
+    int8 conv in the model and no lengths (the frame layouts of a
+    length-masked encode are ``[B, C, T]``)."""
+    return on_card(x) and x.dtype in (torch.bfloat16, torch.float16) and not int8 and lengths is None
+
+
+def lrelu_channels_last(x: torch.Tensor, slope: float = LRELU_SLOPE) -> torch.Tensor:
+    """``lrelu(x [B, C, T])`` written straight into a channels-last ``[B, C, 1, T]``
+    (in two passes where autograd records it: ``out=`` records no gradient)."""
+    profiling.count("towers.layout_copies")
+    x = x.unsqueeze(2)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return lrelu(x.contiguous(memory_format=torch.channels_last), slope)
+    return torch.ops.aten.leaky_relu.out(x, slope, out=torch.empty_like(x, memory_format=torch.channels_last))
+
+
+def channels_last(x: torch.Tensor) -> torch.Tensor:
+    """``x [B, C, T]`` as a channels-last ``[B, C, 1, T]``: a view where each
+    frame's channels are contiguous (``[B, T, C]`` transposed), else a copy."""
+    x = x.unsqueeze(2)
+    if x.is_contiguous(memory_format=torch.channels_last):
+        return x
+    profiling.count("towers.layout_copies")
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def channels_first(x: torch.Tensor) -> torch.Tensor:
+    """A channels-last ``[B, C, 1, T]`` as a contiguous ``[B, C, T]``; a 3-D ``x`` as it is."""
+    if x.dim() == 3:
+        return x
+    profiling.count("towers.layout_copies")
+    return x.squeeze(2).contiguous()
 
 
 def _records_grad(x: torch.Tensor, *modules: Optional[nn.Module]) -> bool:
@@ -396,8 +450,13 @@ class GroupNormTorch(nn.Module):
         mean, var = mean.to(parts[0].dtype), var.to(parts[0].dtype)
         scale = torch.rsqrt(var + self.epsilon)
         ys = [((v - frames.spread(mean, v)) * frames.spread(scale, v)).reshape(p.shape)
-              * self.weight[:, None].to(p.device) + self.bias[:, None].to(p.device) for v, p in zip(xg, parts)]
+              * self._per_channel(self.weight, p) + self._per_channel(self.bias, p) for v, p in zip(xg, parts)]
         return frames.join(ys, x)
+
+    @staticmethod
+    def _per_channel(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """``w [C]`` broadcast over ``p [B, C, T]`` or ``[B, C, 1, T]``."""
+        return w.reshape((-1,) + (1,) * (p.dim() - 2)).to(p.device)
 
 
 class PackedStage:
@@ -470,6 +529,7 @@ class HiFiGANEncoder(nn.Module):
         nk = len(self.rks)
         self.conv_pre = Conv1d(1, base, 7, padding=3, norm=norm)
         ups, resblocks, norms = [], [], []
+        self.int8 = False
         for i, (u, k) in enumerate(self.ups_cfg):
             ch = base * 2 ** (i + 1)
             if ch < 16:
@@ -479,6 +539,7 @@ class HiFiGANEncoder(nn.Module):
                 )
             ups.append(Conv1d(base * 2 ** i, ch, k, stride=u, padding=(k - u) // 2, norm=norm))
             w8a8 = stage_w8a8(ch, int8_min_channels)
+            self.int8 |= w8a8
             for j in range(nk):
                 resblocks.append(_resblock_cls(h)(ch, self.rks[j], self.rds[j], norm=norm, w8a8=w8a8))
                 norms.append(GroupNormTorch(ch // 16, ch, epsilon=1e-6))
@@ -508,27 +569,32 @@ class HiFiGANEncoder(nn.Module):
     def forward(self, x: torch.Tensor, lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x [B, 1, T]``; ``lengths [B]``: the valid samples of each row of a
         zero-padded batch (the length-masked encode; frames past a row's
-        valid output frames are not meaningful)."""
+        valid output frames are not meaningful). Returns ``[B, D, frames]``, each
+        frame's channels contiguous where the wide stages ran channels-last."""
         x = self.conv_pre(x)
         frames = ALL_FRAMES
         if lengths is not None:
             host = torch.as_tensor(lengths).reshape(-1).long() if on_host(lengths) else None
             frames = Padded(torch.as_tensor(lengths, device=x.device).reshape(-1).long(), host, x)
         x = frames.masked(x)  # the conv's bias leaks into the pad frames
+        cl = channels_last_stages(x, self.int8, lengths)
         for i, (ups, (u, k)) in enumerate(zip(self.ups, self.ups_cfg)):
-            x = ups(lrelu(x))
+            # the first wide stage's strided conv takes the channels-last layout
+            enter = cl and x.dim() == 3 and not self.fused_stage(i)
+            x = ups(lrelu_channels_last(x) if enter else lrelu(x))
             if frames.count is not None:
                 host = None if frames.host is None else strided_length(frames.host, k, u)
                 frames = Padded(strided_length(frames.count, k, u), host, x)
             x = frames.masked(x)  # rebound: the unmasked output must not stay alive through the stage
             x = self.stage_forward(i, x, frames)
-        return self.conv_post(lrelu(x, 0.01))  # default torch slope (models.py:417)
+        y = self.conv_post(lrelu(x, 0.01))  # default torch slope (models.py:417)
+        return y.squeeze(2) if y.dim() == 4 else y
 
     def stage_forward(self, i: int, x: torch.Tensor, frames: Padded = ALL_FRAMES) -> torch.Tensor:
         """Stage ``i``'s resblocks and chained GroupNorms over ``x``, the output of
-        its strided conv, laid out as ``frames`` says. Given host counts, an
-        unfused stage runs on :class:`Segments` when they are fewer frames than
-        the batch."""
+        its strided conv (``[B, C, T]``, or ``[B, C, 1, T]`` channels-last), laid
+        out as ``frames`` says. Given host counts, an unfused stage runs on
+        :class:`Segments` when they are fewer frames than the batch."""
         blocks, norms = self.stage(i)
         if self.fused_stage(i) and not _records_grad(x, *blocks, *norms):
             return resblock_tower_gn(
@@ -537,7 +603,7 @@ class HiFiGANEncoder(nn.Module):
                 num_groups=x.shape[1] // 16, epsilon=1e-6,
                 lengths=frames.count if frames.host is None else frames.host,
             )
-        B, _, T = x.shape
+        B, T = x.shape[0], x.shape[-1]
         layout = frames
         if frames.host is not None and not _records_grad(x, *blocks, *norms):
             lengths, gap = frames.host.tolist(), stage_reach(self.rks, self.rds)
@@ -569,6 +635,7 @@ class HiFiGANGenerator(nn.Module):
         if int8_min_channels and h.causal:
             raise ValueError("int8 serving has no causal variant")
         nk = len(h.resblock_kernel_sizes)
+        self.int8 = False
         causal = dict(causal=True, pad_mode="zero", norm=norm)
         if h.causal:
             self.conv_pre = SConv1d(h.latent_dim, h.upsample_initial_channel, 7, **causal)
@@ -584,6 +651,7 @@ class HiFiGANGenerator(nn.Module):
             else:
                 ups.append(ConvTranspose1d(cin, cout, k, stride=u, padding=(k - u) // 2, norm=norm))
             w8a8 = stage_w8a8(cout, int8_min_channels)
+            self.int8 |= w8a8
             for j in range(nk):
                 resblocks.append(_resblock_cls(h)(cout, h.resblock_kernel_sizes[j], h.resblock_dilation_sizes[j],
                                                   norm=norm, causal=h.causal, w8a8=w8a8))
@@ -619,7 +687,14 @@ class HiFiGANGenerator(nn.Module):
                                    tuple(tuple(d) for d in h.resblock_dilation_sizes), h.resblock, post, pre)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, latent_dim, frames]`` -> ``[B, 1, T]``. Where the wide stages run
+        channels-last, ``x`` with each frame's channels contiguous (the decode's
+        ``q.transpose(1, 2)``) enters the layout as a view."""
         nk = len(self.config.resblock_kernel_sizes)
+        if channels_last_stages(x, self.int8) and not self.config.causal and not self.fused_stage(0):
+            x = channels_last(x)
+        else:
+            x = x.contiguous()
         x = self.conv_pre(x)
         n_up = len(self.ups)
         for i, ups in enumerate(self.ups):
@@ -632,7 +707,7 @@ class HiFiGANGenerator(nn.Module):
                 pre = ups if self.fused_pre else None
                 if pre is None:
                     x = ups(lrelu(x))
-                x = resblock_tower(x, self.packed_tower(i, post, pre), post_tanh=post is not None)
+                x = resblock_tower(channels_first(x), self.packed_tower(i, post, pre), post_tanh=post is not None)
                 if post is not None:
                     return x
                 continue
@@ -642,7 +717,8 @@ class HiFiGANGenerator(nn.Module):
                 r = rb(x)
                 xs = r if xs is None else xs + r
             x = xs / nk
-        return torch.tanh(self.conv_post(lrelu(x)))
+        y = torch.tanh(self.conv_post(lrelu(x)))
+        return y.squeeze(2) if y.dim() == 4 else y
 
     def stream(self, x: torch.Tensor, state=None):
         """One chunk of latent frames ``[B, latent_dim, frames]`` (any count) and

@@ -11,7 +11,9 @@ public call), ``codec.upload``, ``codec.encoder``, ``codec.quantize``,
 one count and its host seconds (``time.perf_counter_ns``) to the process's
 registry; ``count(name, n)`` adds to a plain counter there (``k1.launches``
 ... ``k4.launches``, ``p1.launches``, ``p2.launches``, ``int8.gemms``,
-``kernels.builds``). ``totals()`` returns a snapshot, ``reset()`` clears it (or some names).
+``kernels.builds``; ``towers.cl_convs`` and ``towers.layout_copies``, the
+convs run on channels-last ``[B, C, 1, T]`` operands and the layout changes
+around them, ``nn/conv.py``, ``nn/hifigan.py``). ``totals()`` returns a snapshot, ``reset()`` clears it (or some names).
 
 Spans reach the profiler's timeline only when switched on, inside the
 :func:`spans_on` block (``trace`` switches them on for its block): each span then also opens ``torch.profiler.record_function(name)``,

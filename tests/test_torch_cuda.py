@@ -972,6 +972,101 @@ def test_segmented_encode_at_the_tokenization_cells_shapes(cuda):
         assert torch.equal(codes[b, :f], alone[0]), b
 
 
+# ---------------------------------------------------------------- HiFi-Codec wide stages channels-last
+CL_COUNTERS = ("towers.cl_convs", "towers.layout_copies")
+# bf16's near-ties flip either way between cuDNN's kernels for the two layouts: tokens equal to f32's read
+# 0.7745 [B, C, T] / 0.7759 channels-last in this test, 0.7856 / 0.7826 on another draw of 16 x 2 s (H100)
+TOKEN_AGREEMENT_SLACK = 0.01
+
+
+def _hifi_pair(cuda, seconds: float):
+    """The published HiFi-Codec in bf16 and f32 from one seed, codebooks spread
+    over the f32 latents of two clips, and 16 clips of ``seconds`` on the host."""
+    import chip_smoke
+    from academicodec_tpu_torch.api import load_codec
+
+    bf16 = load_codec("hificodec_24k_320d", device=cuda, dtype=torch.bfloat16)
+    f32 = load_codec("hificodec_24k_320d", device=cuda, dtype=torch.float32)
+    rng = np.random.default_rng(22)
+    wav = torch.from_numpy((rng.standard_normal((16, round(seconds * 24000))) * 0.1).astype(np.float32))
+    frames = chip_smoke.latent_frames(f32, wav[:2])
+    for m in (bf16, f32):
+        chip_smoke.spread_codebooks(m, frames)
+    return bf16, f32, wav
+
+
+def _nct_path(monkeypatch):
+    """The wide stages on ``[B, C, T]``, as before they ran channels-last."""
+    from academicodec_tpu_torch.nn import hifigan
+
+    monkeypatch.setattr(hifigan, "channels_last_stages", lambda *args, **kw: False)
+
+
+def _transposes_and_counts(run, n=2):
+    """Device ms a call of cuDNN's nchwToNhwc / nhwcToNchw kernels under the
+    profiler, and one call's ``towers.cl_convs`` / ``towers.layout_copies``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiling.reset(*CL_COUNTERS)
+    run()
+    torch.cuda.synchronize()
+    counts = tuple(profiling.total(c).count for c in CL_COUNTERS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    ms = sum((e.time_range.end - e.time_range.start) / 1e3 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("nchwToNhwc" in e.name or "nhwcToNchw" in e.name))
+    return ms / n, counts
+
+
+def test_channels_last_wide_stages_drop_cudnns_transposes(cuda, monkeypatch):
+    """A bf16 roundtrip at the published widths, 16 x 1 s: cuDNN's layout
+    transposes take at least 90% less device time than on the ``[B, C, T]``
+    path, and a call runs 98 convs channels-last (58 encoder, 40 generator)
+    with 2 layout changes (none on the ``[B, C, T]`` path)."""
+    model, _, wav = _hifi_pair(cuda, 1.0)
+    wav = wav.to(cuda, torch.bfloat16)
+
+    def run():
+        return model.decode(model.encode(wav))
+
+    cl_ms, cl_counts = _transposes_and_counts(run)
+    with monkeypatch.context() as mp:
+        _nct_path(mp)
+        nct_ms, nct_counts = _transposes_and_counts(run)
+    print(f"transposes ms a call: [B, C, T] {nct_ms:.4f}, channels-last {cl_ms:.4f}")
+    assert cl_counts == (98, 2) and nct_counts == (0, 0)
+    assert nct_ms > 0 and cl_ms <= 0.1 * nct_ms
+
+
+def test_channels_last_tokens_agree_with_the_f32_encode(cuda, monkeypatch):
+    """16 x 2 s at the published widths: the bf16 encode's tokens agree with the
+    f32 encode's at least as well channels-last as on the ``[B, C, T]`` path
+    (within TOKEN_AGREEMENT_SLACK of it), and its latents are as close."""
+    bf16, f32, wav = _hifi_pair(cuda, 2.0)
+    ref = f32.encode(wav)
+    with torch.no_grad():
+        lat_ref = f32.encoder(wav[:, None].to(cuda)).float()
+
+    def encode():
+        with torch.no_grad():
+            lat = bf16.encoder(wav[:, None].to(cuda, torch.bfloat16)).float()
+        return bf16.encode(wav), ((lat - lat_ref).norm() / lat_ref.norm()).item()
+
+    cl, cl_err = encode()
+    with monkeypatch.context() as mp:
+        _nct_path(mp)
+        nct, nct_err = encode()
+    agree_cl, agree_nct = ((c == ref).double().mean().item() for c in (cl, nct))
+    print(f"tokens equal to f32: [B, C, T] {agree_nct:.4f}, channels-last {agree_cl:.4f}; "
+          f"latents' relative error {nct_err:.3e}, {cl_err:.3e}")
+    assert len(torch.unique(ref)) > 8
+    assert agree_cl >= agree_nct - TOKEN_AGREEMENT_SLACK
+    assert cl_err <= 1.1 * nct_err
+
+
 # ---------------------------------------------------------------- HiFi-Codec trainer
 TRAIN_HIFI = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=64,
                   resblock_kernel_sizes=(3,), resblock_dilation_sizes=((1, 2),), encoder_base_channels=8, n_codes=64)
