@@ -7,6 +7,7 @@ from typing import Optional, Union
 import torch
 
 from academicodec_tpu_torch.models import presets
+from academicodec_tpu_torch.models.dac import DAC
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.mimi import Mimi
 from academicodec_tpu_torch.models.soundstream import SoundStream
@@ -31,12 +32,13 @@ def load_codec(
     *,
     seed: int = 0,
     **overrides,
-) -> Union[SoundStream, VQVAE, Mimi]:
+) -> Union[SoundStream, VQVAE, Mimi, DAC]:
     """Build a preset on ``device`` and load its weights.
 
     ``checkpoint`` is a reference PyTorch file (a SoundStream ``.pth``, or a
     HiFi-Codec ``g_*`` dict ``{'generator', 'encoder', 'quantizer'}``), a
-    ``state_dict`` of the port's Mimi (``models/mimi.py``), a port
+    ``state_dict`` of the port's Mimi (``models/mimi.py``) or DAC
+    (``models/dac.py``, DAC's own keys), a port
     training checkpoint of ``cli/train_encodec.py`` (``latest_<step>.pt``) or
     ``cli/train_hificodec.py`` (``state_<step>.pt``, which holds the ``g_*``
     parts), or None for random weights drawn from ``seed``. The default device is the

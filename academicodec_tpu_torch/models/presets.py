@@ -4,13 +4,15 @@ The port's copy of ``academicodec_tpu/models/presets.py``:
 ``build("encodec_24k_240d")`` gives a SoundStream, ``build("hificodec_24k_320d")``
 a HiFi-Codec VQVAE, each configured as the reference recipe trains and
 serves it (egs/*/start.sh flags and config JSONs). ``build("mimi_24k_1920d")``
-gives Kyutai's Mimi (``models/mimi.py``), which only the port has.
+gives Kyutai's Mimi (``models/mimi.py``) and ``build("dac_44k_512d")`` the
+Descript Audio Codec (``models/dac.py``), which only the port has.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Union
 
+from academicodec_tpu_torch.models.dac import DAC
 from academicodec_tpu_torch.models.hificodec import VQVAE
 from academicodec_tpu_torch.models.mimi import Mimi
 from academicodec_tpu_torch.models.soundstream import SoundStream
@@ -68,15 +70,23 @@ MIMI_PRESETS: Dict[str, dict] = {
     ),
 }
 
+DAC_PRESETS: Dict[str, dict] = {
+    # https://huggingface.co/descript/dac_44khz/blob/main/config.json; descript-audio-codec conf/final/44khz.yml
+    "dac_44k_512d": dict(
+        encoder_dim=64, encoder_rates=(2, 4, 8, 8), latent_dim=1024, decoder_dim=1536, decoder_rates=(8, 8, 4, 2),
+        n_codebooks=9, codebook_size=1024, codebook_dim=8, sample_rate=44100,
+    ),
+}
+
 # keyword arguments of the VQVAE module itself; the rest configure HiFiCodecConfig
 _VQVAE_KW = ("norm", "int8_min_channels", "device", "dtype", "seed")
 
 
 def names():
-    return sorted(list(SOUNDSTREAM_PRESETS) + list(HIFICODEC_PRESETS) + list(MIMI_PRESETS))
+    return sorted(list(SOUNDSTREAM_PRESETS) + list(HIFICODEC_PRESETS) + list(MIMI_PRESETS) + list(DAC_PRESETS))
 
 
-def build(name: str, **kwargs) -> Union[SoundStream, VQVAE, Mimi]:
+def build(name: str, **kwargs) -> Union[SoundStream, VQVAE, Mimi, DAC]:
     """Build a preset; ``kwargs`` override preset fields or pass ``device``,
     ``dtype`` and ``seed`` (and ``norm``, and HiFi-Codec's ``int8_min_channels``)
     to the model."""
@@ -88,4 +98,6 @@ def build(name: str, **kwargs) -> Union[SoundStream, VQVAE, Mimi]:
         return VQVAE(config=HiFiCodecConfig(**kw), **module_kw)
     if name in MIMI_PRESETS:
         return Mimi(**{**MIMI_PRESETS[name], **kwargs})
+    if name in DAC_PRESETS:
+        return DAC(**{**DAC_PRESETS[name], **kwargs})
     raise KeyError(f"unknown preset {name!r}; available: {names()}")

@@ -214,18 +214,20 @@ class Conv1d(_NormedWeight):
         """Torch's default uniform init, or N(0, normal_std^2) weights."""
         self._init_weight(generator, self.fan_in, normal_std)
 
-    def forward(self, x: torch.Tensor, advance: bool = False) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, advance: bool = False, *, add_bias: bool = True) -> torch.Tensor:
         """``x [B, C, T]``, or ``[B, C, 1, T]`` channels-last (module docstring);
-        ``advance``: step a spectral norm's ``u`` in this call."""
+        ``advance``: step a spectral norm's ``u`` in this call; ``add_bias`` False:
+        the conv without its bias (the caller adds it, as ``nn/dac.py``'s epilogues do)."""
+        bias = self.bias if add_bias else None
         if x.dim() == 4:
             if self.w8a8:
                 raise ValueError("a w8a8 Conv1d takes [B, C, T] inputs only, not a channels-last [B, C, 1, T]")
             profiling.count("towers.cl_convs")
             w = self.resolved_weight(advance)
             if self.dilation > 1 and self.stride == 1 and self.padding % self.dilation == 0:
-                return conv_phases(x, w, self.bias, self.dilation, self.padding, self.groups)
+                return conv_phases(x, w, bias, self.dilation, self.padding, self.groups)
             return F.conv2d(
-                x, channels_last_kernel(w), self.bias, stride=(1, self.stride),
+                x, channels_last_kernel(w), bias, stride=(1, self.stride),
                 padding=(0, self.padding), dilation=(1, self.dilation), groups=self.groups,
             )
         if self.w8a8:
@@ -239,12 +241,12 @@ class Conv1d(_NormedWeight):
                 )
             else:
                 return conv1d_w8a8(
-                    x, self.resolved_weight(), self.bias,
+                    x, self.resolved_weight(), bias,
                     act_scale_from_amax(self.act_amax.to(x.device)), stride=self.stride,
                     dilation=self.dilation, padding=(self.padding, self.padding),
                 )
         return F.conv1d(
-            x, self.resolved_weight(advance), self.bias, stride=self.stride,
+            x, self.resolved_weight(advance), bias, stride=self.stride,
             padding=self.padding, dilation=self.dilation, groups=self.groups,
         )
 
@@ -276,16 +278,18 @@ class ConvTranspose1d(_NormedWeight):
         """Torch's default uniform init, or N(0, normal_std^2) weights."""
         self._init_weight(generator, self.fan_in, normal_std)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """``x [B, C, T]``, or ``[B, C, 1, T]`` channels-last (module docstring)."""
+    def forward(self, x: torch.Tensor, *, add_bias: bool = True) -> torch.Tensor:
+        """``x [B, C, T]``, or ``[B, C, 1, T]`` channels-last (module docstring);
+        ``add_bias`` as :meth:`Conv1d.forward`'s."""
+        bias = self.bias if add_bias else None
         if x.dim() == 4:
             profiling.count("towers.cl_convs")
             return F.conv_transpose2d(
-                x, channels_last_kernel(self.resolved_weight()), self.bias, stride=(1, self.stride),
+                x, channels_last_kernel(self.resolved_weight()), bias, stride=(1, self.stride),
                 padding=(0, self.padding), groups=self.groups,
             )
         return F.conv_transpose1d(
-            x, self.resolved_weight(), self.bias, stride=self.stride, padding=self.padding, groups=self.groups
+            x, self.resolved_weight(), bias, stride=self.stride, padding=self.padding, groups=self.groups
         )
 
 

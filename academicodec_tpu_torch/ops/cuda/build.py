@@ -38,6 +38,7 @@ NVCC_FLAGS = [
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _IP = ctypes.POINTER(ctypes.c_int)
+_LL = ctypes.c_longlong
 # name -> (restype, argtypes) of every C entry point in csrc/
 _ENTRIES = {
     # x, embed, tiles scratch, enorm scratch, codes, n, d, n_q, k, stream
@@ -64,6 +65,8 @@ _ENTRIES = {
     "acad_conv_chain_i8": (_I, [_P] * 7 + [_I] * 6 + [_P]),
     # int8, C, NW, out[3]
     "acad_conv_chain_geometry": (_I, [_I] * 3 + [_IP]),
+    # x, res, bias, alpha, y, s, B, C, T, Ty, xb, rb, yb, sb, channels_last, dtype, vec, stream
+    "acad_snake": (_I, [_P] * 6 + [_I] * 4 + [_LL] * 4 + [_I] * 3 + [_P]),
     "acad_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -13,6 +13,11 @@ decoder -> wav) and the HiFi-Codec hificodec_24k_320d roundtrip (wav ->
 HiFi-GAN encoder -> GRVQ tokens -> HiFi-GAN generator -> wav), the latter
 also with the generator's upsampling fused into K3 (``hifi_pre``). Each
 path is followed by an f32 check of the card against the CPU. Then the
+Snake epilogue kernel (``csrc/snake.cu``) on the DAC 44.1 kHz main path at
+16 x 10 s in bf16 (``snake``): its 58 launches a roundtrip, every call held
+against its plain version in bf16, f16 and f32, its time against the eager
+aten chain and its bound, and the roundtrip with and without its zero
+frames past ``T``. Then the
 serving paths of the codec layer: K2 continuing a stream from a carry
 (``lstm2_carry``), streaming sessions of the causal Encodec_24k_240d (8
 streams x 10 s in 100 ms chunks, wav -> tokens -> wav) and of the causal
@@ -113,6 +118,7 @@ from academicodec_tpu_torch.codec.lm_compress import compress_tokens_with_lm, de
 from academicodec_tpu_torch.models.hificodec import calibrate_quant
 from academicodec_tpu_torch.models.lm import RVQTokenLM, save_lm
 from academicodec_tpu_torch.native.build import get_bitpack_lib
+from academicodec_tpu_torch.nn import dac as dac_nn
 from academicodec_tpu_torch.nn.hifigan import FUSED_MAX_CHANNELS, Segments, stage_reach, strided_length
 from academicodec_tpu_torch.nn.lstm import SLSTM
 from academicodec_tpu_torch.ops import int8 as int8_ops
@@ -121,6 +127,7 @@ from academicodec_tpu_torch.ops.cuda import chain as chain_ops
 from academicodec_tpu_torch.ops.cuda import lstm as lstm_ops
 from academicodec_tpu_torch.ops.cuda import resblock as resblock_ops
 from academicodec_tpu_torch.ops.cuda import rvq as rvq_ops
+from academicodec_tpu_torch.ops.cuda import snake as snake_ops
 from academicodec_tpu_torch.probes import int8_chain
 from academicodec_tpu_torch.probes.int8_chain import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, bound, nvidia_smi
 from academicodec_tpu_torch.quant.core_vq import KMEANS_ITERS, THRESHOLD_EMA_DEAD_CODE
@@ -4664,6 +4671,235 @@ def phase_probe_chain(device="cuda", tiny: bool = False) -> dict:
     return dict(res, launches=launches, kernels=kernels, geometry=geometry, wall_s=wall)
 
 
+DAC = "dac_44k_512d"
+# the kernel's sine is the hardware one on an argument reduced to [-pi/2, pi/2]: ~4e-7 from
+# torch's, times 1 / alpha (<= 5); 1e-5 of max(1, |y|) leaves that room (tests/test_torch_dac_cuda.py)
+SNAKE_F32_TOL = 1e-5
+SNAKE_ULPS = 1  # 16-bit: the f32 result rounded, or one ulp off it
+
+
+def snake_library(h, alpha, bias, residual):
+    """The epilogue as eager aten ops in the activations' dtype, as DAC's own code runs
+    it after a conv that adds its bias: the bias add, the residual add and ``Snake1d``'s
+    ``x + (alpha + 1e-9).reciprocal() * sin(alpha * x).pow(2)``."""
+    shape = (1, -1) + (1,) * (h.dim() - 2)
+    x = h if bias is None else h + bias.to(h.dtype).view(shape)
+    if residual is not None:
+        x = x + residual
+    a = alpha.to(h.dtype).reshape(shape)
+    return x + (a + snake_ops.ALPHA_EPS).reciprocal() * torch.sin(a * x).pow(2)
+
+
+def _snake_distance(y: torch.Tensor, want: torch.Tensor) -> dict:
+    """``y`` against the plain f32 result ``want``: the largest error over max(1, |want|),
+    and in 16 bits the largest distance in ulps from ``want`` rounded; ``ok`` where every
+    element is within :data:`SNAKE_ULPS` or, near 0 (where the sine's ~4e-7 exceed an ulp),
+    within the f32 tolerance."""
+    rel = (y.float() - want).abs_().div_(want.abs().clamp_(min=1.0))
+    if y.dtype == torch.float32:
+        worst = rel.max().item()
+        return dict(rel=worst, ulps=0, near_zero=0, ok=worst <= SNAKE_F32_TOL)
+    ulps = (y.view(torch.int16).int() - want.to(y.dtype).view(torch.int16).int()).abs_()
+    over = ulps > SNAKE_ULPS
+    far = int((over & (rel > SNAKE_F32_TOL)).sum())
+    return dict(rel=rel.max().item(), ulps=int(ulps[~over].max()) if bool((~over).any()) else 0,
+                near_zero=int(over.sum()), ok=far == 0)
+
+
+def _checked_snake(records: list):
+    """``ops/cuda/snake.snake`` that also holds each call against ``snake_plain`` on the same
+    tensors (f32 math, f32 result) and appends the call's layout and distance to ``records``."""
+    real = snake_ops.snake
+
+    def checked(h, alpha, bias=None, residual=None, keep_sum=False, frames=None):
+        y, s = real(h, alpha, bias, residual, keep_sum, frames)
+        f32 = [None if t is None else t.float() for t in (h, residual)]
+        want, want_s = snake_ops.snake_plain(f32[0], alpha, bias, f32[1], keep_sum, frames)
+        T = h.shape[-1]
+        rec = dict(shape=tuple(h.shape), hs=h.stride(0), rs=None if residual is None else residual.stride(0),
+                   bias=bias is not None, keep_sum=keep_sum, frames=y.shape[-1], dtype=h.dtype,
+                   **_snake_distance(y, want))
+        rec["sum_exact"] = (s is None) == (not keep_sum) and (s is None or torch.equal(s, want_s.to(h.dtype)))
+        rec["zeros_past_T"] = y.shape[-1] == T or not bool(y[..., T:].any())
+        records.append(rec)
+        del want, want_s, f32
+        return y, s
+
+    return checked
+
+
+def _unframed_run(self, p):
+    """``nn/dac.ResidualUnit.run`` with the dilated conv's input written ``T`` frames long,
+    so that ``conv_phases`` pads it and crops its output: the towers without ``frames``."""
+    snake1, dilated, snake2, pointwise = self.block
+    y, x = snake1.epilogue(p, keep_sum=True)
+    y, _ = snake2.epilogue(dac_nn.Pending(dilated(y, add_bias=False), dilated.bias))
+    return dac_nn.Pending(pointwise(y, add_bias=False), pointwise.bias, x)
+
+
+def _snake_operands(rec: dict, device, seed: int):
+    """Seeded operands in ``rec``'s layout: ``h`` (and the residual) with its batch-row
+    stride, so a channels-last ``h`` is the view of the first ``T`` frames of a longer row."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    shape, dtype = rec["shape"], rec["dtype"]
+    B, C, T = shape[0], shape[1], shape[-1]
+
+    def like(stride0, scale):
+        if len(shape) == 3:
+            return (torch.randn(shape, generator=g, device=device) * scale).to(dtype)
+        rows = (torch.randn((B, stride0 // C, C), generator=g, device=device) * scale).to(dtype)
+        return rows.transpose(1, 2).unsqueeze(2)[..., :T]
+
+    h = like(rec["hs"], 30.0)
+    r = None if rec["rs"] is None else like(rec["rs"], 3.0)
+    alpha = 5.0 ** (torch.rand((1, C, 1), generator=g, device=device) * 2 - 1)
+    bias = torch.randn(C, generator=g, device=device) if rec["bias"] else None
+    return h, alpha, bias, r
+
+
+def _snake_times(records: list, device, iters: int) -> dict:
+    """The kernel, its plain version and the eager aten chain timed on seeded operands of
+    each distinct launch of one call, summed over the call; the bound from the bytes and
+    operations each launch moves (:func:`~academicodec_tpu_torch.probes.int8_chain.bound`)."""
+    groups = {}
+    for rec in records:
+        key = (rec["shape"], rec["hs"], rec["rs"], rec["bias"], rec["keep_sum"], rec["frames"], rec["dtype"])
+        groups.setdefault(key, [rec, 0])[1] += 1
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    flops = nbytes = 0.0
+    per_launch = []
+    for i, (rec, count) in enumerate(groups.values()):
+        h, alpha, bias, r = _snake_operands(rec, device, i)
+        n, item = h.numel(), h.element_size()
+        work = (8.0 * n, item * (n * (1 + (r is not None) + rec["keep_sum"]) + h.shape[0] * h.shape[1] * rec["frames"]))
+        ms = time_ms(lambda: snake_ops.snake(h, alpha, bias, r, rec["keep_sum"], rec["frames"]), iters)
+        plain = time_ms(lambda: snake_ops.snake_plain(h, alpha, bias, r, rec["keep_sum"], rec["frames"]), 2)
+        lib = time_ms(lambda: snake_library(h, alpha, bias, r), 2)
+        b_ms, _ = bound(*work, PEAK_F32_FLOPS)
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", b_ms)):
+            total[k] += count * v
+        flops, nbytes = flops + count * work[0], nbytes + count * work[1]
+        per_launch.append(dict(shape=list(rec["shape"]), residual=r is not None, keep_sum=rec["keep_sum"],
+                               frames=rec["frames"], launches=count, ms=ms, bound_ms=b_ms,
+                               roofline=100.0 * b_ms / ms))
+        del h, r
+    total["bound_by"] = bound(flops, nbytes, PEAK_F32_FLOPS)[1]
+    total["gbytes"] = nbytes / 1e9
+    return dict(total, per_launch=per_launch)
+
+
+def phase_snake(device="cuda", batch=16, seconds=10.0, dtypes=(torch.bfloat16, torch.float16, torch.float32),
+                small_batch=4, iters=5, seed=0, **overrides) -> dict:
+    """The Snake epilogue kernel (``csrc/snake.cu``) on the DAC main path
+    (``load_codec("dac_44k_512d")``, seeded weights, alphas log-uniform on [0.2, 5]).
+    One bf16 roundtrip of ``batch`` x ``seconds`` (the benchmark cell's 16 x 10 s) with
+    ``snake.launches`` set to 0 just before and read just after (one a Snake: 58). Then
+    a roundtrip in each of ``dtypes`` (bf16 at ``batch``, the others at ``small_batch``)
+    with every epilogue call held against ``snake_plain`` on its own tensors: the
+    channels-last route's strided rows and zero frames past ``T`` in 16 bits, ``[B, C,
+    T]`` in f32; f32 within 1e-5 of max(1, |y|), 16 bits within one ulp of the f32
+    result rounded, the sums exact. On the card: each distinct launch of the bf16 call
+    timed as the kernel, its plain version and the eager aten chain, summed over the
+    call, against the bound of its bytes; and the bf16 roundtrip timed with and without
+    ``frames`` (the pad and crop copies of ``conv_phases`` that ``frames`` spares),
+    alternating. ``overrides``: the preset's widths (a CPU rehearsal)."""
+    on_card = torch.device(device).type == "cuda"
+    results, records = {}, {}
+
+    def model_in(dtype):
+        model = load_codec(DAC, device=device, dtype=dtype, seed=seed, **overrides)
+        g = torch.Generator().manual_seed(seed + 1)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, dac_nn.Snake1d):
+                    m.alpha.copy_(5.0 ** (torch.rand(m.alpha.shape, generator=g) * 2 - 1))
+        return model
+
+    model = model_in(torch.bfloat16 if on_card else torch.float32)
+    length = int(round(seconds * model.sample_rate))
+    wav = seeded_wav(batch, length, device)
+    frames = model.frames_for(length)
+    snakes = sum(isinstance(m, dac_nn.Snake1d) for m in model.modules())  # 58 at the published widths
+    profiling.reset("snake.launches")
+    codes = model.encode(wav)
+    out = model.decode(codes)
+    if on_card:
+        torch.cuda.synchronize()
+    launches = profiling.total("snake.launches").count
+    expected = snakes if on_card else 0
+    print(f"[snake] {DAC} {model.dtype} {tuple(wav.shape)}: codes {tuple(codes.shape)}, wav {tuple(out.shape)}, "
+          f"snake.launches {launches} (expected {expected})")
+    if launches != expected or tuple(codes.shape) != (model.n_q, batch, frames) or \
+            not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"snake: {launches} launches, codes {tuple(codes.shape)}, finite output expected")
+    results["launches"] = launches
+
+    for dtype in dtypes:
+        m = model if dtype == model.dtype else model_in(dtype)
+        x = wav if dtype == model.dtype else wav[:small_batch]
+        recs = records[dtype] = []
+        orig = snake_ops.snake
+        snake_ops.snake = _checked_snake(recs)
+        try:
+            m.decode(m.encode(x))
+        finally:
+            snake_ops.snake = orig
+        if m is not model:
+            del m
+        misses = [r for r in recs if not (r["ok"] and r["sum_exact"] and r["zeros_past_T"])]
+        name = str(dtype).replace("torch.", "")
+        results[name] = dict(
+            batch=x.shape[0], calls=len(recs), max_rel=max(r["rel"] for r in recs),
+            max_ulps=max(r["ulps"] for r in recs), near_zero=sum(r["near_zero"] for r in recs),
+            channels_last=sum(len(r["shape"]) == 4 for r in recs),
+            frames_past_T=sum(r["frames"] > r["shape"][-1] for r in recs),
+            strided_rows=sum(len(r["shape"]) == 4 and r["hs"] != r["shape"][1] * r["shape"][-1] for r in recs))
+        print(f"[snake] {name} x{x.shape[0]}: {json.dumps(results[name])}")
+        if len(recs) != snakes or misses:
+            raise AssertionError(f"snake: {name}: {len(recs)} calls, {len(misses)} miss ({misses[:2]})")
+
+    if on_card:
+        results["times"] = _snake_times(records[torch.bfloat16], device, iters)
+        t = results["times"]
+        print(f"[snake] a call's {launches} launches: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"eager aten {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}, "
+              f"{t['gbytes']:.2f} GB): {100 * t['bound_ms'] / t['ms']:.1f}% of it")
+        framed = model.decode(model.encode(wav))
+        runs = {"frames": [], "no_frames": []}
+        original = dac_nn.ResidualUnit.run
+        try:
+            for _ in range(2):
+                for tag in runs:
+                    dac_nn.ResidualUnit.run = original if tag == "frames" else _unframed_run
+                    runs[tag].append(time_ms(lambda: model.decode(model.encode(wav)), iters))
+            unframed = model.decode(model.encode(wav))
+        finally:
+            dac_nn.ResidualUnit.run = original
+        results["frames_ab"] = dict(
+            runs, wav_max_abs_diff=float((framed.float() - unframed.float()).abs().max()),
+            saved_ms=statistics.mean(runs["no_frames"]) - statistics.mean(runs["frames"]))
+        print(f"[snake] roundtrip ms with frames {runs['frames']}, without (conv_phases pads and crops) "
+              f"{runs['no_frames']}: {results['frames_ab']['saved_ms']:.3f} ms a call saved; wav "
+              f"{results['frames_ab']['wav_max_abs_diff']:.3g} apart")
+    return results
+
+
+def snake_kernel_entry(res: dict) -> dict:
+    """The Snake kernel's entry of the ``kernels`` line: a DAC bf16 roundtrip's launches summed."""
+    t = res["times"]
+    return dict(
+        name="snake", route="cuda", source="academicodec_tpu_torch/csrc/snake.cu", replaces=None,
+        launches=res["launches"], max_abs_err=None,
+        max_rel_err={k: res[k]["max_rel"] for k in ("bfloat16", "float16", "float32") if k in res},
+        max_ulps={k: res[k]["max_ulps"] for k in ("bfloat16", "float16") if k in res},
+        tolerance=f"f32 {SNAKE_F32_TOL} x max(1,|y|); 16-bit {SNAKE_ULPS} ulp of the f32 result rounded",
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], frames_saved_ms=res["frames_ab"]["saved_ms"],
+        note="ms, plain_ms, bound_ms and library_ms sum one dac_44k_512d bf16 roundtrip's 58 launches "
+             "(16 x 10 s); library: bias add + residual add + DAC's Snake1d in eager aten, bf16",
+    )
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4682,6 +4918,7 @@ def main() -> int:
     phase_cross_check(device, HIFI)
     hifi_pre = phase_hifi_pre(device)
     phase_cross_check(device, HIFI, fused_pre=True)
+    snake = phase_snake(device)
     stream = phase_stream(device)
     stream_hifi = phase_stream_hifi(device)
     stream_check = phase_stream_check(device)
@@ -4768,7 +5005,8 @@ def main() -> int:
     print(f"[sequence] {json.dumps(sequence)}")
     print(f"[probe_bounds] {json.dumps(probe_bounds())}")
     print(f"[probe_chain] {json.dumps(probe)}")
-    print(json.dumps({"kernels": [k1, k2, k3, k4, p1, p2]}))
+    print(f"[snake] {json.dumps(snake)}")
+    print(json.dumps({"kernels": [k1, k2, k3, k4, snake_kernel_entry(snake), p1, p2]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

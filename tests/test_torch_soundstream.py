@@ -177,8 +177,8 @@ def test_load_codec_reads_a_reference_checkpoint(tmp_path):
 def test_presets_match_jax():
     assert presets.SOUNDSTREAM_PRESETS == jpresets.SOUNDSTREAM_PRESETS
     assert presets.HIFICODEC_PRESETS == jpresets.HIFICODEC_PRESETS
-    # every JAX preset, and Mimi, which only the port has
-    assert presets.names() == sorted(jpresets.names() + list(presets.MIMI_PRESETS))
+    # every JAX preset, and Mimi and DAC, which only the port has
+    assert presets.names() == sorted(jpresets.names() + list(presets.MIMI_PRESETS) + list(presets.DAC_PRESETS))
     with pytest.raises(KeyError):
         presets.build("no_such_preset", device="cpu")
 
